@@ -7,15 +7,20 @@ Run from the root of a checkout, with one card visible:
 
 Phases, in order; any failure exits non-zero without the final line:
 1. the card: ``nvidia-smi``'s name and power limit;
-2. kernels: build every kernel of the main path from ``ddlb_tpu_torch/csrc``
+2. kernels: build every kernel of the main paths from ``ddlb_tpu_torch/csrc``
    (one ``nvcc`` each, in parallel), hold each against its plain PyTorch
    version on the card at the stated tolerance, and time it beside the
    plain version, the one PyTorch call that computes the same function
-   (``library_ms``) and its bound;
-3. the main path: the port's sweep runner (``run_benchmark``) on both
-   tensor-parallel families at m = n = k = 8192 bf16 with validation, every
-   member; every row must be valid with finite times, and the kernel launch
-   counts, zeroed just before, must match what the ``cuda`` rows launch;
+   (``library_ms``) and its bound: K1 (the tiled GEMM), K8a/K8b (the flash
+   forward, triangle and rectangle) and K9 (the carried-chunk fold);
+3. the main paths, each with the launch counts zeroed just before it and
+   read just after, through the port's sweep runner (``run_benchmark``)
+   with validation: both tensor-parallel families at m = n = k = 8192 bf16,
+   every member (K1 in the ``cuda`` rows); then ``cp_ring_attention`` at
+   m = 16384, n = 1024, k = 128 bf16, every member and option of
+   ``scripts/config_cp_ring_attention.json`` plus ``ring_flash`` and one
+   windowed GQA ``flash`` row (K8a, K8b, K9). Every row must be valid with
+   a finite time, and the counts must be exactly what the rows launch;
 4. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -30,8 +35,13 @@ import sys
 import time
 
 SEED = 0
-#: the main path's shape and dtype
+#: the GEMM path's shape and dtype
 PATH_MNK = 8192
+#: the attention path's shape (sequence, width, head_dim), bf16: the
+#: largest of scripts/config_cp_ring_attention.json
+ATTN_M, ATTN_N, ATTN_K = 16384, 1024, 128
+#: the windowed GQA row, which takes K8b at world 1
+ATTN_WINDOW = {"window": 4096, "n_kv_heads": 2}
 NUM_WARMUPS = 3
 NUM_ITERATIONS = 10
 #: H100 SXM dense bf16 tensor-core peak and memory rate (NVIDIA data
@@ -124,7 +134,7 @@ def check_matmul(k1, m, n, k, dtype_name):
 
 
 #: every member of both families, each option of the sweep
-MAIN_PATH_SWEEPS = {
+GEMM_SWEEPS = {
     "tp_columnwise": {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{"order": ["AG_before", "AG_after"]}],
@@ -137,32 +147,46 @@ MAIN_PATH_SWEEPS = {
     },
 }
 
+#: the members and options of scripts/config_cp_ring_attention.json, plus
+#: ring_flash (both skip settings); then, in a run of its own (another
+#: oracle), the windowed GQA flash row
+ATTN_SWEEPS = [
+    {
+        "compute_only": [{"size": ["sharded", "unsharded"]}],
+        "ring": [{"skip_masked_blocks": [True, False]}],
+        "allgather": [{}],
+        "flash": [{}],
+        "ulysses": [{"compute": ["einsum", "flash"]}],
+        "ring_flash": [{"skip_masked_blocks": [True, False]}],
+    },
+    {"flash": [ATTN_WINDOW]},
+]
 
-def drive_main_path(run_benchmark, device, mnk):
-    """The port's sweep runner over both families at m = n = k = ``mnk``
-    bf16 with validation; prints every row and fails unless each is valid
-    on ``device`` with a finite time. Returns the rows."""
+
+def drive_path(run_benchmark, device, primitive, shape, implementations):
+    """The port's sweep runner over one family at ``shape`` bf16 with
+    validation; prints every row and fails unless each is valid on
+    ``device`` with a finite time. Returns the rows."""
     os.makedirs(OUT_DIR, exist_ok=True)
     stamp = time.strftime("%Y%m%d_%H%M%S")
-    rows = []
+    m, n, k = shape
     t0 = time.perf_counter()
-    for primitive, implementations in MAIN_PATH_SWEEPS.items():
-        rows += run_benchmark({
-            "primitive": primitive,
-            "m": mnk,
-            "n": mnk,
-            "k": mnk,
-            "dtype": "bfloat16",
-            "validate": True,
-            "num_iterations": NUM_ITERATIONS,
-            "num_warmups": NUM_WARMUPS,
-            "time_measurement_backend": "host_clock",
-            "barrier_at_each_iteration": True,
-            "device": device,
-            "output_csv": os.path.join(OUT_DIR, f"{primitive}_{stamp}.csv"),
-            "implementations": implementations,
-        })
-    print(f"main path: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+    rows = run_benchmark({
+        "primitive": primitive,
+        "m": m,
+        "n": n,
+        "k": k,
+        "dtype": "bfloat16",
+        "validate": True,
+        "num_iterations": NUM_ITERATIONS,
+        "num_warmups": NUM_WARMUPS,
+        "time_measurement_backend": "host_clock",
+        "barrier_at_each_iteration": True,
+        "device": device,
+        "output_csv": os.path.join(OUT_DIR, f"{primitive}_{stamp}.csv"),
+        "implementations": implementations,
+    })
+    print(f"{primitive}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
     for row in rows:
         print(json.dumps({key: row[key] for key in (
             "primitive", "implementation", "option", "median time (ms)",
@@ -174,8 +198,437 @@ def drive_main_path(run_benchmark, device, mnk):
                 and math.isfinite(r["median time (ms)"]))
     ]
     if bad:
-        fail(f"rows not valid on {device}: {bad}")
+        fail(f"{primitive} rows not valid on {device}: {bad}")
     return rows
+
+
+def row_options(row):
+    """A row's resolved options (``k=v;...``) as a dict of strings."""
+    return dict(item.split("=", 1) for item in row["option"].split(";") if "=" in item)
+
+
+def expected_flash_launches(rows):
+    """Kernel launches the attention rows make: one per warmup, per timed
+    iteration and for validation, in the case each row takes at world 1."""
+    per_row = NUM_WARMUPS + NUM_ITERATIONS + 1
+    want = {"tri": 0, "rect": 0, "chunk": 0}
+    for row in rows:
+        base, opts = row["base_implementation"], row_options(row)
+        if base == "ring_flash":
+            want["chunk"] += per_row
+        elif base == "flash" or (base == "ulysses" and opts["compute"] == "flash"):
+            # offset 0 at world 1: the triangle unless a window cuts it
+            windowed = 0 < int(opts["window"]) < row["m"]
+            want["rect" if windowed else "tri"] += per_row
+    return want
+
+
+# -- flash attention (K8a, K8b, K9) ------------------------------------------
+
+
+def band_inputs(sq, skv, h, h_kv, dh, dtype, gen):
+    """q = 0 and integer-valued k, v in [-4, 4]: every live score is 0, so
+    p is exactly 1 on the live band and 0 off it, sums of v are exact in
+    float32, and l counts the live keys. Kernel and plain version then
+    agree bit for bit, and a wrong band shows as another count or sum."""
+    import torch
+
+    q = torch.zeros((sq, h, dh), dtype=dtype, device="cuda")
+    k = torch.randint(-4, 5, (skv, h_kv, dh), generator=gen, device="cuda")
+    v = torch.randint(-4, 5, (skv, h_kv, dh), generator=gen, device="cuda")
+    return q, k.to(dtype), v.to(dtype)
+
+
+def uniform_inputs(sq, skv, h, h_kv, dh, dtype, gen):
+    import torch
+
+    def draw(shape):
+        return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1).to(dtype)
+
+    return draw((sq, h, dh)), draw((skv, h_kv, dh)), draw((skv, h_kv, dh))
+
+
+def peaked_inputs(sq, skv, h, h_kv, dh, dtype, gen, shift):
+    """Uniform [-1, 1] k, v and q = 4 * k at key ``(i + shift) % skv`` of
+    its kv head (exact in every operand type). That key scores about 15,
+    the others about 0 ± 1.3, so where it is live the row's softmax puts
+    nearly all its weight there and |o| stays near max|v| however long the
+    band: a wrong score, scale or exp moves o far beyond
+    ``plain_gap_bound``, which on uniform inputs can exceed |o| of a late
+    row of a long band."""
+    import torch
+
+    _, k, v = uniform_inputs(sq, skv, h, h_kv, dh, dtype, gen)
+    rows = (torch.arange(sq, device="cuda") + shift) % skv
+    return (4 * k[rows]).repeat_interleave(h // h_kv, dim=1), k, v
+
+
+def check_flash_forward(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
+                        window):
+    """K8a/K8b against ``flash_forward_plain`` on the card: bit for bit on
+    band inputs; on uniform [-1, 1] inputs and on peaked ones (q aligned
+    with the key at the query's own position) the output within
+    ``fa.plain_gap_bound`` and lse within ``4*Δs + 2*skv*2**-23 + 1e-5``
+    (the score gap and two summation orders of l; empty rows exactly
+    NEG_INF on both). Returns (max |err| of o over both, the uniform
+    inputs, keyword arguments)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kw = {"scale": dh ** -0.5, "row_offset": row_offset, "window": window}
+    what = f"flash forward {sq}x{skv} h={h}/{h_kv} dh={dh} off={row_offset} w={window} {dtype_name}"
+    q, k, v = band_inputs(sq, skv, h, h_kv, dh, dtype, gen)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+    if not torch.equal(o, o_p):
+        fail(f"{what}: not exact on band inputs "
+             f"({int((o != o_p).sum())} elements differ)")
+    if not torch.allclose(lse, lse_p, rtol=1e-6, atol=0.0):
+        fail(f"{what}: lse not within 1e-6 on band inputs")
+    print(f"{what}: exact on band inputs: ok")
+
+    uniform = uniform_inputs(sq, skv, h, h_kv, dh, dtype, gen)
+    peaked = peaked_inputs(sq, skv, h, h_kv, dh, dtype, gen, row_offset)
+    errs = []
+    for name, (q, k, v) in (("uniform", uniform), ("peaked", peaked)):
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+        err = (o.float() - o_p.float()).abs()
+        bound = fa.plain_gap_bound(q, k, v, o, o_p, scale=kw["scale"],
+                                   n_terms=skv)
+        bad = int((err > bound).sum())
+        empty = lse_p == fa.NEG_INF
+        lse_tol = 4 * fa.score_gap(q, k, kw["scale"]) + 2 * skv * 2.0**-23 + 1e-5
+        bad_lse = int(((lse - lse_p).abs() > lse_tol)[~empty].sum())
+        if not torch.equal(lse == fa.NEG_INF, empty):
+            bad_lse += 1
+        max_err = float(err.max())
+        if not math.isfinite(max_err) or bad or bad_lse:
+            fail(f"{what}, {name} inputs: {bad} outputs beyond "
+                 f"plain_gap_bound, {bad_lse} lse beyond {lse_tol:g}; max "
+                 f"|err| {max_err}")
+        # how much of o the bound leaves unchecked: the share of outputs
+        # whose |o| is below their bound
+        loose = float((o_p.float().abs() < bound).float().mean())
+        print(f"{what}, {name} inputs: max |err| {max_err!r} within "
+              f"plain_gap_bound (largest bound {float(bound.max())!r}, median "
+              f"|o| {float(o_p.float().abs().median())!r}, share of |o| "
+              f"below its bound {loose!r}): ok")
+        errs.append(max_err)
+    return max(errs), uniform, kw
+
+
+def check_flash_chunk(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
+                      col_offset, mode, window):
+    """K9 against ``flash_chunk_plain`` on the card: two folds into one
+    carry (the second reads what the first wrote in place), bit for bit
+    on band inputs; on uniform inputs, one fold, the normalised output
+    within ``fa.plain_gap_bound``, m within the score gap Δs and l within
+    a relative ``4*Δs + 2*skv*2**-23 + 2**-20``. Returns (max |err| of the
+    output, inputs, keyword arguments)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    scale = dh ** -0.5
+    kw = {"scale": scale, "row_offset": row_offset, "col_offset": col_offset,
+          "causal": mode, "window": window}
+    what = (f"flash chunk {mode} {sq}x{skv} h={h}/{h_kv} dh={dh} "
+            f"off={row_offset}/{col_offset} w={window} {dtype_name}")
+    q, k, v = band_inputs(sq, skv, h, h_kv, dh, dtype, gen)
+    carry = fa.init_flash_carry(sq, h, dh, "cuda")
+    want = fa.flash_chunk_plain(q, k, v, carry, **kw)
+    want = fa.flash_chunk_plain(q, k, v, want, **kw)
+    got = fa.flash_attention_chunk(q, k, v, carry, **kw)
+    got = fa.flash_attention_chunk(q, k, v, got, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{what}: carry not exact on band inputs")
+    print(f"{what}: exact on band inputs: ok")
+
+    uniform = uniform_inputs(sq, skv, h, h_kv, dh, dtype, gen)
+    shift = row_offset - col_offset if mode == "offset" else 0
+    peaked = peaked_inputs(sq, skv, h, h_kv, dh, dtype, gen, shift)
+    errs = []
+    for name, (q, k, v) in (("uniform", uniform), ("peaked", peaked)):
+        start = fa.init_flash_carry(sq, h, dh, "cuda")
+        want = fa.flash_chunk_plain(q, k, v, start, **kw)
+        got = fa.flash_attention_chunk(q, k, v, start, **kw)
+        torch.cuda.synchronize()
+        o = fa.finalize_flash_carry(got, torch.float32)
+        o_p = fa.finalize_flash_carry(want, torch.float32)
+        err = (o - o_p).abs()
+        bound = fa.plain_gap_bound(q, k, v, o, o_p, scale=scale, n_terms=skv)
+        bad = int((err > bound).sum())
+        ds = fa.score_gap(q, k, scale)
+        m, l, m_p, l_p = got[1], got[2], want[1], want[2]
+        bad += int(((m - m_p).abs() > ds + 1e-6).sum())
+        rel = 4 * ds + 2 * skv * 2.0**-23 + 2.0**-20
+        bad += int(((l - l_p).abs() > rel * l_p).sum())
+        max_err = float(err.max())
+        if not math.isfinite(max_err) or bad:
+            fail(f"{what}, {name} inputs: {bad} entries beyond their bounds, "
+                 f"max |err| {max_err}")
+        print(f"{what}, {name} inputs: max |err| {max_err!r} within "
+              f"plain_gap_bound (median |o| "
+              f"{float(o_p.abs().median())!r}), m and l within their "
+              f"bounds: ok")
+        errs.append(max_err)
+    return max(errs), uniform, kw
+
+
+def check_ring_chain(fa, s, h, dh, dtype_name):
+    """Rank 3 of a four-chunk ring: the diagonal chunk, then three past
+    ones, finished by ``finalize_flash_carry``, against the plain forward
+    over the whole sequence at offset 3 * s, within ``plain_gap_bound``
+    plus the plain forward's own rounding to the operand dtype."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v = uniform_inputs(4 * s, 4 * s, h, h, dh, dtype, gen)
+    q = q[3 * s:].contiguous()
+    scale = dh ** -0.5
+    carry = fa.init_flash_carry(s, h, dh, "cuda")
+    for src in (3, 2, 1, 0):
+        rows = slice(src * s, (src + 1) * s)
+        carry = fa.flash_attention_chunk(
+            q, k[rows].contiguous(), v[rows].contiguous(), carry, scale=scale,
+            row_offset=3 * s, col_offset=src * s,
+            causal="diagonal" if src == 3 else "past",
+        )
+    got = fa.finalize_flash_carry(carry, torch.float32)
+    torch.cuda.synchronize()
+    want = fa.flash_forward_plain(q, k, v, scale=scale, row_offset=3 * s)[0].float()
+    bound = fa.plain_gap_bound(q, k, v, got, want, scale=scale, n_terms=4 * s)
+    bound = bound + want.abs() * torch.finfo(dtype).eps
+    err = (got - want).abs()
+    if int((err > bound).sum()) or not math.isfinite(float(err.max())):
+        fail(f"four-chunk ring chain {dtype_name}: beyond its bound, "
+             f"max |err| {float(err.max())}")
+    print(f"four-chunk ring chain (s={s}, h={h}, dh={dh}, {dtype_name}) + "
+          f"finalize_flash_carry vs plain full attention: max |err| "
+          f"{float(err.max())!r}: ok")
+
+
+def time_turns(calls, iterations):
+    """``cuda_ms`` of each call, in two turns run in opposite orders; the
+    better of the two per call, and both turns."""
+    timings = {key: [] for key in calls}
+    order = list(calls)
+    for turn in (order, order[::-1]):
+        for key in turn:
+            timings[key].append(cuda_ms(calls[key], iterations=iterations[key]))
+    return {key: min(v) for key, v in timings.items()}, timings
+
+
+def flash_bound(fa, sq, skv, h, h_kv, dh, itemsize, row_offset, col_offset,
+                causal, window, carry):
+    """(bound ms, bound_by) of one flash call at these inputs: the larger of
+    4 * h * dh * (live pairs) over the bf16 peak and the bytes it must move
+    (q, k, v read once; o and lse written, or the f32 carry read and
+    written) over the memory rate."""
+    pairs = fa.live_pairs(sq, skv, row_offset, col_offset, causal, window)
+    flops = 4.0 * h * dh * pairs
+    moved = (sq * h + 2 * skv * h_kv) * dh * itemsize
+    if carry:
+        moved += 2 * h * sq * (dh + 2) * 4
+    else:
+        moved += sq * h * dh * itemsize + h * sq * 4
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_phase_matmul(k1, smi):
+    """K1 at every shape of its phase, then timed at the GEMM path's
+    shape. Returns its entry of the ``kernels`` line (launches filled in
+    later)."""
+    import torch
+
+    main_err = None
+    for m, n, k, dtype_name in (
+        (PATH_MNK, PATH_MNK, PATH_MNK, "bfloat16"),
+        (2048, 2048, 2048, "float16"),
+        (2048, 2048, 2048, "float32"),
+        (1000, 776, 520, "bfloat16"),
+    ):
+        max_err, tol, operands = check_matmul(k1, m, n, k, dtype_name)
+        print(
+            f"K1 {m}x{n}x{k} {dtype_name}: max |err| {max_err!r} vs plain "
+            f"({tol}): ok"
+        )
+        if main_err is None:
+            main_err, (a, b) = max_err, operands
+    times, timings = time_turns({
+        "ms": lambda: k1.matmul(a, b),
+        "library_ms": lambda: torch.matmul(a, b),
+        "plain_ms": lambda: k1.matmul_plain(a, b),
+    }, {"ms": 20, "library_ms": 20, "plain_ms": 20})
+    m = n = k = PATH_MNK
+    flops = 2.0 * m * n * k
+    bytes_moved = (m * k + k * n + m * n) * a.element_size()
+    bound_ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bound_bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    print(
+        f"K1 {m}^3 bf16: kernel {times['ms']!r} ms, torch.matmul "
+        f"{times['library_ms']!r} ms, plain {times['plain_ms']!r} ms, bound "
+        f"{max(bound_ops_ms, bound_bytes_ms)!r} ms ({smi}); windows {timings}"
+    )
+    return {
+        "name": "matmul",
+        "route": "cuda",
+        "source": "ddlb_tpu_torch/csrc/matmul.cu",
+        "replaces": "ddlb_tpu/ops/matmul.py:25",
+        "launches": None,
+        "max_abs_err": main_err,
+        "ms": times["ms"],
+        "plain_ms": times["plain_ms"],
+        "bound_ms": max(bound_ops_ms, bound_bytes_ms),
+        "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+        "library_ms": times["library_ms"],
+    }
+
+
+def kernel_phase_flash(fa, smi):
+    """K8a, K8b and K9 against their plain versions (the path's shapes,
+    fp16 and f32 at smaller ones, ragged shapes, the three chunk modes and
+    a four-chunk chain), then each timed at the path's shape beside its
+    plain version, its library call and its bound. Returns the entries of
+    the ``kernels`` line for ``flash_forward`` and ``flash_chunk``."""
+    import torch
+    import torch.nn.functional as F
+
+    m, h, dh = ATTN_M, ATTN_N // ATTN_K, ATTN_K
+    h_kv, window = ATTN_WINDOW["n_kv_heads"], ATTN_WINDOW["window"]
+    rect_rows, rect_off = m // 4, 3 * m // 4  # rank 3 of 4 after the gather
+    tri_err, tri_in, tri_kw = check_flash_forward(fa, m, m, h, h, dh, "bfloat16", 0, 0)
+    rect_err, rect_in, rect_kw = check_flash_forward(
+        fa, rect_rows, m, h, h_kv, dh, "bfloat16", rect_off, window
+    )
+    # the windowed row of the path at world 1: K8b at offset 0 over the
+    # whole sequence, where the band's lower edge is clamped to key 0
+    path_rect_err, _, _ = check_flash_forward(
+        fa, m, m, h, h_kv, dh, "bfloat16", 0, window
+    )
+    rect_err = max(rect_err, path_rect_err)
+    for args in (
+        (2048, 2048, h, h, dh, "float16", 0, 0),
+        (1024, 1024, 4, 4, dh, "float32", 0, 0),
+        (1024, 2048, 4, 2, dh, "float32", 1024, 700),
+        (1000, 1000, h, h, dh, "bfloat16", 0, 0),
+        (777, 1500, 4, 2, dh, "bfloat16", 723, 300),
+        (777, 1500, 4, 2, dh, "float16", 723, 300),
+        (1000, 1000, 4, 2, dh, "float16", 0, 300),
+    ):
+        check_flash_forward(fa, *args)
+    chunk_err, chunk_in, chunk_kw = check_flash_chunk(
+        fa, m, m, h, h, dh, "bfloat16", 0, 0, "diagonal", 0
+    )
+    for args in (
+        (4096, 4096, h, h_kv, dh, "bfloat16", 12288, 8192, "past", 0),
+        (4096, 4096, h, h, dh, "bfloat16", 12288, 8192, "offset", 6000),
+        (1000, 700, 4, 2, dh, "float16", 900, 500, "offset", 0),
+        (1024, 1024, 4, 4, dh, "float32", 0, 0, "diagonal", 300),
+    ):
+        check_flash_chunk(fa, *args)
+    check_ring_chain(fa, 4096, h, dh, "bfloat16")
+
+    # K8a: the causal triangle, beside SDPA with is_causal
+    q, k, v = tri_in
+    qt, kt, vt = (x.transpose(0, 1).contiguous()[None] for x in (q, k, v))
+    tri_times, tri_turns = time_turns({
+        "ms": lambda: fa.flash_forward(q, k, v, **tri_kw),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=tri_kw["scale"]),
+        "plain_ms": lambda: fa.flash_forward_plain(q, k, v, **tri_kw),
+    }, {"ms": 10, "library_ms": 10, "plain_ms": 1})
+    tri_bound = flash_bound(fa, m, m, h, h, dh, 2, 0, 0, True, 0, carry=False)
+    # K8b: offset, window and GQA, beside SDPA with the band as a boolean
+    # mask over kv heads repeated to the query heads, on the keys the band
+    # can reach only (the others are never live, and SDPA with a mask would
+    # compute them all)
+    q, k, v = rect_in
+    group = h // h_kv
+    lo = rect_off - window + 1
+    qt = q.transpose(0, 1).contiguous()[None]
+    kt, vt = (x[lo:].transpose(0, 1).repeat_interleave(group, 0).contiguous()[None]
+              for x in (k, v))
+    pos_q = rect_off + torch.arange(rect_rows, device="cuda")[:, None]
+    pos_k = lo + torch.arange(m - lo, device="cuda")[None, :]
+    band = (pos_k <= pos_q) & (pos_k > pos_q - window)
+    # the yardstick computes the same function: within a loose 0.05 of the
+    # plain version (SDPA rounds in its own way; this checks the slice and
+    # the mask, not SDPA)
+    lib_o = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, scale=rect_kw["scale"])[0].transpose(0, 1)
+    lib_gap = float((lib_o.float() - fa.flash_forward_plain(
+        q, k, v, **rect_kw)[0].float()).abs().max())
+    if not lib_gap < 0.05:
+        fail(f"SDPA on the live keys differs from the plain K8b by {lib_gap}")
+    print(f"SDPA on keys [{lo}, {m}) with the band mask vs plain K8b: max "
+          f"|diff| {lib_gap!r}: ok")
+    del lib_o
+    rect_times, rect_turns = time_turns({
+        "ms": lambda: fa.flash_forward(q, k, v, **rect_kw),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, scale=rect_kw["scale"]),
+        "plain_ms": lambda: fa.flash_forward_plain(q, k, v, **rect_kw),
+    }, {"ms": 20, "library_ms": 20, "plain_ms": 3})
+    rect_bound = flash_bound(fa, rect_rows, m, h, h_kv, dh, 2, rect_off, 0,
+                             True, window, carry=False)
+    del qt, kt, vt, band
+    # K9: the diagonal chunk at the path's shape, folded again and again
+    # into one carry in place (the time does not depend on its values)
+    q, k, v = chunk_in
+    carry = fa.init_flash_carry(m, h, dh, "cuda")
+    chunk_times, chunk_turns = time_turns({
+        "ms": lambda: fa.flash_attention_chunk(q, k, v, carry, **chunk_kw),
+        "plain_ms": lambda: fa.flash_chunk_plain(q, k, v, carry, **chunk_kw),
+    }, {"ms": 10, "plain_ms": 1})
+    chunk_bound = flash_bound(fa, m, m, h, h, dh, 2, 0, 0, True, 0, carry=True)
+    for what, times, turns, bound in (
+        ("K8a triangle", tri_times, tri_turns, tri_bound),
+        ("K8b offset/window/GQA", rect_times, rect_turns, rect_bound),
+        ("K9 diagonal chunk", chunk_times, chunk_turns, chunk_bound),
+    ):
+        print(f"{what}: kernel {times['ms']!r} ms, library "
+              f"{times.get('library_ms')!r} ms, plain {times['plain_ms']!r} "
+              f"ms, bound {bound[0]!r} ms ({bound[1]}; {smi}); turns {turns}")
+
+    def entry(name, replaces, err, times, bound):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "ddlb_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": None,
+            "max_abs_err": err,
+            "ms": times["ms"],
+            "plain_ms": times["plain_ms"],
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": times.get("library_ms"),
+        }
+
+    forward = entry("flash_forward", "ddlb_tpu/ops/flash_attention.py:373",
+                    tri_err, tri_times, tri_bound)
+    # the same entry point is also K8b's counterpart; its case at the
+    # windowed row's shape, with its own numbers
+    forward["also_replaces"] = "ddlb_tpu/ops/flash_attention.py:96"
+    forward["rect"] = entry("flash_forward (rect)",
+                            "ddlb_tpu/ops/flash_attention.py:96", rect_err,
+                            rect_times, rect_bound)
+    chunk = entry("flash_chunk", "ddlb_tpu/ops/flash_attention.py:146",
+                  chunk_err, chunk_times, chunk_bound)
+    chunk["library_ms_note"] = (
+        "null: no single PyTorch call folds a KV chunk into a carried "
+        "(acc, m, l) without normalising it"
+    )
+    return forward, chunk
 
 
 def main():
@@ -190,6 +643,7 @@ def main():
         import ddlb_tpu_torch
         from ddlb_tpu_torch.cli.benchmark import run_benchmark
         from ddlb_tpu_torch.ops import _build
+        from ddlb_tpu_torch.ops import flash_attention as fa
         from ddlb_tpu_torch.ops import matmul as k1
     except ImportError as exc:
         fail(f"run from the root of a checkout of the repo ({exc})")
@@ -205,74 +659,58 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. kernels: build, check, time
+    # 2. kernels: build (one nvcc each, in parallel), check, time
     t0 = time.perf_counter()
-    _build.build("matmul")
-    print(f"built matmul in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("matmul").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    main_err = None
-    for m, n, k, dtype_name in (
-        (PATH_MNK, PATH_MNK, PATH_MNK, "bfloat16"),
-        (2048, 2048, 2048, "float16"),
-        (2048, 2048, 2048, "float32"),
-        (1000, 776, 520, "bfloat16"),
-    ):
-        max_err, tol, operands = check_matmul(k1, m, n, k, dtype_name)
-        print(
-            f"K1 {m}x{n}x{k} {dtype_name}: max |err| {max_err!r} vs plain "
-            f"({tol}): ok"
-        )
-        if main_err is None:
-            main_err, (a, b) = max_err, operands
-    timings = {"ms": [], "library_ms": [], "plain_ms": []}
-    calls = {
-        "ms": lambda: k1.matmul(a, b),
-        "library_ms": lambda: torch.matmul(a, b),
-        "plain_ms": lambda: k1.matmul_plain(a, b),
-    }
-    for order in (("ms", "library_ms", "plain_ms"), ("plain_ms", "library_ms", "ms")):
-        for key in order:
-            timings[key].append(cuda_ms(calls[key], iterations=20))
-    times = {key: min(v) for key, v in timings.items()}
-    m = n = k = PATH_MNK
-    flops = 2.0 * m * n * k
-    bytes_moved = (m * k + k * n + m * n) * a.element_size()
-    bound_ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bound_bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    print(
-        f"K1 {m}^3 bf16: kernel {times['ms']!r} ms, torch.matmul "
-        f"{times['library_ms']!r} ms, plain {times['plain_ms']!r} ms, bound "
-        f"{max(bound_ops_ms, bound_bytes_ms)!r} ms ({smi}); windows {timings}"
-    )
-    del a, b
+    _build.build("matmul", "flash_attention")
+    print(f"built matmul and flash_attention in {time.perf_counter() - t0:.1f} s")
+    for name in ("matmul", "flash_attention"):
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"  ptxas ({name}):", line.strip())
+    matmul_entry = kernel_phase_matmul(k1, smi)
+    forward_entry, chunk_entry = kernel_phase_flash(fa, smi)
+    torch.cuda.empty_cache()
 
-    # 3. the main path, counts zeroed just before
+    # 3. the main paths, each with the counts zeroed just before it
     k1.LAUNCHES = 0
-    rows = drive_main_path(run_benchmark, "cuda", PATH_MNK)
-    launches = k1.LAUNCHES
+    fa.reset_launches()
+    rows = []
+    for primitive, implementations in GEMM_SWEEPS.items():
+        rows += drive_path(run_benchmark, "cuda", primitive,
+                           (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
+    gemm_launches, flash_in_gemm = k1.LAUNCHES, dict(fa.LAUNCHES)
     cuda_rows = sum(1 for r in rows if r["base_implementation"] == "cuda")
     # each cuda row runs K1 once per warmup, per timed iteration and for
     # validation; no other row may launch it
     expected = cuda_rows * (NUM_WARMUPS + NUM_ITERATIONS + 1)
-    if launches != expected or launches == 0:
-        fail(f"K1 launched {launches} times on the main path, expected {expected}")
+    if gemm_launches != expected or gemm_launches == 0:
+        fail(f"K1 launched {gemm_launches} times on the GEMM path, expected {expected}")
+    if any(flash_in_gemm.values()):
+        fail(f"flash kernels launched on the GEMM path: {flash_in_gemm}")
+
+    k1.LAUNCHES = 0
+    fa.reset_launches()
+    rows = []
+    for implementations in ATTN_SWEEPS:
+        rows += drive_path(run_benchmark, "cuda", "cp_ring_attention",
+                           (ATTN_M, ATTN_N, ATTN_K), implementations)
+        torch.cuda.empty_cache()
+    flash_launches, k1_in_attention = dict(fa.LAUNCHES), k1.LAUNCHES
+    expected = expected_flash_launches(rows)
+    if flash_launches != expected or not all(flash_launches.values()):
+        fail(f"flash kernels launched {flash_launches} on the attention "
+             f"path, expected {expected}")
+    if k1_in_attention:
+        fail(f"K1 launched {k1_in_attention} times on the attention path")
+    print(f"launches: K1 {gemm_launches} on the GEMM path; flash "
+          f"{flash_launches} on the attention path")
 
     # 4. results
-    print(json.dumps({"kernels": [{
-        "name": "matmul",
-        "route": "cuda",
-        "source": "ddlb_tpu_torch/csrc/matmul.cu",
-        "replaces": "ddlb_tpu/ops/matmul.py:25",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": max(bound_ops_ms, bound_bytes_ms),
-        "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-        "library_ms": times["library_ms"],
-    }]}))
+    matmul_entry["launches"] = gemm_launches
+    forward_entry["launches"] = flash_launches["tri"] + flash_launches["rect"]
+    forward_entry["rect"]["launches"] = flash_launches["rect"]
+    chunk_entry["launches"] = flash_launches["chunk"]
+    print(json.dumps({"kernels": [matmul_entry, forward_entry, chunk_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -242,7 +242,7 @@ def run_benchmark(config: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Tensor-parallel GEMM primitive benchmark (PyTorch/CUDA)"
+        description="Distributed primitive benchmark (PyTorch/CUDA)"
     )
     parser.add_argument(
         "--config", default=None, metavar="JSON",

@@ -150,6 +150,18 @@ class Primitive(ABC):
     #: option schema read by the options manager
     DEFAULT_OPTIONS: Dict[str, Any] = {}
     ALLOWED_VALUES: Dict[str, Any] = {}
+    #: family-level schema layered under the member's (axes every member
+    #: of a family shares, declared once on the family base)
+    BASE_OPTIONS: Dict[str, Any] = {}
+    BASE_ALLOWED: Dict[str, Any] = {}
+
+    @classmethod
+    def option_schema(cls) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(defaults, allowed) with the family-level entries merged in."""
+        return (
+            {**cls.BASE_OPTIONS, **cls.DEFAULT_OPTIONS},
+            {**cls.BASE_ALLOWED, **cls.ALLOWED_VALUES},
+        )
 
     def __init__(
         self,
@@ -169,9 +181,7 @@ class Primitive(ABC):
         self.device = self.runtime.device
         self.rank = self.runtime.rank
         self.num_partitions = self.runtime.world_size
-        self._options_manager = OptionsManager(
-            self.DEFAULT_OPTIONS, self.ALLOWED_VALUES
-        )
+        self._options_manager = OptionsManager(*self.option_schema())
         self.options = self._options_manager.parse(options)
         self._check_shapes()
         self._input_setup()
@@ -185,12 +195,17 @@ class Primitive(ABC):
 
     @abstractmethod
     def _input_setup(self) -> None:
-        """Place this rank's operands; must set ``self.a``, ``self.b`` and
+        """Place this rank's operands (those ``_call_args`` names) and set
         the step ``self._fn``."""
+
+    @property
+    def _call_args(self) -> Tuple[torch.Tensor, ...]:
+        """Operand tuple for ``self._fn`` (override for other arities)."""
+        return (self.a, self.b)
 
     def run(self) -> torch.Tensor:
         """Execute one iteration; returns this rank's result tensor."""
-        return self._fn(self.a, self.b)
+        return self._fn(*self._call_args)
 
     def flops(self) -> float:
         """FLOP count of one iteration (2*m*n*k, for throughput)."""
@@ -200,9 +215,9 @@ class Primitive(ABC):
     def validate(self, result: torch.Tensor) -> bool:
         """Compare against the single-device reference product."""
 
-    def get_inputs(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def get_inputs(self) -> Tuple[torch.Tensor, ...]:
         """This rank's operand tensors."""
-        return self.a, self.b
+        return self._call_args
 
     # -- operand construction ------------------------------------------------
 
@@ -254,6 +269,15 @@ class Primitive(ABC):
             type(self).__name__, self.rank, got.shape, want.shape, err, atol,
         )
         return False
+
+    def _compare_rows(self, result: torch.Tensor, expected: np.ndarray) -> bool:
+        """A sequence-sharded result (this rank's ``m/d`` rows) against its
+        row block of the full oracle ``expected``: the per-rank counterpart
+        of the JAX package's ``_compare_global``."""
+        rows = expected.shape[0] // self.num_partitions
+        return self._compare(
+            result, expected[self.rank * rows:(self.rank + 1) * rows]
+        )
 
     def __repr__(self) -> str:
         return (

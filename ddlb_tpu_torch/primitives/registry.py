@@ -1,10 +1,11 @@
 """String -> implementation-class resolution for the runner and the CLI.
 
-Covers the two families this port carries so far. Member names follow the
-upstream project (samnordmann/ddlb): ``pytorch`` is the explicit-collective
-member (the JAX package's ``jax_spmd``), ``cuda`` the hand-kernel member
-(the JAX package's ``pallas``). A family or member of the JAX package that
-has no counterpart here yet raises ``ValueError`` saying so.
+Covers the families this port carries so far. The tensor-parallel GEMM
+members follow the upstream project (samnordmann/ddlb): ``pytorch`` is the
+explicit-collective member (the JAX package's ``jax_spmd``), ``cuda`` the
+hand-kernel member (the JAX package's ``pallas``). The context-parallel
+attention members keep their JAX names. A family or member of the JAX
+package that has no counterpart here yet raises ``ValueError`` saying so.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import importlib
 from typing import Tuple, Type
 
-ALLOWED_PRIMITIVES = ("tp_columnwise", "tp_rowwise")
+ALLOWED_PRIMITIVES = ("tp_columnwise", "tp_rowwise", "cp_ring_attention")
 
 _REGISTRY = {
     "tp_columnwise": {
@@ -43,12 +44,22 @@ _REGISTRY = {
             "CudaTPRowwise",
         ),
     },
+    "cp_ring_attention": {
+        name: (f"ddlb_tpu_torch.primitives.cp_ring_attention.{name}", cls)
+        for name, cls in (
+            ("compute_only", "ComputeOnlyCPRingAttention"),
+            ("ring", "RingCPRingAttention"),
+            ("allgather", "AllGatherCPRingAttention"),
+            ("flash", "FlashCPRingAttention"),
+            ("ulysses", "UlyssesCPRingAttention"),
+            ("ring_flash", "RingFlashCPRingAttention"),
+        )
+    },
 }
 
 #: families of the JAX package that the port does not carry yet
 _NOT_PORTED_FAMILIES = (
     "dp_allreduce",
-    "cp_ring_attention",
     "ep_alltoall",
     "pp_pipeline",
     "transformer_step",

@@ -39,6 +39,4 @@ class TPRowwise(Primitive):
         if result is None:
             return False
         self.runtime.synchronize()
-        rows = self.m // self.num_partitions
-        want = self._expected_full()[self.rank * rows:(self.rank + 1) * rows]
-        return self._compare(result, want)
+        return self._compare_rows(result, self._expected_full())

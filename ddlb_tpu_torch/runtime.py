@@ -8,7 +8,9 @@ drives one device. Rank, local rank and world size come from the
 than one rank the default process group is opened once per process: NCCL
 on the card, gloo on the CPU, rendezvous through ``MASTER_ADDR`` /
 ``MASTER_PORT`` (``env://``). At world 1 no group exists and every
-collective below is the identity.
+collective below is the identity: the all-gather and reduce-scatter of
+rows, the ring hop (``batch_isend_irecv``) and the head/sequence
+all-to-all (``all_to_all_single``).
 """
 
 from __future__ import annotations
@@ -123,6 +125,59 @@ class Runtime:
             out, x.contiguous()
         )
         return out
+
+    def ring_shift(self, *tensors: torch.Tensor):
+        """Post one ring hop of each tensor: send to rank ``(r+1) % d``,
+        receive the same shape from rank ``(r-1) % d``.
+
+        Returns ``(received, handles)``; the received tensors are valid
+        once every handle's ``wait()`` has returned, so the caller can
+        compute between the two. Every rank posts the same sends and
+        receives in the same order, in one ``batch_isend_irecv``, with one
+        tag per tensor. At world 1 the tensors themselves come back and
+        there is nothing to wait for.
+        """
+        d = self.world_size
+        if d == 1:
+            return tensors, []
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("ring_shift sends contiguous tensors only")
+        nxt, prv = (self.rank + 1) % d, (self.rank - 1) % d
+        received = tuple(torch.empty_like(t) for t in tensors)
+        ops = []
+        for tag, (t, buf) in enumerate(zip(tensors, received)):
+            ops.append(dist.P2POp(dist.isend, t, nxt, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, buf, prv, tag=tag))
+        return received, dist.batch_isend_irecv(ops)
+
+    def all_to_all_heads_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """``[m/d, h, dh]`` sequence-sharded -> ``[m, h/d, dh]``
+        head-sharded: head group j goes to rank j, and the sequence blocks
+        arrive in rank order (the tiled ``all_to_all`` with split axis 1,
+        concat axis 0)."""
+        d = self.world_size
+        if d == 1:
+            return x
+        s, h, dh = x.shape
+        if h % d:
+            raise ValueError(f"{h} heads do not split over {d} ranks")
+        send = x.reshape(s, d, h // d, dh).transpose(0, 1).contiguous()
+        out = torch.empty_like(send)  # [d, s, h/d, dh], block i from rank i
+        dist.all_to_all_single(out, send)
+        return out.reshape(d * s, h // d, dh)
+
+    def all_to_all_seq_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``all_to_all_heads_seq``: ``[m, h/d, dh]`` ->
+        ``[m/d, h, dh]``."""
+        d = self.world_size
+        if d == 1:
+            return x
+        m, hd, dh = x.shape
+        if m % d:
+            raise ValueError(f"{m} rows do not split over {d} ranks")
+        out = torch.empty((d, m // d, hd, dh), dtype=x.dtype, device=x.device)
+        dist.all_to_all_single(out, x.contiguous())
+        return out.transpose(0, 1).reshape(m // d, d * hd, dh)
 
     def max_over_ranks(self, values: np.ndarray) -> np.ndarray:
         """Elementwise maximum of a float vector over ranks."""

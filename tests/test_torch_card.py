@@ -93,3 +93,186 @@ def test_cuda_member_runs_k1_and_validates(cuda_device, family):
     result = impl.run()
     assert k1.LAUNCHES == before + 1
     assert impl.validate(result)
+
+
+# -- flash attention (K8a, K8b, K9) --------------------------------------------
+#
+# Exact on band inputs: with q = 0 every live score is 0, so p = 1 exactly on
+# the live band and 0 off it, acc sums integer-valued v exactly in float32,
+# l counts the live keys, and both sides divide once and round once: o, acc,
+# m and l are bit for bit equal, and a wrong band (a missed or extra tile or
+# key) shows as a different count or sum. On uniform [-1, 1] inputs the
+# output stays within ``fa.plain_gap_bound`` (p rounded for the tensor
+# cores, two summation orders, the score gap, one output rounding); so it
+# does on peaked inputs, whose softmax puts nearly all weight on one key a
+# row, so that |o| stays near max|v| and a wrong score shows.
+
+from ddlb_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+#: (sq, skv, h, h_kv, dh, row_offset, causal, window)
+FLASH_CASES = [
+    (256, 256, 4, 4, 128, 0, True, 0),       # triangle (K8a)
+    (200, 200, 2, 2, 128, 0, True, 0),       # ragged triangle
+    (128, 512, 4, 2, 128, 384, True, 100),   # offset, window, GQA (K8b)
+    (320, 320, 4, 2, 128, 0, True, 100),     # window at offset 0, GQA (K8b)
+    (130, 70, 2, 1, 128, 0, False, 0),       # not causal, ragged
+    (64, 64, 2, 2, 128, 100, True, 60),      # rows with an empty band
+]
+FLASH_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _band_qkv(sq, skv, h, h_kv, dh, dtype, gen, device):
+    q = torch.zeros((sq, h, dh), dtype=dtype, device=device)
+    k = torch.randint(-4, 5, (skv, h_kv, dh), generator=gen, device=device)
+    v = torch.randint(-4, 5, (skv, h_kv, dh), generator=gen, device=device)
+    return q, k.to(dtype), v.to(dtype)
+
+
+def _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, device):
+    return (
+        _uniform((sq, h, dh), dtype, gen, device),
+        _uniform((skv, h_kv, dh), dtype, gen, device),
+        _uniform((skv, h_kv, dh), dtype, gen, device),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_exact_on_band_inputs(cuda_device, case, dtype):
+    sq, skv, h, h_kv, dh, off, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = _band_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+    kw = dict(scale=dh**-0.5, row_offset=off, causal=causal, window=window)
+    case_name, _ = fa.forward_case(sq, skv, off, causal, window)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[case_name] == before[case_name] + 1
+    o_plain, lse_plain = fa.flash_forward_plain(q, k, v, **kw)
+    assert torch.equal(o, o_plain)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-6, atol=0)
+
+
+def _peaked_qkv(sq, skv, h, h_kv, dh, dtype, gen, device, shift):
+    """Uniform k, v and q = 4 * k at key ``(i + shift) % skv`` of its kv
+    head: that key scores about 15, the others about 0 ± 1.3, so each row's
+    softmax peaks on one key and ``|o|`` stays near ``max|v|`` however long
+    the band (4 * k is exact in every operand type)."""
+    _, k, v = _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, device)
+    rows = (torch.arange(sq, device=device) + shift) % skv
+    q = (4 * k[rows]).repeat_interleave(h // h_kv, dim=1)
+    return q, k, v
+
+
+def _assert_forward_within_bound(q, k, v, kw):
+    skv, dh = k.shape[0], k.shape[2]
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_plain, lse_plain = fa.flash_forward_plain(q, k, v, **kw)
+    gap = (o.float() - o_plain.float()).abs()
+    bound = fa.plain_gap_bound(q, k, v, o, o_plain, scale=dh**-0.5, n_terms=skv)
+    assert bool((gap <= bound).all()), float((gap - bound).max())
+    ds = fa.score_gap(q, k, dh**-0.5)
+    empty = lse_plain == fa.NEG_INF
+    assert torch.equal(lse == fa.NEG_INF, empty)
+    lse_gap = (lse - lse_plain).abs()[~empty]
+    assert bool((lse_gap <= 4 * ds + 2 * skv * 2.0**-23 + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_within_bound(cuda_device, case, dtype):
+    sq, skv, h, h_kv, dh, off, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+    kw = dict(scale=dh**-0.5, row_offset=off, causal=causal, window=window)
+    _assert_forward_within_bound(q, k, v, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_within_bound_on_peaked_inputs(cuda_device, case, dtype):
+    """QKᵀ, the scale and exp, held where ``|o|`` is near ``max|v|`` on
+    every row whose peak key is live (the query's own position)."""
+    sq, skv, h, h_kv, dh, off, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = _peaked_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device, off)
+    kw = dict(scale=dh**-0.5, row_offset=off, causal=causal, window=window)
+    _assert_forward_within_bound(q, k, v, kw)
+
+
+#: (sq, skv, h, h_kv, dh, row_offset, col_offset, mode, window)
+CHUNK_CASES = [
+    (256, 256, 4, 4, 128, 512, 512, "diagonal", 0),
+    (256, 256, 4, 4, 128, 512, 256, "past", 0),
+    (128, 192, 4, 2, 128, 300, 200, "offset", 90),
+    (100, 60, 2, 2, 128, 40, 70, "offset", 0),  # ragged, partly in the future
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_flash_chunk_exact_on_band_inputs(cuda_device, case, dtype):
+    sq, skv, h, h_kv, dh, row_off, col_off, mode, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = _band_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+    kw = dict(scale=dh**-0.5, row_offset=row_off, col_offset=col_off,
+              causal=mode, window=window)
+    start = fa.init_flash_carry(sq, h, dh, cuda_device)
+    # fold twice: the second fold reads the carry the first one wrote
+    want = fa.flash_chunk_plain(q, k, v, start, **kw)
+    want = fa.flash_chunk_plain(q, k, v, want, **kw)
+    carry = tuple(t.clone() for t in start)
+    before = fa.LAUNCHES["chunk"]
+    got = fa.flash_attention_chunk(q, k, v, carry, **kw)
+    got = fa.flash_attention_chunk(q, k, v, got, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["chunk"] == before + 2
+    assert all(g is c for g, c in zip(got, carry))  # updated in place
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_chunk_chain_matches_full_attention(cuda_device, dtype):
+    """Rank 3 of a 4-chunk ring: the diagonal chunk, then three past ones,
+    finished by finalize_flash_carry, against the plain forward over the
+    whole sequence at offset 3 * s."""
+    s, h, dh = 192, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = _uniform_qkv(4 * s, 4 * s, h, h, dh, dtype, gen, cuda_device)
+    q = q[3 * s:].contiguous()
+    carry = fa.init_flash_carry(s, h, dh, cuda_device)
+    for src in (3, 2, 1, 0):
+        carry = fa.flash_attention_chunk(
+            q, k[src * s:(src + 1) * s].contiguous(),
+            v[src * s:(src + 1) * s].contiguous(), carry, scale=dh**-0.5,
+            row_offset=3 * s, col_offset=src * s,
+            causal="diagonal" if src == 3 else "past",
+        )
+    got = fa.finalize_flash_carry(carry, torch.float32)
+    want = fa.flash_forward_plain(
+        q, k, v, scale=dh**-0.5, row_offset=3 * s
+    )[0].float()
+    bound = fa.plain_gap_bound(q, k, v, got, want, scale=dh**-0.5, n_terms=4 * s)
+    # the plain forward rounds its output to the operand dtype: one more
+    # spacing of that dtype
+    bound = bound + want.abs() * torch.finfo(dtype).eps
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_flash_rejects_what_the_kernel_does_not_take(cuda_device):
+    q = torch.zeros((64, 2, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(q.transpose(0, 1), q.transpose(0, 1),
+                         q.transpose(0, 1), scale=1.0)
+    for dh in (64, 96):
+        odd = torch.zeros((64, 2, dh), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_forward(odd, odd, odd, scale=1.0)

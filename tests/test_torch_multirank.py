@@ -1,10 +1,11 @@
 """The port's sharding logic on a real 2-rank gloo world.
 
 At world 1 every collective is the identity, so this is the test of the
-split, the all-gather and the reduce-scatter: two ranks are spawned (never
-forked: the parent has JAX and torch threads), each builds every member
-at d = 2 on the CPU, and the parent checks each rank's output against the
-numpy product of the same seeded operands.
+split, the all-gather, the reduce-scatter, the ring hop and the all-to-all:
+two ranks are spawned (never forked: the parent has JAX and torch threads),
+each builds every member at d = 2 on the CPU, and the parent checks each
+rank's output against the numpy product (or the numpy causal attention) of
+the same seeded operands.
 """
 
 import multiprocessing as mp
@@ -31,6 +32,24 @@ CASES = [
     ("tp_rowwise", "pytorch", {}),
     ("tp_rowwise", "cuda", {}),
     ("tp_rowwise", "compute_only", {"size": "sharded"}),
+]
+
+#: cp_ring_attention at seq 64, 4 heads of 16 (32 rows a rank)
+ATTN_M, ATTN_N, ATTN_K = 64, 64, 16
+ATTN_WINDOW = {"window": 24, "n_kv_heads": 2}
+ATTN_CASES = [
+    ("ring", {"skip_masked_blocks": True}),
+    ("ring", {"skip_masked_blocks": False}),
+    ("allgather", {}),
+    ("ulysses", {"compute": "einsum"}),
+    ("ulysses", {"compute": "flash"}),
+    ("flash", {}),
+    ("ring_flash", {"skip_masked_blocks": True}),
+    ("ring_flash", {"skip_masked_blocks": False}),
+    ("ring", ATTN_WINDOW),
+    ("flash", ATTN_WINDOW),
+    ("ulysses", {"compute": "flash", **ATTN_WINDOW}),
+    ("ring_flash", ATTN_WINDOW),
 ]
 
 
@@ -60,6 +79,17 @@ def _rank_main(rank, port, results):
                 )
                 result = impl.run()
                 out[(i, dtype)] = (
+                    result.float().numpy() if dtype == "float32" else None,
+                    impl.validate(result),
+                    impl.num_partitions,
+                )
+        for i, (name, opts) in enumerate(ATTN_CASES):
+            for dtype in ("float32", "bfloat16"):
+                impl = load_impl_class("cp_ring_attention", name)(
+                    ATTN_M, ATTN_N, ATTN_K, dtype=dtype, device="cpu", **opts
+                )
+                result = impl.run()
+                out[("attn", i, dtype)] = (
                     result.float().numpy() if dtype == "float32" else None,
                     impl.validate(result),
                     impl.num_partitions,
@@ -94,6 +124,31 @@ def _expected(case_index, rank):
     return full[rank * rows:(rank + 1) * rows]
 
 
+def _expected_attention(case_index, rank):
+    """Rank ``rank``'s rows of causal (windowed, GQA) softmax attention in
+    numpy, on the family's seeded q, k, v (seed 42, drawn in that order)."""
+    opts = ATTN_CASES[case_index][1]
+    h, dh = ATTN_N // ATTN_K, ATTN_K
+    h_kv = opts.get("n_kv_heads") or h
+    window = opts.get("window", 0)
+    rng = np.random.default_rng(42)
+    q = rng.uniform(-1, 1, (ATTN_M, h, dh)).astype(np.float32)
+    k = rng.uniform(-1, 1, (ATTN_M, h_kv, dh)).astype(np.float32)
+    v = rng.uniform(-1, 1, (ATTN_M, h_kv, dh)).astype(np.float32)
+    pos = np.arange(ATTN_M)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    out = np.empty_like(q)
+    for head in range(h):
+        kv = head // (h // h_kv)
+        s = np.where(mask, q[:, head] @ k[:, kv].T / np.sqrt(dh), -np.inf)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        out[:, head] = (p / p.sum(-1, keepdims=True)) @ v[:, kv]
+    rows = ATTN_M // WORLD
+    return out[rank * rows:(rank + 1) * rows]
+
+
 def test_two_rank_gloo_world():
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
@@ -126,13 +181,19 @@ def test_two_rank_gloo_world():
     assert [p.exitcode for p in procs] == [0] * WORLD
 
     for rank, (payload, rejected) in got.items():
-        for (i, dtype), (output, valid, partitions) in payload.items():
+        for key, (output, valid, partitions) in payload.items():
             assert partitions == WORLD
-            assert valid, (rank, CASES[i], dtype)
+            if key[0] == "attn":
+                _, i, dtype = key
+                case, want = ATTN_CASES[i], _expected_attention(i, rank)
+            else:
+                i, dtype = key
+                case, want = CASES[i], _expected(i, rank)
+            assert valid, (rank, case, dtype)
             if output is not None:
                 np.testing.assert_allclose(
-                    output, _expected(i, rank), rtol=1e-5, atol=1e-5,
-                    err_msg=f"rank {rank} case {CASES[i]}",
+                    output, want, rtol=1e-5, atol=1e-5,
+                    err_msg=f"rank {rank} case {case}",
                 )
         assert len(rejected) == 2
         assert "m=65 must be divisible by partitions=2" in rejected[0]
