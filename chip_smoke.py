@@ -12,15 +12,24 @@ Phases, in order; any failure exits non-zero without the final line:
    version on the card at the stated tolerance, and time it beside the
    plain version, the one PyTorch call that computes the same function
    (``library_ms``) and its bound: K1 (the tiled GEMM), K8a/K8b (the flash
-   forward, triangle and rectangle) and K9 (the carried-chunk fold);
+   forward, triangle and rectangle, at the attention path's shapes and at
+   the serving path's prefill and admission shapes), K9 (the
+   carried-chunk fold), K11 and K12 (single-token decode attention,
+   contiguous and paged);
 3. the main paths, each with the launch counts zeroed just before it and
    read just after, through the port's sweep runner (``run_benchmark``)
    with validation: both tensor-parallel families at m = n = k = 8192 bf16,
    every member (K1 in the ``cuda`` rows); then ``cp_ring_attention`` at
    m = 16384, n = 1024, k = 128 bf16, every member and option of
    ``scripts/config_cp_ring_attention.json`` plus ``ring_flash`` and one
-   windowed GQA ``flash`` row (K8a, K8b, K9). Every row must be valid with
-   a finite time, and the counts must be exactly what the rows launch;
+   windowed GQA ``flash`` row (K8a, K8b, K9); then the serving path,
+   ``transformer_decode`` at the full width of
+   ``scripts/config_transformer_decode.json`` (``SERVE_ROWS``: the decode
+   grid of ``config_serving_fast_decode.json``, prefill, generate, and the
+   serve entries of ``config_serving_paged.json``; K8a, K11, K12), one row
+   at a time with its launches checked exactly. Every row must be valid
+   with a finite time, and the counts must be exactly what the rows
+   launch;
 4. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -47,7 +56,12 @@ NUM_ITERATIONS = 10
 #: H100 SXM dense bf16 tensor-core peak and memory rate (NVIDIA data
 #: sheet) at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+#: the decode kernels at the serving path's shapes: batch 8, 16 heads of
+#: 128, a decode cache of m + 1 = 8193 positions, the serve pool's pages
+DECODE_B, DECODE_H, DECODE_DH, DECODE_S = 8, 16, 128, 8193
+PAGE_SIZE, SERVE_PAGES = 128, 17
 OUT_DIR = os.path.join("results", "chip_smoke")
 
 
@@ -163,10 +177,12 @@ ATTN_SWEEPS = [
 ]
 
 
-def drive_path(run_benchmark, device, primitive, shape, implementations):
+def drive_path(run_benchmark, device, primitive, shape, implementations,
+               warmups=NUM_WARMUPS, iterations=NUM_ITERATIONS, extra_keys=()):
     """The port's sweep runner over one family at ``shape`` bf16 with
-    validation; prints every row and fails unless each is valid on
-    ``device`` with a finite time. Returns the rows."""
+    validation; prints every row (with ``extra_keys`` where present) and
+    fails unless each is valid on ``device`` with a finite time. Returns
+    the rows."""
     os.makedirs(OUT_DIR, exist_ok=True)
     stamp = time.strftime("%Y%m%d_%H%M%S")
     m, n, k = shape
@@ -178,8 +194,8 @@ def drive_path(run_benchmark, device, primitive, shape, implementations):
         "k": k,
         "dtype": "bfloat16",
         "validate": True,
-        "num_iterations": NUM_ITERATIONS,
-        "num_warmups": NUM_WARMUPS,
+        "num_iterations": iterations,
+        "num_warmups": warmups,
         "time_measurement_backend": "host_clock",
         "barrier_at_each_iteration": True,
         "device": device,
@@ -191,7 +207,8 @@ def drive_path(run_benchmark, device, primitive, shape, implementations):
         print(json.dumps({key: row[key] for key in (
             "primitive", "implementation", "option", "median time (ms)",
             "Throughput (TFLOPS)", "platform", "device_kind", "valid", "error",
-        )}))
+            *extra_keys,
+        ) if key in row}))
     bad = [
         r["implementation"] for r in rows
         if not (r["valid"] and not r["error"] and r["platform"] == device
@@ -631,6 +648,457 @@ def kernel_phase_flash(fa, smi):
     return forward, chunk
 
 
+#: K8a as the serving path calls it (sequence, query heads, kv heads), bf16:
+#: the prefill of a batch of 8 at m = 8192 merges the batch into the head
+#: axis (8 x 16 = 128 query heads; 32 kv heads at GQA-4), and each serve
+#: admission prefills one prompt padded to its bucket, a power of two from
+#: 16 (below one tile) up; the serve rows' prompts of 2048 fill theirs
+SERVE_FLASH_SHAPES = (
+    (8192, 128, 128), (8192, 128, 32),
+    (2048, 16, 16), (2048, 16, 4),
+    (16, 16, 16), (16, 16, 4),
+)
+
+
+def kernel_phase_flash_serving(fa, smi):
+    """K8a against its plain version at the serving path's shapes (band,
+    uniform and peaked inputs, as ``check_flash_forward``), then timed at
+    the batch-merged prefill's shape beside SDPA with ``is_causal``, its
+    plain version and its bound. Returns that case's entry."""
+    import torch
+    import torch.nn.functional as F
+
+    errs = []
+    for s, h, h_kv in SERVE_FLASH_SHAPES:
+        err, inputs, kw = check_flash_forward(fa, s, s, h, h_kv, DECODE_DH,
+                                              "bfloat16", 0, 0)
+        errs.append(err)
+        if (s, h, h_kv) == SERVE_FLASH_SHAPES[0]:
+            (q, k, v), prefill_kw = inputs, kw
+        del inputs
+    m, h = q.shape[0], q.shape[1]
+    qt, kt, vt = (x.transpose(0, 1).contiguous()[None] for x in (q, k, v))
+    times, turns = time_turns({
+        "ms": lambda: fa.flash_forward(q, k, v, **prefill_kw),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=prefill_kw["scale"]),
+        "plain_ms": lambda: fa.flash_forward_plain(q, k, v, **prefill_kw),
+    }, {"ms": 10, "library_ms": 10, "plain_ms": 1})
+    bound = flash_bound(fa, m, m, h, h, DECODE_DH, 2, 0, 0, True, 0, carry=False)
+    print(f"K8a triangle, serving prefill ({m}, {h} heads of {DECODE_DH}): "
+          f"kernel {times['ms']!r} ms, library {times['library_ms']!r} ms, "
+          f"plain {times['plain_ms']!r} ms, bound {bound[0]!r} ms "
+          f"({bound[1]}; {smi}); turns {turns}")
+    del qt, kt, vt
+    torch.cuda.empty_cache()
+    return {
+        "name": "flash_forward (serving prefill)",
+        "route": "cuda",
+        "source": "ddlb_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "ddlb_tpu/ops/flash_attention.py:373",
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": times["ms"],
+        "plain_ms": times["plain_ms"],
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": times["library_ms"],
+    }
+
+
+# -- decode attention (K11, K12) ------------------------------------------------
+
+
+def quantize(x):
+    """Symmetric per-(position, head) int8 over the last axis, the port's
+    ``models/decode.quantize_kv``."""
+    import torch
+
+    s = (x.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-30)
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def decode_inputs(b, S, h, h_kv, dtype, int8, gen, peaked, pos):
+    """q, K/V (int8 with scales, or the model dtype) and the dequantized
+    magnitudes. Uniform [-1, 1] K/V; q uniform, or peaked: 4x the key at
+    the sequence's own position (clamped to S - 1), so that key scores
+    about 15 and |o| stays near max|v| however many keys are live."""
+    import torch
+
+    dh = DECODE_DH
+    k = torch.rand((b, S, h_kv, dh), generator=gen, device="cuda") * 2 - 1
+    v = torch.rand((b, S, h_kv, dh), generator=gen, device="cuda") * 2 - 1
+    if int8:
+        (k, ks), (v, vs) = quantize(k), quantize(v)
+        k_deq, v_deq = (k.float() * ks).to(dtype), (v.float() * vs).to(dtype)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        ks = vs = None
+        k_deq, v_deq = k, v
+    if peaked:
+        rows = k_deq[torch.arange(b, device="cuda"), pos.clamp(max=S - 1).long()]
+        q = (4 * rows.float()).repeat_interleave(h // h_kv, dim=1).to(dtype)
+    else:
+        q = (torch.rand((b, h, dh), generator=gen, device="cuda") * 2 - 1).to(dtype)
+    return (q, k, v, ks, vs, float(k_deq.float().abs().max()),
+            float(v_deq.float().abs().max()))
+
+
+def paged_layout(k, v, ks, vs, pos, ps, num_pages, gen):
+    """The contiguous cache scattered into ``num_pages`` shuffled pool pages:
+    each sequence maps the pages up to its position's (the engine's
+    allocation), the rest stay the sentinel; sequence 1 maps its first
+    page to sequence 0's (two slots on one page)."""
+    import torch
+
+    b, S = k.shape[:2]
+    mp = S // ps
+    need = [min(mp, int(p) // ps + 1) for p in pos.tolist()]
+    if sum(need) > num_pages:
+        fail(f"paged layout needs {sum(need)} pages > {num_pages}")
+    perm = torch.randperm(num_pages, generator=gen, device="cuda").tolist()
+    table = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
+    pools = [None if x is None else
+             torch.zeros((num_pages, ps) + tuple(x.shape[2:]), dtype=x.dtype, device="cuda")
+             for x in (k, v, ks, vs)]
+    for i in range(b):
+        for j in range(need[i]):
+            page = perm.pop()
+            table[i, j] = page
+            for pool, x in zip(pools, (k, v, ks, vs)):
+                if pool is not None:
+                    pool[page] = x[i, j * ps:(j + 1) * ps]
+    if b > 1:
+        table[1, 0] = table[0, 0]
+    return pools, table
+
+
+def check_decode(da, b, S, h, h_kv, dtype_name, int8, window, paged, pos_kind):
+    """K11 (or K12) against its plain version on the card, on uniform and
+    peaked inputs, within ``da.plain_gap_bound``; for K12 an all-sentinel
+    row must give zeros. Returns (max |err|, the uniform inputs and their
+    keyword arguments)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    if pos_kind == "full":
+        pos = torch.full((b,), S - 1, dtype=torch.int32, device="cuda")
+    else:  # ragged: 0, S (a parked lane: every key live), the rest drawn
+        pos = torch.randint(0, S, (b,), generator=gen, device="cuda").to(torch.int32)
+        pos[0], pos[-1] = 0, S
+    what = (f"{'K12 paged' if paged else 'K11'} decode b={b} S={S} h={h}/{h_kv} "
+            f"{'int8' if int8 else dtype_name} w={window} pos={pos_kind}")
+    errs, first = [], None
+    for name in ("uniform", "peaked"):
+        q, k, v, ks, vs, kmax, vmax = decode_inputs(
+            b, S, h, h_kv, dtype, int8, gen, name == "peaked", pos)
+        kw = {"k_scale": ks, "v_scale": vs, "window": window}
+        if paged:
+            ps = PAGE_SIZE
+            (k, v, kw["k_scale"], kw["v_scale"]), table = paged_layout(
+                k, v, ks, vs, pos, ps, 2 * b * (S // ps), gen)
+            if b > 2:
+                table[2] = k.shape[0]  # an all-sentinel row
+            args = (q, k, v, table, pos)
+            got = da.paged_decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want = da.paged_decode_attention_plain(*args, **kw)
+            if b > 2 and not bool((got[2] == 0).all()):
+                fail(f"{what}: the all-sentinel row is not zero")
+        else:
+            args = (q, k, v, pos)
+            got = da.decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(*args, **kw)
+        err = (got.float() - want.float()).abs()
+        bound = da.plain_gap_bound(q, kmax, vmax, got, want, n_terms=S)
+        bad = int((err > bound).sum())
+        max_err = float(err.max())
+        if not math.isfinite(max_err) or bad:
+            fail(f"{what}, {name} inputs: {bad} outputs beyond plain_gap_bound, "
+                 f"max |err| {max_err}")
+        print(f"{what}, {name} inputs: max |err| {max_err!r} within plain_gap_bound "
+              f"(largest bound {float(bound.max())!r}, median |o| "
+              f"{float(want.float().abs().median())!r}): ok")
+        errs.append(max_err)
+        if first is None:
+            first = (args, kw)
+    return max(errs), first
+
+
+def decode_bound(da, q, k, int8, pos, S, window, table=None, num_pages=0,
+                 page_size=1):
+    """(bound ms, bound_by) of one K11/K12 call on these inputs: the bytes
+    it must move (q read, each live key's K and V row read once with its
+    scales, o written; K12 also reads the table) over the memory rate,
+    against 4 * h * dh operations per live key on the f32 SIMT peak."""
+    b, h, dh = q.shape
+    h_kv = k.shape[2]
+    live = da.live_keys(pos, S, window, table, num_pages, page_size)
+    moved = 2 * b * h * dh * q.element_size()
+    moved += live * 2 * h_kv * dh * k.element_size()
+    if int8:
+        moved += live * 2 * h_kv * 4
+    if table is not None:
+        moved += table.numel() * 4
+    ops_ms = 4.0 * h * dh * live / PEAK_F32_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
+
+
+def kernel_phase_decode(da, smi):
+    """K11 and K12 against their plain versions at the serving path's shapes
+    (b = 8, 16 heads of 128; a decode cache of m + 1 = 8193 positions, the
+    serve pool of 17 pages of 128), MHA and GQA-4, bf16 and int8, a window,
+    ragged positions with 0 and a parked lane, sentinel pages; fp16 and f32
+    at smaller shapes. Then each timed at the path's shape beside its
+    plain version, its library yardstick and its bound. Returns the two
+    entries of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, S = DECODE_B, DECODE_H, DECODE_S
+    S_pool = SERVE_PAGES * PAGE_SIZE
+    dec_err, dec_in = check_decode(da, b, S, h, h, "bfloat16", False, 0, False, "full")
+    variants = {}
+    for key, args in (
+        ("gqa4", (b, S, h, 4, "bfloat16", False, 0, False, "full")),
+        ("int8", (b, S, h, h, "bfloat16", True, 0, False, "full")),
+        ("int8_gqa4", (b, S, h, 4, "bfloat16", True, 0, False, "full")),
+    ):
+        variants[key] = check_decode(da, *args)
+    for args in (
+        (b, S, h, 4, "bfloat16", False, 0, False, "ragged"),
+        (b, S, h, h, "bfloat16", True, 1000, False, "ragged"),
+        (4, 1000, 8, 2, "float16", False, 0, False, "ragged"),
+        (4, 1000, 8, 8, "float32", True, 300, False, "ragged"),
+        (3, 777, 16, 1, "bfloat16", False, 0, False, "ragged"),
+    ):
+        check_decode(da, *args)
+    paged_err, paged_in = check_decode(da, b, S_pool, h, h, "bfloat16", False, 0, True, "ragged")
+    for args in (
+        (b, S_pool, h, 4, "bfloat16", True, 0, True, "ragged"),
+        (b, S_pool, h, h, "bfloat16", False, 700, True, "ragged"),
+        (4, 1024, 8, 2, "float32", False, 0, True, "ragged"),
+    ):
+        check_decode(da, *args)
+
+    def sdpa_inputs(q, k, v, pos, group):
+        """q [b, h, 1, dh] and the cache as [b, h_kv, S, dh] views, the
+        boolean mask of keys <= pos."""
+        live = torch.arange(k.shape[1], device="cuda")[None, :] <= pos[:, None]
+        return (q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                live[:, None, None, :], group > 1)
+
+    def timed(args, kw, paged, yardstick):
+        calls = {
+            "ms": lambda: (da.paged_decode_attention if paged else da.decode_attention)(*args, **kw),
+            "plain_ms": lambda: (da.paged_decode_attention_plain if paged
+                                 else da.decode_attention_plain)(*args, **kw),
+        }
+        iters = {"ms": 50, "plain_ms": 3}
+        if yardstick is not None:
+            calls["library_ms"] = yardstick
+            iters["library_ms"] = 50
+        times, turns = time_turns(calls, iters)
+        times.setdefault("library_ms", None)
+        return times, turns
+
+    def k11(args, kw, int8):
+        q, k, v, pos = args
+        yard = None
+        if not int8:
+            qs, ks_, vs_, mask, gqa = sdpa_inputs(q, k, v, pos, h // k.shape[2])
+            yard = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qs, ks_, vs_, attn_mask=mask, enable_gqa=gqa)
+        times, turns = timed(args, kw, False, yard)
+        bound = decode_bound(da, q, k, int8, pos, k.shape[1], kw["window"])
+        return times, turns, bound
+
+    dec_times, dec_turns, dec_bound = k11(*dec_in, False)
+    var_out = {}
+    for key, (err, (args, kw)) in variants.items():
+        times, turns, bound = k11(args, kw, key.startswith("int8"))
+        var_out[key] = {"max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+                        "library_ms": times["library_ms"], "bound_ms": bound[0],
+                        "bound_by": bound[1]}
+        print(f"K11 {key}: kernel {times['ms']!r} ms, library {times['library_ms']!r} ms, "
+              f"plain {times['plain_ms']!r} ms, bound {bound[0]!r} ms ({bound[1]}; {smi}); "
+              f"turns {turns}")
+
+    # K12 beside the gather of every slot's pages plus the same SDPA
+    (q, kp, vp, table, pos), pkw = paged_in
+    P = kp.shape[0]
+    mapped = ((table >= 0) & (table < P)).repeat_interleave(PAGE_SIZE, dim=1)
+    safe = table.long().clamp(0, P - 1)
+    live = torch.arange(S_pool, device="cuda")[None, :] <= pos[:, None]
+    mask = (live & mapped)[:, None, None, :]
+
+    def gather_sdpa():
+        kk = kp[safe].reshape(b, S_pool, h, DECODE_DH).transpose(1, 2)
+        vv = vp[safe].reshape(b, S_pool, h, DECODE_DH).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask)
+
+    paged_times, paged_turns = timed((q, kp, vp, table, pos), pkw, True, gather_sdpa)
+    paged_bound = decode_bound(da, q, kp, False, pos, S_pool, 0, table, P, PAGE_SIZE)
+    for what, times, turns, bound in (
+        ("K11 MHA bf16, 8193 keys", dec_times, dec_turns, dec_bound),
+        ("K12 MHA bf16, 17 pages of 128", paged_times, paged_turns, paged_bound),
+    ):
+        print(f"{what}: kernel {times['ms']!r} ms, library {times['library_ms']!r} ms, "
+              f"plain {times['plain_ms']!r} ms, bound {bound[0]!r} ms ({bound[1]}; "
+              f"{smi}); turns {turns}")
+
+    def entry(name, replaces, err, times, bound):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "ddlb_tpu_torch/csrc/decode_attention.cu",
+            "replaces": replaces,
+            "launches": None,
+            "max_abs_err": err,
+            "ms": times["ms"],
+            "plain_ms": times["plain_ms"],
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": times["library_ms"],
+        }
+
+    decode = entry("decode_attention", "ddlb_tpu/ops/decode_attention.py:116",
+                   dec_err, dec_times, dec_bound)
+    decode["variants"] = var_out
+    decode["library_ms_note"] = (
+        "SDPA, q [b, h, 1, dh], a boolean pos mask (enable_gqa for GQA); "
+        "null for int8: no PyTorch call dequantizes inside attention"
+    )
+    paged = entry("paged_decode_attention", "ddlb_tpu/ops/decode_attention.py:236",
+                  paged_err, paged_times, paged_bound)
+    paged["library_ms_note"] = "the gather pool[table] plus SDPA with the live mask, timed together"
+    return decode, paged
+
+
+# -- the serving path -------------------------------------------------------------
+
+
+#: the serving path at the full width of scripts/config_transformer_decode.json
+#: (d_model 2048, d_ff 8192, 16 heads of 128, vocab 16384, batch 8, 1 layer)
+SERVE_N, SERVE_K = 2048, 8192
+SERVE_COMMON = {"batch": 8, "vocab": 16384, "n_heads": 16}
+#: rows at m = 8192: the decode grid of scripts/config_serving_fast_decode.json
+#: (its set-up prefill on flash: einsum would build 34 GB of scores), the
+#: compute_only decode, a flash prefill and a 32-token generate; at m =
+#: 2048: an einsum prefill and the four serve entries of
+#: scripts/config_serving_paged.json. (m, implementations, warmups,
+#: iterations)
+SERVE_ROWS = [
+    (8192, {"spmd": [{"phase": "decode", "attn_kernel": "flash",
+                      "decode_kernel": ["einsum", "pallas"],
+                      "kv_cache": ["bf16", "int8"], "n_kv_heads": [0, 4],
+                      **SERVE_COMMON}],
+            "compute_only": [{"phase": "decode", **SERVE_COMMON}]}, 2, 8),
+    (8192, {"spmd": [{"phase": "prefill", "attn_kernel": "flash", **SERVE_COMMON}]}, 1, 3),
+    (8192, {"spmd": [{"phase": "generate", "n_new": 32, **SERVE_COMMON}]}, 1, 2),
+    (2048, {"spmd": [{"phase": "prefill", "attn_kernel": "einsum", **SERVE_COMMON}]}, 1, 3),
+    (2048, {"spmd": [
+        {"phase": "serve", "n_requests": 16, "n_new": 32, "attn_kernel": "flash",
+         "dp": 1, "tp": 1, **SERVE_COMMON},
+        {"phase": "serve", "n_requests": 16, "n_new": 32, "attn_kernel": "flash",
+         "cache_layout": "paged", "page_pool_frac": [1.0, 0.5], "dp": 1, "tp": 1,
+         **SERVE_COMMON},
+        {"phase": "serve", "n_requests": 16, "n_new": 32, "attn_kernel": "flash",
+         "kv_cache": "int8", "n_kv_heads": 4, "cache_layout": "paged",
+         "page_pool_frac": [0.5], "dp": 1, "tp": 1, **SERVE_COMMON},
+        {"phase": "serve", "n_requests": 16, "n_new": 32, "attn_kernel": "flash",
+         "cache_layout": "paged", "page_pool_frac": [0.5], "decode_kernel": "pallas",
+         "dp": 1, "tp": 1, **SERVE_COMMON},
+    ]}, 1, 3),
+]
+
+
+def expected_serving_launches(row, calls):
+    """The kernel launches one serving row makes in ``calls`` measured
+    calls (warmups, timed iterations, the validation run): K8a once a
+    layer per flash prompt pass (the decode rows' set-up prefill, each
+    prefill or generate call, each serve admission), K11 once a layer per
+    pallas decode step, K12 once a layer per tick of a paged pallas
+    serve row; nothing else."""
+    o = row_options(row)
+    L, phase = int(o["layers"]), o["phase"]
+    flash = o["attn_kernel"] == "flash"
+    want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0}
+    if phase == "decode":
+        want["tri"] = L if flash else 0
+        if o["decode_kernel"] == "pallas":
+            want["decode"] = calls * L
+    elif phase in ("prefill", "generate"):
+        want["tri"] = calls * L if flash else 0
+    elif phase == "serve":
+        want["tri"] = calls * int(o["n_requests"]) * L if flash else 0
+        if o["decode_kernel"] == "pallas":
+            key = "paged" if o["cache_layout"] == "paged" else "decode"
+            want[key] = calls * row["serve_steps"] * L
+    return want
+
+
+def serving_path(run_benchmark, k1, fa, da, smi):
+    """Drive every serving row (one ``run_benchmark`` call per row, counts
+    read around each), check each row's launches exactly, and print each
+    row's time, ms per step, tokens/s and share of its ``hbm_bytes()``
+    floor (the row's ``hbm_bytes`` over the memory rate). Returns (the
+    launch totals of the path, the rows)."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
+
+    def counts():
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES}
+
+    rows = []
+    total_start = counts()
+    for m, impls, warmups, iterations in SERVE_ROWS:
+        for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
+            name = spec.pop("implementation")
+            before = counts()
+            (row,) = drive_path(run_benchmark, "cuda", "transformer_decode",
+                                (m, SERVE_N, SERVE_K), {name: [spec]},
+                                warmups=warmups, iterations=iterations,
+                                extra_keys=("serve_steps", "serve_generated",
+                                            "serve_occupancy", "serve_admissions_deferred",
+                                            "serve_peak_pages"))
+            after = counts()
+            got = {key: after[key] - before[key] for key in after}
+            want = expected_serving_launches(row, warmups + iterations + 1)
+            if got != want:
+                fail(f"serving row {row['option']}: launches {got}, expected {want}")
+            o = row_options(row)
+            ms = row["median time (ms)"]
+            floor_ms = row["hbm_bytes"] / PEAK_BYTES_PER_S * 1e3
+            phase = o["phase"]
+            if phase == "decode":
+                tokens, steps = int(o["batch"]), 1
+            elif phase == "generate":
+                tokens, steps = int(o["batch"]) * int(o["n_new"]), int(o["n_new"])
+            elif phase == "serve":
+                tokens, steps = row["serve_generated"], row["serve_steps"]
+            else:
+                tokens, steps = int(o["batch"]) * m, 1
+            row["tokens_per_s"] = tokens / (ms / 1e3)
+            row["ms_per_step"] = ms / steps
+            row["hbm_floor_ms"] = floor_ms
+            row["hbm_floor_share"] = floor_ms / ms
+            print(json.dumps({"serving_row": o["phase"], "m": m, "member": name,
+                              "option": row["option"], "median_ms": ms,
+                              "ms_per_step": row["ms_per_step"],
+                              "tokens_per_s": row["tokens_per_s"],
+                              "hbm_floor_ms": floor_ms,
+                              "hbm_floor_share": row["hbm_floor_share"],
+                              "launches": got, "card": smi}))
+            rows.append(row)
+            torch.cuda.empty_cache()
+    end = counts()
+    return {key: end[key] - total_start[key] for key in end}, rows
+
+
 def main():
     try:
         import torch
@@ -643,6 +1111,7 @@ def main():
         import ddlb_tpu_torch
         from ddlb_tpu_torch.cli.benchmark import run_benchmark
         from ddlb_tpu_torch.ops import _build
+        from ddlb_tpu_torch.ops import decode_attention as da
         from ddlb_tpu_torch.ops import flash_attention as fa
         from ddlb_tpu_torch.ops import matmul as k1
     except ImportError as exc:
@@ -650,6 +1119,7 @@ def main():
     # the port under test is the checkout's, never an installed copy
     if not os.path.abspath(ddlb_tpu_torch.__file__).startswith(here + os.sep):
         fail(f"ddlb_tpu_torch imported from {ddlb_tpu_torch.__file__}, not {here}")
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = card_identity()
@@ -660,57 +1130,84 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. kernels: build (one nvcc each, in parallel), check, time
+    libs = ("matmul", "flash_attention", "decode_attention")
     t0 = time.perf_counter()
-    _build.build("matmul", "flash_attention")
-    print(f"built matmul and flash_attention in {time.perf_counter() - t0:.1f} s")
-    for name in ("matmul", "flash_attention"):
+    _build.build(*libs)
+    print(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
+    for name in libs:
         for line in _build.build_log(name).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas ({name}):", line.strip())
     matmul_entry = kernel_phase_matmul(k1, smi)
     forward_entry, chunk_entry = kernel_phase_flash(fa, smi)
+    forward_entry["serving_prefill"] = kernel_phase_flash_serving(fa, smi)
+    decode_entry, paged_entry = kernel_phase_decode(da, smi)
     torch.cuda.empty_cache()
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+
+    def reset():
+        k1.LAUNCHES = 0
+        fa.reset_launches()
+        da.reset_launches()
 
     # 3. the main paths, each with the counts zeroed just before it
-    k1.LAUNCHES = 0
-    fa.reset_launches()
+    launches = {}
+    reset()
     rows = []
     for primitive, implementations in GEMM_SWEEPS.items():
         rows += drive_path(run_benchmark, "cuda", primitive,
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
-    gemm_launches, flash_in_gemm = k1.LAUNCHES, dict(fa.LAUNCHES)
+    gemm_launches, others = k1.LAUNCHES, {**fa.LAUNCHES, **da.LAUNCHES}
     cuda_rows = sum(1 for r in rows if r["base_implementation"] == "cuda")
     # each cuda row runs K1 once per warmup, per timed iteration and for
     # validation; no other row may launch it
     expected = cuda_rows * (NUM_WARMUPS + NUM_ITERATIONS + 1)
     if gemm_launches != expected or gemm_launches == 0:
         fail(f"K1 launched {gemm_launches} times on the GEMM path, expected {expected}")
-    if any(flash_in_gemm.values()):
-        fail(f"flash kernels launched on the GEMM path: {flash_in_gemm}")
+    if any(others.values()):
+        fail(f"attention kernels launched on the GEMM path: {others}")
+    launches["gemm"] = {"k1": gemm_launches}
+    print(f"GEMM path done at {time.perf_counter() - t_start:.1f} s")
 
-    k1.LAUNCHES = 0
-    fa.reset_launches()
+    reset()
     rows = []
     for implementations in ATTN_SWEEPS:
         rows += drive_path(run_benchmark, "cuda", "cp_ring_attention",
                            (ATTN_M, ATTN_N, ATTN_K), implementations)
         torch.cuda.empty_cache()
-    flash_launches, k1_in_attention = dict(fa.LAUNCHES), k1.LAUNCHES
+    flash_launches, others = dict(fa.LAUNCHES), {**da.LAUNCHES, "k1": k1.LAUNCHES}
     expected = expected_flash_launches(rows)
     if flash_launches != expected or not all(flash_launches.values()):
         fail(f"flash kernels launched {flash_launches} on the attention "
              f"path, expected {expected}")
-    if k1_in_attention:
-        fail(f"K1 launched {k1_in_attention} times on the attention path")
-    print(f"launches: K1 {gemm_launches} on the GEMM path; flash "
-          f"{flash_launches} on the attention path")
+    if any(others.values()):
+        fail(f"K1 or the decode kernels launched on the attention path: {others}")
+    launches["attention"] = flash_launches
+    print(f"attention path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    serving_launches, _ = serving_path(run_benchmark, k1, fa, da, smi)
+    if not (serving_launches["decode"] and serving_launches["paged"]
+            and serving_launches["tri"]):
+        fail(f"the serving path did not launch K11, K12 and K8a: {serving_launches}")
+    launches["serving"] = serving_launches
+    print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
+    print(f"launches by path: {json.dumps(launches)}")
 
     # 4. results
-    matmul_entry["launches"] = gemm_launches
-    forward_entry["launches"] = flash_launches["tri"] + flash_launches["rect"]
-    forward_entry["rect"]["launches"] = flash_launches["rect"]
-    chunk_entry["launches"] = flash_launches["chunk"]
-    print(json.dumps({"kernels": [matmul_entry, forward_entry, chunk_entry]}))
+    def total(key):
+        return sum(path.get(key, 0) for path in launches.values())
+
+    matmul_entry["launches"] = total("k1")
+    forward_entry["launches"] = total("tri") + total("rect")
+    forward_entry["rect"]["launches"] = total("rect")
+    forward_entry["serving_prefill"]["launches"] = serving_launches["tri"]
+    chunk_entry["launches"] = total("chunk")
+    decode_entry["launches"] = total("decode")
+    paged_entry["launches"] = total("paged")
+    print(json.dumps({"kernels": [matmul_entry, forward_entry, chunk_entry,
+                                  decode_entry, paged_entry]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

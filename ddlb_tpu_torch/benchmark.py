@@ -61,7 +61,9 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
 
     Any failure (construction, timing) becomes an error row with NaN
     times; a validation crash after a completed timing loop keeps the
-    times and records ``valid=False`` with the error.
+    times and records ``valid=False`` with the error. After validation,
+    the implementation's ``extra_row_fields()`` join the row; a failure
+    there goes into ``error`` and keeps the times.
     """
     primitive = config["primitive"]
     options = dict(config.get("options", {}))
@@ -120,6 +122,16 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
         error = f"{type(exc).__name__}: {exc}"
         times_ms = np.array([float("nan")])
         valid = False
+    extra: Dict[str, Any] = {}
+    if impl is not None and np.isfinite(times_ms).any():
+        # family-specific measured quantities (the serve engine's stats),
+        # after validation as in the JAX runner; a failure here must not
+        # discard the completed measurement
+        try:
+            extra = impl.extra_row_fields()
+        except Exception as exc:
+            msg = f"extra_row_fields failed: {type(exc).__name__}: {exc}"
+            error = f"{error}; {msg}" if error else msg
     row = make_result_row(
         config,
         times_ms=times_ms,
@@ -132,6 +144,7 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
         platform=runtime.platform if runtime else "unknown",
         device_kind=runtime.device_kind if runtime else "",
     )
+    row.update(extra)
     del impl, result
     return row
 

@@ -215,6 +215,11 @@ class Primitive(ABC):
     def validate(self, result: torch.Tensor) -> bool:
         """Compare against the single-device reference product."""
 
+    def extra_row_fields(self) -> Dict[str, Any]:
+        """Family-specific measured columns added to the result row after
+        validation (none by default)."""
+        return {}
+
     def get_inputs(self) -> Tuple[torch.Tensor, ...]:
         """This rank's operand tensors."""
         return self._call_args

@@ -13,7 +13,9 @@ from __future__ import annotations
 import importlib
 from typing import Tuple, Type
 
-ALLOWED_PRIMITIVES = ("tp_columnwise", "tp_rowwise", "cp_ring_attention")
+ALLOWED_PRIMITIVES = (
+    "tp_columnwise", "tp_rowwise", "cp_ring_attention", "transformer_decode",
+)
 
 _REGISTRY = {
     "tp_columnwise": {
@@ -55,6 +57,16 @@ _REGISTRY = {
             ("ring_flash", "RingFlashCPRingAttention"),
         )
     },
+    "transformer_decode": {
+        "spmd": (
+            "ddlb_tpu_torch.primitives.transformer_decode.spmd",
+            "SPMDTransformerDecode",
+        ),
+        "compute_only": (
+            "ddlb_tpu_torch.primitives.transformer_decode.compute_only",
+            "ComputeOnlyTransformerDecode",
+        ),
+    },
 }
 
 #: families of the JAX package that the port does not carry yet
@@ -63,7 +75,6 @@ _NOT_PORTED_FAMILIES = (
     "ep_alltoall",
     "pp_pipeline",
     "transformer_step",
-    "transformer_decode",
     "collectives",
     "serving_load",
 )

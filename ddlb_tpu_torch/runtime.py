@@ -10,7 +10,9 @@ on the card, gloo on the CPU, rendezvous through ``MASTER_ADDR`` /
 ``MASTER_PORT`` (``env://``). At world 1 no group exists and every
 collective below is the identity: the all-gather and reduce-scatter of
 rows, the ring hop (``batch_isend_irecv``) and the head/sequence
-all-to-all (``all_to_all_single``).
+all-to-all (``all_to_all_single``). ``Runtime.mesh(dp, tp)`` places the
+rank in a ``(dp, tp)`` mesh (``Mesh``) whose tp sub-group carries the
+serving model's sum and all-gather.
 """
 
 from __future__ import annotations
@@ -179,6 +181,10 @@ class Runtime:
         dist.all_to_all_single(out, x.contiguous())
         return out.transpose(0, 1).reshape(m // d, d * hd, dh)
 
+    def mesh(self, dp: int, tp: int) -> "Mesh":
+        """This rank's place in a ``(dp, tp)`` mesh (see ``Mesh``)."""
+        return Mesh(self, dp, tp)
+
     def max_over_ranks(self, values: np.ndarray) -> np.ndarray:
         """Elementwise maximum of a float vector over ranks."""
         if self.world_size == 1:
@@ -194,3 +200,66 @@ class Runtime:
         t = torch.tensor([1 if flag else 0], dtype=torch.int32).to(self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
         return bool(t.item())
+
+
+#: the tp process groups, created once per process and mesh shape:
+#: ``(world, dp, tp) -> [group of dp row 0, group of dp row 1, ...]``
+_TP_GROUPS: dict = {}
+
+
+class Mesh:
+    """A ``(dp, tp)`` mesh over the ranks, the JAX package's
+    ``('dp', 'tp')`` device mesh: rank ``r`` sits at ``(r // tp, r % tp)``.
+
+    ``dp * tp`` is the world size, or 1: a ``(1, 1)`` mesh is local to
+    each rank (the ``compute_only`` members), whatever the world. The
+    collectives run over this rank's tp group. Every rank creates every
+    tp group, in the same order, the first time a mesh of this shape is
+    asked for (``dist.new_group`` is collective); a tp group that is the
+    whole world is the default group, and at tp = 1 both collectives are
+    the identity.
+    """
+
+    def __init__(self, runtime: Runtime, dp: int, tp: int) -> None:
+        if dp < 1 or tp < 1:
+            raise ValueError(f"mesh axes must be >= 1, got dp={dp}, tp={tp}")
+        self.dp, self.tp = int(dp), int(tp)
+        if dp * tp == 1:
+            self.dp_rank = self.tp_rank = 0
+            self.tp_group = None
+            return
+        if dp * tp != runtime.world_size:
+            raise ValueError(
+                f"dp*tp = {dp * tp} != world size {runtime.world_size}"
+            )
+        self.dp_rank, self.tp_rank = divmod(runtime.rank, tp)
+        self.tp_group = None
+        if 1 < tp < dp * tp:
+            key = (runtime.world_size, dp, tp)
+            if key not in _TP_GROUPS:
+                _TP_GROUPS[key] = [
+                    dist.new_group(ranks=[d * tp + t for t in range(tp)])
+                    for d in range(dp)
+                ]
+            self.tp_group = _TP_GROUPS[key][self.dp_rank]
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over this rank's tp group (the ``psum`` over 'tp')."""
+        if self.tp == 1:
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.tp_group)
+        return x
+
+    def tp_all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Concatenate the tp group's ``x`` along dim 0 in tp order (the
+        tiled ``all_gather`` over 'tp')."""
+        if self.tp == 1:
+            return x
+        out = torch.empty(
+            (self.tp * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device
+        )
+        _collective("all_gather_single", "all_gather_into_tensor")(
+            out, x.contiguous(), group=self.tp_group
+        )
+        return out

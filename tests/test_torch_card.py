@@ -117,6 +117,7 @@ FLASH_CASES = [
     (320, 320, 4, 2, 128, 0, True, 100),     # window at offset 0, GQA (K8b)
     (130, 70, 2, 1, 128, 0, False, 0),       # not causal, ragged
     (64, 64, 2, 2, 128, 100, True, 60),      # rows with an empty band
+    (16, 16, 16, 4, 128, 0, True, 0),        # a serve bucket below one tile, GQA
 ]
 FLASH_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
@@ -276,3 +277,146 @@ def test_flash_rejects_what_the_kernel_does_not_take(cuda_device):
         odd = torch.zeros((64, 2, dh), dtype=torch.bfloat16, device=cuda_device)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_forward(odd, odd, odd, scale=1.0)
+
+
+# -- decode attention (K11, K12) -------------------------------------------------
+#
+# Held against their plain versions within ``da.plain_gap_bound``: both sides
+# compute in float32 from the same dequantized operands, in other orders
+# (the score gap, two summation orders of at most S keys, exp, one output
+# rounding, all times max|v|). Uniform [-1, 1] inputs, and peaked ones
+# whose query is 4x the key at the sequence's own position, so |o| stays
+# near max|v| and a wrong score, scale, mask or page shows.
+
+from ddlb_tpu_torch.ops import decode_attention as da  # noqa: E402
+
+#: (b, S, h, h_kv, window, int8)
+DECODE_CASES = [
+    (4, 1000, 4, 4, 0, False),      # MHA, ragged positions
+    (3, 777, 8, 2, 0, False),       # GQA 4
+    (4, 1000, 16, 1, 0, False),     # MQA, G = 16
+    (4, 1000, 8, 4, 100, False),    # window
+    (4, 1000, 4, 4, 0, True),       # int8
+    (2, 513, 8, 1, 50, True),       # int8, G = 8, window
+]
+
+
+def _quantize(x):
+    s = (x.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-30)
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def _decode_inputs(b, S, h, h_kv, dh, dtype, int8, gen, device, peaked, pos):
+    k = _uniform((b, S, h_kv, dh), torch.float32, gen, device)
+    v = _uniform((b, S, h_kv, dh), torch.float32, gen, device)
+    if int8:
+        (k, ks), (v, vs) = _quantize(k), _quantize(v)
+        k_deq, v_deq = (k.float() * ks).to(dtype), (v.float() * vs).to(dtype)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        ks = vs = None
+        k_deq, v_deq = k, v
+    if peaked:
+        rows = k_deq[torch.arange(b, device=device), pos.clamp(max=S - 1).long()]
+        q = (4 * rows.float()).repeat_interleave(h // h_kv, dim=1).to(dtype)
+    else:
+        q = _uniform((b, h, dh), dtype, gen, device)
+    return q, k, v, ks, vs, float(k_deq.float().abs().max()), float(v_deq.float().abs().max())
+
+
+def _positions(b, S, gen, device):
+    pos = torch.randint(0, S, (b,), generator=gen, device=device).to(torch.int32)
+    pos[0] = 0
+    if b > 1:
+        pos[-1] = S  # a parked lane: every key live
+    return pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_kernel_within_bound(cuda_device, case, dtype, peaked):
+    b, S, h, h_kv, window, int8 = case
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    pos = _positions(b, S, gen, cuda_device)
+    q, k, v, ks, vs, kmax, vmax = _decode_inputs(
+        b, S, h, h_kv, 128, dtype, int8, gen, cuda_device, peaked, pos)
+    before = da.LAUNCHES["decode"]
+    got = da.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs, window=window)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode"] == before + 1
+    want = da.decode_attention_plain(q, k, v, pos, k_scale=ks, v_scale=vs, window=window)
+    assert got.shape == (b, h, 128) and got.dtype == dtype
+    bound = da.plain_gap_bound(q, kmax, vmax, got, want, n_terms=S)
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= bound).all()), float((gap - bound).max())
+
+
+def _paged(k, v, ks, vs, pos, ps, gen, device, extra_pages=3):
+    """A contiguous cache scattered into shuffled pool pages; entries past
+    each sequence's page of ``pos`` stay the sentinel; sequence 1 shares
+    sequence 0's first page (two slots on one page)."""
+    b, S = k.shape[:2]
+    mp = S // ps
+    P = b * mp + extra_pages
+    perm = torch.randperm(b * mp, generator=gen, device=device)
+    table = torch.full((b, mp), P, dtype=torch.int32, device=device)
+    pools = [torch.zeros((P, ps) + tuple(x.shape[2:]), dtype=x.dtype, device=device)
+             if x is not None else None for x in (k, v, ks, vs)]
+    for i in range(b):
+        for j in range(mp):
+            if j > int(pos[i]) // ps:
+                continue
+            page = int(perm[i * mp + j])
+            table[i, j] = page
+            for pool, x in zip(pools, (k, v, ks, vs)):
+                if pool is not None:
+                    pool[page] = x[i, j * ps:(j + 1) * ps]
+    if b > 1:
+        table[1, 0] = table[0, 0]
+    return pools, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_paged_decode_kernel_within_bound(cuda_device, case, dtype, peaked):
+    b, S, h, h_kv, window, int8 = case
+    ps = 64
+    S = S // ps * ps
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    pos = _positions(b, S, gen, cuda_device)
+    q, k, v, ks, vs, kmax, vmax = _decode_inputs(
+        b, S, h, h_kv, 128, dtype, int8, gen, cuda_device, peaked, pos)
+    (kp, vp, ksp, vsp), table = _paged(k, v, ks, vs, pos, ps, gen, cuda_device)
+    if b > 2:
+        table[2] = kp.shape[0]  # an all-sentinel row gives zeros
+    before = da.LAUNCHES["paged"]
+    got = da.paged_decode_attention(q, kp, vp, table, pos, k_scale=ksp,
+                                    v_scale=vsp, window=window)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["paged"] == before + 1
+    want = da.paged_decode_attention_plain(q, kp, vp, table, pos, k_scale=ksp,
+                                           v_scale=vsp, window=window)
+    bound = da.plain_gap_bound(q, kmax, vmax, got, want, n_terms=S)
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= bound).all()), float((gap - bound).max())
+    if b > 2:
+        assert bool((got[2] == 0).all())
+
+
+@pytest.mark.cuda
+def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((2, 4, 128), dtype=torch.bfloat16, device=cuda_device)
+    k = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k, 3)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                            k[..., :64].contiguous(), 3)
+    q6 = torch.zeros((2, 6, 128), dtype=torch.bfloat16, device=cuda_device)
+    k2 = torch.zeros((2, 64, 2, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        da.decode_attention(q6, k2, k2, 3)
