@@ -15,21 +15,29 @@ Phases, in order; any failure exits non-zero without the final line:
    forward, triangle and rectangle, at the attention path's shapes and at
    the serving path's prefill and admission shapes), K9 (the
    carried-chunk fold), K11 and K12 (single-token decode attention,
-   contiguous and paged);
+   contiguous and paged), K7 (the int8 GEMM, bit for bit at the GEMM
+   path's 8192^3, the decode and prefill MLP's shapes and ragged ones,
+   each output dtype);
 3. the main paths, each with the launch counts zeroed just before it and
    read just after, through the port's sweep runner (``run_benchmark``)
    with validation: both tensor-parallel families at m = n = k = 8192 bf16,
-   every member (K1 in the ``cuda`` rows); then ``cp_ring_attention`` at
-   m = 16384, n = 1024, k = 128 bf16, every member and option of
-   ``scripts/config_cp_ring_attention.json`` plus ``ring_flash`` and one
-   windowed GQA ``flash`` row (K8a, K8b, K9); then the serving path,
-   ``transformer_decode`` at the full width of
+   every member (K1 in the ``cuda`` rows); then the quantized path at the
+   same shape (``scripts/config_quantized.json``'s ``kernel`` x
+   ``quantize`` grid of every family's ``quantized`` member, and the
+   ``compute_only`` and ``pytorch`` members of ``dp_allreduce`` and
+   ``ep_alltoall``; K7 in the ``kernel=pallas`` rows); then
+   ``cp_ring_attention`` at m = 16384, n = 1024, k = 128 bf16, every member
+   and option of ``scripts/config_cp_ring_attention.json`` plus
+   ``ring_flash`` and one windowed GQA ``flash`` row (K8a, K8b, K9); then
+   the serving path, ``transformer_decode`` at the full width of
    ``scripts/config_transformer_decode.json`` (``SERVE_ROWS``: the decode
-   grid of ``config_serving_fast_decode.json``, prefill, generate, and the
-   serve entries of ``config_serving_paged.json``; K8a, K11, K12), one row
-   at a time with its launches checked exactly. Every row must be valid
-   with a finite time, and the counts must be exactly what the rows
-   launch;
+   grid of ``config_serving_fast_decode.json``, prefill, generate, the
+   serve entries of ``config_serving_paged.json``, and the int8 MLP rows:
+   the fast-decode config's ``int8_weights`` entry beside its bf16 twin,
+   ``int8_weights`` decode and prefill, an ``int8`` decode; K8a, K11,
+   K12, K7), one row at a time with its launches checked exactly. Every
+   row must be valid with a finite time, and the counts must be exactly
+   what the rows launch;
 4. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +65,7 @@ NUM_ITERATIONS = 10
 #: sheet) at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 #: the decode kernels at the serving path's shapes: batch 8, 16 heads of
 #: 128, a decode cache of m + 1 = 8193 positions, the serve pool's pages
@@ -158,6 +167,25 @@ GEMM_SWEEPS = {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{}],
         "cuda": [{}],
+    },
+}
+
+#: scripts/config_quantized.json's grid, for the quantized member of every
+#: GEMM family, and the other members of the data- and expert-parallel
+#: families (scripts/config_dp_allreduce.json, config_ep_alltoall.json)
+QUANT_GRID = {"kernel": ["xla", "pallas"], "quantize": ["static", "dynamic"]}
+QUANT_SWEEPS = {
+    "tp_columnwise": {"quantized": [QUANT_GRID]},
+    "tp_rowwise": {"quantized": [QUANT_GRID]},
+    "dp_allreduce": {
+        "compute_only": [{"size": ["sharded", "unsharded"]}],
+        "pytorch": [{"strategy": ["all_reduce", "rs_ag"]}],
+        "quantized": [QUANT_GRID],
+    },
+    "ep_alltoall": {
+        "compute_only": [{"size": ["sharded", "unsharded"]}],
+        "pytorch": [{}],
+        "quantized": [QUANT_GRID],
     },
 }
 
@@ -978,6 +1006,129 @@ def kernel_phase_decode(da, smi):
     return decode, paged
 
 
+# -- the int8 GEMM (K7) -----------------------------------------------------------
+
+
+#: K7's checks, bit for bit against its plain version: (m, n, k, output
+#: dtype, tag of a shape that is also timed). The GEMM path's 8192^3; the
+#: decode MLP's two products at batch 8 (the first into float32, before
+#: the activation); the int8 prefill MLP's at m = 8192 (65,536 rows);
+#: ragged and small shapes in every output dtype
+INT8_CHECKS = (
+    (PATH_MNK, PATH_MNK, PATH_MNK, "bfloat16", "gemm"),
+    (8, 8192, 2048, "float32", "decode_w1"),
+    (8, 2048, 8192, "bfloat16", "decode_w2"),
+    (65536, 8192, 2048, "float32", "prefill_w1"),
+    (65536, 2048, 8192, "bfloat16", "prefill_w2"),
+    (1, 200, 2048, "bfloat16", None),
+    (127, 200, 2048, "float16", None),
+    (1000, 776, 520, "float32", None),
+    (2048, 2048, 2048, "float16", None),
+    (129, 131, 7, "bfloat16", None),
+)
+#: timed iterations of (K7, its plain version, the library call) by tag
+INT8_TIMED = {
+    "gemm": (20, 2, 20),
+    "decode_w1": (100, 10, 0),
+    "decode_w2": (100, 10, 0),
+    "prefill_w1": (5, 1, 5),
+}
+
+
+def int8_bound(m, n, k, out_itemsize):
+    """(bound ms, bound_by) of one K7 call: 2mnk int8 operations over the
+    int8 tensor-core peak against the bytes it must move (both int8
+    operands and both scale vectors read once, the output written once)
+    over the memory rate."""
+    ops_ms = 2.0 * m * n * k / PEAK_INT8_OPS * 1e3
+    moved = m * k + k * n + 4 * (m + n) + m * n * out_itemsize
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_phase_int8(qm, smi):
+    """K7 against ``int8_matmul_plain`` at every shape of ``INT8_CHECKS``
+    (bit for bit: both sum the int8 products exactly and apply the same
+    epilogue), then the tagged shapes timed beside the plain version, the
+    library call (``torch._int_mm`` on a column-major weight, the layout
+    the ``kernel=xla`` rows keep, plus the same epilogue: ``int8_matmul``,
+    itself held bit for bit to the plain version; null where
+    ``torch._int_mm`` refuses the shape) and the bound. Returns K7's entry
+    of the ``kernels`` line."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    timed = {}
+    for m, n, k, dtype_name, tag in INT8_CHECKS:
+        out_dtype = getattr(torch, dtype_name)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
+        bq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+        sa = torch.rand((m, 1), generator=gen, device="cuda") * 2e-2 + 1e-4
+        sb = torch.rand((1, n), generator=gen, device="cuda") * 2e-2 + 1e-4
+        what = f"K7 {m}x{n}x{k} -> {dtype_name}"
+        got = qm.int8_matmul_kernel(aq, bq, sa, sb, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)
+        err = float((got.double() - want.double()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"{what}: {int((got != want).sum())} elements differ from the "
+                 f"plain version, max |err| {err}")
+        print(f"{what}: bit for bit equal to the plain version: ok")
+        del got, want
+        if tag is None:
+            continue
+        iters, plain_iters, lib_iters = INT8_TIMED.get(tag, (0, 0, 0))
+        if not iters:
+            continue
+        calls = {
+            "ms": lambda: qm.int8_matmul_kernel(aq, bq, sa, sb, out_dtype=out_dtype),
+            "plain_ms": lambda: qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype),
+        }
+        iterations = {"ms": iters, "plain_ms": plain_iters}
+        note = None
+        bq_col = bq.t().contiguous().t()
+        try:
+            lib = qm.int8_matmul(aq, bq_col, sa, sb, out_dtype=out_dtype)
+        except RuntimeError as exc:  # the library's own shape rule
+            note = f"null: torch._int_mm refuses m = {m} ({str(exc).splitlines()[0]})"
+        else:
+            if not torch.equal(lib, qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)):
+                fail(f"{what}: the library yardstick differs from the plain version")
+            del lib
+            calls["library_ms"] = lambda: qm.int8_matmul(aq, bq_col, sa, sb, out_dtype=out_dtype)
+            iterations["library_ms"] = lib_iters
+        times, turns = time_turns(calls, iterations)
+        times.setdefault("library_ms", None)
+        bound = int8_bound(m, n, k, torch.empty((), dtype=out_dtype).element_size())
+        print(f"K7 {tag} ({m}x{n}x{k} -> {dtype_name}): kernel {times['ms']!r} ms, "
+              f"library {times['library_ms']!r} ms, plain {times['plain_ms']!r} ms, "
+              f"bound {bound[0]!r} ms ({bound[1]}; {smi}); turns {turns}")
+        timed[tag] = {"shape": [m, n, k], "out": dtype_name, "max_abs_err": err,
+                      "ms": times["ms"],
+                      "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
+                      "bound_ms": bound[0], "bound_by": bound[1]}
+        if note:
+            timed[tag]["library_ms_note"] = note
+        del aq, bq, bq_col, sa, sb, calls
+        torch.cuda.empty_cache()
+    main = timed.pop("gemm")
+    return {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "ddlb_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "ddlb_tpu/ops/quantized_matmul.py:154",
+        "launches": None,
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_ms_note": "torch._int_mm on a column-major weight plus the epilogue",
+        "variants": timed,
+    }
+
+
 # -- the serving path -------------------------------------------------------------
 
 
@@ -1013,6 +1164,16 @@ SERVE_ROWS = [
          "cache_layout": "paged", "page_pool_frac": [0.5], "decode_kernel": "pallas",
          "dp": 1, "tp": 1, **SERVE_COMMON},
     ]}, 1, 3),
+    # the int8 MLP rows: the first entry of config_serving_fast_decode.json
+    # at its m = 2048 (einsum attention, int8 cache, int8_weights) beside
+    # its bf16-MLP twin; config_transformer_decode.json's int8_weights
+    # decode and prefill at m = 8192; one mlp_kernel=int8 decode
+    (2048, {"spmd": [{"phase": "decode", "attn_kernel": "einsum", "kv_cache": "int8",
+                      "mlp_kernel": ["int8_weights", "bf16"], **SERVE_COMMON}]}, 2, 8),
+    (8192, {"spmd": [{"phase": "decode", "mlp_kernel": ["int8_weights", "int8"],
+                      **SERVE_COMMON}]}, 2, 8),
+    (8192, {"spmd": [{"phase": "prefill", "mlp_kernel": "int8_weights",
+                      **SERVE_COMMON}]}, 1, 3),
 ]
 
 
@@ -1022,11 +1183,20 @@ def expected_serving_launches(row, calls):
     layer per flash prompt pass (the decode rows' set-up prefill, each
     prefill or generate call, each serve admission), K11 once a layer per
     pallas decode step, K12 once a layer per tick of a paged pallas
-    serve row; nothing else."""
+    serve row; with an int8 MLP, K7 twice a layer (the expert's two
+    products; one expert block at world 1) per forward: the set-up
+    prefill, every call and the memoised oracle of the validation;
+    nothing else."""
     o = row_options(row)
     L, phase = int(o["layers"]), o["phase"]
     flash = o["attn_kernel"] == "flash"
-    want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0}
+    want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
+            "int8": 0}
+    if o["mlp_kernel"] != "bf16":
+        forwards = {"decode": 1 + calls + 1, "prefill": calls + 1}.get(phase)
+        if forwards is None:
+            fail(f"no K7 launch rule for an int8 MLP in phase={phase}")
+        want["int8"] = 2 * L * forwards
     if phase == "decode":
         want["tri"] = L if flash else 0
         if o["decode_kernel"] == "pallas":
@@ -1041,7 +1211,7 @@ def expected_serving_launches(row, calls):
     return want
 
 
-def serving_path(run_benchmark, k1, fa, da, smi):
+def serving_path(run_benchmark, k1, fa, da, qm, smi):
     """Drive every serving row (one ``run_benchmark`` call per row, counts
     read around each), check each row's launches exactly, and print each
     row's time, ms per step, tokens/s and share of its ``hbm_bytes()``
@@ -1051,7 +1221,7 @@ def serving_path(run_benchmark, k1, fa, da, smi):
     from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
 
     def counts():
-        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES}
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
 
     rows = []
     total_start = counts()
@@ -1114,6 +1284,7 @@ def main():
         from ddlb_tpu_torch.ops import decode_attention as da
         from ddlb_tpu_torch.ops import flash_attention as fa
         from ddlb_tpu_torch.ops import matmul as k1
+        from ddlb_tpu_torch.ops import quantized_matmul as qm
     except ImportError as exc:
         fail(f"run from the root of a checkout of the repo ({exc})")
     # the port under test is the checkout's, never an installed copy
@@ -1130,7 +1301,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. kernels: build (one nvcc each, in parallel), check, time
-    libs = ("matmul", "flash_attention", "decode_attention")
+    libs = ("matmul", "flash_attention", "decode_attention", "quantized_matmul")
     t0 = time.perf_counter()
     _build.build(*libs)
     print(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -1142,11 +1313,13 @@ def main():
     forward_entry, chunk_entry = kernel_phase_flash(fa, smi)
     forward_entry["serving_prefill"] = kernel_phase_flash_serving(fa, smi)
     decode_entry, paged_entry = kernel_phase_decode(da, smi)
+    int8_entry = kernel_phase_int8(qm, smi)
     torch.cuda.empty_cache()
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     def reset():
         k1.LAUNCHES = 0
+        qm.LAUNCHES = 0
         fa.reset_launches()
         da.reset_launches()
 
@@ -1157,7 +1330,8 @@ def main():
     for primitive, implementations in GEMM_SWEEPS.items():
         rows += drive_path(run_benchmark, "cuda", primitive,
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
-    gemm_launches, others = k1.LAUNCHES, {**fa.LAUNCHES, **da.LAUNCHES}
+    gemm_launches, others = k1.LAUNCHES, {**fa.LAUNCHES, **da.LAUNCHES,
+                                          "int8": qm.LAUNCHES}
     cuda_rows = sum(1 for r in rows if r["base_implementation"] == "cuda")
     # each cuda row runs K1 once per warmup, per timed iteration and for
     # validation; no other row may launch it
@@ -1165,9 +1339,30 @@ def main():
     if gemm_launches != expected or gemm_launches == 0:
         fail(f"K1 launched {gemm_launches} times on the GEMM path, expected {expected}")
     if any(others.values()):
-        fail(f"attention kernels launched on the GEMM path: {others}")
+        fail(f"other kernels launched on the GEMM path: {others}")
     launches["gemm"] = {"k1": gemm_launches}
     print(f"GEMM path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    rows = []
+    for primitive, implementations in QUANT_SWEEPS.items():
+        rows += drive_path(run_benchmark, "cuda", primitive,
+                           (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
+        torch.cuda.empty_cache()
+    int8_launches = qm.LAUNCHES
+    others = {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES}
+    # each kernel=pallas row runs K7 once per warmup, per timed iteration
+    # and for validation; no kernel=xla row and no other member may
+    # launch it
+    pallas_rows = sum(1 for r in rows if r["base_implementation"] == "quantized"
+                      and row_options(r)["kernel"] == "pallas")
+    expected = pallas_rows * (NUM_WARMUPS + NUM_ITERATIONS + 1)
+    if int8_launches != expected or int8_launches == 0:
+        fail(f"K7 launched {int8_launches} times on the quantized path, expected {expected}")
+    if any(others.values()):
+        fail(f"other kernels launched on the quantized path: {others}")
+    launches["quantized"] = {"int8": int8_launches}
+    print(f"quantized path done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
     rows = []
@@ -1175,21 +1370,22 @@ def main():
         rows += drive_path(run_benchmark, "cuda", "cp_ring_attention",
                            (ATTN_M, ATTN_N, ATTN_K), implementations)
         torch.cuda.empty_cache()
-    flash_launches, others = dict(fa.LAUNCHES), {**da.LAUNCHES, "k1": k1.LAUNCHES}
+    flash_launches = dict(fa.LAUNCHES)
+    others = {**da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
     expected = expected_flash_launches(rows)
     if flash_launches != expected or not all(flash_launches.values()):
         fail(f"flash kernels launched {flash_launches} on the attention "
              f"path, expected {expected}")
     if any(others.values()):
-        fail(f"K1 or the decode kernels launched on the attention path: {others}")
+        fail(f"K1, K7 or the decode kernels launched on the attention path: {others}")
     launches["attention"] = flash_launches
     print(f"attention path done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
-    serving_launches, _ = serving_path(run_benchmark, k1, fa, da, smi)
+    serving_launches, _ = serving_path(run_benchmark, k1, fa, da, qm, smi)
     if not (serving_launches["decode"] and serving_launches["paged"]
-            and serving_launches["tri"]):
-        fail(f"the serving path did not launch K11, K12 and K8a: {serving_launches}")
+            and serving_launches["tri"] and serving_launches["int8"]):
+        fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
@@ -1205,8 +1401,12 @@ def main():
     chunk_entry["launches"] = total("chunk")
     decode_entry["launches"] = total("decode")
     paged_entry["launches"] = total("paged")
+    int8_entry["launches"] = total("int8")
+    int8_entry["launches_by_path"] = {
+        "quantized": launches["quantized"]["int8"], "serving": serving_launches["int8"],
+    }
     print(json.dumps({"kernels": [matmul_entry, forward_entry, chunk_entry,
-                                  decode_entry, paged_entry]}))
+                                  decode_entry, paged_entry, int8_entry]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -34,8 +34,7 @@ whose page is the sentinel, leaves the cache as it was (the JAX
 
 Not ported: the speculative-verify chunk (``make_chunk_decode_fn``, t > 1
 cached steps), ``make_speculate_fn``, sampling at ``temperature > 0``,
-the full-width ``make_full_width_fns`` of the GSPMD member, and the int8
-MLP modes.
+and the full-width ``make_full_width_fns`` of the GSPMD member.
 """
 
 from __future__ import annotations
@@ -50,6 +49,7 @@ from ddlb_tpu_torch.models.transformer import (
     TransformerConfig,
     apply_rope,
     causal_attention,
+    ffn_scales,
     flash_full,
     moe_ffn,
     rms_norm,
@@ -368,7 +368,7 @@ def routed_moe(h2d, params, cfg: TransformerConfig, l, B, dp, tp):
             sl = slice((i0 + e * g) * per_seq, (i0 + (e + 1) * g) * per_seq)
             u[sl] = moe_ffn(
                 h2d[sl], params["moe_w1"][0, l, e], params["moe_w2"][0, l, e],
-                cfg.mlp_kernel, h2d.dtype,
+                cfg.mlp_kernel, h2d.dtype, scales=ffn_scales(params, l, e, cfg),
             )
     return u
 
@@ -381,7 +381,7 @@ def block_moe(h2d, params, l, cfg: TransformerConfig, mesh):
     blk = h2d[mesh.tp_rank * g:(mesh.tp_rank + 1) * g]
     z = moe_ffn(
         blk, params["moe_w1"][0, l, 0], params["moe_w2"][0, l, 0],
-        cfg.mlp_kernel, h2d.dtype,
+        cfg.mlp_kernel, h2d.dtype, scales=ffn_scales(params, l, 0, cfg),
     )
     return mesh.tp_all_gather_rows(z)
 

@@ -3,20 +3,25 @@ them.
 
 The port of the forward subset of the JAX package's
 ``models/transformer.py``: ``TransformerConfig`` (:47), ``init_params``
-(:184, the bf16 MLP), the per-rank slicing that ``param_specs`` (:235)
-expresses, ``apply_rope`` (:285), ``_rms_norm`` (:307),
-``_causal_attention`` (:313), ``_flash_full`` (:426, on the port's own
-flash kernels K8a/K8b), ``_moe_ffn`` (:474, bf16) and ``example_tokens``
-(:1224). The training step, the ring attention and the learned routers
-are not ported.
+(:184, with the pre-quantized expert weights of ``int8_weights``), the
+per-rank slicing that ``param_specs`` (:235) expresses, ``apply_rope``
+(:285), ``_rms_norm`` (:307), ``_causal_attention`` (:313),
+``_flash_full`` (:426, on the port's own flash kernels K8a/K8b),
+``_moe_ffn`` (:474, every ``mlp_kernel``; the int8 GEMMs on K7) and
+``example_tokens`` (:1224). The training step (with the straight-through
+backward of ``mlp_kernel=int8``), the ring attention and the learned
+routers are not ported.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 stage-stacked on a leading ``pp = 1`` axis, ``w_qkv [1, L, 3, D, D]``
 (MHA) or ``w_q [1, L, D, D]`` + ``w_kv [1, L, 2, D, kv_dim]`` (GQA),
 ``w_o [1, L, D, D]``, ``moe_w1 [1, L, E, D, F]``, ``moe_w2 [1, L, E, F,
-D]``, norms, ``embed [V, D]`` and ``head [D, V]``. One rank's slice over
-a ``(dp, tp)`` mesh keeps its tp block of the q/k/v columns and of the
-``w_o`` rows and its one expert (``shard_params``).
+D]``, norms, ``embed [V, D]`` and ``head [D, V]``; under
+``mlp_kernel='int8_weights'`` the two expert weights are int8 with float32
+``moe_w1_scale [1, L, E, 1, F]`` and ``moe_w2_scale [1, L, E, 1, D]``.
+One rank's slice over a ``(dp, tp)`` mesh keeps its tp block of the q/k/v
+columns and of the ``w_o`` rows and its one expert with its scales
+(``shard_params``).
 
 Rounding. Products take operands in the model dtype and sum in float32
 (``torch.matmul``; on the card cuBLAS, as XLA does). Where the JAX
@@ -24,7 +29,9 @@ package keeps a float32 product for a later step, the port does the
 same for the logits (a float32 product), and otherwise rounds the
 product to the model dtype first: the attention output projection is
 rounded before its tp sum (which then runs in float32), and the first
-MLP product before the activation. In float32 the two packages compute
+MLP product before the activation (on the int8 branches the first
+product comes out of the int8 GEMM in float32 and reaches the activation
+unrounded, as in the JAX package). In float32 the two packages compute
 the same function; in bf16 these extra roundings are within the
 family's logits tolerance.
 """
@@ -39,6 +46,12 @@ import torch
 import torch.nn.functional as F
 
 from ddlb_tpu_torch.ops.flash_attention import flash_attention
+from ddlb_tpu_torch.ops.quantized_matmul import (
+    int8_matmul_kernel,
+    quantize_colwise,
+    quantize_rowwise,
+    quantize_weight_stack,
+)
 from ddlb_tpu_torch.primitives.base import _tensor_from_numpy
 
 LN_EPS = 1e-6
@@ -63,8 +76,10 @@ class TransformerConfig:
     layers_per_stage: int = 1
     #: prefill attention engine: "flash" (K8a/K8b) or "einsum"
     attn_kernel: str = "flash"
-    #: "bf16" (the MLP in the model dtype); "int8", "int8_weights" are
-    #: not yet ported
+    #: "bf16" (the MLP in the model dtype); "int8" (both operands of each
+    #: expert GEMM quantized at every call, the int8 GEMM K7);
+    #: "int8_weights" (expert weights quantized once by ``init_params``,
+    #: activations per call)
     mlp_kernel: str = "bf16"
     #: sliding-window span (0 = full causal)
     attn_window: int = 0
@@ -108,14 +123,12 @@ class TransformerConfig:
         return self.kv_heads * self.head_dim
 
 
+MLP_KERNELS = ("bf16", "int8", "int8_weights")
+
+
 def check_mlp_kernel(mlp_kernel: str) -> None:
-    """Raise unless the port carries ``mlp_kernel``."""
-    if mlp_kernel in ("int8", "int8_weights"):
-        raise ValueError(
-            f"mlp_kernel='{mlp_kernel}' is not yet ported to ddlb_tpu_torch "
-            "(it comes with the int8 GEMM, K7)"
-        )
-    if mlp_kernel != "bf16":
+    """Raise unless ``mlp_kernel`` is one of ``MLP_KERNELS``."""
+    if mlp_kernel not in MLP_KERNELS:
         raise ValueError(f"unknown mlp_kernel '{mlp_kernel}'")
 
 
@@ -125,7 +138,9 @@ def init_params(
     """Seeded host parameters (CPU tensors in ``cfg.dtype``): the JAX
     package's draws (``rng.normal`` in float64, in the same order), bit
     for bit in float32. For a half dtype the float64 draw is rounded to
-    float32 first, then to the dtype."""
+    float32 first, then to the dtype. Under ``int8_weights`` the expert
+    weights are then quantized per output feature (JAX :222-231, an
+    eager call there, hence ``eager=True``)."""
     check_mlp_kernel(cfg.mlp_kernel)
     rng = np.random.default_rng(seed)
     D, Fd, L, V = cfg.d_model, cfg.d_ff, cfg.layers_per_stage, cfg.vocab
@@ -154,15 +169,31 @@ def init_params(
     else:
         params["w_q"] = normal((pp, L, D, D), s_in)
         params["w_kv"] = normal((pp, L, 2, D, cfg.kv_dim), s_in)
+    if cfg.mlp_kernel == "int8_weights":
+        for name in ("moe_w1", "moe_w2"):
+            params[name], params[f"{name}_scale"] = quantize_weight_stack(
+                params[name], eager=True
+            )
     return params
+
+
+def _leaf_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
+    """A parameter's dtype: the int8 expert weights and their float32
+    scales under ``int8_weights``, ``cfg.dtype`` for every other leaf."""
+    if name.endswith("_scale"):
+        return torch.float32
+    if cfg.mlp_kernel == "int8_weights" and name in ("moe_w1", "moe_w2"):
+        return torch.int8
+    return cfg.dtype
 
 
 def params_from_numpy(params, cfg: TransformerConfig, device="cuda") -> Params:
     """A JAX parameter dict pulled to the host (``{name: np.ndarray}``,
     bf16 as ml_dtypes' bfloat16) as this package's parameters, bit for
-    bit, in ``cfg.dtype`` on ``device``."""
+    bit, on ``device``: each in ``cfg.dtype``, except the int8 expert
+    weights and their float32 scales."""
     return {
-        name: _tensor_from_numpy(arr).to(device).to(cfg.dtype)
+        name: _tensor_from_numpy(arr).to(device).to(_leaf_dtype(name, cfg))
         for name, arr in params.items()
     }
 
@@ -172,7 +203,8 @@ def shard_params(params: Params, cfg: TransformerConfig, tp: int,
     """One tp rank's slice of the full parameters, as the JAX package's
     ``param_specs`` (:235-282) shard them over 'tp': the rank's block of
     the q/k/v projection columns (heads) and of the output-projection
-    rows, and its one expert; everything else whole. Views, no copies."""
+    rows, and its one expert with its int8 scales; everything else whole.
+    Views, no copies."""
     if tp == 1:
         return dict(params)
 
@@ -182,8 +214,9 @@ def shard_params(params: Params, cfg: TransformerConfig, tp: int,
     D = cfg.d_model
     out = dict(params)
     out["w_o"] = params["w_o"][:, :, tp_rank * D // tp:(tp_rank + 1) * D // tp]
-    out["moe_w1"] = params["moe_w1"][:, :, tp_rank:tp_rank + 1]
-    out["moe_w2"] = params["moe_w2"][:, :, tp_rank:tp_rank + 1]
+    for name in ("moe_w1", "moe_w2", "moe_w1_scale", "moe_w2_scale"):
+        if name in params:
+            out[name] = params[name][:, :, tp_rank:tp_rank + 1]
     if "w_qkv" in params:
         out["w_qkv"] = cols(params["w_qkv"], D // tp)
     else:
@@ -261,14 +294,47 @@ def flash_full(q, k, v, window: int = 0) -> torch.Tensor:
     return o.reshape(S, b, h, dh).transpose(0, 1)
 
 
+def ffn_scales(params: Params, l: int, e: int, cfg: TransformerConfig):
+    """Expert e's ``(w1_scale, w2_scale)`` at layer l under
+    ``int8_weights``, else None (JAX ``decode._ffn_scales``)."""
+    if cfg.mlp_kernel != "int8_weights":
+        return None
+    return params["moe_w1_scale"][0, l, e], params["moe_w2_scale"][0, l, e]
+
+
 def moe_ffn(tokens2d: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-            mlp_kernel: str, out_dtype: torch.dtype) -> torch.Tensor:
-    """One expert's FFN on a ``[T, D]`` slab (:474, the bf16 branch):
-    ``gelu`` (tanh form, JAX's default) of the first product, then the
-    second."""
+            mlp_kernel: str, out_dtype: torch.dtype, scales=None) -> torch.Tensor:
+    """One expert's FFN on a ``[T, D]`` slab (:474): ``gelu`` (tanh form,
+    JAX's default) of the first product, then the second.
+
+    ``int8``: each product quantizes its activation per row and its
+    weight per column and runs the int8 GEMM (K7); ``int8_weights``: the
+    weights are the pre-quantized int8 leaves with ``scales`` = ``(w1_scale,
+    w2_scale)``, the activations are quantized per row. On both int8
+    branches the first product comes out in float32 and is rounded to
+    ``out_dtype`` only after the activation. Per-row and per-column
+    scales are local to a row or a column, so the result of a row does
+    not depend on how rows are batched: the sharded step and the oracle
+    agree exactly.
+    """
     check_mlp_kernel(mlp_kernel)
-    z = F.gelu(torch.matmul(tokens2d, w1).float(), approximate="tanh")
-    return torch.matmul(z.to(out_dtype), w2).to(out_dtype)
+    if mlp_kernel == "bf16":
+        z = F.gelu(torch.matmul(tokens2d, w1).float(), approximate="tanh")
+        return torch.matmul(z.to(out_dtype), w2).to(out_dtype)
+    if mlp_kernel == "int8":
+        (w1, s1), (w2, s2) = quantize_colwise(w1), quantize_colwise(w2)
+    elif scales is None:
+        raise ValueError(
+            "mlp_kernel='int8_weights' needs the (w1_scale, w2_scale) pair "
+            "that init_params emits beside the int8 weights"
+        )
+    else:
+        s1, s2 = scales
+    qx, sx = quantize_rowwise(tokens2d)
+    z = F.gelu(int8_matmul_kernel(qx, w1, sx, s1, out_dtype=torch.float32),
+               approximate="tanh").to(out_dtype)
+    qz, sz = quantize_rowwise(z)
+    return int8_matmul_kernel(qz, w2, sz, s2, out_dtype=out_dtype)
 
 
 def example_tokens(batch: int, seq: int, vocab: int,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import contextlib
 import logging
 from abc import ABC, abstractmethod
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -255,12 +255,16 @@ class Primitive(ABC):
             _EXPECTED_MEMO[key] = a.astype(acc) @ b.astype(acc)
         return _EXPECTED_MEMO[key]
 
-    def _compare(self, result: torch.Tensor, want: np.ndarray) -> bool:
-        """``result`` against ``want`` under the reference rule (rtol=0,
-        ``validation_atol``)."""
+    def _compare(
+        self, result: torch.Tensor, want: np.ndarray, atol: Optional[float] = None
+    ) -> bool:
+        """``result`` against ``want`` at rtol=0 and ``atol``: by default
+        the reference rule (``validation_atol``); the quantized members
+        pass ``quantization_atol(k)``."""
         host_dtype = torch.float64 if want.dtype == np.float64 else torch.float32
         got = result.detach().to("cpu", host_dtype).numpy()
-        atol = validation_atol(self.dtype, self.k)
+        if atol is None:
+            atol = validation_atol(self.dtype, self.k)
         if got.shape == want.shape and np.allclose(got, want, rtol=0.0, atol=atol):
             return True
         err = (
@@ -275,13 +279,16 @@ class Primitive(ABC):
         )
         return False
 
-    def _compare_rows(self, result: torch.Tensor, expected: np.ndarray) -> bool:
+    def _compare_rows(
+        self, result: torch.Tensor, expected: np.ndarray,
+        atol: Optional[float] = None,
+    ) -> bool:
         """A sequence-sharded result (this rank's ``m/d`` rows) against its
         row block of the full oracle ``expected``: the per-rank counterpart
         of the JAX package's ``_compare_global``."""
         rows = expected.shape[0] // self.num_partitions
         return self._compare(
-            result, expected[self.rank * rows:(self.rank + 1) * rows]
+            result, expected[self.rank * rows:(self.rank + 1) * rows], atol
         )
 
     def __repr__(self) -> str:
@@ -294,7 +301,9 @@ class Primitive(ABC):
 
 class ComputeOnlyKSharded:
     """Compute-only roofline shared by the k-contracted families
-    (``tp_rowwise``): ``sharded`` times one rank's partial GEMM
+    (``tp_rowwise``, ``dp_allreduce``; ``ep_alltoall`` keeps the size
+    schema and validation with its own operands): ``sharded`` times one
+    rank's partial GEMM
     ``[m, k/d] @ [k/d, n]`` (validation skipped: partial sums are not the
     answer), ``unsharded`` the full product on one device. Mixin, combined
     with the family base."""

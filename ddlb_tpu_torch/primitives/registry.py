@@ -1,11 +1,12 @@
 """String -> implementation-class resolution for the runner and the CLI.
 
-Covers the families this port carries so far. The tensor-parallel GEMM
-members follow the upstream project (samnordmann/ddlb): ``pytorch`` is the
+Covers the families this port carries so far. The GEMM members follow
+the upstream project (samnordmann/ddlb): ``pytorch`` is the
 explicit-collective member (the JAX package's ``jax_spmd``), ``cuda`` the
-hand-kernel member (the JAX package's ``pallas``). The context-parallel
-attention members keep their JAX names. A family or member of the JAX
-package that has no counterpart here yet raises ``ValueError`` saying so.
+tensor-parallel families' hand-kernel member (the JAX package's
+``pallas``). ``quantized`` and the context-parallel attention members keep
+their JAX names. A family or member of the JAX package that has no
+counterpart here yet raises ``ValueError`` saying so.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import importlib
 from typing import Tuple, Type
 
 ALLOWED_PRIMITIVES = (
-    "tp_columnwise", "tp_rowwise", "cp_ring_attention", "transformer_decode",
+    "tp_columnwise", "tp_rowwise", "dp_allreduce", "cp_ring_attention",
+    "ep_alltoall", "transformer_decode",
 )
 
 _REGISTRY = {
@@ -31,6 +33,10 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.tp_columnwise.cuda_impl",
             "CudaTPColumnwise",
         ),
+        "quantized": (
+            "ddlb_tpu_torch.primitives.tp_columnwise.quantized",
+            "QuantizedTPColumnwise",
+        ),
     },
     "tp_rowwise": {
         "compute_only": (
@@ -45,6 +51,26 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.tp_rowwise.cuda_impl",
             "CudaTPRowwise",
         ),
+        "quantized": (
+            "ddlb_tpu_torch.primitives.tp_rowwise.quantized",
+            "QuantizedTPRowwise",
+        ),
+    },
+    "dp_allreduce": {
+        name: (f"ddlb_tpu_torch.primitives.dp_allreduce.{name}", cls)
+        for name, cls in (
+            ("compute_only", "ComputeOnlyDPAllReduce"),
+            ("pytorch", "PyTorchDPAllReduce"),
+            ("quantized", "QuantizedDPAllReduce"),
+        )
+    },
+    "ep_alltoall": {
+        name: (f"ddlb_tpu_torch.primitives.ep_alltoall.{name}", cls)
+        for name, cls in (
+            ("compute_only", "ComputeOnlyEPAllToAll"),
+            ("pytorch", "PyTorchEPAllToAll"),
+            ("quantized", "QuantizedEPAllToAll"),
+        )
     },
     "cp_ring_attention": {
         name: (f"ddlb_tpu_torch.primitives.cp_ring_attention.{name}", cls)
@@ -71,15 +97,16 @@ _REGISTRY = {
 
 #: families of the JAX package that the port does not carry yet
 _NOT_PORTED_FAMILIES = (
-    "dp_allreduce",
-    "ep_alltoall",
     "pp_pipeline",
     "transformer_step",
     "collectives",
     "serving_load",
 )
-#: members of the ported families that the port does not carry yet
-_NOT_PORTED_MEMBERS = ("xla_gspmd", "overlap", "quantized")
+#: members of the ported families that the port does not carry yet: the
+#: GSPMD and overlap members, and the data- and expert-parallel families'
+#: topology compositions and ring-kernel ``pallas`` members (K3, K6)
+_NOT_PORTED_MEMBERS = ("xla_gspmd", "overlap", "jax_spmd_hier", "jax_spmd_striped")
+_NOT_PORTED_PALLAS = ("dp_allreduce", "ep_alltoall")
 #: JAX package member name -> this package's name for the same member
 _RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda"}
 
@@ -94,7 +121,9 @@ def load_impl_class(primitive: str, name: str) -> Type:
     check_primitive(primitive)
     table = _REGISTRY[primitive]
     if name not in table:
-        if name in _NOT_PORTED_MEMBERS:
+        if name in _NOT_PORTED_MEMBERS or (
+            name == "pallas" and primitive in _NOT_PORTED_PALLAS
+        ):
             raise ValueError(
                 f"Implementation '{name}' of {primitive} is not yet ported "
                 f"to ddlb_tpu_torch. Available: {sorted(table)}"

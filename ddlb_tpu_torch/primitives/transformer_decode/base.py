@@ -10,9 +10,10 @@ fill a decode step is measured at, or the prompt length), ``n`` d_model,
 ``k`` d_ff. ``phase``: ``decode`` one cached step at position m (the
 cache prefilled once at set-up), ``prefill`` the prompt pass, ``generate``
 prefill + greedy steps, ``serve`` a drain of the continuous-batching
-engine. The option schema is the JAX package's, value for value; values
-whose path is not ported (``phase=speculate``, ``mlp_kernel=int8`` and
-``int8_weights``) raise "not yet ported".
+engine. The option schema is the JAX package's, value for value; the one
+value whose path is not ported, ``phase=speculate``, raises "not yet
+ported". ``mlp_kernel=int8|int8_weights`` run the experts' GEMMs on the
+int8 kernel K7.
 
 Validation pins the step's logits to the single-device teacher-forced
 oracle (``models/decode.reference_logits``), generated tokens to its
@@ -46,10 +47,7 @@ _HOST_PARAMS_KEEP = 2
 #: oracle logits by (config, tokens, mesh, seed), one per process
 _ORACLE_MEMO: Dict[tuple, np.ndarray] = {}
 
-_NOT_PORTED = {
-    "phase": ("speculate",),
-    "mlp_kernel": ("int8", "int8_weights"),
-}
+_NOT_PORTED = {"phase": ("speculate",)}
 
 
 class TransformerDecode(Primitive):
@@ -266,7 +264,7 @@ class TransformerDecode(Primitive):
         memoised: every rank and the oracle start from them."""
         cfg = self._model_config()
         key = (cfg.vocab, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.d_ff,
-               cfg.layers_per_stage, cfg.dtype, tp, self.seed)
+               cfg.layers_per_stage, cfg.dtype, cfg.mlp_kernel, tp, self.seed)
         if key not in _HOST_PARAMS:
             while len(_HOST_PARAMS) >= _HOST_PARAMS_KEEP:
                 _HOST_PARAMS.pop(next(iter(_HOST_PARAMS)))
@@ -344,8 +342,9 @@ class TransformerDecode(Primitive):
     def validate(self, result) -> bool:
         """Logits (decode, prefill) against the oracle at the same position
         on this rank's rows, rtol 0 and atol 1e-4 (f32) or 2e-2 (half),
-        at least 1e-2 with an int8 cache; generated tokens and served
-        completions against the oracle's greedy chains."""
+        2.5 times that with an int8 MLP in half precision, at least 1e-2
+        with an int8 cache; generated tokens and served completions
+        against the oracle's greedy chains."""
         self.runtime.synchronize()
         phase = self.options["phase"]
         if phase == "serve":
@@ -355,6 +354,11 @@ class TransformerDecode(Primitive):
         got = result.float().cpu().numpy()
         expected = self._oracle_logits().astype(np.float32)[self._dp_rows()]
         atol = 1e-4 if self.dtype == "float32" else 2e-2
+        if self.options["mlp_kernel"] != "bf16" and self.dtype != "float32":
+            # half-precision noise upstream of the MLP can flip an int8
+            # rounding at a quantization boundary: up to a quantization
+            # step between the step and the oracle (JAX :420-430)
+            atol *= 2.5
         if self.options["kv_cache"] == "int8":
             atol = max(atol, 1e-2)
         if got.shape != expected.shape:

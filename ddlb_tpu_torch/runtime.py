@@ -9,10 +9,11 @@ than one rank the default process group is opened once per process: NCCL
 on the card, gloo on the CPU, rendezvous through ``MASTER_ADDR`` /
 ``MASTER_PORT`` (``env://``). At world 1 no group exists and every
 collective below is the identity: the all-gather and reduce-scatter of
-rows, the ring hop (``batch_isend_irecv``) and the head/sequence
-all-to-all (``all_to_all_single``). ``Runtime.mesh(dp, tp)`` places the
-rank in a ``(dp, tp)`` mesh (``Mesh``) whose tp sub-group carries the
-serving model's sum and all-gather.
+rows, the sum all-reduce, the ring hop (``batch_isend_irecv``), and the
+row and head/sequence all-to-alls (``all_to_all_single``).
+``Runtime.mesh(dp, tp)`` places the rank in a ``(dp, tp)`` mesh
+(``Mesh``) whose tp sub-group carries the serving model's sum and
+all-gather.
 """
 
 from __future__ import annotations
@@ -126,6 +127,27 @@ class Runtime:
         _collective("reduce_scatter_single", "reduce_scatter_tensor")(
             out, x.contiguous()
         )
+        return out
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over ranks; every rank gets the whole sum."""
+        if self.world_size == 1:
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x)
+        return x
+
+    def all_to_all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Row block j of ``x`` (``d`` equal blocks along dim 0) goes to
+        rank j; block i of the result came from rank i (the tiled
+        ``all_to_all`` with split and concat axis 0)."""
+        d = self.world_size
+        if d == 1:
+            return x
+        if x.shape[0] % d:
+            raise ValueError(f"{x.shape[0]} rows do not split over {d} ranks")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous())
         return out
 
     def ring_shift(self, *tensors: torch.Tensor):

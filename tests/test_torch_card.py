@@ -420,3 +420,77 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     k2 = torch.zeros((2, 64, 2, 128), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="query heads per kv head"):
         da.decode_attention(q6, k2, k2, 3)
+
+
+# -- the int8 GEMM (K7) ----------------------------------------------------------
+#
+# Bit for bit: K7 and its plain version both sum the int8 products exactly
+# (int32 in the kernel, float64 in the plain version) and apply the same
+# epilogue, (float)acc * sa * sb rounded once to the output dtype.
+
+from ddlb_tpu_torch.ops import quantized_matmul as qm  # noqa: E402
+
+#: (m, n, k): ragged edges (one row, odd widths, k not a multiple of 16 or
+#: of the 64-byte k step), the decode MLP's two products and a square tile
+INT8_SHAPES = [
+    (1, 200, 64), (127, 200, 2048), (37, 77, 40), (129, 131, 7), (3, 16, 0),
+    (8, 8192, 2048), (8, 2048, 8192), (1024, 1024, 1024),
+]
+INT8_OUT = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _int8_operands(m, n, k, gen, device):
+    aq = torch.randint(-127, 128, (m, k), generator=gen, device=device).to(torch.int8)
+    bq = torch.randint(-127, 128, (k, n), generator=gen, device=device).to(torch.int8)
+    sa = torch.rand((m, 1), generator=gen, device=device) * 2e-2 + 1e-4
+    sb = torch.rand((1, n), generator=gen, device=device) * 2e-2 + 1e-4
+    return aq, bq, sa, sb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", INT8_OUT)
+@pytest.mark.parametrize("m,n,k", INT8_SHAPES)
+def test_int8_kernel_bit_equal_to_plain(cuda_device, m, n, k, out_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    ops = _int8_operands(m, n, k, gen, cuda_device)
+    before = qm.LAUNCHES
+    got = qm.int8_matmul_kernel(*ops, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES == before + 1
+    want = qm.int8_matmul_plain(*ops, out_dtype=out_dtype)
+    assert got.shape == (m, n) and got.dtype == out_dtype
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    aq, bq, sa, sb = _int8_operands(64, 64, 64, gen, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_matmul_kernel(aq.t(), bq, sa, sb)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_matmul_kernel(aq, bq.t().contiguous().t(), sa, sb)
+    with pytest.raises(ValueError, match="int8 operands"):
+        qm.int8_matmul_kernel(aq.float(), bq, sa, sb)
+    with pytest.raises(ValueError, match="float32"):
+        qm.int8_matmul_kernel(aq, bq, sa.half(), sb)
+    with pytest.raises(ValueError, match="operands on"):
+        qm.int8_matmul_kernel(aq, bq.cpu(), sa, sb)
+    with pytest.raises(ValueError, match="overflow"):
+        big = torch.zeros((1, qm.MAX_K + 1), dtype=torch.int8, device=cuda_device)
+        qm.int8_matmul_kernel(big, big.t().contiguous(), sa[:1], sb[:, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "family", ["tp_columnwise", "tp_rowwise", "dp_allreduce", "ep_alltoall"]
+)
+def test_quantized_member_runs_k7_and_validates(cuda_device, family):
+    impl = load_impl_class(family, "quantized")(
+        1024, 512, 768, dtype="bfloat16", kernel="pallas", quantize="dynamic"
+    )
+    assert impl.device.type == "cuda"
+    before = qm.LAUNCHES
+    result = impl.run()
+    assert qm.LAUNCHES == before + 1
+    assert impl.validate(result)

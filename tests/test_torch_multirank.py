@@ -1,11 +1,14 @@
 """The port's sharding logic on a real 2-rank gloo world.
 
 At world 1 every collective is the identity, so this is the test of the
-split, the all-gather, the reduce-scatter, the ring hop and the all-to-all:
-two ranks are spawned (never forked: the parent has JAX and torch threads),
-each builds every member at d = 2 on the CPU, and the parent checks each
-rank's output against the numpy product (or the numpy causal attention) of
-the same seeded operands.
+split, the all-gather, the reduce-scatter, the all-reduce, the ring hop and
+the all-to-alls: two ranks are spawned (never forked: the parent has JAX
+and torch threads), each builds every member at d = 2 on the CPU, and the
+parent checks each rank's output against the numpy product (the numpy
+routed product, the numpy causal attention) of the same seeded operands,
+or, for the quantized members, bit for bit against the JAX member on a
+two-device mesh of the CPU simulation (both quantize the same shards; a
+sum of two float32 partials rounds once in gloo and in XLA alike).
 """
 
 import multiprocessing as mp
@@ -32,6 +35,14 @@ CASES = [
     ("tp_rowwise", "pytorch", {}),
     ("tp_rowwise", "cuda", {}),
     ("tp_rowwise", "compute_only", {"size": "sharded"}),
+    ("dp_allreduce", "pytorch", {"strategy": "all_reduce"}),
+    ("dp_allreduce", "pytorch", {"strategy": "rs_ag"}),
+    ("ep_alltoall", "pytorch", {}),
+    ("ep_alltoall", "compute_only", {"size": "sharded"}),
+] + [
+    (family, "quantized", {"kernel": kernel, "quantize": quantize})
+    for family in ("tp_columnwise", "tp_rowwise", "dp_allreduce", "ep_alltoall")
+    for kernel, quantize in (("xla", "static"), ("pallas", "dynamic"))
 ]
 
 #: cp_ring_attention at seq 64, 4 heads of 16 (32 rows a rank)
@@ -109,13 +120,43 @@ def _rank_main(rank, port, results):
             dist.destroy_process_group()
 
 
+def _expected_quantized(case_index, rank):
+    """The JAX member on a two-device mesh: this rank's block of its rows
+    (all of them where the family replicates its result)."""
+    import jax
+
+    from ddlb_tpu.primitives.registry import load_impl_class as load_jax
+
+    family, name, opts = CASES[case_index]
+    mesh = jax.make_mesh((WORLD,), ("tp",), devices=jax.devices()[:WORLD])
+    full = np.asarray(load_jax(family, name)(M, N, K, dtype="float32", mesh=mesh,
+                                             **opts).run())
+    if family in ("tp_columnwise", "dp_allreduce"):
+        return full
+    rows = M // WORLD
+    return full[rank * rows:(rank + 1) * rows]
+
+
 def _expected(case_index, rank):
+    family, name, opts = CASES[case_index]
+    if name == "quantized":
+        return _expected_quantized(case_index, rank)
     rng = np.random.default_rng(42)  # the primitives' default seed
     a = rng.uniform(-1.0, 1.0, (M, K)).astype(np.float32)
-    b = rng.uniform(-1.0, 1.0, (K, N)).astype(np.float32)
-    family, name, opts = CASES[case_index]
-    full = a @ b
     rows, kd = M // WORLD, K // WORLD
+    if family == "ep_alltoall":
+        # expert e's weight [k, n] after the tokens; group e of each rank's
+        # tokens through expert e
+        w = rng.uniform(-1.0, 1.0, (WORLD, K, N)).astype(np.float32)
+        g = M // WORLD**2
+        if name == "compute_only":
+            return a[:rows] @ w[0]
+        mine = a[rank * rows:(rank + 1) * rows].reshape(WORLD, g, K)
+        return np.concatenate([mine[e] @ w[e] for e in range(WORLD)])
+    b = rng.uniform(-1.0, 1.0, (K, N)).astype(np.float32)
+    full = a @ b
+    if family == "dp_allreduce":
+        return full
     if family == "tp_columnwise":
         # sharded compute_only: one rank's [m/d, k] @ [k, n] as rank 0 holds it
         return full[:rows] if name == "compute_only" else full
@@ -190,7 +231,11 @@ def test_two_rank_gloo_world():
                 i, dtype = key
                 case, want = CASES[i], _expected(i, rank)
             assert valid, (rank, case, dtype)
-            if output is not None:
+            if output is not None and case[1] == "quantized":
+                np.testing.assert_array_equal(
+                    output, want, err_msg=f"rank {rank} case {case}"
+                )
+            elif output is not None:
                 np.testing.assert_allclose(
                     output, want, rtol=1e-5, atol=1e-5,
                     err_msg=f"rank {rank} case {case}",

@@ -223,11 +223,13 @@ def test_runtime_on_cpu_world_of_one():
     "primitive,name,match",
     [
         ("tp_columnwise", "overlap", "not yet ported"),
-        ("tp_rowwise", "quantized", "not yet ported"),
+        ("tp_rowwise", "xla_gspmd", "not yet ported"),
         ("tp_columnwise", "jax_spmd", "counterpart is 'pytorch'"),
         ("tp_rowwise", "pallas", "counterpart is 'cuda'"),
         ("tp_columnwise", "nope", "Unknown implementation"),
-        ("dp_allreduce", "jax_spmd", "not yet ported"),
+        ("dp_allreduce", "jax_spmd", "counterpart is 'pytorch'"),
+        ("dp_allreduce", "pallas", "not yet ported"),
+        ("pp_pipeline", "jax_spmd", "not yet ported"),
         ("bogus", "pytorch", "Unknown primitive"),
     ],
 )

@@ -20,6 +20,12 @@ activation, the attention output projection before its tp sum). Logits
 and cache values within 4e-2 (5 bf16 ulps at magnitudes below 4; measured
 up to 0.024), int8 payloads within 2 quantization steps and their scales
 within 1%.
+
+The int8 MLP modes (``mlp_kernel=int8|int8_weights``): the int8 leaves and
+their scales bit for bit; logits in float32 within the family's 1e-4, in
+bfloat16 within its 2e-2 times 2.5, the JAX family's rule for an int8 MLP
+in half precision (a half-precision difference upstream of the MLP can
+move a value across a quantization boundary; measured up to 0.032).
 """
 
 import numpy as np
@@ -483,8 +489,8 @@ def test_decode_iterations_are_identical():
         (dict(page_size=64), "no effect"),
         (dict(page_pool_frac=0.5), "no effect"),
         (dict(phase="speculate"), "not yet ported"),
-        (dict(mlp_kernel="int8"), "not yet ported"),
-        (dict(mlp_kernel="int8_weights"), "not yet ported"),
+        (dict(mlp_kernel="int8", phase="speculate"), "not yet ported"),
+        (dict(mlp_kernel="int8_weights", phase="speculate"), "not yet ported"),
         (dict(phase="bogus"), "not in allowed values"),
         (dict(page_pool_frac=2.0), "outside allowed range"),
         (dict(nope=1), "Unknown option"),
@@ -494,6 +500,21 @@ def test_option_errors(options, match):
     cls = load_impl_class("transformer_decode", "spmd")
     with pytest.raises(ValueError, match=match):
         cls(M, N, K, dtype="float32", device="cpu", **{**COMMON, **options})
+
+
+def test_int8_mlp_rows_through_the_runner():
+    """Both int8 MLP modes, decode and prefill, valid; the experts' int8
+    GEMMs take K7's plain version on the CPU and launch nothing."""
+    from ddlb_tpu_torch.ops import quantized_matmul as qm
+
+    before = qm.LAUNCHES
+    rows = run_benchmark(_row_config({"spmd": [dict(
+        phase=["decode", "prefill"], mlp_kernel=["int8", "int8_weights"],
+        **COMMON)]}, dtype="bfloat16"))
+    assert len(rows) == 4
+    for row in rows:
+        assert row["valid"] and not row["error"], (row["option"], row["error"])
+    assert qm.LAUNCHES == before
 
 
 def test_dtype_and_compute_only_errors():
@@ -553,3 +574,65 @@ def test_counts_match_jax():
         theirs._serve_workload = lambda t=theirs: JaxTD._serve_workload(t)
         assert ours.flops() == JaxTD.flops(theirs)
         assert ours.hbm_bytes() == pytest.approx(JaxTD.hbm_bytes(theirs), rel=1e-12)
+
+
+# -- the int8 MLP modes ----------------------------------------------------------
+
+INT8_ATOL = {"float32": 1e-4, "bfloat16": 2e-2 * 2.5}
+
+
+def test_init_params_int8_weights_match_jax_bit_for_bit():
+    """The int8 expert weights and their float32 scales, drawn and
+    quantized by the port, are the JAX package's leaves."""
+    jc, tc, jp, carried = _pair("bfloat16", tp=2, mlp_kernel="int8_weights")
+    ours = tmodel.init_params(tc, pp=1, n_experts=2, seed=0)
+    assert sorted(ours) == sorted(jp)
+    for name in ("moe_w1", "moe_w2"):
+        assert ours[name].dtype == carried[name].dtype == torch.int8
+        assert ours[f"{name}_scale"].dtype == torch.float32
+        assert ours[f"{name}_scale"].shape == (1, 2, 2, 1, ours[name].shape[-1])
+    for name in ours:
+        assert torch.equal(ours[name], carried[name]), name
+    for r in range(2):
+        mine = tmodel.shard_params(carried, tc, 2, r)
+        for name in ("moe_w1", "moe_w2", "moe_w1_scale", "moe_w2_scale"):
+            assert torch.equal(mine[name][:, :, 0], carried[name][:, :, r]), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mlp_kernel", ["int8", "int8_weights"])
+def test_int8_mlp_prefill_and_decode_match_jax(mlp_kernel, dtype):
+    jc, tc, jp, tp_ = _pair(dtype, mlp_kernel=mlp_kernel)
+    B, S, S_max = 4, 16, 24
+    toks = _tokens(B, S + 1)
+    mesh, tm = _mesh(), Runtime("cpu").mesh(1, 1)
+    jcache = jdec.init_cache(jc, B, S_max, mesh)
+    jprefill, _ = jdec.make_prefill_fn(mesh, jc)
+    jdecode, _ = jdec.make_decode_fn(mesh, jc)
+    jl, jcache = jax.jit(jprefill)(jp, jcache, jnp.asarray(toks[:, :S]))
+    tcache = tdec.init_cache(tc, B, S_max, tm, "cpu")
+    tl, tcache = tdec.make_prefill_fn(tm, tc)(tp_, tcache, torch.from_numpy(toks[:, :S]))
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=0, atol=INT8_ATOL[dtype])
+    jl, _ = jax.jit(jdecode)(jp, jcache, jnp.asarray(toks[:, S]), jnp.int32(S))
+    tl, _ = tdec.make_decode_fn(tm, tc)(tp_, tcache, torch.from_numpy(toks[:, S]), S)
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=0, atol=INT8_ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mlp_kernel", ["int8", "int8_weights"])
+def test_int8_mlp_reference_logits_match_jax(mlp_kernel, dtype):
+    """The oracle over a (2, 2) routing: every expert's scales travel."""
+    jc, tc, jp, tp_ = _pair(dtype, tp=2, mlp_kernel=mlp_kernel)
+    toks = _tokens(8, 20)
+    want = jdec.reference_logits(jp, toks, jc, tp=2, dp=2)
+    got = tdec.reference_logits(tp_, torch.from_numpy(toks), tc, tp=2, dp=2)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=INT8_ATOL[dtype])
+
+
+def test_int8_weights_needs_its_scales():
+    tc = tmodel.TransformerConfig(**WIDTH, mlp_kernel="int8_weights")
+    params = tmodel.init_params(tc, pp=1, n_experts=1)
+    x = torch.zeros((3, WIDTH["d_model"]))
+    with pytest.raises(ValueError, match="w1_scale, w2_scale"):
+        tmodel.moe_ffn(x, params["moe_w1"][0, 0, 0], params["moe_w2"][0, 0, 0],
+                       "int8_weights", torch.float32)
