@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero without the final line:
    carried-chunk fold), K11 and K12 (single-token decode attention,
    contiguous and paged), K7 (the int8 GEMM, bit for bit at the GEMM
    path's 8192^3, the decode and prefill MLP's shapes and ragged ones,
-   each output dtype);
+   each output dtype), K10a-K10d (the flash backward's dQ and dK/dV
+   passes, triangle and rectangle, within ``backward_gap_bound`` at the
+   training path's shapes and ragged, GQA, offset, past, diagonal and
+   windowed cases; each pass timed beside SDPA's backward);
 3. the main paths, each with the launch counts zeroed just before it and
    read just after, through the port's sweep runner (``run_benchmark``)
    with validation: both tensor-parallel families at m = n = k = 8192 bf16,
@@ -35,9 +38,16 @@ Phases, in order; any failure exits non-zero without the final line:
    serve entries of ``config_serving_paged.json``, and the int8 MLP rows:
    the fast-decode config's ``int8_weights`` entry beside its bf16 twin,
    ``int8_weights`` decode and prefill, an ``int8`` decode; K8a, K11,
-   K12, K7), one row at a time with its launches checked exactly. Every
-   row must be valid with a finite time, and the counts must be exactly
-   what the rows launch;
+   K12, K7), one row at a time with its launches checked exactly; then
+   the training path, ``transformer_step`` one row at a time
+   (``training_rows``: ``scripts/config_transformer_step.json``'s ``spmd``
+   and ``compute_only`` entries, the full width of
+   ``scripts/config_router.json``'s first entry with the block router,
+   train and forward, the same train with ``attn_window=1024``, and an
+   ``mlp_kernel=int8`` train row; K8a, K8b, K9, K10a-K10d, K7), with each
+   row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
+   be valid with a finite time, and the counts must be exactly what the
+   rows launch;
 4. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +82,9 @@ PEAK_BYTES_PER_S = 3.35e12
 DECODE_B, DECODE_H, DECODE_DH, DECODE_S = 8, 16, 128, 8193
 PAGE_SIZE, SERVE_PAGES = 128, 17
 OUT_DIR = os.path.join("results", "chip_smoke")
+#: the flash backward's launch counts: the dQ and dK/dV passes of the
+#: triangle (K10a, K10b) and of the rectangle (K10c, K10d)
+BWD_KEYS = ("bwd_dq_tri", "bwd_dkv_tri", "bwd_dq_rect", "bwd_dkv_rect")
 
 
 def fail(message):
@@ -256,7 +269,7 @@ def expected_flash_launches(rows):
     """Kernel launches the attention rows make: one per warmup, per timed
     iteration and for validation, in the case each row takes at world 1."""
     per_row = NUM_WARMUPS + NUM_ITERATIONS + 1
-    want = {"tri": 0, "rect": 0, "chunk": 0}
+    want = {"tri": 0, "rect": 0, "chunk": 0, **dict.fromkeys(BWD_KEYS, 0)}
     for row in rows:
         base, opts = row["base_implementation"], row_options(row)
         if base == "ring_flash":
@@ -1191,7 +1204,7 @@ def expected_serving_launches(row, calls):
     L, phase = int(o["layers"]), o["phase"]
     flash = o["attn_kernel"] == "flash"
     want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
-            "int8": 0}
+            "int8": 0, **dict.fromkeys(BWD_KEYS, 0)}
     if o["mlp_kernel"] != "bf16":
         forwards = {"decode": 1 + calls + 1, "prefill": calls + 1}.get(phase)
         if forwards is None:
@@ -1269,6 +1282,350 @@ def serving_path(run_benchmark, k1, fa, da, qm, smi):
     return {key: end[key] - total_start[key] for key in end}, rows
 
 
+# -- the flash backward (K10a-K10d) -------------------------------------------
+
+
+#: K10 at the training path's shapes, bf16 (sequence, merged query heads,
+#: kv heads, window): scripts/config_transformer_step.json's rows (8 heads
+#: of 128 times the microbatch's 4 or 2 rows), the full-width rows (16 heads
+#: times 4) and the full-width windowed row
+TRAIN_BWD_SHAPES = ((2048, 32, 32, 0), (2048, 16, 16, 0), (4096, 64, 64, 0),
+                    (4096, 64, 64, 1024))
+#: further cases: (sq, skv, h, h_kv, row_offset, col_offset, mode, window, dtype)
+BWD_EXTRA = (
+    (1000, 1000, 8, 8, 0, 0, "offset", 0, "bfloat16"),      # ragged triangle
+    (2048, 2048, 8, 2, 0, 0, "offset", 0, "bfloat16"),      # GQA 8/2 triangle
+    (1024, 2048, 8, 2, 1024, 0, "offset", 0, "bfloat16"),   # an offset, GQA
+    (1024, 1024, 8, 8, 3072, 1024, "past", 0, "bfloat16"),  # a past ring chunk
+    (1024, 1024, 8, 8, 1024, 1024, "diagonal", 0, "float16"),
+    (777, 1500, 4, 2, 723, 0, "offset", 300, "bfloat16"),   # ragged, window
+    (1000, 1000, 8, 2, 0, 0, "offset", 256, "float16"),
+    (1024, 1024, 4, 4, 0, 0, "offset", 0, "float32"),
+    (700, 900, 4, 2, 650, 100, "offset", 200, "float32"),
+)
+
+
+def backward_forward(fa, q, k, v, row_offset, col_offset, mode, window):
+    """o and lse of the span as the forward hands them to the backward (the
+    plain forward, so that the check isolates the backward)."""
+    scale = q.shape[2] ** -0.5
+    if mode in ("past", "none"):
+        return fa.flash_forward_plain(q, k, v, scale=scale, causal=False)
+    rel = 0 if mode == "diagonal" else row_offset - col_offset
+    return fa.flash_forward_plain(q, k, v, scale=scale, row_offset=rel, window=window)
+
+
+def check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, row_offset,
+                         col_offset, mode, window):
+    """K10 against ``flash_backward_plain`` on the card, on uniform inputs
+    and on peaked ones (q = 4 k at the query's own key), each within
+    ``fa.backward_gap_bound``: the score gap, the dP summation order, the
+    rounding of P and dS to the operand type before the tensor-core
+    products and two float32 summation orders, each scaled by the
+    magnitudes the plain tile loop sums. Returns (max |err| over dq, dk,
+    dv and both inputs, the uniform inputs, keyword arguments)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    dh = DECODE_DH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    kw = {"scale": dh ** -0.5, "row_offset": row_offset, "col_offset": col_offset,
+          "causal": mode, "window": window}
+    what = (f"flash backward {mode} {sq}x{skv} h={h}/{h_kv} "
+            f"off={row_offset}/{col_offset} w={window} {dtype_name}")
+    uniform = uniform_inputs(sq, skv, h, h_kv, dh, dtype, gen)
+    peaked = peaked_inputs(sq, skv, h, h_kv, dh, dtype, gen, row_offset - col_offset)
+    do = (torch.rand((sq, h, dh), generator=gen, device="cuda") * 2 - 1).to(dtype)
+    errs, first = [], None
+    for name, (q, k, v) in (("uniform", uniform), ("peaked", peaked)):
+        o, lse = backward_forward(fa, q, k, v, row_offset, col_offset, mode, window)
+        got = fa.flash_backward(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_backward_plain(q, k, v, o, lse, do, **kw)
+        bounds = fa.backward_gap_bound(q, k, v, o, lse, do, want, **kw)
+        parts = []
+        for grad, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+            err = (g - w).abs()
+            bad = int((err > b).sum())
+            max_err = float(err.max())
+            if not math.isfinite(max_err) or bad:
+                fail(f"{what}, {name} inputs: {bad} entries of {grad} beyond "
+                     f"backward_gap_bound, max |err| {max_err}")
+            loose = float((w.abs() < b).float().mean())
+            parts.append(f"{grad} max |err| {max_err!r} (largest bound "
+                         f"{float(b.max())!r}, median |{grad}| "
+                         f"{float(w.abs().median())!r}, share below its bound {loose!r})")
+            errs.append(max_err)
+        print(f"{what}, {name} inputs: " + "; ".join(parts) + ": ok")
+        if first is None:
+            first = (q, k, v, o, lse, do)
+        del got, want, bounds
+    return max(errs), first, kw
+
+
+def backward_bound(fa, sq, skv, h, h_kv, dh, itemsize, row_offset, col_offset,
+                   mode, window, pass_):
+    """(bound ms, bound_by) of one backward pass at these inputs: 6 dh
+    (dQ: S, dP, dS K) or 8 dh (dK/dV: S, dP, P^T dO, dS^T Q) operations per
+    live pair and query head over the bf16 peak (the f32 SIMT peak for
+    float32), against the bytes it must move (q, k, v, dO read once, lse and
+    delta read once, dq or dk and dv written in float32) over the memory
+    rate."""
+    if mode in ("past", "none"):
+        pairs = sq * skv
+    else:
+        rel = 0 if mode == "diagonal" else row_offset - col_offset
+        pairs = fa.live_pairs(sq, skv, rel, 0, True, window)
+    ops = (6 if pass_ == "dq" else 8) * dh * pairs * h
+    moved = (2 * sq * h + 2 * skv * h_kv) * dh * itemsize + 2 * h * sq * 4
+    moved += sq * h * dh * 4 if pass_ == "dq" else 2 * skv * h_kv * dh * 4
+    peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    ops_ms = ops / peak * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def time_backward(fa, inputs, kw, smi, what):
+    """Each pass timed with CUDA events beside the plain backward (both
+    passes) and SDPA's backward, taken as SDPA forward plus backward through
+    autograd less SDPA forward, causal (``is_causal``) or with the band as
+    a boolean mask. Returns ({pass: ms}, plain ms, library ms or None, note)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, o, lse, do = inputs
+    sq, h, dh = q.shape
+    skv, h_kv = k.shape[0], k.shape[1]
+    delta = fa.attention_delta(o, do)
+    dq = torch.empty((sq, h, dh), dtype=torch.float32, device="cuda")
+    dk = torch.empty((skv, h_kv, dh), dtype=torch.float32, device="cuda")
+    dv = torch.empty_like(dk)
+    group = h // h_kv
+    qt = q.transpose(0, 1).contiguous()[None].requires_grad_(True)
+    kt, vt = (x.transpose(0, 1).repeat_interleave(group, 0).contiguous()[None]
+              .requires_grad_(True) for x in (k, v))
+    dot = do.transpose(0, 1).contiguous()[None]
+    sdpa_kw = {"scale": kw["scale"]}
+    if kw["window"]:
+        pos_q = kw["row_offset"] + torch.arange(sq, device="cuda")[:, None]
+        pos_k = kw["col_offset"] + torch.arange(skv, device="cuda")[None, :]
+        sdpa_kw["attn_mask"] = (pos_k <= pos_q) & (pos_k > pos_q - kw["window"])
+        note = "SDPA with the band as a boolean mask"
+    else:
+        sdpa_kw["is_causal"] = True
+        note = "SDPA with is_causal"
+    note += ("; forward plus backward through autograd less the forward; it "
+             "computes dq, dk and dv together, so it stands beside the dQ "
+             "pass and compares with the sum of both passes")
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+    calls = {
+        "dq": lambda: fa.backward_pass("dq", q, k, v, do, lse, delta, (dq,), **kw),
+        "dkv": lambda: fa.backward_pass("dkv", q, k, v, do, lse, delta, (dk, dv), **kw),
+        "plain": lambda: fa.flash_backward_plain(q, k, v, o, lse, do, **kw),
+        "sdpa_fwd": sdpa_fwd,
+        "sdpa_fwd_bwd": sdpa_fwd_bwd,
+    }
+    iterations = {"dq": 10, "dkv": 10, "plain": 1, "sdpa_fwd": 10, "sdpa_fwd_bwd": 10}
+    try:
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+    except RuntimeError as exc:  # the yardstick only: no SDPA backend took it
+        note = f"null: SDPA's backward refused these inputs ({str(exc).splitlines()[0]})"
+        del calls["sdpa_fwd"], calls["sdpa_fwd_bwd"]
+    times, turns = time_turns(calls, iterations)
+    library = None
+    if "sdpa_fwd" in times:
+        library = times["sdpa_fwd_bwd"] - times["sdpa_fwd"]
+    print(f"{what}: dQ pass {times['dq']!r} ms, dK/dV pass {times['dkv']!r} ms, "
+          f"plain (both) {times['plain']!r} ms, SDPA backward {library!r} ms "
+          f"({smi}); turns {turns}")
+    del qt, kt, vt, dot, sdpa_kw
+    return {"dq": times["dq"], "dkv": times["dkv"]}, times["plain"], library, note
+
+
+def kernel_phase_flash_backward(fa, smi):
+    """K10a-K10d against ``flash_backward_plain`` at the training path's
+    shapes and at the cases of ``BWD_EXTRA`` (ragged shapes, GQA 8/2, an
+    offset, a past and a diagonal chunk, windows, fp16 and f32), each on
+    uniform and peaked inputs; then each pass timed at the full-width
+    shape (the triangle) and at the windowed row's (the rectangle) beside
+    its bound, the plain version and SDPA's backward. Returns the four
+    entries of the ``kernels`` line."""
+    import torch
+
+    dh = DECODE_DH
+    errs, timed_inputs = {"tri": [], "rect": []}, {}
+    for s, h, h_kv, window in TRAIN_BWD_SHAPES:
+        case = "rect" if window else "tri"
+        err, inputs, kw = check_flash_backward(fa, s, s, h, h_kv, "bfloat16", 0, 0,
+                                               "offset", window)
+        errs[case].append(err)
+        if s == 4096:
+            timed_inputs[case] = (inputs, kw)
+        del inputs
+        torch.cuda.empty_cache()
+    for sq, skv, h, h_kv, ro, co, mode, window, dtype_name in BWD_EXTRA:
+        case, _, _ = fa.backward_case(sq, skv, ro, co, mode, window)
+        err, _, _ = check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, ro, co,
+                                         mode, window)
+        errs[case].append(err)
+    entries = []
+    for case, (dq_line, dkv_line) in (("tri", (706, 741)), ("rect", (624, 664))):
+        inputs, kw = timed_inputs[case]
+        q, k = inputs[0], inputs[1]
+        what = (f"K10{'a/b' if case == 'tri' else 'c/d'} {case} at {q.shape[0]} x "
+                f"{q.shape[1]} heads of {dh}, window {kw['window']}")
+        times, plain_ms, library_ms, note = time_backward(fa, inputs, kw, smi, what)
+        for pass_, line in (("dq", dq_line), ("dkv", dkv_line)):
+            bound = backward_bound(fa, q.shape[0], k.shape[0], q.shape[1], k.shape[1],
+                                   dh, 2, 0, 0, "offset", kw["window"], pass_)
+            print(f"{what} {pass_}: bound {bound[0]!r} ms ({bound[1]}; {smi})")
+            entry = {
+                "name": f"flash_backward_{pass_}" + (" (rect)" if case == "rect" else ""),
+                "route": "cuda",
+                "source": "ddlb_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"ddlb_tpu/ops/flash_attention.py:{line}",
+                "launches": None,
+                "max_abs_err": max(errs[case]),
+                "ms": times[pass_],
+                "plain_ms": plain_ms,
+                "bound_ms": bound[0],
+                "bound_by": bound[1],
+                "library_ms": library_ms if pass_ == "dq" else None,
+                "plain_ms_note": "flash_backward_plain, both passes",
+                "library_ms_note": note if pass_ == "dq" else (
+                    "null: SDPA's backward stands beside the dQ pass of the same case"),
+            }
+            entries.append(entry)
+        del inputs
+        timed_inputs[case] = None
+        torch.cuda.empty_cache()
+    return entries
+
+
+# -- the training path --------------------------------------------------------------
+
+
+#: the training path's rows, each (shape, implementations, warmups,
+#: iterations): scripts/config_transformer_step.json's spmd and compute_only
+#: entries as shipped (its xla_gspmd entry is not ported); the full width
+#: of scripts/config_router.json's first entry with router=block (train and
+#: its forward twin, then train with attn_window=1024); one
+#: mlp_kernel=int8 train row at the first config's shape
+TRAIN_CONFIG = os.path.join("scripts", "config_transformer_step.json")
+ROUTER_CONFIG = os.path.join("scripts", "config_router.json")
+TRAIN_WARMUPS, TRAIN_ITERATIONS = 1, 3
+
+
+def training_rows():
+    with open(TRAIN_CONFIG) as f:
+        cfg = json.load(f)["benchmark"]
+    shape = (cfg["m"][0], cfg["n"][0], cfg["k"][0])
+    impls = {name: blocks for name, blocks in cfg["implementations"].items()
+             if name in ("spmd", "compute_only")}
+    spmd = impls["spmd"][0]
+    with open(ROUTER_CONFIG) as f:
+        router = json.load(f)["benchmark"]
+    wide_shape = (router["m"][0], router["n"][0], router["k"][0])
+    wide = {key: value for key, value in router["implementations"][0].items()
+            if key != "name"}
+    wide.update(router=["block"], mode=["train", "forward"])
+    windowed = dict(wide, mode=["train"], attn_window=[1024])
+    int8 = {key: value for key, value in spmd.items()}
+    int8.update(microbatches=[2], attention=["gathered"], mlp_kernel=["int8"])
+    return [
+        (shape, impls),
+        (wide_shape, {"spmd": [wide]}),
+        (wide_shape, {"spmd": [windowed]}),
+        (shape, {"spmd": [int8]}),
+    ]
+
+
+def expected_training_launches(row, calls):
+    """The kernel launches one training row makes in ``calls`` measured
+    calls at world 1 (one stage, so each of the ``microbatches`` ticks runs
+    every layer once): per layer and tick, the flash forward (K8a, or K8b
+    under a window that cuts the band, or K9 under ring attention) once in
+    the forward and once more when the backward recomputes the stage
+    (``torch.utils.checkpoint``), and each backward pass once (K10a/K10b,
+    or K10c/K10d under a window); an int8 MLP runs K7 twice a layer and
+    tick in each of the two forwards, and twice a layer and microbatch in
+    the row's one oracle loss. compute_only rows launch nothing."""
+    o = row_options(row)
+    want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
+            "int8": 0, **dict.fromkeys(BWD_KEYS, 0)}
+    if row["base_implementation"] == "compute_only":
+        if o["mlp_kernel"] != "bf16":
+            fail("no launch rule for a compute_only row with an int8 MLP")
+        return want
+    L, mb = int(o["layers_per_stage"]), int(o["microbatches"])
+    train = o["mode"] == "train"
+    passes = 2 if train else 1
+    per_call = mb * L * calls
+    window = int(o["attn_window"])
+    if o["attention"] == "ring":
+        windowed, forward = window > 0, "chunk"
+    else:
+        windowed = 0 < window < row["m"]
+        forward = "rect" if windowed else "tri"
+    if o["attn_kernel"] == "flash":
+        want[forward] = passes * per_call
+        if train:
+            case = "rect" if windowed else "tri"
+            want[f"bwd_dq_{case}"] = want[f"bwd_dkv_{case}"] = per_call
+    if o["mlp_kernel"] == "int8":
+        want["int8"] = 2 * passes * per_call + 2 * L * mb
+    return want
+
+
+def training_path(run_benchmark, k1, fa, da, qm, smi):
+    """Drive every training row (one ``run_benchmark`` call per row, counts
+    read around each), check each row's launches exactly, and print each
+    row's ms per step, tokens/s and model-FLOPs utilisation (``flops()``
+    over the time at the bf16 peak). Returns the launch totals of the
+    path."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
+
+    def counts():
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
+
+    total_start = counts()
+    for shape, impls in training_rows():
+        for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
+            name = spec.pop("implementation")
+            before = counts()
+            (row,) = drive_path(run_benchmark, "cuda", "transformer_step", shape,
+                                {name: [spec]}, warmups=TRAIN_WARMUPS,
+                                iterations=TRAIN_ITERATIONS)
+            after = counts()
+            got = {key: after[key] - before[key] for key in after}
+            want = expected_training_launches(
+                row, TRAIN_WARMUPS + TRAIN_ITERATIONS + 1)
+            if got != want:
+                fail(f"training row {name} {row['option']}: launches {got}, "
+                     f"expected {want}")
+            o = row_options(row)
+            ms = row["median time (ms)"]
+            tokens = int(o["batch"]) * row["m"]
+            print(json.dumps({
+                "training_row": o["mode"], "member": name, "shape": list(shape),
+                "option": row["option"], "ms_per_step": ms,
+                "tokens_per_s": tokens / (ms / 1e3),
+                "tflops": row["Throughput (TFLOPS)"],
+                "mfu": row["Throughput (TFLOPS)"] * 1e12 / PEAK_BF16_FLOPS,
+                "launches": {key: n for key, n in got.items() if n}, "card": smi,
+            }))
+            torch.cuda.empty_cache()
+    end = counts()
+    return {key: end[key] - total_start[key] for key in end}
+
+
 def main():
     try:
         import torch
@@ -1314,6 +1671,8 @@ def main():
     forward_entry["serving_prefill"] = kernel_phase_flash_serving(fa, smi)
     decode_entry, paged_entry = kernel_phase_decode(da, smi)
     int8_entry = kernel_phase_int8(qm, smi)
+    torch.cuda.empty_cache()
+    backward_entries = kernel_phase_flash_backward(fa, smi)
     torch.cuda.empty_cache()
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1373,7 +1732,8 @@ def main():
     flash_launches = dict(fa.LAUNCHES)
     others = {**da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
     expected = expected_flash_launches(rows)
-    if flash_launches != expected or not all(flash_launches.values()):
+    if flash_launches != expected or not all(
+            flash_launches[key] for key in ("tri", "rect", "chunk")):
         fail(f"flash kernels launched {flash_launches} on the attention "
              f"path, expected {expected}")
     if any(others.values()):
@@ -1388,6 +1748,15 @@ def main():
         fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    training_launches = training_path(run_benchmark, k1, fa, da, qm, smi)
+    missing = [key for key in ("tri", "rect", "chunk", "int8", *BWD_KEYS)
+               if not training_launches[key]]
+    if missing:
+        fail(f"the training path did not launch {missing}: {training_launches}")
+    launches["training"] = training_launches
+    print(f"training path done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
 
     # 4. results
@@ -1404,9 +1773,13 @@ def main():
     int8_entry["launches"] = total("int8")
     int8_entry["launches_by_path"] = {
         "quantized": launches["quantized"]["int8"], "serving": serving_launches["int8"],
+        "training": training_launches["int8"],
     }
+    for entry, key in zip(backward_entries, BWD_KEYS):
+        entry["launches"] = total(key)
     print(json.dumps({"kernels": [matmul_entry, forward_entry, chunk_entry,
-                                  decode_entry, paged_entry, int8_entry]}))
+                                  decode_entry, paged_entry, int8_entry,
+                                  *backward_entries]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,10 +2,11 @@
 prompt prefill, greedy generation and the teacher-forced oracle.
 
 The port of the JAX package's ``models/decode.py``. One process is one
-rank of a ``(dp, tp)`` mesh (``runtime.Mesh``) and runs the body that the
+rank of a ``(dp, tp, 1)`` mesh (``runtime.Mesh``) and runs the body that the
 JAX package runs under ``shard_map``: its batch shard (over dp), its heads
 and its one expert (over tp), with the ``psum`` over 'tp' as
-``Mesh.tp_sum`` and the MoE ``all_gather`` as ``Mesh.tp_all_gather_rows``.
+``Mesh.axis_sum`` over 'tp' and the MoE ``all_gather`` as
+``Mesh.tp_all_gather_rows``.
 
 - ``init_cache`` / ``init_paged_cache``: this rank's cache, ``[L, B/dp,
   S_max, H_kv/tp, dh]`` (contiguous) or a pool ``[L, P, page_size,
@@ -390,7 +391,7 @@ def _out_proj(attn, params, l, x, mesh):
     """``x + psum_tp(attn @ w_o)``: the product rounded to the model dtype,
     summed over tp in float32, cast back."""
     part = torch.matmul(attn, params["w_o"][0, l])
-    return x + mesh.tp_sum(part.float()).to(x.dtype)
+    return x + mesh.axis_sum(part.float(), "tp").to(x.dtype)
 
 
 def _logits(h, params):

@@ -1,13 +1,26 @@
-"""K8a, K8b and K9: the flash attention forward and the carried-chunk fold,
-written by hand in CUDA C++ for Hopper.
+"""K8a, K8b, K9 and K10a-K10d: the flash attention forward, the
+carried-chunk fold and the flash backward, written by hand in CUDA C++ for
+Hopper.
 
 Replaces, in ``ddlb_tpu/ops/flash_attention.py``:
 - the forward ``_flash_forward`` (:433) with its two Pallas kernels, the
   triangular ``_flash_kernel_tri`` (:373, K8a) and the rectangular
-  ``_flash_kernel`` (:96, K8b): here ``flash_forward`` and
-  ``flash_attention``, one CUDA entry point (``ddlb_flash_forward``);
+  ``_flash_kernel`` (:96, K8b): here ``flash_forward``, one CUDA entry
+  point (``ddlb_flash_forward``);
 - ``flash_attention_chunk`` (:211, ``_flash_chunk_kernel`` :146, K9): here
-  ``flash_attention_chunk`` (``ddlb_flash_chunk``).
+  ``flash_attention_chunk`` (``ddlb_flash_chunk``);
+- the backward ``flash_attention_bwd`` (:781) with its four Pallas kernels,
+  the triangular dQ and dK/dV kernels (:706 K10a, :741 K10b) and the
+  rectangular ones (:624 K10c, :664 K10d): here ``flash_backward``, two
+  CUDA entry points (``ddlb_flash_bwd_dq``, ``ddlb_flash_bwd_dkv``), each
+  case counted apart; ``delta = rowsum(do * o)`` is taken outside, as
+  :826 does, and GQA's dK/dV are summed over the group inside the dK/dV
+  pass;
+- the differentiable ``flash_attention`` (:1106, the custom_vjp of
+  :1008-1076) and ``ring_flash_attention`` (:1170, :1229-1354), here
+  ``torch.autograd.Function``s over the kernels: the ring's forward folds
+  K9 chunks, its backward runs K10 per live chunk while the float32
+  dK/dV accumulators ride the ring with their chunks.
 
 The public functions keep the JAX layout: ``q [sq, h, dh]``, ``k``/``v``
 ``[skv, h_kv, dh]`` with ``h_kv | h`` (query head ``hh`` reads kv head
@@ -29,12 +42,18 @@ called through ``ctypes`` on PyTorch's current stream.
 Dispatch, as ``flash_attention`` (:1147-1167) states it: a window that
 covers every key at offset 0 collapses to ``window = 0``; a literal 0
 offset with ``sq == skv``, causal and no window is the triangle (K8a),
-everything else the rectangle (K8b). ``LAUNCHES`` counts kernel launches
-by case (``tri``, ``rect``, ``chunk``). A CPU tensor takes the plain
-PyTorch version beside each kernel (``flash_forward_plain``,
-``flash_chunk_plain``), which follows ``_online_softmax_update`` tile by
-tile in float32 with the same masks; a CUDA tensor launches the kernel or
-raises. There is no fallback.
+everything else the rectangle (K8b). The backward follows :839-849
+(``backward_case``): a square ``diagonal`` chunk is offset 0, and a
+literal offset 0 with square shapes, a mask and no window is the triangle
+(K10a/K10b), everything else the rectangle (K10c/K10d). ``LAUNCHES``
+counts kernel launches by case (``tri``, ``rect``, ``chunk``,
+``bwd_dq_tri``, ``bwd_dkv_tri``, ``bwd_dq_rect``, ``bwd_dkv_rect``). A CPU
+tensor takes the plain PyTorch version beside each kernel
+(``flash_forward_plain``, ``flash_chunk_plain``, ``flash_backward_plain``),
+which follows the Pallas kernels' tile updates (``_online_softmax_update``,
+``_dq_tile_update``, ``_dkv_tile_update``) tile by tile in float32 with
+the same masks; a CUDA tensor launches the kernel or raises. There is no
+fallback.
 """
 
 from __future__ import annotations
@@ -53,11 +72,17 @@ from ddlb_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 #: kernel launches by case since the counts were last zeroed (plain calls
-#: excluded): ``tri`` = K8a, ``rect`` = K8b, ``chunk`` = K9
-LAUNCHES = {"tri": 0, "rect": 0, "chunk": 0}
+#: excluded): ``tri`` = K8a, ``rect`` = K8b, ``chunk`` = K9, and the
+#: backward's two passes in each case: ``bwd_dq_tri`` = K10a,
+#: ``bwd_dkv_tri`` = K10b, ``bwd_dq_rect`` = K10c, ``bwd_dkv_rect`` = K10d
+LAUNCHES = {"tri": 0, "rect": 0, "chunk": 0, "bwd_dq_tri": 0, "bwd_dkv_tri": 0,
+            "bwd_dq_rect": 0, "bwd_dkv_rect": 0}
 
 #: how a chunk's keys relate to the queries (``flash_attention_chunk``)
 CHUNK_MODES = ("offset", "diagonal", "past")
+#: the backward's modes (``flash_attention_bwd``, :832): ``none`` is
+#: bidirectional attention, no mask and no gate
+BACKWARD_MODES = CHUNK_MODES + ("none",)
 
 #: the plain versions' tiles (the JAX package's default blocks)
 PLAIN_BLOCK = 1024
@@ -347,8 +372,19 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32,            # sq, skv, h, h_kv, dh
         f32, i32, i32, i32, i32, ptr,       # scale, row/col offset, mode, window, stream
     ]
-    lib.ddlb_flash_forward.restype = ctypes.c_int
-    lib.ddlb_flash_chunk.restype = ctypes.c_int
+    lib.ddlb_flash_bwd_dq.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # dtype, q, k, v, dout, lse, delta, dq
+        i32, i32, i32, i32, i32,                 # sq, skv, h, h_kv, dh
+        f32, i32, i32, i32, i32, ptr,            # scale, row/col offset, masked, window, stream
+    ]
+    lib.ddlb_flash_bwd_dkv.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # ..., delta, dk, dv
+        i32, i32, i32, i32, i32,
+        f32, i32, i32, i32, i32, ptr,
+    ]
+    for fn in (lib.ddlb_flash_forward, lib.ddlb_flash_chunk,
+               lib.ddlb_flash_bwd_dq, lib.ddlb_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
     lib.ddlb_flash_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -408,14 +444,43 @@ def flash_forward(
     return o, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """``flash_forward`` with the flash backward as its gradient (the
+    custom_vjp of ``_flash``/``_flash_s0``, :1008-1076): saves q, k, v, o
+    and lse, and returns dq, dk, dv cast to the operand dtypes (:1037)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, row_offset, causal, window):
+        o, lse = flash_forward(q, k, v, scale=scale, row_offset=row_offset,
+                               causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, row_offset, causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, row_offset, causal, window = ctx.args
+        dq, dk, dv = flash_backward(
+            q, k, v, o, lse, do.contiguous(), scale=scale,
+            row_offset=row_offset, col_offset=0,
+            causal="offset" if causal else "none", window=window,
+        )
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+
+
 def flash_attention(q, k, v, *, scale: float, row_offset: int = 0,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Flash attention forward, the output only (``flash_attention``,
-    :1106, without the backward)."""
-    return flash_forward(
-        q, k, v, scale=scale, row_offset=row_offset, causal=causal,
-        window=window,
-    )[0]
+    """Flash attention (``flash_attention``, :1106), differentiable: the
+    forward is K8a/K8b, the gradient the flash backward (K10a-K10d). A
+    window that covers every key at offset 0 is dropped first, so both
+    directions take the triangle (:1147-1159)."""
+    _check_operands(q, k, v)
+    _check_window(causal, window)
+    row_offset = int(row_offset)
+    _, window = forward_case(q.shape[0], k.shape[0], row_offset, causal, window)
+    return _FlashAttention.apply(q, k, v, float(scale), row_offset,
+                                 bool(causal), int(window))
 
 
 def flash_attention_chunk(
@@ -458,6 +523,267 @@ def flash_attention_chunk(
     LAUNCHES["chunk"] += 1
     _raise_on(rc, "flash chunk")
     return carry
+
+
+# -- the backward (K10a-K10d) ------------------------------------------------------
+
+
+def _check_backward_mode(causal: str, window: int) -> None:
+    if causal not in BACKWARD_MODES:
+        raise ValueError(f"unknown causal mode {causal!r}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if window and causal != "offset":
+        raise ValueError(
+            "window composes with causal='offset' only (the ring-chunk modes "
+            "have no windowed callers)"
+        )
+
+
+def backward_case(sq: int, skv: int, row_offset: int, col_offset: int,
+                  causal: str, window: int) -> Tuple[str, int, int]:
+    """(``tri`` or ``rect``, row offset, col offset) under the dispatch rule
+    of ``flash_attention_bwd`` (:839-849): a square ``diagonal`` chunk is
+    offset 0; a literal offset 0 with square shapes, a mask and no window is
+    the triangle; everything else the rectangle."""
+    if causal == "diagonal" and sq == skv:
+        row_offset = col_offset = 0
+    tri = (causal != "none" and not window and row_offset == 0
+           and col_offset == 0 and sq == skv)
+    return ("tri" if tri else "rect"), int(row_offset), int(col_offset)
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` in float32, ``[h, sq, 1]`` (:826-830)."""
+    return (do.float() * o.float()).sum(-1, keepdim=True).transpose(0, 1).contiguous()
+
+
+def _backward_tiles(q, k, v, o, lse, do, *, scale, row_offset, col_offset,
+                    causal, window, block_q, block_kv, magnitudes=False):
+    """The plain backward's tile loop. With ``magnitudes`` it sums absolute
+    values instead (``sum |dS| |K|``, ``sum |dS^T| |Q|``, ``sum P^T |dO|``,
+    and the column sums of P), the quantities ``backward_gap_bound`` scales
+    its rounding terms by."""
+    _check_operands(q, k, v)
+    _check_backward_mode(causal, window)
+    sq, h, dh = q.shape
+    skv, h_kv = k.shape[0], k.shape[1]
+    _, row_offset, col_offset = backward_case(sq, skv, row_offset, col_offset,
+                                              causal, window)
+    masked, gated = causal not in ("past", "none"), causal != "none"
+    group = gqa_group(q, k)
+    qh = q.transpose(0, 1).float()
+    kh, vh = _heads_f32(k, group), _heads_f32(v, group)
+    doh = do.transpose(0, 1).float()
+    delta = attention_delta(o, do)
+    lse = lse.float()
+    dq = torch.zeros_like(qh)
+    dk = torch.zeros((h, skv, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    colsum = torch.zeros((h, skv, 1), dtype=torch.float32, device=q.device)
+    for i0 in range(0, sq, block_q):
+        i1 = min(i0 + block_q, sq)
+        rows = slice(i0, i1)
+        for j0 in range(0, skv, block_kv):
+            j1 = min(j0 + block_kv, skv)
+            cols = slice(j0, j1)
+            q_start, k_start = row_offset + i0, col_offset + j0
+            if (gated or window) and not band_live(
+                    q_start, k_start, i1 - i0, j1 - j0, gated, window):
+                continue
+            s = (qh[:, rows] * scale) @ kh[:, cols].transpose(-1, -2)
+            p = torch.exp(s - lse[:, rows])
+            if masked:
+                mask = _mask(q_start, k_start, i1 - i0, j1 - j0, True, window,
+                             q.device)
+                p = p.masked_fill(~mask, 0.0)
+            dp = doh[:, rows] @ vh[:, cols].transpose(-1, -2)
+            ds = p * (dp - delta[:, rows])
+            if magnitudes:
+                ds = ds.abs()
+                dq[:, rows] += ds @ kh[:, cols].abs()
+                dv[:, cols] += p.transpose(-1, -2) @ doh[:, rows].abs()
+                dk[:, cols] += ds.transpose(-1, -2) @ qh[:, rows].abs()
+                colsum[:, cols] += p.sum(1)[..., None]
+                continue
+            dq[:, rows] += scale * (ds @ kh[:, cols])
+            dv[:, cols] += p.transpose(-1, -2) @ doh[:, rows]
+            dk[:, cols] += scale * (ds.transpose(-1, -2) @ qh[:, rows])
+
+    def group_sum(x):
+        return x.reshape(h_kv, group, skv, x.shape[-1]).sum(1).transpose(0, 1).contiguous()
+
+    out = (dq.transpose(0, 1).contiguous(), group_sum(dk), group_sum(dv))
+    return out + (group_sum(colsum),) if magnitudes else out
+
+
+def flash_backward_plain(
+    q, k, v, o, lse, do, *, scale: float, row_offset: int = 0,
+    col_offset: int = 0, causal: str = "offset", window: int = 0,
+    block_q: int = PLAIN_BLOCK, block_kv: int = PLAIN_BLOCK,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward: float32 ``(dq [sq, h, dh], dk,
+    dv [skv, h_kv, dh])``, tile by tile as ``_dq_tile_update`` (:568) and
+    ``_dkv_tile_update`` (:593) do, with the live-band gate of each tile
+    and ``p = exp(scale q k^T - lse)`` masked; under GQA the per-query-head
+    dK/dV are summed over each group (``_group_sum``, :819)."""
+    return _backward_tiles(
+        q, k, v, o, lse, do, scale=scale, row_offset=row_offset,
+        col_offset=col_offset, causal=causal, window=window, block_q=block_q,
+        block_kv=block_kv,
+    )
+
+
+def flash_backward(
+    q, k, v, o, lse, do, *, scale: float, row_offset: int = 0,
+    col_offset: int = 0, causal: str = "offset", window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward against one KV span (kernels K10a-K10d):
+    float32 ``(dq [sq, h, dh], dk, dv [skv, h_kv, dh])`` for the forward
+    output ``o`` and its ``lse [h, sq, 1]`` (of the global softmax, so
+    per-chunk calls compose). Query row ``i`` sits at ``row_offset + i``,
+    key ``j`` at ``col_offset + j``. ``causal``: ``offset`` masks from the
+    global offsets (the only mode a window composes with), ``diagonal``
+    is a chunk at equal offsets, ``past`` a chunk wholly in the past (no
+    mask), ``none`` bidirectional attention."""
+    _check_operands(q, k, v)
+    _check_backward_mode(causal, window)
+    sq, h, dh = q.shape
+    skv, h_kv = k.shape[0], k.shape[1]
+    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
+                           ("lse", lse, (h, sq, 1))):
+        if tuple(t.shape) != tuple(shape) or t.device != q.device:
+            raise ValueError(f"{name} must be {tuple(shape)} on {q.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if q.device.type == "cpu":
+        return flash_backward_plain(
+            q, k, v, o, lse, do, scale=scale, row_offset=row_offset,
+            col_offset=col_offset, causal=causal, window=window,
+        )
+    if lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32, got {lse.dtype}")
+    _check_kernel_operands(q, k, v, do, lse)
+    delta = attention_delta(o, do)
+    dq = torch.empty((sq, h, dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty((skv, h_kv, dh), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    if sq == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    kw = dict(scale=scale, row_offset=row_offset, col_offset=col_offset,
+              causal=causal, window=window)
+    backward_pass("dq", q, k, v, do, lse, delta, (dq,), **kw)
+    backward_pass("dkv", q, k, v, do, lse, delta, (dk, dv), **kw)
+    return dq, dk, dv
+
+
+def backward_pass(name: str, q, k, v, do, lse, delta, out, *, scale: float,
+                  row_offset: int, col_offset: int, causal: str, window: int) -> None:
+    """Launch one pass of the flash backward into ``out``: ``dq`` (K10a or
+    K10c) writes ``(dq,)``, ``dkv`` (K10b or K10d) ``(dk, dv)``; counted
+    in ``LAUNCHES`` under ``bwd_{name}_{case}``. ``flash_backward`` runs
+    both after checking the operands."""
+    sq, h, dh = q.shape
+    skv, h_kv = k.shape[0], k.shape[1]
+    case, row_offset, col_offset = backward_case(sq, skv, row_offset,
+                                                 col_offset, causal, window)
+    lib = _lib()
+    entry = {"dq": lib.ddlb_flash_bwd_dq, "dkv": lib.ddlb_flash_bwd_dkv}[name]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = entry(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in out), sq, skv, h, h_kv, dh, float(scale),
+            row_offset, col_offset, int(causal not in ("past", "none")),
+            int(window), stream,
+        )
+    LAUNCHES[f"bwd_{name}_{case}"] += 1
+    _raise_on(rc, f"flash backward {name} ({case})")
+
+
+# -- the context-parallel ring ---------------------------------------------------
+
+
+def _ring_flash_forward(q, k, v, shift, d, my, scale, window):
+    """K9 folds of the chunks as they come round the ring (the diagonal one
+    first, skipping chunks outside the live band); returns (o, lse)."""
+    s_loc, h, dh = q.shape
+    carry = init_flash_carry(s_loc, h, dh, q.device)
+    k_cur, v_cur = k, v
+    for t in range(d):
+        src = (my - t) % d  # the chunk held after t hops came from src
+        if ring_chunk_live(src, my, s_loc, window):
+            later = "offset" if window else "past"
+            carry = flash_attention_chunk(
+                q, k_cur, v_cur, carry, scale=scale, row_offset=my * s_loc,
+                col_offset=src * s_loc, causal="diagonal" if t == 0 else later,
+                window=window,
+            )
+        if t + 1 < d:
+            k_cur, v_cur = shift(k_cur, v_cur)
+    _, m, l = carry
+    lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l))
+    return finalize_flash_carry(carry, q.dtype), lse
+
+
+class _RingFlashAttention(torch.autograd.Function):
+    """The ring's custom_vjp (:1229-1354): the forward folds K9 chunks; the
+    backward runs the flash backward per live chunk while the float32 dK/dV
+    accumulators ride the ring with their chunks, and one more hop brings
+    each home."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, shift, d, my, scale, window):
+        o, lse = _ring_flash_forward(q, k, v, shift, d, my, scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (shift, d, my, scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        shift, d, my, scale, window = ctx.args
+        do = do.contiguous()
+        s_loc = q.shape[0]
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        k_cur, v_cur = k, v
+        for t in range(d):
+            src = (my - t) % d
+            if ring_chunk_live(src, my, s_loc, window):
+                # the windowed backward is offset-only; equal offsets make it
+                # exact for the diagonal chunk too
+                mode = "offset" if window else ("diagonal" if t == 0 else "past")
+                dq_c, dk_c, dv_c = flash_backward(
+                    q, k_cur, v_cur, o, lse, do, scale=scale,
+                    row_offset=my * s_loc, col_offset=src * s_loc,
+                    causal=mode, window=window,
+                )
+                dq += dq_c
+                dk += dk_c
+                dv += dv_c
+            if t + 1 < d:
+                k_cur, v_cur, dk, dv = shift(k_cur, v_cur, dk, dv)
+        # after step d - 1 the accumulators held here belong to chunk my + 1
+        dk, dv = shift(dk, dv)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
+
+
+def ring_flash_attention(q, k, v, *, shift, axis_size: int, axis_index: int,
+                         scale: float, window: int = 0) -> torch.Tensor:
+    """Context-parallel causal flash attention on this rank's sequence
+    chunk ``q [s_loc, h, dh]``, ``k``/``v [s_loc, h_kv, dh]`` of a sequence
+    split over a ring of ``axis_size`` ranks, this one at ``axis_index``
+    (``ring_flash_attention``, :1170), differentiable. ``shift(*tensors)``
+    sends each tensor to the next rank of the ring and returns the ones
+    received from the previous rank (the identity on a ring of one)."""
+    _check_operands(q, k, v)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    return _RingFlashAttention.apply(q, k, v, shift, int(axis_size),
+                                     int(axis_index), float(scale), int(window))
 
 
 # -- the kernel's distance from its plain version ------------------------------
@@ -524,3 +850,52 @@ def plain_gap_bound(
     )
     absolute = n_terms * 2.0**-24 if q.dtype == torch.float16 else 0.0
     return spacing * finfo.eps + vmax * (relative + absolute)
+
+
+def backward_gap_bound(
+    q, k, v, o, lse, do, want, *, scale: float, row_offset: int = 0,
+    col_offset: int = 0, causal: str = "offset", window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Elementwise bounds on ``|dq|``, ``|dk|``, ``|dv|`` of the kernel
+    minus the plain version (``want``, the plain version's output).
+
+    Both compute P and dS in float32; they differ in:
+    - the score gap ``Δs`` (``score_gap``): each p moves by a factor
+      within ``exp(±Δs)``, so p and dS = p (dP - delta) by ``2 Δs``;
+    - the order of the dh products of dP = dO V^T:
+      ``E = (dh + 2) 2**-23 max_i ||dO_i||_1 max|v|`` on each dP, which
+      moves dS by at most ``p E``;
+    - the rounding of P (for dV) and dS (for dQ, dK) to the operand type
+      before the tensor-core products: unit roundoff ``u`` (0 for
+      float32; fp16 also flushes values below 2**-24, an absolute
+      2**-24 each);
+    - two float32 summation orders over at most ``n`` terms and the
+      roundings of exp, of the final scaling and of dS itself: ``2 n
+      2**-23 + 2**-20``, relative.
+
+    Each relative term multiplies the sum of the magnitudes it applies to,
+    which the plain tile loop gives (``sum |dS| |K|`` for dq, ``sum |dS|
+    |Q|`` for dk, ``sum P |dO|`` for dv); the dP term multiplies ``sum p
+    |K| <= max|k|`` for dq and ``max|q| sum_i p`` for dk.
+    """
+    mag_dq, mag_dk, mag_dv, colsum = _backward_tiles(
+        q, k, v, o, lse, do, scale=scale, row_offset=row_offset,
+        col_offset=col_offset, causal=causal, window=window,
+        block_q=PLAIN_BLOCK, block_kv=PLAIN_BLOCK, magnitudes=True,
+    )
+    dh = q.shape[-1]
+    n = max(q.shape[0] * gqa_group(q, k), k.shape[0])
+    qmax, kmax, vmax = (float(x.abs().max()) if x.numel() else 0.0 for x in (q, k, v))
+    do1 = float(do.float().abs().sum(-1).max()) if do.numel() else 0.0
+    e_dp = (dh + 2) * 2.0**-23 * do1 * vmax
+    rel = (_P_ROUNDING[q.dtype] + 2.0 * score_gap(q, k, scale)
+           + 2.0 * n * 2.0**-23 + 2.0**-20)
+    flush = n * 2.0**-24 if q.dtype == torch.float16 else 0.0
+    out_ulp = 2.0**-22
+    dq_want, dk_want, dv_want = want
+    return (
+        scale * (rel * mag_dq + e_dp * kmax + flush * kmax) + out_ulp * dq_want.abs(),
+        scale * (rel * mag_dk + e_dp * qmax * colsum + flush * qmax)
+        + out_ulp * dk_want.abs(),
+        rel * mag_dv + flush * float(do.float().abs().max()) + out_ulp * dv_want.abs(),
+    )

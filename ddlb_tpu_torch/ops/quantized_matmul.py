@@ -1,7 +1,6 @@
 """int8 quantization and the int8 GEMM; K7 written by hand in CUDA C++.
 
-The port of the JAX package's ``ops/quantized_matmul.py`` (forward only;
-the straight-through ``int8_ste_matmul`` belongs to training):
+The port of the JAX package's ``ops/quantized_matmul.py``:
 
 - ``quantize_rowwise`` / ``quantize_colwise`` / ``quantize_weight_stack``
   (:35-69): symmetric int8 along one axis, ``x ~ q * s`` with ``q`` in
@@ -37,6 +36,9 @@ the straight-through ``int8_ste_matmul`` belongs to training):
   capped where 127^2 * k could leave int32. It is built by ``nvcc`` for
   ``sm_90a`` at first use (``_build.py``) and called through ``ctypes`` on
   PyTorch's current stream.
+- ``int8_ste_matmul`` (:101-151): the training path's product, K7
+  forward and the straight-through float32 backward, as an autograd
+  Function.
 - ``int8_matmul_plain``: K7's plain version, the int8 values multiplied
   in float64 (exact: every partial sum is an integer below 2**53), then
   the same epilogue. It runs on both devices.
@@ -222,3 +224,30 @@ def int8_matmul_kernel(aq, bq, sa, sb, *, out_dtype=torch.bfloat16) -> torch.Ten
             f"{lib.ddlb_int8_error_string(rc).decode()} (cudaError {rc})"
         )
     return out
+
+
+class _Int8STEMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        (qx, sx), (qw, sw) = quantize_rowwise(x), quantize_colwise(w)
+        return int8_matmul_kernel(qx, qw, sx, sw, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the float32 cotangent contracts against the original operands at
+        # full width; only the results are rounded to the operand dtypes
+        x, w = ctx.saved_tensors
+        gf = g.float()
+        return (gf @ w.float().t()).to(x.dtype), (x.float().t() @ gf).to(w.dtype)
+
+
+def int8_ste_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [m, k] @ w [k, n]`` on the int8 path, differentiable by the
+    straight-through estimator (``int8_ste_matmul``, :101-151). Forward:
+    ``x`` quantized per row, ``w`` per column, the int8 GEMM (K7 on the
+    card) with its epilogue, float32 out. Backward: the gradients flow as
+    if the quantizer were the identity, the float32 cotangent contracted
+    against the original operands and only the results cast to their
+    dtypes."""
+    return _Int8STEMatmul.apply(x, w)

@@ -16,7 +16,7 @@ from typing import Tuple, Type
 
 ALLOWED_PRIMITIVES = (
     "tp_columnwise", "tp_rowwise", "dp_allreduce", "cp_ring_attention",
-    "ep_alltoall", "transformer_decode",
+    "ep_alltoall", "transformer_decode", "transformer_step",
 )
 
 _REGISTRY = {
@@ -83,6 +83,16 @@ _REGISTRY = {
             ("ring_flash", "RingFlashCPRingAttention"),
         )
     },
+    "transformer_step": {
+        "spmd": (
+            "ddlb_tpu_torch.primitives.transformer_step.spmd",
+            "SPMDTransformerStep",
+        ),
+        "compute_only": (
+            "ddlb_tpu_torch.primitives.transformer_step.compute_only",
+            "ComputeOnlyTransformerStep",
+        ),
+    },
     "transformer_decode": {
         "spmd": (
             "ddlb_tpu_torch.primitives.transformer_decode.spmd",
@@ -98,7 +108,6 @@ _REGISTRY = {
 #: families of the JAX package that the port does not carry yet
 _NOT_PORTED_FAMILIES = (
     "pp_pipeline",
-    "transformer_step",
     "collectives",
     "serving_load",
 )

@@ -36,7 +36,7 @@ class SPMDTransformerDecode(TransformerDecode):
     def _input_setup(self) -> None:
         cfg = self._model_config()
         dp, tp = self._mesh_factors()
-        self.mesh = self.runtime.mesh(dp, tp)
+        self.mesh = self.runtime.mesh(dp, tp, 1)
         self.num_partitions = dp * tp
         self.params = place_params(
             shard_params(self._host_params(tp), cfg, tp, self.mesh.tp_rank),

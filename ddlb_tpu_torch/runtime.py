@@ -11,13 +11,15 @@ on the card, gloo on the CPU, rendezvous through ``MASTER_ADDR`` /
 collective below is the identity: the all-gather and reduce-scatter of
 rows, the sum all-reduce, the ring hop (``batch_isend_irecv``), and the
 row and head/sequence all-to-alls (``all_to_all_single``).
-``Runtime.mesh(dp, tp)`` places the rank in a ``(dp, tp)`` mesh
-(``Mesh``) whose tp sub-group carries the serving model's sum and
-all-gather.
+``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
+(``Mesh``) whose per-axis groups carry the serving model's sum and
+all-gather and the training step's collectives, some of them
+differentiable.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import numpy as np
@@ -203,9 +205,9 @@ class Runtime:
         dist.all_to_all_single(out, x.contiguous())
         return out.transpose(0, 1).reshape(m // d, d * hd, dh)
 
-    def mesh(self, dp: int, tp: int) -> "Mesh":
-        """This rank's place in a ``(dp, tp)`` mesh (see ``Mesh``)."""
-        return Mesh(self, dp, tp)
+    def mesh(self, dp: int, tp: int, pp: int = 1) -> "Mesh":
+        """This rank's place in a ``(dp, tp, pp)`` mesh (see ``Mesh``)."""
+        return Mesh(self, dp, tp, pp)
 
     def max_over_ranks(self, values: np.ndarray) -> np.ndarray:
         """Elementwise maximum of a float vector over ranks."""
@@ -224,53 +226,109 @@ class Runtime:
         return bool(t.item())
 
 
-#: the tp process groups, created once per process and mesh shape:
-#: ``(world, dp, tp) -> [group of dp row 0, group of dp row 1, ...]``
-_TP_GROUPS: dict = {}
+#: the process groups of each mesh shape, created once per process:
+#: ``(world, dp, tp, pp) -> {axis: {coordinates of the other axes: group}}``
+_GROUPS: dict = {}
+
+#: the axes of a mesh, slowest first (the rank order of ``jax.make_mesh``)
+AXES = ("dp", "tp", "pp")
 
 
 class Mesh:
-    """A ``(dp, tp)`` mesh over the ranks, the JAX package's
-    ``('dp', 'tp')`` device mesh: rank ``r`` sits at ``(r // tp, r % tp)``.
+    """A ``(dp, tp, pp)`` mesh over the ranks, the JAX package's
+    ``('dp', 'tp', 'pp')`` device mesh: pp varies fastest, so rank ``r``
+    sits at ``dp_rank = r // (tp * pp)``, ``tp_rank = r // pp % tp``,
+    ``pp_rank = r % pp`` (the row-major order in which ``jax.make_mesh``
+    lays out the devices).
 
-    ``dp * tp`` is the world size, or 1: a ``(1, 1)`` mesh is local to
-    each rank (the ``compute_only`` members), whatever the world. The
-    collectives run over this rank's tp group. Every rank creates every
-    tp group, in the same order, the first time a mesh of this shape is
-    asked for (``dist.new_group`` is collective); a tp group that is the
-    whole world is the default group, and at tp = 1 both collectives are
-    the identity.
+    ``dp * tp * pp`` is the world size, or 1: a ``(1, 1, 1)`` mesh is local
+    to each rank (the ``compute_only`` members), whatever the world. The
+    collectives of an axis run over this rank's group along it: the ranks
+    that differ from it in that coordinate only. Every rank creates every
+    group, in the same order, the first time a mesh of this shape is asked
+    for (``dist.new_group`` is collective); a group that is the whole world
+    is the default group, and on an axis of size 1 every collective is the
+    identity.
+
+    Besides the plain collectives (``axis_sum``, ``tp_all_gather_rows``,
+    ``pp_shift``) the mesh offers the differentiable ones the
+    training step goes through (``tp_all_gather``, ``tp_reduce_scatter``,
+    ``tp_all_to_all``, ``tp_ring_shift``): small autograd Functions whose
+    backward is the transposed collective.
     """
 
-    def __init__(self, runtime: Runtime, dp: int, tp: int) -> None:
-        if dp < 1 or tp < 1:
-            raise ValueError(f"mesh axes must be >= 1, got dp={dp}, tp={tp}")
-        self.dp, self.tp = int(dp), int(tp)
-        if dp * tp == 1:
-            self.dp_rank = self.tp_rank = 0
+    def __init__(self, runtime: Runtime, dp: int, tp: int, pp: int = 1) -> None:
+        if dp < 1 or tp < 1 or pp < 1:
+            raise ValueError(
+                f"mesh axes must be >= 1, got dp={dp}, tp={tp}, pp={pp}"
+            )
+        self.dp, self.tp, self.pp = int(dp), int(tp), int(pp)
+        self.sizes = {"dp": self.dp, "tp": self.tp, "pp": self.pp}
+        self.groups = {axis: None for axis in AXES}
+        self.world = dp * tp * pp
+        if self.world == 1:
+            self.dp_rank = self.tp_rank = self.pp_rank = 0
             self.tp_group = None
             return
-        if dp * tp != runtime.world_size:
+        if self.world != runtime.world_size:
             raise ValueError(
-                f"dp*tp = {dp * tp} != world size {runtime.world_size}"
+                f"dp*tp*pp = {self.world} != world size {runtime.world_size}"
             )
-        self.dp_rank, self.tp_rank = divmod(runtime.rank, tp)
-        self.tp_group = None
-        if 1 < tp < dp * tp:
-            key = (runtime.world_size, dp, tp)
-            if key not in _TP_GROUPS:
-                _TP_GROUPS[key] = [
-                    dist.new_group(ranks=[d * tp + t for t in range(tp)])
-                    for d in range(dp)
-                ]
-            self.tp_group = _TP_GROUPS[key][self.dp_rank]
+        self.dp_rank, rest = divmod(runtime.rank, tp * pp)
+        self.tp_rank, self.pp_rank = divmod(rest, pp)
+        key = (runtime.world_size, self.dp, self.tp, self.pp)
+        if key not in _GROUPS:
+            _GROUPS[key] = self._new_groups()
+        coords = self.coords()
+        for axis in AXES:
+            if 1 < self.sizes[axis] < self.world:
+                other = tuple(c for a, c in coords.items() if a != axis)
+                self.groups[axis] = _GROUPS[key][axis][other]
+        self.tp_group = self.groups["tp"]
 
-    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over this rank's tp group (the ``psum`` over 'tp')."""
-        if self.tp == 1:
-            return x
-        x = x.contiguous()
-        dist.all_reduce(x, group=self.tp_group)
+    def coords(self) -> dict:
+        return {"dp": self.dp_rank, "tp": self.tp_rank, "pp": self.pp_rank}
+
+    def rank_at(self, dp: int, tp: int, pp: int) -> int:
+        """The global rank at mesh coordinates ``(dp, tp, pp)``."""
+        return (dp * self.tp + tp) * self.pp + pp
+
+    def _new_groups(self) -> dict:
+        """Every group along every axis of size between 1 and the world,
+        created in the same order on every rank."""
+        out = {}
+        for axis in AXES:
+            out[axis] = {}
+            if not 1 < self.sizes[axis] < self.world:
+                continue
+            others = [a for a in AXES if a != axis]
+            for other in itertools.product(*(range(self.sizes[a]) for a in others)):
+                members = []
+                for i in range(self.sizes[axis]):
+                    at = dict(zip(others, other), **{axis: i})
+                    members.append(self.rank_at(at["dp"], at["tp"], at["pp"]))
+                out[axis][other] = dist.new_group(ranks=members)
+        return out
+
+    def _neighbours(self, axis: str):
+        """Global ranks of the next and the previous rank along ``axis``."""
+        at = self.coords()
+        n = self.sizes[axis]
+        nxt = dict(at, **{axis: (at[axis] + 1) % n})
+        prv = dict(at, **{axis: (at[axis] - 1) % n})
+        return (self.rank_at(nxt["dp"], nxt["tp"], nxt["pp"]),
+                self.rank_at(prv["dp"], prv["tp"], prv["pp"]))
+
+    # -- plain collectives -------------------------------------------------------
+
+    def axis_sum(self, x: torch.Tensor, *axes: str) -> torch.Tensor:
+        """Sum ``x`` over the named axes (the ``psum``), one all-reduce per
+        axis of size > 1, in place where ``x`` is contiguous: pass a tensor
+        the caller owns. Returns the sum."""
+        for axis in axes:
+            if self.sizes[axis] > 1:
+                x = x.contiguous()
+                dist.all_reduce(x, group=self.groups[axis])
         return x
 
     def tp_all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -285,3 +343,124 @@ class Mesh:
             out, x.contiguous(), group=self.tp_group
         )
         return out
+
+    def _tp_reduce_scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp == 1:
+            return x
+        if x.shape[0] % self.tp:
+            raise ValueError(f"{x.shape[0]} rows do not split over tp={self.tp}")
+        out = torch.empty(
+            (x.shape[0] // self.tp, *x.shape[1:]), dtype=x.dtype, device=x.device
+        )
+        _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, x.contiguous(), group=self.tp_group
+        )
+        return out
+
+    def _tp_all_to_all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp == 1:
+            return x
+        if x.shape[0] % self.tp:
+            raise ValueError(f"{x.shape[0]} rows do not split over tp={self.tp}")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous(), group=self.tp_group)
+        return out
+
+    def shift(self, axis: str, *tensors: torch.Tensor, reverse: bool = False):
+        """One ring hop along ``axis``: each tensor goes to the next rank
+        (the previous with ``reverse``) and the same shapes come back from
+        the other side, in one ``batch_isend_irecv`` posted in the same
+        order on every rank; waits for them. The identity on an axis of
+        size 1."""
+        if self.sizes[axis] == 1:
+            return tensors
+        nxt, prv = self._neighbours(axis)
+        if reverse:
+            nxt, prv = prv, nxt
+        group = self.groups[axis]
+        tensors = tuple(t.contiguous() for t in tensors)
+        received = tuple(torch.empty_like(t) for t in tensors)
+        ops = []
+        for tag, (t, buf) in enumerate(zip(tensors, received)):
+            ops.append(dist.P2POp(dist.isend, t, nxt, group=group, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, buf, prv, group=group, tag=tag))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return received
+
+    def pp_shift(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+        """The pipeline hop (the ``ppermute`` to the next stage, :951), or
+        back to the previous stage with ``reverse``."""
+        return self.shift("pp", x, reverse=reverse)[0]
+
+    # -- differentiable collectives ------------------------------------------------
+
+    def tp_all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tiled ``all_gather`` over 'tp' along ``dim``; its gradient
+        is the reduce-scatter."""
+        return _AllGather.apply(x, self, dim)
+
+    def tp_reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tiled ``psum_scatter`` over 'tp' along ``dim``; its gradient
+        is the all-gather."""
+        return _ReduceScatter.apply(x, self, dim)
+
+    def tp_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled ``all_to_all`` over 'tp' with split and concat axis 0;
+        its gradient is the same all-to-all."""
+        return _AllToAll.apply(x, self)
+
+    def tp_ring_shift(self, *tensors: torch.Tensor):
+        """One hop of the tp ring (the ``ppermute`` to the next tp rank);
+        its gradient is the hop back."""
+        return _RingShift.apply(self, *tensors)
+
+
+def _along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` of the rows of ``x`` with ``dim`` moved to the front."""
+    return fn(x.movedim(dim, 0).contiguous()).movedim(0, dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _along(mesh.tp_all_gather_rows, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _along(ctx.mesh._tp_reduce_scatter_rows, g, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _along(mesh._tp_reduce_scatter_rows, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _along(ctx.mesh.tp_all_gather_rows, g, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh._tp_all_to_all_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._tp_all_to_all_rows(g), None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *tensors):
+        ctx.mesh = mesh
+        out = mesh.shift("tp", *tensors)
+        return tuple(t.clone() if t is s else t for t, s in zip(out, tensors))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.mesh.shift("tp", *grads, reverse=True))

@@ -494,3 +494,99 @@ def test_quantized_member_runs_k7_and_validates(cuda_device, family):
     result = impl.run()
     assert qm.LAUNCHES == before + 1
     assert impl.validate(result)
+
+
+# -- the flash backward (K10a-K10d) --------------------------------------------
+#
+# The kernels against flash_backward_plain on the card, on uniform and on
+# peaked inputs, within fa.backward_gap_bound: the score gap, the order of
+# the dP products and of the float32 sums, and the rounding of P and dS to
+# the operand type before the tensor-core products, each scaled by the
+# magnitudes the plain tile loop sums (|dS||K|, |dS||Q|, P|dO|).
+
+#: (sq, skv, h, h_kv, row_offset, col_offset, mode, window)
+BACKWARD_CASES = [
+    (256, 256, 4, 4, 0, 0, "offset", 0),        # triangle (K10a/K10b)
+    (200, 200, 2, 2, 0, 0, "offset", 0),        # ragged triangle
+    (192, 192, 2, 2, 192, 192, "diagonal", 0),  # a diagonal ring chunk: triangle
+    (128, 512, 4, 2, 384, 0, "offset", 100),    # offset, window, GQA (K10c/K10d)
+    (320, 320, 4, 2, 0, 0, "offset", 100),      # window at offset 0, GQA
+    (100, 300, 2, 2, 150, 20, "offset", 0),     # ragged, both offsets
+    (128, 128, 8, 2, 256, 128, "past", 0),      # a past ring chunk, GQA 4
+    (130, 70, 2, 1, 0, 0, "none", 0),           # bidirectional, ragged
+    (64, 64, 2, 2, 100, 0, "offset", 60),       # rows with an empty band
+]
+
+
+def _backward_forward(q, k, v, row_offset, col_offset, mode, window):
+    """o and the lse of the softmax over this span, as the forward gives
+    them to the backward."""
+    if mode in ("past", "none"):
+        return fa.flash_forward_plain(q, k, v, scale=q.shape[2] ** -0.5, causal=False)
+    rel = 0 if mode == "diagonal" else row_offset - col_offset
+    return fa.flash_forward_plain(q, k, v, scale=q.shape[2] ** -0.5, row_offset=rel,
+                                  window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_flash_backward_within_bound(cuda_device, case, dtype, peaked):
+    sq, skv, h, h_kv, ro, co, mode, window = case
+    dh = 128
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    if peaked:
+        q, k, v = _peaked_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device, ro - co)
+    else:
+        q, k, v = _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+    do = _uniform((sq, h, dh), dtype, gen, cuda_device)
+    o, lse = _backward_forward(q, k, v, ro, co, mode, window)
+    kw = dict(scale=dh**-0.5, row_offset=ro, col_offset=co, causal=mode, window=window)
+    case_name, _, _ = fa.backward_case(sq, skv, ro, co, mode, window)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for pass_ in ("dq", "dkv"):
+        key = f"bwd_{pass_}_{case_name}"
+        assert fa.LAUNCHES[key] == before[key] + 1
+    want = fa.flash_backward_plain(q, k, v, o, lse, do, **kw)
+    bounds = fa.backward_gap_bound(q, k, v, o, lse, do, want, **kw)
+    for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        gap = (g - w).abs()
+        assert bool(torch.isfinite(g).all()), name
+        assert bool((gap <= b).all()), (name, float((gap - b).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_attention_gradient_through_the_kernels(cuda_device, dtype):
+    """autograd through ``flash_attention`` (K8a forward, K10a/K10b
+    backward) against autograd of the plain float32 einsum attention on
+    the same (rounded) operands: in half precision within 2e-2 relative
+    plus 3e-2 (the kernels round P and dS to the operand type and the
+    gradients come back in it; they are of order 1), in float32 within
+    1e-4."""
+    sq, h, dh = 192, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = _uniform_qkv(sq, sq, h, h, dh, dtype, gen, cuda_device)
+    w = _uniform((sq, h, dh), torch.float32, gen, cuda_device)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, scale=dh**-0.5)
+    grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["bwd_dq_tri"] == before["bwd_dq_tri"] + 1
+    assert fa.LAUNCHES["bwd_dkv_tri"] == before["bwd_dkv_tri"] + 1
+    ref = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+    s = torch.einsum("qhd,khd->hqk", ref[0], ref[1]) * dh**-0.5
+    mask = torch.ones((sq, sq), dtype=torch.bool, device=cuda_device).tril()
+    p = torch.softmax(s.masked_fill(~mask, fa.NEG_INF), -1)
+    o_ref = torch.einsum("hqk,khd->qhd", p, ref[2])
+    want = torch.autograd.grad((o_ref * w).sum(), ref)
+    half = dtype != torch.float32
+    for g, r in zip(grads, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), r, rtol=2e-2 if half else 0,
+                                   atol=3e-2 if half else 1e-4)

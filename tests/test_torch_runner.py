@@ -230,6 +230,7 @@ def test_runtime_on_cpu_world_of_one():
         ("dp_allreduce", "jax_spmd", "counterpart is 'pytorch'"),
         ("dp_allreduce", "pallas", "not yet ported"),
         ("pp_pipeline", "jax_spmd", "not yet ported"),
+        ("transformer_step", "xla_gspmd", "not yet ported"),
         ("bogus", "pytorch", "Unknown primitive"),
     ],
 )
