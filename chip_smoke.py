@@ -20,11 +20,17 @@ Phases, in order; any failure exits non-zero without the final line:
    each output dtype), K10a-K10d (the flash backward's dQ and dK/dV
    passes, triangle and rectangle, within ``backward_gap_bound`` at the
    training path's shapes and ragged, GQA, offset, past, diagonal and
-   windowed cases; each pass timed beside SDPA's backward);
+   windowed cases; each pass timed beside SDPA's backward), K2 and K3 (the
+   ring collective matmuls) in loopback, d virtual ranks in one launch on
+   the card, at d = 2, 3 and 4 (the GEMM path's per-rank shapes at d = 4,
+   a ragged case, fp16 and f32), bit for bit on integer operands and within
+   their bounds against the one-process plain ring, timed at d = 4;
 3. the main paths, each with the launch counts zeroed just before it and
    read just after, through the port's sweep runner (``run_benchmark``)
    with validation: both tensor-parallel families at m = n = k = 8192 bf16,
-   every member (K1 in the ``cuda`` rows); then the quantized path at the
+   every member (K1 in the ``cuda`` rows, K2 or K3 in the ``cuda;
+   algorithm=ring_rdma`` rows, every ``overlap`` entry of
+   ``scripts/config.json`` and ``config_tp_rowwise.json``); then the quantized path at the
    same shape (``scripts/config_quantized.json``'s ``kernel`` x
    ``quantize`` grid of every family's ``quantized`` member, and the
    ``compute_only`` and ``pytorch`` members of ``dp_allreduce`` and
@@ -47,7 +53,9 @@ Phases, in order; any failure exits non-zero without the final line:
    ``mlp_kernel=int8`` train row; K8a, K8b, K9, K10a-K10d, K7), with each
    row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
    be valid with a finite time, and the counts must be exactly what the
-   rows launch;
+   rows launch; then the LM head's product before and after it moved to
+   the tensor cores (``head_phase``: the full-width train row and a pallas
+   decode row, each with the old float32 head and the new one);
 4. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -169,17 +177,27 @@ def check_matmul(k1, m, n, k, dtype_name):
     return max_err, text, (a, b)
 
 
-#: every member of both families, each option of the sweep
+def overlap_entries(config):
+    """The ``overlap`` entries of one of the repo's GEMM sweep configs."""
+    with open(os.path.join("scripts", config)) as f:
+        return json.load(f)["benchmark"]["implementations"]["overlap"]
+
+
+#: every member of both families, each option of the sweep: the cuda
+#: member's two algorithms (K1; K2 or K3) and every overlap entry of
+#: scripts/config.json and scripts/config_tp_rowwise.json
 GEMM_SWEEPS = {
     "tp_columnwise": {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{"order": ["AG_before", "AG_after"]}],
-        "cuda": [{"order": ["AG_before", "AG_after"]}],
+        "cuda": [{"order": ["AG_before", "AG_after"]}, {"algorithm": ["ring_rdma"]}],
+        "overlap": overlap_entries("config.json"),
     },
     "tp_rowwise": {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{}],
-        "cuda": [{}],
+        "cuda": [{}, {"algorithm": ["ring_rdma"]}],
+        "overlap": overlap_entries("config_tp_rowwise.json"),
     },
 }
 
@@ -549,6 +567,173 @@ def kernel_phase_matmul(k1, smi):
         "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
         "library_ms": times["library_ms"],
     }
+
+
+# -- the ring collective matmuls (K2, K3), d virtual ranks on one card ---------
+
+#: loopback cases, (d, m_loc, n, k a rank, dtype): first the per-rank shapes
+#: of the GEMM path's 8192^3 bf16 at d = 4 (K2: [2048, 8192] @ [8192, 8192];
+#: K3: [8192, 2048] @ [2048, 8192]), then d = 2 and 3, a ragged case K1
+#: takes, fp16 and f32
+RING_AG_CASES = [
+    (4, PATH_MNK // 4, PATH_MNK, PATH_MNK, "bfloat16"),
+    (2, 1024, 2048, 2048, "bfloat16"),
+    (3, 1000, 776, 520, "bfloat16"),
+    (3, 256, 384, 512, "float16"),
+    (4, 512, 1024, 512, "float32"),
+]
+RING_RS_CASES = [
+    (4, PATH_MNK // 4, PATH_MNK, PATH_MNK // 4, "bfloat16"),
+    (2, 1024, 2048, 1024, "bfloat16"),
+    (3, 1000, 776, 520, "bfloat16"),
+    (3, 256, 384, 512, "float16"),
+    (4, 512, 1024, 512, "float32"),
+]
+
+
+def ring_operands(kind, d, m_loc, n, k, dtype, gen, integer):
+    """K2: (d shards [m_loc, k], b [k, n]); K3: (d shards [d m_loc, k],
+    d shards [k, n]). Integer-valued in [-4, 4], or uniform [-1, 1]."""
+    import torch
+
+    def make(shape):
+        if integer:
+            return torch.randint(-4, 5, shape, generator=gen, device="cuda").to(dtype)
+        return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1).to(dtype)
+
+    if kind == "ag":
+        return [make((m_loc, k)) for _ in range(d)], make((k, n))
+    return [make((d * m_loc, k)) for _ in range(d)], [make((k, n)) for _ in range(d)]
+
+
+def check_ring(cm, k1, kind, d, m_loc, n, k, dtype_name):
+    """One loopback launch of K2 (``ag``) or K3 (``rs``) for d virtual ranks
+    against the one-process plain ring (``ring_*_virtual``), twice:
+
+    - integer-valued operands: bit for bit, every rank (every sum is exact
+      in float32 in any order, so both sides round the same values at
+      every hop);
+    - uniform operands: K2 within K1's ``plain_gap_bound`` (each chunk is
+      K1's tile GEMM), K3 within ``ring_matmul_rs_gap_bound`` (that rule
+      and the rounding of the partial and of every hop's sum, hop by hop),
+      f32 within 1e-5 * k.
+
+    Returns (max |err| on the uniform operands, tolerance text, operands)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + d)
+    what = f"K{2 if kind == 'ag' else 3} loopback d={d} {m_loc}x{n}x{k} {dtype_name}"
+    loopback = cm.ring_ag_matmul_loopback if kind == "ag" else cm.ring_matmul_rs_loopback
+    virtual = cm.ring_ag_matmul_virtual if kind == "ag" else cm.ring_matmul_rs_virtual
+    x, y = ring_operands(kind, d, m_loc, n, k, dtype, gen, integer=True)
+    got, want = loopback(x, y), virtual(x, y)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{what}: not exact on integer operands")
+    x, y = ring_operands(kind, d, m_loc, n, k, dtype, gen, integer=False)
+    got, want = loopback(x, y), virtual(x, y)
+    torch.cuda.synchronize()
+    if dtype_name == "float32":
+        bounds = [torch.full_like(w, 1e-5 * k, dtype=torch.float32) for w in want]
+        text = f"exact on integers; atol {1e-5 * k:g}"
+    elif kind == "ag":
+        a_full = torch.cat(x)
+        bounds = [k1.plain_gap_bound(a_full, y, g, w) for g, w in zip(got, want)]
+        text = "exact on integers; plain_gap_bound"
+    else:
+        bounds = cm.ring_matmul_rs_gap_bound(x, y)
+        text = "exact on integers; ring_matmul_rs_gap_bound"
+    max_err, bad = 0.0, 0
+    for g, w, bound in zip(got, want, bounds):
+        err = (g.float() - w.float()).abs()
+        max_err = max(max_err, float(err.max()))
+        bad += int((err > bound).sum())
+    if bad or not math.isfinite(max_err):
+        fail(f"{what}: {bad} elements beyond {text}, max |err| {max_err}")
+    print(f"{what}: max |err| {max_err!r} vs plain ({text}): ok")
+    return max_err, text, (x, y)
+
+
+def ring_bound(kind, d, m_loc, n, k, itemsize):
+    """(bound ms, bound_by) of one loopback launch of d virtual ranks: the
+    larger of the d ranks' GEMM FLOPs over the bf16 peak and the bytes the
+    launch must move (each rank's operands read once, its output written
+    once) over the memory rate."""
+    if kind == "ag":
+        flops = d * 2.0 * (d * m_loc) * n * k
+        moved = d * (m_loc * k + k * n + d * m_loc * n) * itemsize
+    else:
+        flops = d * 2.0 * (d * m_loc) * n * k
+        moved = d * (d * m_loc * k + k * n + m_loc * n) * itemsize
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_phase_ring(cm, k1, smi):
+    """K2 and K3 in loopback at every case of their phase, then each timed
+    at the GEMM path's per-rank shapes, d = 4, beside its plain ring run in
+    one process, the bound of the four ranks' work and one library call
+    that computes the same product (``torch.matmul``: the four ranks' K2
+    outputs as one batched product of the gathered A; K3's reduce-scattered
+    sum as the full [m, k] @ [k, n] product, whose rows the four ranks
+    hold). These are loopback times of four virtual ranks sharing one
+    card, not four-card times. Returns the two ``kernels`` entries
+    (launches filled in later)."""
+    import torch
+
+    entries = []
+    for kind, cases, name, replaces in (
+        ("ag", RING_AG_CASES, "collective_ag_matmul", "ddlb_tpu/ops/collective_matmul.py:98"),
+        ("rs", RING_RS_CASES, "collective_matmul_rs", "ddlb_tpu/ops/collective_matmul.py:249"),
+    ):
+        main = None
+        for case in cases:
+            result = check_ring(cm, k1, kind, *case)
+            if main is None:
+                main = (case, result)
+            torch.cuda.empty_cache()
+        (d, m_loc, n, k, _), (max_err, tol, (x, y)) = main
+        ring = cm.loopback_ring(kind, d, m_loc * (k if kind == "ag" else n), x[0].dtype, "cuda")
+        if kind == "ag":
+            gathered = torch.cat(x)
+            calls = {
+                "ms": lambda: cm.ring_ag_matmul_loopback(x, y, ring),
+                "library_ms": lambda: torch.matmul(gathered.expand(d, *gathered.shape), y),
+                "plain_ms": lambda: cm.ring_ag_matmul_virtual(x, y),
+            }
+        else:
+            a_cat, b_cat = torch.cat(x, dim=1), torch.cat(y)
+            calls = {
+                "ms": lambda: cm.ring_matmul_rs_loopback(x, y, ring),
+                "library_ms": lambda: torch.matmul(a_cat, b_cat),
+                "plain_ms": lambda: cm.ring_matmul_rs_virtual(x, y),
+            }
+        times, timings = time_turns(calls, {"ms": 10, "library_ms": 10, "plain_ms": 2})
+        bound, bound_by = ring_bound(kind, d, m_loc, n, k, x[0].element_size())
+        print(
+            f"{name} loopback d={d} ({m_loc}x{n}x{k} a rank, bf16): kernel "
+            f"{times['ms']!r} ms, library {times['library_ms']!r} ms, plain "
+            f"{times['plain_ms']!r} ms, bound {bound!r} ms ({smi}); windows {timings}"
+        )
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ddlb_tpu_torch/csrc/collective_matmul.cu",
+            "replaces": replaces,
+            "launches": None,
+            "max_abs_err": max_err,
+            "ms": times["ms"],
+            "plain_ms": times["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": times["library_ms"],
+            "mode": f"loopback d={d}",
+        })
+        del x, y, ring, calls
+        torch.cuda.empty_cache()
+    return entries
 
 
 def kernel_phase_flash(fa, smi):
@@ -1626,6 +1811,46 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
     return {key: end[key] - total_start[key] for key in end}
 
 
+def head_phase(run_benchmark, smi):
+    """The LM head's product before and after it moved to the tensor
+    cores: the full-width training row (train, the block router) and a
+    pallas decode row at m = 8192, each driven four times in one process,
+    alternating the head (tensor cores, float32, float32, tensor cores).
+    "float32" is the product the port used before, ``torch.matmul`` of the
+    upcast operands (the SIMT cores, TF32 off), put back in the models for
+    the row; "tensor_cores" is ``ops.accum.float32_product``. Prints the
+    rows' medians; fails unless every row is valid."""
+    import torch
+    from ddlb_tpu_torch.models import decode as dec
+    from ddlb_tpu_torch.models import transformer as tm
+    from ddlb_tpu_torch.ops import accum
+
+    def float32_head(h, w):
+        return torch.matmul(h.float(), w.float())
+
+    wide_shape, wide = training_rows()[1]
+    train = {"spmd": [dict(wide["spmd"][0], mode=["train"])]}
+    decode = {"spmd": [{"phase": "decode", "attn_kernel": "flash",
+                        "decode_kernel": "pallas", **SERVE_COMMON}]}
+    rows = (("train", "transformer_step", wide_shape, train, TRAIN_WARMUPS, TRAIN_ITERATIONS),
+            ("decode", "transformer_decode", (PATH_MNK, SERVE_N, SERVE_K), decode, 2, 8))
+    medians = {}
+    for label, primitive, shape, impls, warmups, iterations in rows:
+        for head in ("tensor_cores", "float32", "float32", "tensor_cores"):
+            fn = accum.float32_product if head == "tensor_cores" else float32_head
+            tm.float32_product = dec.float32_product = fn
+            try:
+                (row,) = drive_path(run_benchmark, "cuda", primitive, shape, impls,
+                                    warmups=warmups, iterations=iterations)
+            finally:
+                tm.float32_product = dec.float32_product = accum.float32_product
+            medians.setdefault(label, {}).setdefault(head, []).append(
+                row["median time (ms)"])
+            torch.cuda.empty_cache()
+    print(json.dumps({"head_product_ms": medians, "card": smi}))
+    return medians
+
+
 def main():
     try:
         import torch
@@ -1638,6 +1863,7 @@ def main():
         import ddlb_tpu_torch
         from ddlb_tpu_torch.cli.benchmark import run_benchmark
         from ddlb_tpu_torch.ops import _build
+        from ddlb_tpu_torch.ops import collective_matmul as cm
         from ddlb_tpu_torch.ops import decode_attention as da
         from ddlb_tpu_torch.ops import flash_attention as fa
         from ddlb_tpu_torch.ops import matmul as k1
@@ -1658,7 +1884,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. kernels: build (one nvcc each, in parallel), check, time
-    libs = ("matmul", "flash_attention", "decode_attention", "quantized_matmul")
+    libs = ("matmul", "flash_attention", "decode_attention", "quantized_matmul",
+            "collective_matmul")
     t0 = time.perf_counter()
     _build.build(*libs)
     print(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -1667,6 +1894,7 @@ def main():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas ({name}):", line.strip())
     matmul_entry = kernel_phase_matmul(k1, smi)
+    ring_entries = kernel_phase_ring(cm, k1, smi)
     forward_entry, chunk_entry = kernel_phase_flash(fa, smi)
     forward_entry["serving_prefill"] = kernel_phase_flash_serving(fa, smi)
     decode_entry, paged_entry = kernel_phase_decode(da, smi)
@@ -1681,6 +1909,7 @@ def main():
         qm.LAUNCHES = 0
         fa.reset_launches()
         da.reset_launches()
+        cm.reset_launches()
 
     # 3. the main paths, each with the counts zeroed just before it
     launches = {}
@@ -1689,17 +1918,25 @@ def main():
     for primitive, implementations in GEMM_SWEEPS.items():
         rows += drive_path(run_benchmark, "cuda", primitive,
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
-    gemm_launches, others = k1.LAUNCHES, {**fa.LAUNCHES, **da.LAUNCHES,
-                                          "int8": qm.LAUNCHES}
-    cuda_rows = sum(1 for r in rows if r["base_implementation"] == "cuda")
-    # each cuda row runs K1 once per warmup, per timed iteration and for
-    # validation; no other row may launch it
-    expected = cuda_rows * (NUM_WARMUPS + NUM_ITERATIONS + 1)
-    if gemm_launches != expected or gemm_launches == 0:
-        fail(f"K1 launched {gemm_launches} times on the GEMM path, expected {expected}")
+    gemm_launches = {"k1": k1.LAUNCHES, **cm.LAUNCHES}
+    others = {**fa.LAUNCHES, **da.LAUNCHES, "int8": qm.LAUNCHES}
+    # each cuda row runs its kernel once per warmup, per timed iteration
+    # and for validation: K1 under xla_collective, K2 (tp_columnwise) or K3
+    # (tp_rowwise) under ring_rdma; no other row launches any of them
+    per_row = NUM_WARMUPS + NUM_ITERATIONS + 1
+    expected = {"k1": 0, "ag": 0, "rs": 0}
+    for r in rows:
+        if r["base_implementation"] != "cuda":
+            continue
+        if row_options(r)["algorithm"] == "ring_rdma":
+            expected["ag" if r["primitive"] == "tp_columnwise" else "rs"] += per_row
+        else:
+            expected["k1"] += per_row
+    if gemm_launches != expected or not all(expected.values()):
+        fail(f"K1/K2/K3 launched {gemm_launches} on the GEMM path, expected {expected}")
     if any(others.values()):
         fail(f"other kernels launched on the GEMM path: {others}")
-    launches["gemm"] = {"k1": gemm_launches}
+    launches["gemm"] = gemm_launches
     print(f"GEMM path done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
@@ -1709,7 +1946,7 @@ def main():
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
         torch.cuda.empty_cache()
     int8_launches = qm.LAUNCHES
-    others = {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES}
+    others = {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, **cm.LAUNCHES}
     # each kernel=pallas row runs K7 once per warmup, per timed iteration
     # and for validation; no kernel=xla row and no other member may
     # launch it
@@ -1730,7 +1967,7 @@ def main():
                            (ATTN_M, ATTN_N, ATTN_K), implementations)
         torch.cuda.empty_cache()
     flash_launches = dict(fa.LAUNCHES)
-    others = {**da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
+    others = {**da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES, **cm.LAUNCHES}
     expected = expected_flash_launches(rows)
     if flash_launches != expected or not all(
             flash_launches[key] for key in ("tri", "rect", "chunk")):
@@ -1746,6 +1983,8 @@ def main():
     if not (serving_launches["decode"] and serving_launches["paged"]
             and serving_launches["tri"] and serving_launches["int8"]):
         fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
+    if any(cm.LAUNCHES.values()):
+        fail(f"K2/K3 launched on the serving path: {cm.LAUNCHES}")
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1755,8 +1994,13 @@ def main():
                if not training_launches[key]]
     if missing:
         fail(f"the training path did not launch {missing}: {training_launches}")
+    if any(cm.LAUNCHES.values()):
+        fail(f"K2/K3 launched on the training path: {cm.LAUNCHES}")
     launches["training"] = training_launches
     print(f"training path done at {time.perf_counter() - t_start:.1f} s")
+
+    head_phase(run_benchmark, smi)
+    print(f"head product phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
 
     # 4. results
@@ -1764,6 +2008,8 @@ def main():
         return sum(path.get(key, 0) for path in launches.values())
 
     matmul_entry["launches"] = total("k1")
+    for entry, key in zip(ring_entries, ("ag", "rs")):
+        entry["launches"] = total(key)
     forward_entry["launches"] = total("tri") + total("rect")
     forward_entry["rect"]["launches"] = total("rect")
     forward_entry["serving_prefill"]["launches"] = serving_launches["tri"]
@@ -1777,8 +2023,8 @@ def main():
     }
     for entry, key in zip(backward_entries, BWD_KEYS):
         entry["launches"] = total(key)
-    print(json.dumps({"kernels": [matmul_entry, forward_entry, chunk_entry,
-                                  decode_entry, paged_entry, int8_entry,
+    print(json.dumps({"kernels": [matmul_entry, *ring_entries, forward_entry,
+                                  chunk_entry, decode_entry, paged_entry, int8_entry,
                                   *backward_entries]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

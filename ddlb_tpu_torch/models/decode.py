@@ -56,6 +56,7 @@ from ddlb_tpu_torch.models.transformer import (
     rms_norm,
 )
 from ddlb_tpu_torch.ops import decode_attention as da
+from ddlb_tpu_torch.ops.accum import float32_product
 from ddlb_tpu_torch.primitives.base import _tensor_from_numpy
 
 Cache = Dict[str, torch.Tensor]
@@ -395,8 +396,9 @@ def _out_proj(attn, params, l, x, mesh):
 
 
 def _logits(h, params):
-    """The LM head as a float32 product (``preferred_element_type``)."""
-    return torch.matmul(h.float(), params["head"].float())
+    """The LM head as a float32 product (``preferred_element_type``): on
+    the card's tensor cores from bf16 operands (``ops.accum``)."""
+    return float32_product(h, params["head"])
 
 
 def serving_body(params, cache, tokens, pos, cfg: TransformerConfig, mesh,

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ddlb_tpu_torch.ops.accum import float32_product
 from ddlb_tpu_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention,
@@ -416,7 +417,13 @@ def ring_attention(q, k, v, mesh, window: int = 0) -> torch.Tensor:
     ``[b, s_loc, h, dh]`` chunk; K/V chunks ride the tp ring (a
     differentiable hop) into a float32 online-softmax carry, chunks outside
     the live band skipped. GQA chunks are repeated up to the query heads
-    before each fold."""
+    before each fold.
+
+    A skipped chunk still joins the output with weight zero, so that every
+    hop is in every rank's autograd graph: the hop's backward is the
+    reverse hop, a collective that every rank must post. The reference
+    does the same with an unconditional ``ppermute`` whose transpose
+    carries zeros where the fold was skipped (:402-408)."""
     group = q.shape[2] // k.shape[2]
     d, my = mesh.tp, mesh.tp_rank
     s_loc, dh = q.shape[1], q.shape[3]
@@ -445,6 +452,8 @@ def ring_attention(q, k, v, mesh, window: int = 0) -> torch.Tensor:
             l = l * alpha + p.sum(-1, keepdim=True)
             acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p, v_use.float())
             m = m_new
+        elif torch.is_grad_enabled():
+            acc = acc + 0.0 * (k_cur.float().sum() + v_cur.float().sum())
         if t + 1 < d:
             k_cur, v_cur = mesh.tp_ring_shift(k_cur, v_cur)
     return (acc / l).transpose(1, 2).to(q.dtype)
@@ -623,7 +632,7 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
                 y = run(x_in)
                 if last:
                     h = rms_norm(y, leaves["ln_f"])
-                    logits = torch.matmul(h.float(), leaves["head"].float())
+                    logits = float32_product(h, leaves["head"])
                     loss_t = ce_loss(logits, local(targets, t - (pp - 1)))
                     loss_acc = loss_acc + loss_t.detach()
             record.append((x_in, y, loss_t))
@@ -814,6 +823,6 @@ def reference_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
                     shards.append(torch.cat(out).reshape(b_mb, s_loc, D))
                 x = x + torch.cat(shards, dim=1)
         h = rms_norm(x, params["ln_f"])
-        logits = torch.matmul(h.float(), params["head"].float())
+        logits = float32_product(h, params["head"])
         losses.append(ce_loss(logits, targets[c0:c0 + b_mb]))
     return torch.stack(losses).mean()

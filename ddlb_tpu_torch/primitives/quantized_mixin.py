@@ -30,6 +30,17 @@ QUANTIZABLE_DTYPES = ("float32", "float16", "bfloat16")
 _TPU_TILE_OPTIONS = ("block_m", "block_n", "block_k", "tune")
 
 
+def reject_tpu_tiles(options, member: str, why: str) -> None:
+    """Raise on the JAX members' TPU tile options, which the port's fixed
+    kernel tiles leave without a counterpart."""
+    tile = sorted(set(options) & set(_TPU_TILE_OPTIONS))
+    if tile:
+        raise ValueError(
+            f"Option(s) {tile} of {member} size the JAX package's TPU tiles "
+            f"and are not ported to ddlb_tpu_torch: {why}"
+        )
+
+
 class QuantizedGEMMMixin:
     DEFAULT_OPTIONS = {"kernel": "xla", "quantize": "static"}
     ALLOWED_VALUES = {
@@ -38,13 +49,8 @@ class QuantizedGEMMMixin:
     }
 
     def __init__(self, *args, **options) -> None:
-        tile = sorted(set(options) & set(_TPU_TILE_OPTIONS))
-        if tile:
-            raise ValueError(
-                f"Option(s) {tile} of the quantized member size the JAX "
-                "package's TPU tiles and are not ported to ddlb_tpu_torch: "
-                "K7's tiles are fixed in csrc/quantized_matmul.cu"
-            )
+        reject_tpu_tiles(options, "the quantized member",
+                         "K7's tiles are fixed in csrc/quantized_matmul.cu")
         super().__init__(*args, **options)
 
     def _check_quantized_options(self) -> None:

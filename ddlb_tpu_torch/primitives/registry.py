@@ -4,8 +4,8 @@ Covers the families this port carries so far. The GEMM members follow
 the upstream project (samnordmann/ddlb): ``pytorch`` is the
 explicit-collective member (the JAX package's ``jax_spmd``), ``cuda`` the
 tensor-parallel families' hand-kernel member (the JAX package's
-``pallas``). ``quantized`` and the context-parallel attention members keep
-their JAX names. A family or member of the JAX package that has no
+``pallas``). ``overlap``, ``quantized`` and the context-parallel attention
+members keep their JAX names. A family or member of the JAX package that has no
 counterpart here yet raises ``ValueError`` saying so.
 """
 
@@ -33,6 +33,10 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.tp_columnwise.cuda_impl",
             "CudaTPColumnwise",
         ),
+        "overlap": (
+            "ddlb_tpu_torch.primitives.tp_columnwise.overlap",
+            "OverlapTPColumnwise",
+        ),
         "quantized": (
             "ddlb_tpu_torch.primitives.tp_columnwise.quantized",
             "QuantizedTPColumnwise",
@@ -50,6 +54,10 @@ _REGISTRY = {
         "cuda": (
             "ddlb_tpu_torch.primitives.tp_rowwise.cuda_impl",
             "CudaTPRowwise",
+        ),
+        "overlap": (
+            "ddlb_tpu_torch.primitives.tp_rowwise.overlap",
+            "OverlapTPRowwise",
         ),
         "quantized": (
             "ddlb_tpu_torch.primitives.tp_rowwise.quantized",
@@ -112,10 +120,14 @@ _NOT_PORTED_FAMILIES = (
     "serving_load",
 )
 #: members of the ported families that the port does not carry yet: the
-#: GSPMD and overlap members, and the data- and expert-parallel families'
-#: topology compositions and ring-kernel ``pallas`` members (K3, K6)
-_NOT_PORTED_MEMBERS = ("xla_gspmd", "overlap", "jax_spmd_hier", "jax_spmd_striped")
-_NOT_PORTED_PALLAS = ("dp_allreduce", "ep_alltoall")
+#: GSPMD members, and the data- and expert-parallel families' topology
+#: compositions, ``overlap`` members and ring-kernel ``pallas`` members
+#: (K3, K6)
+_NOT_PORTED_MEMBERS = ("xla_gspmd", "jax_spmd_hier", "jax_spmd_striped")
+_NOT_PORTED_BY_FAMILY = {
+    "dp_allreduce": ("overlap", "pallas"),
+    "ep_alltoall": ("overlap", "pallas"),
+}
 #: JAX package member name -> this package's name for the same member
 _RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda"}
 
@@ -130,8 +142,8 @@ def load_impl_class(primitive: str, name: str) -> Type:
     check_primitive(primitive)
     table = _REGISTRY[primitive]
     if name not in table:
-        if name in _NOT_PORTED_MEMBERS or (
-            name == "pallas" and primitive in _NOT_PORTED_PALLAS
+        if name in _NOT_PORTED_MEMBERS or name in _NOT_PORTED_BY_FAMILY.get(
+            primitive, ()
         ):
             raise ValueError(
                 f"Implementation '{name}' of {primitive} is not yet ported "

@@ -11,7 +11,9 @@ on the card, gloo on the CPU, rendezvous through ``MASTER_ADDR`` /
 collective below is the identity: the all-gather and reduce-scatter of
 rows, the sum all-reduce, the ring hop (``batch_isend_irecv``), and the
 row and head/sequence all-to-alls (``all_to_all_single``).
-``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
+``Runtime.peer_buffer`` allocates card memory that every rank can address
+(``PeerBuffer``, symmetric memory over NVLink), for the hand-written ring
+kernels. ``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
 (``Mesh``) whose per-axis groups carry the serving model's sum and
 all-gather and the training step's collectives, some of them
 differentiable.
@@ -99,24 +101,27 @@ class Runtime:
             dist.all_reduce(token)
         self.synchronize()
 
-    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Concatenate every rank's ``x`` along dim 0, in rank order."""
+    def all_gather_rows(self, x: torch.Tensor, async_op: bool = False):
+        """Concatenate every rank's ``x`` along dim 0, in rank order. With
+        ``async_op`` returns ``(out, handles)``: ``out`` is valid once every
+        handle's ``wait()`` has returned (as ``ring_shift``)."""
         if self.world_size == 1:
-            return x
+            return (x, []) if async_op else x
         out = torch.empty(
             (self.world_size * x.shape[0], *x.shape[1:]),
             dtype=x.dtype,
             device=x.device,
         )
-        _collective("all_gather_single", "all_gather_into_tensor")(
-            out, x.contiguous()
+        work = _collective("all_gather_single", "all_gather_into_tensor")(
+            out, x.contiguous(), async_op=async_op
         )
-        return out
+        return (out, [work]) if async_op else out
 
-    def reduce_scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over ranks; rank r keeps row block r of the sum."""
+    def reduce_scatter_rows(self, x: torch.Tensor, async_op: bool = False):
+        """Sum ``x`` over ranks; rank r keeps row block r of the sum. With
+        ``async_op`` returns ``(out, handles)``, as ``all_gather_rows``."""
         if self.world_size == 1:
-            return x
+            return (x, []) if async_op else x
         if x.shape[0] % self.world_size:
             raise ValueError(
                 f"{x.shape[0]} rows do not split over {self.world_size} ranks"
@@ -126,10 +131,10 @@ class Runtime:
             dtype=x.dtype,
             device=x.device,
         )
-        _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-            out, x.contiguous()
+        work = _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, x.contiguous(), async_op=async_op
         )
-        return out
+        return (out, [work]) if async_op else out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over ranks; every rank gets the whole sum."""
@@ -152,16 +157,20 @@ class Runtime:
         dist.all_to_all_single(out, x.contiguous())
         return out
 
-    def ring_shift(self, *tensors: torch.Tensor):
+    def ring_shift(self, *tensors: torch.Tensor, reverse: bool = False,
+                   tag: int = 0):
         """Post one ring hop of each tensor: send to rank ``(r+1) % d``,
-        receive the same shape from rank ``(r-1) % d``.
+        receive the same shape from rank ``(r-1) % d`` (the other way round
+        with ``reverse``).
 
         Returns ``(received, handles)``; the received tensors are valid
         once every handle's ``wait()`` has returned, so the caller can
         compute between the two. Every rank posts the same sends and
         receives in the same order, in one ``batch_isend_irecv``, with one
-        tag per tensor. At world 1 the tensors themselves come back and
-        there is nothing to wait for.
+        tag per tensor counted from ``tag`` (two hops in flight at once,
+        such as the two directions of a bidirectional ring, take distinct
+        tags). At world 1 the tensors themselves come back and there is
+        nothing to wait for.
         """
         d = self.world_size
         if d == 1:
@@ -169,12 +178,20 @@ class Runtime:
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("ring_shift sends contiguous tensors only")
         nxt, prv = (self.rank + 1) % d, (self.rank - 1) % d
+        if reverse:
+            nxt, prv = prv, nxt
         received = tuple(torch.empty_like(t) for t in tensors)
         ops = []
-        for tag, (t, buf) in enumerate(zip(tensors, received)):
-            ops.append(dist.P2POp(dist.isend, t, nxt, tag=tag))
-            ops.append(dist.P2POp(dist.irecv, buf, prv, tag=tag))
+        for i, (t, buf) in enumerate(zip(tensors, received)):
+            ops.append(dist.P2POp(dist.isend, t, nxt, tag=tag + i))
+            ops.append(dist.P2POp(dist.irecv, buf, prv, tag=tag + i))
         return received, dist.batch_isend_irecv(ops)
+
+    def peer_buffer(self, nbytes: int) -> "PeerBuffer":
+        """``nbytes`` of zeroed card memory that every rank can address
+        (see ``PeerBuffer``). Collective: every rank asks for the same
+        size, in the same order."""
+        return PeerBuffer(self, nbytes)
 
     def all_to_all_heads_seq(self, x: torch.Tensor) -> torch.Tensor:
         """``[m/d, h, dh]`` sequence-sharded -> ``[m, h/d, dh]``
@@ -224,6 +241,49 @@ class Runtime:
         t = torch.tensor([1 if flag else 0], dtype=torch.int32).to(self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
         return bool(t.item())
+
+
+class PeerBuffer:
+    """A byte buffer on each rank's card that every rank of the world can
+    address: the peer memory of the hand-written ring kernels (K2, K3),
+    which store into a neighbour's buffer over NVLink and signal it through
+    flag words there.
+
+    ``local`` is this rank's ``[nbytes]`` uint8 tensor, zeroed; ``ptrs[i]``
+    is rank ``i``'s buffer as this process addresses it. At world 1 it is an
+    ordinary allocation and ``ptrs`` holds its own address. Across ranks it
+    is symmetric memory (``torch.distributed._symmetric_memory``: ``empty``
+    then the collective ``rendezvous`` over the world group), zeroed and
+    synchronised before the rendezvous so that no peer signals into it
+    before it is clear. Allocate once per member, at set-up: the
+    rendezvous is collective, and the buffer lives as long as this object.
+    Card only; the CPU has no peer memory (the plain versions ride
+    ``Runtime.ring_shift`` there).
+    """
+
+    def __init__(self, runtime: "Runtime", nbytes: int) -> None:
+        if runtime.platform != "cuda":
+            raise ValueError("peer memory exists on the card only")
+        self.rank, self.world = runtime.rank, runtime.world_size
+        if self.world == 1:
+            self.local = torch.zeros(nbytes, dtype=torch.uint8, device=runtime.device)
+            self.ptrs = (self.local.data_ptr(),)
+            return
+        from torch.distributed import _symmetric_memory as symm
+
+        self.local = symm.empty(nbytes, dtype=torch.uint8, device=runtime.device)
+        self.local.zero_()
+        torch.cuda.synchronize(runtime.device)
+        self._handle = symm.rendezvous(self.local, dist.group.WORLD)
+        offset = int(getattr(self._handle, "offset", 0))
+        self.ptrs = tuple(int(p) + offset for p in self._handle.buffer_ptrs)
+        if self.ptrs[self.rank] != self.local.data_ptr():
+            raise RuntimeError(
+                "symmetric memory: this rank's peer pointer "
+                f"{self.ptrs[self.rank]:#x} is not its tensor's "
+                f"{self.local.data_ptr():#x}"
+            )
+        dist.barrier()
 
 
 #: the process groups of each mesh shape, created once per process:

@@ -590,3 +590,239 @@ def test_flash_attention_gradient_through_the_kernels(cuda_device, dtype):
         assert g.dtype == dtype
         torch.testing.assert_close(g.float(), r, rtol=2e-2 if half else 0,
                                    atol=3e-2 if half else 1e-4)
+
+
+# -- K2 / K3: the ring collective matmuls, d virtual ranks on one card -------------
+
+from ddlb_tpu_torch.ops import collective_matmul as cm  # noqa: E402
+
+#: (d, m_loc, n, k) a rank; K3 contracts k per rank (its k / d)
+RING_CASES = [
+    (1, 256, 384, 512),
+    (2, 256, 384, 512),
+    (3, 200, 776, 520),
+    (4, 512, 512, 1024),
+    (4, 130, 264, 72),
+]
+RING_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _ring_operands(d, m_loc, n, k, dtype, gen, device, integer):
+    def make(shape):
+        if integer:
+            return torch.randint(-4, 5, shape, generator=gen, device=device).to(dtype)
+        return _uniform(shape, dtype, gen, device)
+
+    ag = ([make((m_loc, k)) for _ in range(d)], make((k, n)))
+    rs = ([make((d * m_loc, k)) for _ in range(d)], [make((k, n)) for _ in range(d)])
+    return ag, rs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+@pytest.mark.parametrize("d,m_loc,n,k", RING_CASES)
+def test_ring_kernels_loopback_match_virtual(cuda_device, d, m_loc, n, k, dtype,
+                                             integer):
+    """K2 and K3 running d virtual ranks in one launch, three calls on one
+    ring (the epoch counters), against the plain ring run in one process:
+    bit for bit on integer operands (every sum exact in float32, so both
+    sides round the same values at every hop); else K2 within K1's
+    ``plain_gap_bound`` and K3 within ``ring_matmul_rs_gap_bound``
+    (the GEMM gap and the roundings, hop by hop), f32 within 1e-5 * k."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 7 + m_loc)
+    (shards, b), (a_rs, b_rs) = _ring_operands(d, m_loc, n, k, dtype, gen,
+                                               cuda_device, integer)
+    ring_ag = cm.loopback_ring("ag", d, m_loc * k, dtype, cuda_device)
+    ring_rs = cm.loopback_ring("rs", d, m_loc * n, dtype, cuda_device)
+    want_ag = cm.ring_ag_matmul_virtual(shards, b)
+    want_rs = cm.ring_matmul_rs_virtual(a_rs, b_rs)
+    a_full = torch.cat(shards)
+    rs_bounds = None if integer or dtype == torch.float32 else \
+        cm.ring_matmul_rs_gap_bound(a_rs, b_rs)
+    for call in range(3):
+        before = dict(cm.LAUNCHES)
+        got_ag = cm.ring_ag_matmul_loopback(shards, b, ring_ag)
+        got_rs = cm.ring_matmul_rs_loopback(a_rs, b_rs, ring_rs)
+        torch.cuda.synchronize()
+        assert cm.LAUNCHES == {"ag": before["ag"] + 1, "rs": before["rs"] + 1}
+        for r in range(d):
+            g_ag, w_ag, g_rs, w_rs = got_ag[r], want_ag[r], got_rs[r], want_rs[r]
+            assert g_ag.shape == (d * m_loc, n) and g_rs.shape == (m_loc, n)
+            if integer:
+                assert torch.equal(g_ag, w_ag), (call, r)
+                assert torch.equal(g_rs, w_rs), (call, r)
+            elif dtype == torch.float32:
+                np.testing.assert_allclose(to_numpy(g_ag), to_numpy(w_ag), rtol=0, atol=1e-5 * k)
+                np.testing.assert_allclose(to_numpy(g_rs), to_numpy(w_rs), rtol=0, atol=1e-5 * k)
+            else:
+                gap = (g_ag.float() - w_ag.float()).abs()
+                assert bool((gap <= k1.plain_gap_bound(a_full, b, g_ag, w_ag)).all()), (call, r)
+                gap = (g_rs.float() - w_rs.float()).abs()
+                assert bool((gap <= rs_bounds[r]).all()), (call, r, float((gap - rs_bounds[r]).max()))
+    assert ring_ag.epoch == ring_rs.epoch == 3
+
+
+@pytest.mark.cuda
+def test_ring_kernels_reject_what_they_do_not_take(cuda_device):
+    a = torch.zeros((64, 32), device=cuda_device, dtype=torch.bfloat16)
+    b = torch.zeros((32, 16), device=cuda_device, dtype=torch.bfloat16)
+    ring = cm.loopback_ring("ag", 2, 64 * 32, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="'ag' ring passed to the 'rs'"):
+        cm.ring_matmul_rs_loopback([a, a], [b, b], ring)
+    with pytest.raises(ValueError, match="ring of torch.bfloat16"):
+        cm.ring_ag_matmul_loopback([a.half(), a.half()], b.half(), ring)
+    with pytest.raises(ValueError, match="does not fit"):
+        cm.ring_ag_matmul_loopback([torch.cat([a, a])] * 2, b, ring)
+    with pytest.raises(ValueError, match="contiguous"):
+        cm.ring_ag_matmul_loopback([a[:, :16], a[:, :16]], b[:16], ring)
+    with pytest.raises(ValueError, match="3 shards on a ring of 2"):
+        cm.ring_ag_matmul_loopback([a, a, a], b, ring)
+    # a CUDA tensor never takes the plain version: without this world's
+    # peer ring the wrapper raises
+    from ddlb_tpu_torch.runtime import Runtime
+
+    with pytest.raises(ValueError, match="needs this world's peer ring"):
+        cm.ring_ag_matmul(a, b, Runtime("cuda"))
+    with pytest.raises(ValueError, match="needs this world's peer ring"):
+        cm.ring_matmul_rs(a, b, Runtime("cuda"), ring)
+
+
+# -- K2 / K3 over NCCL: four ranks, one card each ------------------------------------
+
+NCCL_WORLD = 4
+NCCL_DEADLINE_S = 300
+#: (m_loc, n, k) a rank; integer operands (exact) and uniform ones
+NCCL_SHAPES = [(256, 384, 512), (130, 264, 72)]
+NCCL_CALLS = 3
+
+
+def _nccl_rank_main(rank, port, results):
+    import os
+    import traceback
+
+    os.environ.update(
+        RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(NCCL_WORLD),
+        MASTER_ADDR="localhost", MASTER_PORT=str(port),
+    )
+    import torch.distributed as dist
+
+    from ddlb_tpu_torch.runtime import Runtime
+
+    try:
+        rt = Runtime("cuda")
+        d, dev = NCCL_WORLD, rt.device
+        out = []
+        for (m_loc, n, k) in NCCL_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                for integer in (True, False):
+                    gen = torch.Generator(device=dev).manual_seed(m_loc + n)
+                    (shards, b), (a_rs, b_rs) = _ring_operands(d, m_loc, n, k, dtype, gen,
+                                                               dev, integer)
+                    ring_ag = cm.peer_ring(rt, "ag", m_loc * k, dtype)
+                    ring_rs = cm.peer_ring(rt, "rs", m_loc * n, dtype)
+                    want_ag = cm.ring_ag_matmul_plain(shards[rank], b, rt)
+                    want_rs = cm.ring_matmul_rs_plain(a_rs[rank], b_rs[rank], rt)
+                    before = dict(cm.LAUNCHES)
+                    for _ in range(NCCL_CALLS):
+                        got_ag = cm.ring_ag_matmul(shards[rank], b, rt, ring_ag)
+                        got_rs = cm.ring_matmul_rs(a_rs[rank], b_rs[rank], rt, ring_rs)
+                    torch.cuda.synchronize()
+                    launches = {key: cm.LAUNCHES[key] - before[key] for key in before}
+                    if integer:
+                        ok_ag, ok_rs = torch.equal(got_ag, want_ag), torch.equal(got_rs, want_rs)
+                    elif dtype == torch.float32:
+                        ok_ag = bool(((got_ag - want_ag).abs() <= 1e-5 * k).all())
+                        ok_rs = bool(((got_rs - want_rs).abs() <= 1e-5 * k).all())
+                    else:
+                        gap = (got_ag.float() - want_ag.float()).abs()
+                        ok_ag = bool((gap <= k1.plain_gap_bound(
+                            torch.cat(shards), b, got_ag, want_ag)).all())
+                        bound = cm.ring_matmul_rs_gap_bound(a_rs, b_rs)[rank]
+                        ok_rs = bool(((got_rs.float() - want_rs.float()).abs() <= bound).all())
+                    out.append(((m_loc, n, k, str(dtype), integer), ok_ag, ok_rs, launches))
+        results.put((rank, "ok", out))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
+    """K2 and K3 on four cards (one process each, peer memory from
+    symmetric memory over NVLink), three calls on one ring, against their
+    plain versions over NCCL (``batch_isend_irecv`` hops): bit for bit on
+    integer operands, else within the bounds of the loopback test; exactly
+    one launch of each kernel a call."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    if torch.cuda.device_count() < NCCL_WORLD:
+        pytest.skip(f"needs {NCCL_WORLD} cards, {torch.cuda.device_count()} visible")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_rank_main, args=(r, port, results), daemon=True)
+             for r in range(NCCL_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(NCCL_WORLD):
+            rank, status, payload = results.get(timeout=NCCL_DEADLINE_S)
+            assert status == "ok", f"rank {rank} failed:\n{payload}"
+            got[rank] = payload
+    except queue.Empty:
+        raise AssertionError(f"the {NCCL_WORLD}-card world did not finish in {NCCL_DEADLINE_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    for rank, cases in got.items():
+        assert len(cases) == len(NCCL_SHAPES) * 4
+        for case, ok_ag, ok_rs, launches in cases:
+            assert ok_ag and ok_rs, (rank, case, ok_ag, ok_rs)
+            assert launches == {"ag": NCCL_CALLS, "rs": NCCL_CALLS}, (rank, case)
+
+
+# -- the LM head's float32 product on the tensor cores ------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 256, 512), (1, 8, 2048, 16384)])
+def test_head_product_matches_the_float32_product(cuda_device, shape):
+    """``ops.accum.float32_product`` (``mm.dtype`` on bf16 operands) against
+    ``torch.matmul(h.float(), head.float())``, the product it replaces, and
+    its gradients against autograd of that product: both sum exact bf16
+    products in float32 in other orders, so they differ by at most
+    ``2 * k * 2**-23 * (|h| @ |head|)`` (the gradients by the same rule
+    over their own contraction, plus one rounding to bf16)."""
+    from ddlb_tpu_torch.ops.accum import float32_product
+
+    b, s, dm, vocab = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    h = _uniform((b, s, dm), torch.bfloat16, gen, cuda_device).requires_grad_(True)
+    w = _uniform((dm, vocab), torch.bfloat16, gen, cuda_device).requires_grad_(True)
+    g = torch.rand((b, s, vocab), generator=gen, device=cuda_device) - 0.5
+    got = float32_product(h, w)
+    want = torch.matmul(h.float(), w.float())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    mag = h.detach().float().abs() @ w.detach().float().abs()
+    assert bool(((got - want).abs() <= 2 * dm * 2.0**-23 * mag).all())
+    gh, gw = torch.autograd.grad((got * g).sum(), (h, w))
+    wh, ww = torch.autograd.grad((want * g).sum(), (h, w))
+    assert gh.dtype == torch.bfloat16 and gw.dtype == torch.bfloat16
+    for got_g, want_g, bound in (
+        (gh, wh, 2 * vocab * 2.0**-23 * (g.abs() @ w.detach().float().abs().t())),
+        (gw, ww, 2 * b * s * 2.0**-23 * (h.detach().float().abs().reshape(-1, dm).t()
+                                         @ g.abs().reshape(-1, vocab))),
+    ):
+        spacing = torch.exp2(torch.floor(torch.log2(
+            want_g.float().abs().clamp_min(1e-30)))) * 2.0**-7
+        assert bool(((got_g.float() - want_g.float()).abs() <= bound + spacing).all())

@@ -8,7 +8,11 @@ parent checks each rank's output against the numpy product (the numpy
 routed product, the numpy causal attention) of the same seeded operands,
 or, for the quantized members, bit for bit against the JAX member on a
 two-device mesh of the CPU simulation (both quantize the same shards; a
-sum of two float32 partials rounds once in gloo and in XLA alike).
+sum of two float32 partials rounds once in gloo and in XLA alike). The
+overlap members and ``cuda;algorithm=ring_rdma`` are also held against
+their JAX twins on that mesh (``overlap``; ``pallas`` in Pallas interpret
+mode) within ``validation_atol``, and the plain K2/K3 rings bit for bit
+against the JAX kernels under the distributed interpreter.
 """
 
 import multiprocessing as mp
@@ -43,7 +47,29 @@ CASES = [
     (family, "quantized", {"kernel": kernel, "quantize": quantize})
     for family in ("tp_columnwise", "tp_rowwise", "dp_allreduce", "ep_alltoall")
     for kernel, quantize in (("xla", "static"), ("pallas", "dynamic"))
+] + [
+    (family, "overlap", opts)
+    for family in ("tp_columnwise", "tp_rowwise")
+    for opts in (
+        {"algorithm": "default"},
+        {"algorithm": "coll_pipeline", "s": 4},
+        {"algorithm": "p2p_pipeline", "direction": "unidirectional"},
+        {"algorithm": "p2p_pipeline", "direction": "bidirectional"},
+        {"algorithm": "chunked", "chunk_count": 2},
+    )
+] + [
+    (family, "cuda", {"algorithm": "ring_rdma"})
+    for family in ("tp_columnwise", "tp_rowwise")
 ]
+#: the port's members whose JAX counterparts the parent runs on a
+#: two-device mesh too (the port's ``cuda`` is the JAX ``pallas``, its
+#: ring_rdma in Pallas interpret mode)
+JAX_TWINS = {"overlap": "overlap", "cuda": "pallas"}
+
+#: K2/K3's plain rings at d = 2: seeded [-1, 1] operands rounded to
+#: multiples of 1/64, whose products and sums are exact in float32 in any
+#: order, so the bf16 results match the JAX kernels bit for bit
+RING_KM, RING_KN, RING_KK = 32, 48, 64
 
 #: cp_ring_attention at seq 64, 4 heads of 16 (32 rows a rank)
 ATTN_M, ATTN_N, ATTN_K = 64, 64, 16
@@ -105,6 +131,18 @@ def _rank_main(rank, port, results):
                     impl.validate(result),
                     impl.num_partitions,
                 )
+        from ddlb_tpu_torch.ops import collective_matmul as cm
+        from ddlb_tpu_torch.runtime import Runtime
+
+        rt = Runtime("cpu")
+        a, b = (torch.from_numpy(x) for x in _ring_operands())
+        rows, kd = RING_KM // WORLD, RING_KK // WORLD
+        for dtype in (torch.float32, torch.bfloat16):
+            a_t, b_t = a.to(dtype), b.to(dtype)
+            ag = cm.ring_ag_matmul(a_t[rank * rows:(rank + 1) * rows].contiguous(), b_t, rt)
+            rs = cm.ring_matmul_rs(a_t[:, rank * kd:(rank + 1) * kd].contiguous(),
+                                   b_t[rank * kd:(rank + 1) * kd].contiguous(), rt)
+            out[("ring", str(dtype))] = (ag.float().numpy(), rs.float().numpy())
         rejected = []
         for family, shape in (("tp_columnwise", (M + 1, N, K)),
                               ("tp_rowwise", (M, N, K + 1))):
@@ -132,6 +170,58 @@ def _expected_quantized(case_index, rank):
     full = np.asarray(load_jax(family, name)(M, N, K, dtype="float32", mesh=mesh,
                                              **opts).run())
     if family in ("tp_columnwise", "dp_allreduce"):
+        return full
+    rows = M // WORLD
+    return full[rank * rows:(rank + 1) * rows]
+
+
+def _ring_operands():
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-1, 1, (RING_KM, RING_KK))
+    b = rng.uniform(-1, 1, (RING_KK, RING_KN))
+    return (np.round(a * 64) / 64).astype(np.float32), (np.round(b * 64) / 64).astype(np.float32)
+
+
+def _jax_rings(dtype):
+    """JAX's K2 and K3 in Pallas interpret mode on a two-device mesh:
+    (the all-gathered product, the reduce-scattered rows)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from ddlb_tpu.ops.collective_matmul import ring_ag_matmul, ring_matmul_rs
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:WORLD]), ("tp",))
+    a, b = (jnp.asarray(x).astype(getattr(jnp, dtype)) for x in _ring_operands())
+    out = []
+    for fn, specs, out_spec in (
+        (ring_ag_matmul, (P("tp", None), P(None, None)), P(None, None)),
+        (ring_matmul_rs, (P(None, "tp"), P("tp", None)), P("tp", None)),
+    ):
+        body = lambda x, y, fn=fn: fn(  # noqa: E731
+            x, y, axis_size=WORLD, block_n=16, block_k=16,
+            interpret=pltpu.InterpretParams())
+        f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=specs,
+                                  out_specs=out_spec, check_vma=False))
+        out.append(np.asarray(f(jax.device_put(a, NamedSharding(mesh, specs[0])),
+                                jax.device_put(b, NamedSharding(mesh, specs[1])))
+                              .astype(jnp.float32)))
+    return out
+
+
+def _expected_jax_twin(case_index, rank):
+    """The JAX twin of an overlap or ring_rdma case on a two-device mesh:
+    this rank's rows of its result (all of them for tp_columnwise)."""
+    import jax
+
+    from ddlb_tpu.primitives.registry import load_impl_class as load_jax
+
+    family, name, opts = CASES[case_index]
+    mesh = jax.make_mesh((WORLD,), ("tp",), devices=jax.devices()[:WORLD])
+    full = np.asarray(load_jax(family, JAX_TWINS[name])(
+        M, N, K, dtype="float32", mesh=mesh, **opts).run())
+    if family == "tp_columnwise":
         return full
     rows = M // WORLD
     return full[rank * rows:(rank + 1) * rows]
@@ -221,7 +311,28 @@ def test_two_rank_gloo_world():
     assert not any(p.is_alive() for p in procs)
     assert [p.exitcode for p in procs] == [0] * WORLD
 
+    from ddlb_tpu_torch.primitives.base import validation_atol
+
+    rings = {dtype: _jax_rings(dtype) for dtype in ("float32", "bfloat16")}
+    twins = {}
     for rank, (payload, rejected) in got.items():
+        for dtype in ("float32", "bfloat16"):
+            ag, rs = payload.pop(("ring", f"torch.{dtype}"))
+            want_ag, want_rs = rings[dtype]
+            rows = RING_KM // WORLD
+            # exact sums on both sides: bit for bit, bf16 included
+            np.testing.assert_array_equal(ag, want_ag, err_msg=f"K2 rank {rank} {dtype}")
+            np.testing.assert_array_equal(rs, want_rs[rank * rows:(rank + 1) * rows],
+                                          err_msg=f"K3 rank {rank} {dtype}")
+        for key, (output, valid, partitions) in payload.items():
+            if key[0] != "attn" and output is not None and CASES[key[0]][1] in JAX_TWINS:
+                if (key[0], rank) not in twins:
+                    twins[key[0], rank] = _expected_jax_twin(key[0], rank)
+                np.testing.assert_allclose(
+                    output, twins[key[0], rank], rtol=0,
+                    atol=validation_atol("float32", K),
+                    err_msg=f"rank {rank} case {CASES[key[0]]} against JAX",
+                )
         for key, (output, valid, partitions) in payload.items():
             assert partitions == WORLD
             if key[0] == "attn":
@@ -423,6 +534,9 @@ STEP_CASES = [
     (1, 2, 1, {"attention": "ring", "attn_window": 6, "n_kv_heads": 2, "rope": True}),
     (1, 1, 2, {"attn_kernel": "einsum"}),
     (2, 1, 1, {"attn_kernel": "einsum"}),
+    # the einsum ring: every hop in every rank's graph, live or not
+    (1, 2, 1, {"attention": "ring", "attn_kernel": "einsum"}),
+    (1, 2, 1, {"attention": "ring", "attn_kernel": "einsum", "attn_window": 5}),
 ]
 RING_S, RING_H, RING_DH = 32, 2, 8
 

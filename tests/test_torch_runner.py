@@ -83,12 +83,13 @@ def test_run_benchmark_writes_rows_with_jax_column_names(tmp_path, capsys):
 
 def test_shipped_config_shape_is_read(tmp_path):
     """scripts/config.json's shape (a 'benchmark' block) with the port's
-    member names; JAX-only members become error rows, not a crash."""
+    member names; members not ported yet become error rows, not a crash."""
     cfg = {"benchmark": _cpu_config(
         tmp_path,
         implementations={
             "pytorch": [{"order": ["AG_before"]}],
             "overlap": [{"algorithm": ["default"]}],
+            "xla_gspmd": [{}],
         },
     )}
     cfg["benchmark"]["k"] = 32
@@ -97,8 +98,9 @@ def test_shipped_config_shape_is_read(tmp_path):
     rows = port_cli.run_benchmark(port_cli.load_config(str(path)))
     by_impl = {r["implementation"]: r for r in rows}
     assert by_impl["pytorch_0"]["valid"]
-    assert "not yet ported" in by_impl["overlap_0"]["error"]
-    assert not by_impl["overlap_0"]["valid"]
+    assert by_impl["overlap_0"]["valid"] and not by_impl["overlap_0"]["error"]
+    assert "not yet ported" in by_impl["xla_gspmd_0"]["error"]
+    assert not by_impl["xla_gspmd_0"]["valid"]
 
 
 def test_unknown_config_key_rejected(tmp_path):
@@ -222,7 +224,7 @@ def test_runtime_on_cpu_world_of_one():
 @pytest.mark.parametrize(
     "primitive,name,match",
     [
-        ("tp_columnwise", "overlap", "not yet ported"),
+        ("dp_allreduce", "overlap", "not yet ported"),
         ("tp_rowwise", "xla_gspmd", "not yet ported"),
         ("tp_columnwise", "jax_spmd", "counterpart is 'pytorch'"),
         ("tp_rowwise", "pallas", "counterpart is 'cuda'"),
