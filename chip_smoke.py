@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero without the final line:
    ring collective matmuls) in loopback, d virtual ranks in one launch on
    the card, at d = 2, 3 and 4 (the GEMM path's per-rank shapes at d = 4,
    a ragged case, fp16 and f32), bit for bit on integer operands and within
-   their bounds against the one-process plain ring, timed at d = 4;
+   their bounds against the one-process plain ring, timed at d = 4; K4 and
+   K5 (the pure ring all-gather and reduce-scatter) and K6 (the fused MoE
+   all-to-all expert GEMM) in loopback at d = 2, 3 and 4 (the collectives
+   and ep paths' per-rank shapes at d = 4, a ragged case, fp16 and f32):
+   K4/K5 bit for bit on integer, dyadic and uniform operands, K6 bit for bit
+   on integer and dyadic ones and within K1's bound on uniform ones, each
+   timed at d = 4 beside ``torch.cat``, ``torch.stack(...).sum(0)`` and
+   ``torch.bmm``;
 3. the main paths, each with the launch counts zeroed just before it and
    read just after, through the port's sweep runner (``run_benchmark``)
    with validation: both tensor-parallel families at m = n = k = 8192 bf16,
@@ -34,7 +41,14 @@ Phases, in order; any failure exits non-zero without the final line:
    same shape (``scripts/config_quantized.json``'s ``kernel`` x
    ``quantize`` grid of every family's ``quantized`` member, and the
    ``compute_only`` and ``pytorch`` members of ``dp_allreduce`` and
-   ``ep_alltoall``; K7 in the ``kernel=pallas`` rows); then
+   ``ep_alltoall``; K7 in the ``kernel=pallas`` rows); then the collective
+   trio's path, one row at a time with its launches checked exactly:
+   ``scripts/config_collectives.json``'s members the port carries
+   (``compute_only``, ``jax_spmd`` as ``pytorch``, ``pallas`` as ``cuda``:
+   K4, K5, both for ``all_reduce``) at both its shapes, m = 8192 and 65536,
+   n = 8, k = 8192 bf16, in GB/s; then ``ep_alltoall`` and
+   ``dp_allreduce`` at 8192^3 bf16, the ``cuda`` member's two algorithms
+   (K1; K6 or K3) and every ``overlap`` entry of their configs; then
    ``cp_ring_attention`` at m = 16384, n = 1024, k = 128 bf16, every member
    and option of ``scripts/config_cp_ring_attention.json`` plus
    ``ring_flash`` and one windowed GQA ``flash`` row (K8a, K8b, K9); then
@@ -733,6 +747,226 @@ def kernel_phase_ring(cm, k1, smi):
         })
         del x, y, ring, calls
         torch.cuda.empty_cache()
+    return entries
+
+
+# -- the pure ring collectives (K4, K5) and the all-to-all expert GEMM (K6) ----
+
+#: loopback cases, d virtual ranks on one card. K4/K5: (d, rows a rank, k,
+#: dtype), first the collectives path's per-rank shard at d = 4
+#: (config_collectives.json's m = k = 8192 bf16: [2048, 8192]); K6: (d, g,
+#: n, k, dtype), first the ep path's per-rank shapes at d = 4 (8192^3 bf16:
+#: [2048, 8192] tokens in groups of 512, an [8192, 8192] expert). Then
+#: d = 2 and 3, a ragged case, fp16 and f32.
+TRIO_RING_CASES = [
+    (4, PATH_MNK // 4, PATH_MNK, "bfloat16"),
+    (2, 1024, 2048, "bfloat16"),
+    (3, 1002, 520, "bfloat16"),
+    (3, 384, 512, "float16"),
+    (4, 512, 1024, "float32"),
+]
+TRIO_A2A_CASES = [
+    (4, PATH_MNK // 16, PATH_MNK, PATH_MNK, "bfloat16"),
+    (2, 512, 2048, 2048, "bfloat16"),
+    (3, 100, 776, 520, "bfloat16"),
+    (3, 256, 384, 512, "float16"),
+    (4, 128, 1024, 512, "float32"),
+]
+
+
+def trio_operands(shapes, dtype, gen, kind):
+    """Tensors of ``shapes`` on the card: integer-valued in [-4, 4]
+    (``integer``), multiples of 1/16 in [-1, 1] (``dyadic``), or uniform
+    [-1, 1]."""
+    import torch
+
+    out = []
+    for shape in shapes:
+        if kind == "integer":
+            x = torch.randint(-4, 5, shape, generator=gen, device="cuda").float()
+        else:
+            x = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+            if kind == "dyadic":
+                x = torch.round(x * 16) / 16
+        out.append(x.to(dtype))
+    return out
+
+
+def check_trio_ring(rc, d, m_loc, k, dtype_name):
+    """K4 and K5, one loopback launch each for d virtual ranks, against the
+    one-process plain ring (``ring_*_virtual``) on integer, dyadic and
+    uniform operands: bit for bit on all three (K4 copies; K5 rounds the
+    same float32 sum of the same two values at every hop, in the same
+    order). Returns (max |err| on the uniform operands, which is 0, the
+    tolerance text)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * d)
+    for kind in ("integer", "dyadic", "uniform"):
+        shards = trio_operands([(m_loc, k)] * d, dtype, gen, kind)
+        got_ag, want_ag = rc.ring_all_gather_loopback(shards), rc.ring_all_gather_virtual(shards)
+        got_rs = rc.ring_reduce_scatter_loopback(shards)
+        want_rs = rc.ring_reduce_scatter_virtual(shards)
+        torch.cuda.synchronize()
+        for what, got, want in (("K4", got_ag, want_ag), ("K5", got_rs, want_rs)):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+                fail(f"{what} loopback d={d} [{m_loc}, {k}] {dtype_name}: not bit for bit "
+                     f"on {kind} operands, max |err| {err}")
+    print(f"K4/K5 loopback d={d} [{m_loc}, {k}] a rank {dtype_name}: bit for bit on "
+          f"integer, dyadic and uniform operands: ok")
+    return 0.0, "bit for bit on integer, dyadic and uniform operands"
+
+
+def check_trio_a2a(am, k1, d, g, n, k, dtype_name):
+    """K6, one loopback launch for d virtual ranks, against the one-process
+    version (``alltoall_expert_matmul_virtual``): bit for bit on integer
+    operands and on multiples of 1/16 (every sum exact in float32 in any
+    order), and on uniform ones each group within K1's ``plain_gap_bound``
+    (f32 within 1e-5 * k). Returns (max |err| on the uniform operands, the
+    tolerance text, the uniform operands)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11 * d)
+    what = f"K6 loopback d={d} g={g} n={n} k={k} {dtype_name}"
+    for kind in ("integer", "dyadic", "uniform"):
+        shards = trio_operands([(d * g, k)] * d, dtype, gen, kind)
+        experts = trio_operands([(k, n)] * d, dtype, gen, kind)
+        got = am.alltoall_expert_matmul_loopback(shards, experts)
+        want = am.alltoall_expert_matmul_virtual(shards, experts)
+        torch.cuda.synchronize()
+        if kind != "uniform":
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{what}: not bit for bit on {kind} operands")
+            continue
+        max_err, bad = 0.0, 0
+        for r in range(d):
+            err = (got[r].float() - want[r].float()).abs()
+            max_err = max(max_err, float(err.max()))
+            for e in range(d):
+                rows = slice(e * g, (e + 1) * g)
+                if dtype_name == "float32":
+                    bound = 1e-5 * k
+                else:
+                    bound = k1.plain_gap_bound(shards[r][rows], experts[e], got[r][rows],
+                                               want[r][rows])
+                bad += int((err[rows] > bound).sum())
+        if bad or not math.isfinite(max_err):
+            fail(f"{what}: {bad} elements beyond the bound, max |err| {max_err}")
+    text = ("exact on integers and dyadic operands; "
+            + ("atol 1e-5 * k" if dtype_name == "float32" else "plain_gap_bound"))
+    print(f"{what}: max |err| {max_err!r} vs plain ({text}): ok")
+    return max_err, text, (shards, experts)
+
+
+def trio_bound(kind, d, rows, n, k, itemsize):
+    """(bound ms, bound_by) of one loopback launch of d virtual ranks: the
+    larger of the operations over the bf16 peak and the bytes the launch
+    must move (each rank's inputs read once, its output written once) over
+    the memory rate. K4 (``ag``): a [rows, k] shard in, [d rows, k] out;
+    K5 (``rs``): [rows, k] in, [rows / d, k] out, d - 1 additions an output
+    element; K6 (``a2a``): [rows, k] tokens and a [k, n] expert in,
+    [rows, n] out, a rows x n x k GEMM."""
+    if kind == "ag":
+        flops, moved = 0.0, d * (rows * k + d * rows * k) * itemsize
+    elif kind == "rs":
+        flops, moved = d * (d - 1) * (rows // d) * k, d * (rows * k + rows // d * k) * itemsize
+    else:
+        flops = d * 2.0 * rows * n * k
+        moved = d * (rows * k + k * n + rows * n) * itemsize
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_phase_trio(rc, am, k1, smi):
+    """K4, K5 and K6 in loopback at every case of their phase, then each
+    timed at d = 4 at the per-rank shapes of its path beside its plain
+    version run in one process, the bound of the four ranks' work and one
+    library call for the same work on one card (K4: ``torch.cat`` of the
+    four shards, four times; K5: ``torch.stack(...).sum(0)`` of each
+    rank's chunk; K6: ``torch.bmm`` of the four experts' gathered groups).
+    These are loopback times of four virtual ranks sharing one card, not
+    four-card times. Returns the three ``kernels`` entries (launches filled
+    in later)."""
+    import torch
+
+    for case in TRIO_RING_CASES:
+        check_trio_ring(rc, *case)
+        torch.cuda.empty_cache()
+    a2a_main = None
+    for case in TRIO_A2A_CASES:
+        result = check_trio_a2a(am, k1, *case)
+        if a2a_main is None:
+            a2a_main = (case, result)
+        torch.cuda.empty_cache()
+
+    entries = []
+    d, m_loc, k, _ = TRIO_RING_CASES[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shards = trio_operands([(m_loc, k)] * d, torch.bfloat16, gen, "uniform")
+    rows = m_loc // d
+    for kind, name, source_line, calls in (
+        ("ag", "ring_all_gather", "ddlb_tpu/ops/ring_collectives.py:54", {
+            "ring": lambda: rc.loopback_ring("all_gather", d, m_loc * k, torch.bfloat16, "cuda"),
+            "kernel": rc.ring_all_gather_loopback,
+            "library_ms": lambda: [torch.cat(shards) for _ in range(d)],
+            "plain_ms": lambda: rc.ring_all_gather_virtual(shards),
+        }),
+        ("rs", "ring_reduce_scatter", "ddlb_tpu/ops/ring_collectives.py:181", {
+            "ring": lambda: rc.loopback_ring("reduce_scatter", d, rows * k, torch.bfloat16,
+                                             "cuda"),
+            "kernel": rc.ring_reduce_scatter_loopback,
+            "library_ms": lambda: [torch.stack([a[r * rows:(r + 1) * rows] for a in shards])
+                                   .sum(0) for r in range(d)],
+            "plain_ms": lambda: rc.ring_reduce_scatter_virtual(shards),
+        }),
+    ):
+        ring = calls.pop("ring")()
+        kernel = calls.pop("kernel")
+        calls["ms"] = lambda kernel=kernel, ring=ring: kernel(shards, ring)
+        times, timings = time_turns(calls, {"ms": 20, "library_ms": 20, "plain_ms": 5})
+        bound, bound_by = trio_bound(kind, d, m_loc, 0, k, 2)
+        print(f"{name} loopback d={d} ([{m_loc}, {k}] a rank, bf16): kernel "
+              f"{times['ms']!r} ms, library {times['library_ms']!r} ms, plain "
+              f"{times['plain_ms']!r} ms, bound {bound!r} ms ({smi}); windows {timings}")
+        entries.append({
+            "name": name, "route": "cuda", "source": "ddlb_tpu_torch/csrc/ring_collectives.cu",
+            "replaces": source_line, "launches": None, "max_abs_err": 0.0,
+            "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": times["library_ms"],
+            "mode": f"loopback d={d}",
+        })
+        del ring, calls
+    del shards
+    torch.cuda.empty_cache()
+
+    (d, g, n, k, _), (max_err, _, (shards, experts)) = a2a_main
+    bufs = am.loopback_buffers(d, g, k, n, torch.bfloat16, "cuda")
+    # the library's layout: expert e's gathered groups, [d, d g, k] @ [d, k, n]
+    xs = torch.stack([torch.cat([a[e * g:(e + 1) * g] for a in shards]) for e in range(d)])
+    ws = torch.stack(experts)
+    times, timings = time_turns({
+        "ms": lambda: am.alltoall_expert_matmul_loopback(shards, experts, bufs),
+        "library_ms": lambda: torch.bmm(xs, ws),
+        "plain_ms": lambda: am.alltoall_expert_matmul_virtual(shards, experts),
+    }, {"ms": 5, "library_ms": 5, "plain_ms": 2})
+    bound, bound_by = trio_bound("a2a", d, d * g, n, k, 2)
+    print(f"alltoall_expert_matmul loopback d={d} ([{d * g}, {k}] @ [{k}, {n}] a rank, "
+          f"bf16): kernel {times['ms']!r} ms, bmm {times['library_ms']!r} ms, plain "
+          f"{times['plain_ms']!r} ms, bound {bound!r} ms ({smi}); windows {timings}")
+    entries.append({
+        "name": "alltoall_expert_matmul", "route": "cuda",
+        "source": "ddlb_tpu_torch/csrc/alltoall_matmul.cu",
+        "replaces": "ddlb_tpu/ops/alltoall_matmul.py:63", "launches": None,
+        "max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": times["library_ms"],
+        "mode": f"loopback d={d}",
+    })
+    del shards, experts, xs, ws, bufs
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -1811,6 +2045,94 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
     return {key: end[key] - total_start[key] for key in end}
 
 
+# -- the collective trio's path: collectives, dp/ep cuda and overlap ----------
+
+#: the members of scripts/config_collectives.json the port carries
+#: (compute_only, jax_spmd as pytorch, pallas as cuda) at both its shapes;
+#: then dp_allreduce and ep_alltoall at their configs' 8192^3 bf16: the
+#: cuda member's two algorithms and every overlap entry of
+#: scripts/config_dp_allreduce.json and config_ep_alltoall.json
+TRIO_CONFIGS = ("config_collectives.json", "config_ep_alltoall.json",
+                "config_dp_allreduce.json")
+TRIO_KERNEL_ALGORITHM = {"dp_allreduce": "ring_rdma", "ep_alltoall": "a2a_rdma"}
+
+
+def trio_rows():
+    """(primitive, shape, implementations) of the trio path, in order."""
+    out = []
+    for config in TRIO_CONFIGS:
+        with open(os.path.join("scripts", config)) as f:
+            cfg = json.load(f)["benchmark"]
+        primitive, n, k = cfg["primitive"], cfg["n"][0], cfg["k"][0]
+        impls = {}
+        for block in cfg["implementations"]:
+            block = dict(block)
+            name = block.pop("name")
+            if primitive == "collectives" and name in ("compute_only", "jax_spmd", "pallas"):
+                impls.setdefault(name, []).append(block)
+            elif name == "overlap":
+                impls.setdefault(name, []).append(block)
+        if primitive != "collectives":
+            algorithm = TRIO_KERNEL_ALGORITHM[primitive]
+            impls["cuda"] = [{"algorithm": ["xla_collective", algorithm]}]
+        out += [(primitive, (m, n, k), impls) for m in cfg["m"]]
+    return out
+
+
+def expected_trio_launches(row, calls):
+    """The kernel launches one trio row makes in ``calls`` measured calls at
+    world 1: the collectives cuda member K4 (``all_gather``), K5
+    (``reduce_scatter``) or both (``all_reduce``); the dp and ep cuda
+    members K1 under ``xla_collective``, K3 (dp ``ring_rdma``) or K6 (ep
+    ``a2a_rdma``); no other row launches a kernel."""
+    want = {}
+    if row["base_implementation"] != "cuda":
+        return want
+    o = row_options(row)
+    if row["primitive"] == "collectives":
+        if o["op"] in ("all_gather", "all_reduce"):
+            want["k4"] = calls
+        if o["op"] in ("reduce_scatter", "all_reduce"):
+            want["k5"] = calls
+    elif o["algorithm"] == "xla_collective":
+        want["k1"] = calls
+    elif row["primitive"] == "dp_allreduce":
+        want["rs"] = calls
+    else:
+        want["k6"] = calls
+    return want
+
+
+def trio_path(run_benchmark, counts, smi):
+    """Drive every trio row (one ``run_benchmark`` call per row, counts read
+    around each) and check each row's launches exactly and the collectives
+    rows' unit (GB/s). Returns the launch totals of the path."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
+
+    calls = NUM_WARMUPS + NUM_ITERATIONS + 1
+    total_start = counts()
+    for primitive, shape, impls in trio_rows():
+        for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
+            name = spec.pop("implementation")
+            before = counts()
+            (row,) = drive_path(run_benchmark, "cuda", primitive, shape, {name: [spec]},
+                                extra_keys=("unit",))
+            after = counts()
+            got = {key: after[key] - before[key] for key in after}
+            want = dict.fromkeys(got, 0)
+            want.update(expected_trio_launches(row, calls))
+            if got != want:
+                fail(f"trio row {primitive} {row['base_implementation']} {row['option']}: "
+                     f"launches {got}, expected {want}")
+            unit = "GB/s" if primitive == "collectives" else "TFLOPS"
+            if row["unit"] != unit:
+                fail(f"trio row {primitive} {row['option']}: unit {row['unit']}, not {unit}")
+        torch.cuda.empty_cache()
+    end = counts()
+    return {key: end[key] - total_start[key] for key in end}
+
+
 def head_phase(run_benchmark, smi):
     """The LM head's product before and after it moved to the tensor
     cores: the full-width training row (train, the block router) and a
@@ -1863,11 +2185,13 @@ def main():
         import ddlb_tpu_torch
         from ddlb_tpu_torch.cli.benchmark import run_benchmark
         from ddlb_tpu_torch.ops import _build
+        from ddlb_tpu_torch.ops import alltoall_matmul as am
         from ddlb_tpu_torch.ops import collective_matmul as cm
         from ddlb_tpu_torch.ops import decode_attention as da
         from ddlb_tpu_torch.ops import flash_attention as fa
         from ddlb_tpu_torch.ops import matmul as k1
         from ddlb_tpu_torch.ops import quantized_matmul as qm
+        from ddlb_tpu_torch.ops import ring_collectives as rc
     except ImportError as exc:
         fail(f"run from the root of a checkout of the repo ({exc})")
     # the port under test is the checkout's, never an installed copy
@@ -1885,7 +2209,7 @@ def main():
 
     # 2. kernels: build (one nvcc each, in parallel), check, time
     libs = ("matmul", "flash_attention", "decode_attention", "quantized_matmul",
-            "collective_matmul")
+            "collective_matmul", "ring_collectives", "alltoall_matmul")
     t0 = time.perf_counter()
     _build.build(*libs)
     print(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -1895,6 +2219,7 @@ def main():
                 print(f"  ptxas ({name}):", line.strip())
     matmul_entry = kernel_phase_matmul(k1, smi)
     ring_entries = kernel_phase_ring(cm, k1, smi)
+    trio_entries = kernel_phase_trio(rc, am, k1, smi)
     forward_entry, chunk_entry = kernel_phase_flash(fa, smi)
     forward_entry["serving_prefill"] = kernel_phase_flash_serving(fa, smi)
     decode_entry, paged_entry = kernel_phase_decode(da, smi)
@@ -1910,6 +2235,15 @@ def main():
         fa.reset_launches()
         da.reset_launches()
         cm.reset_launches()
+        rc.reset_launches()
+        am.reset_launches()
+
+    def trio_counts():
+        return {"k4": rc.LAUNCHES["ag"], "k5": rc.LAUNCHES["rs"], "k6": am.LAUNCHES["a2a"]}
+
+    def counts():
+        return {"k1": k1.LAUNCHES, **cm.LAUNCHES, **trio_counts(), **fa.LAUNCHES,
+                **da.LAUNCHES, "int8": qm.LAUNCHES}
 
     # 3. the main paths, each with the counts zeroed just before it
     launches = {}
@@ -1919,7 +2253,7 @@ def main():
         rows += drive_path(run_benchmark, "cuda", primitive,
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
     gemm_launches = {"k1": k1.LAUNCHES, **cm.LAUNCHES}
-    others = {**fa.LAUNCHES, **da.LAUNCHES, "int8": qm.LAUNCHES}
+    others = {**fa.LAUNCHES, **da.LAUNCHES, "int8": qm.LAUNCHES, **trio_counts()}
     # each cuda row runs its kernel once per warmup, per timed iteration
     # and for validation: K1 under xla_collective, K2 (tp_columnwise) or K3
     # (tp_rowwise) under ring_rdma; no other row launches any of them
@@ -1946,7 +2280,8 @@ def main():
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
         torch.cuda.empty_cache()
     int8_launches = qm.LAUNCHES
-    others = {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, **cm.LAUNCHES}
+    others = {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, **cm.LAUNCHES,
+              **trio_counts()}
     # each kernel=pallas row runs K7 once per warmup, per timed iteration
     # and for validation; no kernel=xla row and no other member may
     # launch it
@@ -1961,13 +2296,22 @@ def main():
     print(f"quantized path done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
+    trio_launches = trio_path(run_benchmark, counts, smi)
+    missing = [key for key in ("k1", "rs", "k4", "k5", "k6") if not trio_launches[key]]
+    if missing:
+        fail(f"the trio path did not launch {missing}: {trio_launches}")
+    launches["trio"] = {key: n for key, n in trio_launches.items() if n}
+    print(f"trio path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
     rows = []
     for implementations in ATTN_SWEEPS:
         rows += drive_path(run_benchmark, "cuda", "cp_ring_attention",
                            (ATTN_M, ATTN_N, ATTN_K), implementations)
         torch.cuda.empty_cache()
     flash_launches = dict(fa.LAUNCHES)
-    others = {**da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES, **cm.LAUNCHES}
+    others = {**da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES, **cm.LAUNCHES,
+              **trio_counts()}
     expected = expected_flash_launches(rows)
     if flash_launches != expected or not all(
             flash_launches[key] for key in ("tri", "rect", "chunk")):
@@ -1983,8 +2327,8 @@ def main():
     if not (serving_launches["decode"] and serving_launches["paged"]
             and serving_launches["tri"] and serving_launches["int8"]):
         fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
-    if any(cm.LAUNCHES.values()):
-        fail(f"K2/K3 launched on the serving path: {cm.LAUNCHES}")
+    if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
+        fail(f"K2-K6 launched on the serving path: {cm.LAUNCHES} {trio_counts()}")
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1994,8 +2338,8 @@ def main():
                if not training_launches[key]]
     if missing:
         fail(f"the training path did not launch {missing}: {training_launches}")
-    if any(cm.LAUNCHES.values()):
-        fail(f"K2/K3 launched on the training path: {cm.LAUNCHES}")
+    if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
+        fail(f"K2-K6 launched on the training path: {cm.LAUNCHES} {trio_counts()}")
     launches["training"] = training_launches
     print(f"training path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2010,8 +2354,11 @@ def main():
     matmul_entry["launches"] = total("k1")
     for entry, key in zip(ring_entries, ("ag", "rs")):
         entry["launches"] = total(key)
-    forward_entry["launches"] = total("tri") + total("rect")
-    forward_entry["rect"]["launches"] = total("rect")
+    # K8a and K8b share an entry point; each has its own entry in the line
+    rect_entry = forward_entry.pop("rect")
+    forward_entry.pop("also_replaces")
+    forward_entry["launches"] = total("tri")
+    rect_entry["launches"] = total("rect")
     forward_entry["serving_prefill"]["launches"] = serving_launches["tri"]
     chunk_entry["launches"] = total("chunk")
     decode_entry["launches"] = total("decode")
@@ -2023,9 +2370,11 @@ def main():
     }
     for entry, key in zip(backward_entries, BWD_KEYS):
         entry["launches"] = total(key)
-    print(json.dumps({"kernels": [matmul_entry, *ring_entries, forward_entry,
-                                  chunk_entry, decode_entry, paged_entry, int8_entry,
-                                  *backward_entries]}))
+    for entry, key in zip(trio_entries, ("k4", "k5", "k6")):
+        entry["launches"] = total(key)
+    print(json.dumps({"kernels": [matmul_entry, *ring_entries, *trio_entries, int8_entry,
+                                  forward_entry, rect_entry, chunk_entry,
+                                  *backward_entries, decode_entry, paged_entry]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

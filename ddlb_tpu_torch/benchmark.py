@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``benchmark.py``: warmup, a timing loop with
 a selectable backend and per-iteration barrier, the slowest rank's times
-(MAX over ranks), TFLOPS = 2mnk/1e9/ms, soft validation, crash isolation
+(MAX over ranks), TFLOPS = 2mnk/1e9/ms (GB/s for the collectives family,
+in the ``unit`` column), soft validation, crash isolation
 into an error row, and incremental CSV rows on rank 0. Rows keep the
 identity, statistics and environment columns of the JAX package's
 ``make_result_row`` under the same names. The columns fed by parts not yet
@@ -21,7 +22,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ddlb_tpu_torch.primitives.registry import check_primitive, load_impl_class
+from ddlb_tpu_torch.primitives.registry import (
+    check_primitive,
+    load_impl_class,
+    throughput_unit,
+)
 from ddlb_tpu_torch.runtime import Runtime, env_rank
 from ddlb_tpu_torch.utils import timing
 
@@ -184,7 +189,9 @@ def make_result_row(
         "dtype": config.get("dtype", "bfloat16"),
         "Throughput (TFLOPS)": float(np.mean(tflops)),
         "Throughput std (TFLOPS)": float(np.std(tflops)),
-        "unit": "TFLOPS",
+        # "GB/s" for the collectives family, whose flop count is 1000 *
+        # wire bytes (registry.throughput_unit)
+        "unit": throughput_unit(config["primitive"]),
         "world_size": world_size,
         "num_processes": num_processes,
         "hostname": socket.gethostname(),

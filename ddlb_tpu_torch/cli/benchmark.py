@@ -3,7 +3,9 @@
 The port of the JAX package's ``cli/benchmark.py``: a JSON config (the
 shape of ``scripts/config.json``), ``name;k=v,v`` impl-spec flags, and a
 programmatic dict all normalise into one config that is expanded over
-per-implementation option lists and over (m, n, k) shape lists. Runs on
+per-implementation option lists and over (m, n, k) shape lists. The JAX
+package's member names (``jax_spmd``, ``pallas``) run as the port's
+(``pytorch``, ``cuda``), so the repo's sweep configs run as they are. Runs on
 the card unless the config says ``"device": "cpu"`` (CLI ``--device
 cpu``). Under ``torchrun`` every rank runs the same sweep; rank 0 writes
 the CSV and prints the table.
@@ -24,7 +26,7 @@ from typing import Any, Dict, List, Tuple
 import torch.distributed as dist
 
 from ddlb_tpu_torch.benchmark import PrimitiveBenchmarkRunner
-from ddlb_tpu_torch.primitives.registry import ALLOWED_PRIMITIVES
+from ddlb_tpu_torch.primitives.registry import ALLOWED_PRIMITIVES, port_member_name
 from ddlb_tpu_torch.runtime import DEVICES, env_rank
 
 #: config keys the port reads; any other key raises rather than being
@@ -162,7 +164,14 @@ def _normalize(config: Dict[str, Any]) -> Dict[str, Any]:
                     f"implementation list entries need a 'name': {block!r}"
                 )
             as_dict.setdefault(name, []).append(block)
-        cfg["implementations"] = as_dict
+        impls = as_dict
+    if impls is not None:
+        # the repo's sweep configs name members as the JAX package does
+        # (jax_spmd, pallas): run them as the port's (pytorch, cuda)
+        renamed: Dict[str, List[Dict[str, Any]]] = {}
+        for name, blocks in impls.items():
+            renamed.setdefault(port_member_name(name), []).extend(blocks)
+        cfg["implementations"] = renamed
     return cfg
 
 

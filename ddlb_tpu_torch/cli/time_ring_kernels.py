@@ -1,4 +1,5 @@
-"""Time K2 and K3 across the cards of one node beside their yardsticks.
+"""Time the ring and all-to-all kernels (K2-K6) across the cards of one
+node beside their yardsticks.
 
     torchrun --standalone --nproc_per_node 4 -m ddlb_tpu_torch.cli.time_ring_kernels
 
@@ -7,8 +8,14 @@ CUDA events, after a barrier, the median of ``--iterations`` calls of:
 
 - ``ring_ag_matmul``: K2 (``[m/d, k] @ [k, n] -> [m, n]``) on its peer ring;
 - ``ring_matmul_rs``: K3 (``[m, k/d] @ [k/d, n] -> [m/d, n]``);
+- ``ring_all_gather``: K4 (``[m/d, k] -> [m, k]``);
+- ``ring_reduce_scatter``: K5 (``[m/d, k] -> [m/d^2, k]``);
+- ``alltoall_expert_matmul``: K6 (``[m/d, k]`` tokens, a ``[k, n]``
+  expert ``-> [m/d, n]``);
 - the ``pytorch`` members' steps: NCCL all-gather then ``torch.matmul``,
-  and ``torch.matmul`` then NCCL reduce-scatter;
+  ``torch.matmul`` then NCCL reduce-scatter, NCCL's all-gather
+  (``all_gather_into_tensor``) and reduce-scatter (``reduce_scatter_tensor``)
+  alone, and all-to-all, ``torch.matmul``, all-to-all;
 - where this torch has them, symmetric memory's fused operators
   (``torch.ops.symm_mem.fused_all_gather_matmul`` and
   ``fused_matmul_reduce_scatter``): timed only, as a library yardstick;
@@ -26,7 +33,9 @@ import json
 import torch
 import torch.distributed as dist
 
+from ddlb_tpu_torch.ops import alltoall_matmul as am
 from ddlb_tpu_torch.ops import collective_matmul as cm
+from ddlb_tpu_torch.ops import ring_collectives as rc
 from ddlb_tpu_torch.runtime import Runtime
 
 
@@ -85,11 +94,21 @@ def main(argv=None) -> None:
     a_rs, b_rs = uniform(m, k // d), uniform(k // d, n)
     ring_ag = cm.peer_ring(rt, "ag", a_ag.numel(), torch.bfloat16)
     ring_rs = cm.peer_ring(rt, "rs", (m // d) * n, torch.bfloat16)
+    # K4/K5 move a_ag, the [m/d, k] shard; K6 routes it to the experts
+    ring_k4 = rc.peer_ring(rt, "all_gather", a_ag.numel(), torch.bfloat16)
+    ring_k5 = rc.peer_ring(rt, "reduce_scatter", a_ag.numel() // d, torch.bfloat16)
+    bufs = am.peer_buffers(rt, m // d // d, k, n, torch.bfloat16)
     calls = {
         "ring_ag_matmul": lambda: cm.ring_ag_matmul(a_ag, b_ag, rt, ring_ag),
         "ring_matmul_rs": lambda: cm.ring_matmul_rs(a_rs, b_rs, rt, ring_rs),
+        "ring_all_gather": lambda: rc.ring_all_gather(a_ag, rt, ring_k4),
+        "ring_reduce_scatter": lambda: rc.ring_reduce_scatter(a_ag, rt, ring_k5),
+        "alltoall_expert_matmul": lambda: am.alltoall_expert_matmul(a_ag, b_ag, rt, bufs),
         "pytorch_ag_matmul": lambda: rt.all_gather_rows(a_ag) @ b_ag,
         "pytorch_matmul_rs": lambda: rt.reduce_scatter_rows(a_rs @ b_rs),
+        "nccl_all_gather": lambda: rt.all_gather_rows(a_ag),
+        "nccl_reduce_scatter": lambda: rt.reduce_scatter_rows(a_ag),
+        "pytorch_alltoall_matmul": lambda: rt.all_to_all_rows(rt.all_to_all_rows(a_ag) @ b_ag),
     }
     medians = {key: _median_ms(fn, rt, args.iterations) for key, fn in calls.items()}
     library = {}
@@ -114,7 +133,9 @@ def main(argv=None) -> None:
         print(json.dumps({
             "world": d, "m": m, "n": n, "k": k, "dtype": "bfloat16",
             "median_ms_slowest_rank": dict(zip(medians, (float(x) for x in slowest))),
-            "library": library, "launches": dict(cm.LAUNCHES), "device": rt.device_kind,
+            "library": library, "device": rt.device_kind,
+            "launches": {**cm.LAUNCHES, "k4": rc.LAUNCHES["ag"], "k5": rc.LAUNCHES["rs"],
+                         "k6": am.LAUNCHES["a2a"]},
         }))
     dist.destroy_process_group()
 

@@ -1,8 +1,8 @@
 """Chunked compute/collective fusion: the ring engine behind ``overlap``'s
 ``chunked`` algorithm.
 
-The port of the JAX package's ``ops/chunked_fusion.py`` for the two
-tensor-parallel families. The GEMM is tiled along the sharded dimension
+The port of the JAX package's ``ops/chunked_fusion.py`` for the four
+collective GEMM families. The GEMM is tiled along the sharded dimension
 into ``chunk_count`` pieces; each chunk's collective is an explicit ring
 of ``Runtime.ring_shift`` hops, each hop's handles waited on just before
 its data is used, so that a hop in flight (on NCCL's own stream on the
@@ -17,8 +17,14 @@ schedule.
 - ``build_chunked_matmul_rs`` (``tp_rowwise``): each chunk's partial GEMM
   feeds a ring reduce-scatter; the travelling accumulator rides the wire
   in the operand dtype and folds in float32 (``accum_wire_dtypes``).
+- ``build_chunked_matmul_ar`` (``dp_allreduce``): each chunk's partial
+  GEMM is ring-reduce-scattered, then its reduced blocks are
+  ring-all-gathered; the next chunk's GEMM is issued under the first hop.
+- ``build_chunked_alltoall_expert`` (``ep_alltoall``): each chunk of every
+  routing group rides ``ring_a2a_chunk`` (``d - 1`` shift-by-``t``
+  exchanges) to its expert and back.
 
-With ``path="cuda"`` the builders route to the hand-written ring kernels
+With ``path="cuda"`` the tp builders route to the hand-written ring kernels
 K2/K3 (``ops/collective_matmul.py``; the JAX package's ``path="pallas"``),
 whose two peer-memory slots are this engine's two buffers held by the
 kernel, with the ring granularity pinned to ``chunk_count == d`` (one
@@ -26,9 +32,7 @@ chunk per ring step, the only granularity their credit protocol encodes).
 
 Left out: the JAX module's ``plan_report``, which writes the planned
 chunk and hop schedule as telemetry spans and fault-injection sites (the
-port has neither subsystem yet), and the ``dp_allreduce``/``ep_alltoall``
-builders (``build_chunked_matmul_ar``, ``build_chunked_alltoall_expert``),
-which come with those families' ``overlap`` members.
+port has neither subsystem yet).
 """
 
 from __future__ import annotations
@@ -103,6 +107,25 @@ def ring_rs_chunk(partial: torch.Tensor, my_sched, runtime, block_rows: int,
     if in_flight is not None:
         in_flight()
     return acc
+
+
+def ring_a2a_chunk(x: torch.Tensor, runtime) -> torch.Tensor:
+    """All-to-all of one chunk as ``d - 1`` shift-by-``t`` exchanges:
+    ``x [d, g, ...]`` (block ``e`` bound for rank ``e``) -> ``[d, g, ...]``
+    (block ``s`` arrived from rank ``s``), the tiled ``all_to_all`` with
+    split and concat axis 0. The diagonal block stays local, so a rank's
+    wire is ``(d - 1) / d`` of the payload. Each exchange
+    (``Runtime.ring_shift(offset=t)``: send to ``r + t``, receive from
+    ``r - t``) is waited on before the next is posted."""
+    d, r = runtime.world_size, runtime.rank
+    out = torch.empty_like(x)
+    out[r] = x[r]
+    for t in range(1, d):
+        (recv,), handles = runtime.ring_shift(x[(r + t) % d].contiguous(), offset=t)
+        for h in handles:
+            h.wait()
+        out[(r - t) % d] = recv
+    return out
 
 
 def _check_granularity(m: int, d: int, chunk_count: int) -> None:
@@ -201,5 +224,74 @@ def build_chunked_matmul_rs(*, m: int, n: int, k: int, runtime, chunk_count: int
             partials[j] = None
         # local row order is chunk-major: [c, rows_c, n] -> [m/d, n]
         return torch.stack(outs).reshape(m // d, n).to(a_shard.dtype)
+
+    return step
+
+
+def build_chunked_matmul_ar(*, m: int, n: int, k: int, runtime, chunk_count: int):
+    """GEMM+AR (dp_allreduce): ``a_shard [m, k/d]``, ``b_shard [k/d, n]`` ->
+    ``[m, n]`` on every rank. The all-reduce is decomposed RS -> AG around
+    each chunk's GEMM: chunk ``j`` (the contiguous row slab ``j`` of
+    ``chunk_count``; every row is local in the k-sharded layout) GEMMs its
+    float32 partial, ring-reduce-scatters it (the accumulator on the wire
+    in the operand dtype) and ring-all-gathers the reduced blocks; chunk
+    ``j + 1``'s GEMM is issued while chunk ``j``'s first hop is on the
+    wire. Requires ``m % (d * chunk_count) == 0``."""
+    d = runtime.world_size
+    _check_granularity(m, d, chunk_count)
+    rows_c = m // (d * chunk_count)  # rows per rank-block per chunk
+    kd = k // d
+    my_rs = ring_schedule(d, "rs_fwd")[runtime.rank]
+    my_ag = ring_schedule(d, "ag_fwd")[runtime.rank]
+
+    def step(a_shard, b_shard):
+        acc_t, wire_t = accum_wire_dtypes(a_shard.dtype)
+        a3 = a_shard.reshape(chunk_count, d * rows_c, kd)
+        partials = [None] * (chunk_count + 1)
+
+        def gemm(j):
+            if j < chunk_count:
+                partials[j] = accum_matmul(a3[j], b_shard, acc_t)
+
+        gemm(0)
+        outs = []
+        for j in range(chunk_count):
+            red = ring_rs_chunk(partials[j], my_rs, runtime, rows_c, acc_t, wire_t,
+                                in_flight=lambda j=j: gemm(j + 1))
+            partials[j] = None
+            # [d, rows_c, n] rank-major: the slab's row order
+            gathered = ring_ag_chunk(red.to(a_shard.dtype), my_ag, runtime)
+            outs.append(gathered.reshape(d * rows_c, n))
+        return torch.cat(outs)
+
+    return step
+
+
+def build_chunked_alltoall_expert(*, m: int, n: int, k: int, runtime,
+                                  chunk_count: int):
+    """Dispatch, expert GEMM, combine (ep_alltoall): ``a_loc [m/d, k]``,
+    ``w_loc [k, n]`` (the resident expert) -> ``[m/d, n]`` in token order.
+    Every routing group is tiled into ``chunk_count`` chunks; chunk ``j``'s
+    dispatch (``ring_a2a_chunk``), expert GEMM (float32 sums, rounded once
+    to the operand dtype) and combine run in turn. Requires
+    ``m % (d * d * chunk_count) == 0``."""
+    d = runtime.world_size
+    if m % (d * d * chunk_count):
+        raise ValueError(
+            f"m={m} must be divisible by partitions^2*chunk_count="
+            f"{d * d * chunk_count} for the chunked engine"
+        )
+    gc = m // (d * d * chunk_count)  # tokens per chunk per group
+
+    def step(a_loc, w_loc):
+        acc_t, _ = accum_wire_dtypes(a_loc.dtype)
+        x = a_loc.reshape(d, chunk_count, gc, k)  # [dst group, chunk, token, k]
+        outs = []
+        for j in range(chunk_count):
+            xj = ring_a2a_chunk(x[:, j].contiguous(), runtime)
+            yj = accum_matmul(xj.reshape(d * gc, k), w_loc, acc_t)
+            yj = yj.to(a_loc.dtype).reshape(d, gc, n)
+            outs.append(ring_a2a_chunk(yj, runtime))
+        return torch.stack(outs, dim=1).reshape(d * chunk_count * gc, n)
 
     return step

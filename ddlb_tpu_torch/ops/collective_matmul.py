@@ -86,7 +86,9 @@ def buffer_bytes(chunk_numel: int, dtype: torch.dtype) -> int:
 class Ring:
     """One ring's buffers as a launch addresses them: ``ptrs[i]`` is ring
     rank ``i``'s buffer (flags, then two slots of ``chunk_numel`` elements
-    of ``dtype``), ``rank0`` the ring rank of the launch's first virtual
+    of ``dtype``), ``kind`` the one kernel it serves (``ag``, ``rs``; K4's
+    and K5's ``all_gather``, ``reduce_scatter`` in ``ops/ring_collectives.py``,
+    which share the layout), ``rank0`` the ring rank of the launch's first virtual
     rank, ``epoch`` the number of launches made on it so far (the flags
     never reset; every rank must make the same launches). ``owner`` keeps
     the memory alive."""
@@ -94,7 +96,7 @@ class Ring:
     def __init__(self, kind: str, ptrs: Sequence[int], rank0: int,
                  chunk_numel: int, dtype: torch.dtype, owner) -> None:
         if not 1 <= len(ptrs) <= MAX_RANKS:
-            raise ValueError(f"a ring of {len(ptrs)} ranks: K2/K3 take 1 to {MAX_RANKS}")
+            raise ValueError(f"a ring of {len(ptrs)} ranks: the ring kernels take 1 to {MAX_RANKS}")
         self.kind, self.ptrs, self.rank0 = kind, tuple(ptrs), rank0
         self.d = len(self.ptrs)
         self.chunk_numel, self.dtype, self.owner = chunk_numel, dtype, owner
@@ -142,7 +144,10 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"cuda or cpu tensors only, got {a.device}")
 
 
-def _check_launch(ring: Ring, kind: str, tensors, chunk_numel: int) -> None:
+def check_launch(ring: Ring, kind: str, tensors, chunk_numel: int) -> None:
+    """Raise ``ValueError`` unless a launch of kernel ``kind`` may run on
+    ``ring`` with ``tensors`` and chunks of ``chunk_numel`` elements (the
+    ring kernels K2-K5 share it)."""
     if ring.kind != kind:
         raise ValueError(f"a '{ring.kind}' ring passed to the '{kind}' kernel")
     if ring.dtype != tensors[0].dtype:
@@ -225,7 +230,7 @@ def ring_ag_matmul(a_shard: torch.Tensor, b: torch.Tensor, runtime,
     if ring is None or ring.d != runtime.world_size or ring.rank0 != runtime.rank:
         raise ValueError("K2 needs this world's peer ring (ops.collective_matmul.peer_ring)")
     (m_loc, k), n = a_shard.shape, b.shape[1]
-    _check_launch(ring, "ag", (a_shard, b), m_loc * k)
+    check_launch(ring, "ag", (a_shard, b), m_loc * k)
     out = torch.empty((ring.d * m_loc, n), dtype=a_shard.dtype, device=a_shard.device)
     _launch("ag", ring, [a_shard], [b], [out], m_loc, n, k)
     return out
@@ -281,7 +286,7 @@ def ring_ag_matmul_loopback(shards: Sequence[torch.Tensor], b: torch.Tensor,
         ring = loopback_ring("ag", d, m_loc * k, b.dtype, b.device)
     if ring.d != d:
         raise ValueError(f"{d} shards on a ring of {ring.d}")
-    _check_launch(ring, "ag", (*shards, b), m_loc * k)
+    check_launch(ring, "ag", (*shards, b), m_loc * k)
     if any(s.shape != shards[0].shape for s in shards):
         raise ValueError("every shard has the same shape")
     outs = [torch.empty((d * m_loc, n), dtype=b.dtype, device=b.device) for _ in range(d)]
@@ -307,15 +312,15 @@ def ring_matmul_rs(a_shard: torch.Tensor, b_shard: torch.Tensor, runtime,
         raise ValueError("K3 needs this world's peer ring (ops.collective_matmul.peer_ring)")
     (m, kd), n = a_shard.shape, b_shard.shape[1]
     m_loc = m // d
-    _check_launch(ring, "rs", (a_shard, b_shard), m_loc * n)
+    check_launch(ring, "rs", (a_shard, b_shard), m_loc * n)
     out = torch.empty((m_loc, n), dtype=a_shard.dtype, device=a_shard.device)
     _launch("rs", ring, [a_shard], [b_shard], [out], m_loc, n, kd)
     return out
 
 
-def _fold(partial: torch.Tensor, received: torch.Tensor) -> torch.Tensor:
+def fold(partial: torch.Tensor, received: torch.Tensor) -> torch.Tensor:
     """One hop's accumulation: the sum in float32, rounded once to the
-    operand dtype (the accumulator's dtype on the wire)."""
+    operand dtype (the accumulator's dtype on the wire; K3's and K5's)."""
     return (partial.float() + received.float()).to(partial.dtype)
 
 
@@ -334,7 +339,7 @@ def ring_matmul_rs_plain(a_shard: torch.Tensor, b_shard: torch.Tensor,
         else:
             for h in handles:
                 h.wait()
-            acc = _fold(partial, received)
+            acc = fold(partial, received)
         if t + 1 < d:
             (received,), handles = runtime.ring_shift(acc)
     return acc
@@ -354,7 +359,7 @@ def ring_matmul_rs_virtual(a_shards: Sequence[torch.Tensor],
         for r in range(d):
             c = (r + d - 1 - t) % d
             partial = k1.matmul_plain(a_shards[r][c * m_loc:(c + 1) * m_loc], b_shards[r])
-            accs[r] = partial if t == 0 else _fold(partial, sent[(r - 1) % d])
+            accs[r] = partial if t == 0 else fold(partial, sent[(r - 1) % d])
     return accs
 
 
@@ -377,7 +382,7 @@ def ring_matmul_rs_loopback(a_shards: Sequence[torch.Tensor],
         ring = loopback_ring("rs", d, m_loc * n, a_shards[0].dtype, a_shards[0].device)
     if ring.d != d:
         raise ValueError(f"{d} ranks on a ring of {ring.d}")
-    _check_launch(ring, "rs", (*a_shards, *b_shards), m_loc * n)
+    check_launch(ring, "rs", (*a_shards, *b_shards), m_loc * n)
     outs = [torch.empty((m_loc, n), dtype=a_shards[0].dtype, device=a_shards[0].device)
             for _ in range(d)]
     _launch("rs", ring, list(a_shards), list(b_shards), outs, m_loc, n, kd)

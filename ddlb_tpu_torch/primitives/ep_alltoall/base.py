@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ddlb_tpu_torch.primitives.base import _EXPECTED_MEMO, Primitive
+from ddlb_tpu_torch.primitives.base import _EXPECTED_MEMO, Primitive, seeded_draw
 
 
 class EPAllToAll(Primitive):
@@ -45,17 +45,23 @@ class EPAllToAll(Primitive):
 
     def _host_tokens_experts(self) -> Tuple[np.ndarray, np.ndarray]:
         """Seeded tokens ``[m, k]`` and expert weights ``[d, k, n]``, the
-        same on every rank and in the JAX package."""
-        rng = np.random.default_rng(self.seed)
-        gen = np.float64 if self.dtype == "float64" else np.float32
-        a = rng.uniform(-1.0, 1.0, (self.m, self.k)).astype(gen)
-        w = rng.uniform(
-            -1.0, 1.0, (self.num_partitions, self.k, self.n)
-        ).astype(gen)
-        if self.dtype in ("int32", "int64"):
-            a = np.rint(a * 3).astype(self.dtype)
-            w = np.rint(w * 3).astype(self.dtype)
-        return a, w
+        same on every rank and in the JAX package (copies of the draw
+        ``seeded_draw`` keeps)."""
+        def draw():
+            rng = np.random.default_rng(self.seed)
+            gen = np.float64 if self.dtype == "float64" else np.float32
+            a = rng.uniform(-1.0, 1.0, (self.m, self.k)).astype(gen)
+            w = rng.uniform(
+                -1.0, 1.0, (self.num_partitions, self.k, self.n)
+            ).astype(gen)
+            if self.dtype in ("int32", "int64"):
+                a = np.rint(a * 3).astype(self.dtype)
+                w = np.rint(w * 3).astype(self.dtype)
+            return a, w
+
+        key = ("tokens_experts", self.num_partitions, self.seed, self.m, self.n,
+               self.k, self.dtype)
+        return seeded_draw(key, draw)
 
     def _input_setup(self) -> None:
         a_host, w_host = self._host_tokens_experts()

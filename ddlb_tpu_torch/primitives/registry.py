@@ -1,11 +1,11 @@
 """String -> implementation-class resolution for the runner and the CLI.
 
-Covers the families this port carries so far. The GEMM members follow
-the upstream project (samnordmann/ddlb): ``pytorch`` is the
+Covers the families this port carries so far. The members follow the
+upstream project (samnordmann/ddlb): ``pytorch`` is the
 explicit-collective member (the JAX package's ``jax_spmd``), ``cuda`` the
-tensor-parallel families' hand-kernel member (the JAX package's
-``pallas``). ``overlap``, ``quantized`` and the context-parallel attention
-members keep their JAX names. A family or member of the JAX package that has no
+hand-kernel member (the JAX package's ``pallas``). ``overlap``,
+``quantized`` and the context-parallel attention members keep their JAX
+names. A family or member of the JAX package that has no
 counterpart here yet raises ``ValueError`` saying so.
 """
 
@@ -16,7 +16,7 @@ from typing import Tuple, Type
 
 ALLOWED_PRIMITIVES = (
     "tp_columnwise", "tp_rowwise", "dp_allreduce", "cp_ring_attention",
-    "ep_alltoall", "transformer_decode", "transformer_step",
+    "ep_alltoall", "transformer_decode", "transformer_step", "collectives",
 )
 
 _REGISTRY = {
@@ -65,19 +65,31 @@ _REGISTRY = {
         ),
     },
     "dp_allreduce": {
-        name: (f"ddlb_tpu_torch.primitives.dp_allreduce.{name}", cls)
-        for name, cls in (
-            ("compute_only", "ComputeOnlyDPAllReduce"),
-            ("pytorch", "PyTorchDPAllReduce"),
-            ("quantized", "QuantizedDPAllReduce"),
+        name: (f"ddlb_tpu_torch.primitives.dp_allreduce.{module}", cls)
+        for name, module, cls in (
+            ("compute_only", "compute_only", "ComputeOnlyDPAllReduce"),
+            ("pytorch", "pytorch", "PyTorchDPAllReduce"),
+            ("quantized", "quantized", "QuantizedDPAllReduce"),
+            ("cuda", "cuda_impl", "CudaDPAllReduce"),
+            ("overlap", "overlap", "OverlapDPAllReduce"),
         )
     },
     "ep_alltoall": {
-        name: (f"ddlb_tpu_torch.primitives.ep_alltoall.{name}", cls)
-        for name, cls in (
-            ("compute_only", "ComputeOnlyEPAllToAll"),
-            ("pytorch", "PyTorchEPAllToAll"),
-            ("quantized", "QuantizedEPAllToAll"),
+        name: (f"ddlb_tpu_torch.primitives.ep_alltoall.{module}", cls)
+        for name, module, cls in (
+            ("compute_only", "compute_only", "ComputeOnlyEPAllToAll"),
+            ("pytorch", "pytorch", "PyTorchEPAllToAll"),
+            ("quantized", "quantized", "QuantizedEPAllToAll"),
+            ("cuda", "cuda_impl", "CudaEPAllToAll"),
+            ("overlap", "overlap", "OverlapEPAllToAll"),
+        )
+    },
+    "collectives": {
+        name: (f"ddlb_tpu_torch.primitives.collectives.{module}", cls)
+        for name, module, cls in (
+            ("compute_only", "compute_only", "ComputeOnlyCollectives"),
+            ("pytorch", "pytorch", "PyTorchCollectives"),
+            ("cuda", "cuda_impl", "CudaCollectives"),
         )
     },
     "cp_ring_attention": {
@@ -116,20 +128,31 @@ _REGISTRY = {
 #: families of the JAX package that the port does not carry yet
 _NOT_PORTED_FAMILIES = (
     "pp_pipeline",
-    "collectives",
     "serving_load",
 )
 #: members of the ported families that the port does not carry yet: the
-#: GSPMD members, and the data- and expert-parallel families' topology
-#: compositions, ``overlap`` members and ring-kernel ``pallas`` members
-#: (K3, K6)
+#: GSPMD members and the topology compositions
 _NOT_PORTED_MEMBERS = ("xla_gspmd", "jax_spmd_hier", "jax_spmd_striped")
-_NOT_PORTED_BY_FAMILY = {
-    "dp_allreduce": ("overlap", "pallas"),
-    "ep_alltoall": ("overlap", "pallas"),
-}
 #: JAX package member name -> this package's name for the same member
 _RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda"}
+#: unit of the runner's Throughput column, by family: the collectives
+#: family's ``flops()`` is 1000 * wire bytes, so its column is GB/s
+_THROUGHPUT_UNITS = {"collectives": "GB/s"}
+
+
+def throughput_unit(primitive: str) -> str:
+    """Unit of the Throughput column for this family (a copy of the JAX
+    package's ``registry.throughput_unit``): keyed on the name alone, so
+    the runner's error rows stamp it without loading the member."""
+    check_primitive(primitive)
+    return _THROUGHPUT_UNITS.get(primitive, "TFLOPS")
+
+
+def port_member_name(name: str) -> str:
+    """The port's name for a member named in a JAX package config
+    (``jax_spmd`` -> ``pytorch``, ``pallas`` -> ``cuda``); other names as
+    they are."""
+    return _RENAMED.get(name, name)
 
 
 def implementation_names(primitive: str) -> Tuple[str, ...]:
@@ -142,9 +165,7 @@ def load_impl_class(primitive: str, name: str) -> Type:
     check_primitive(primitive)
     table = _REGISTRY[primitive]
     if name not in table:
-        if name in _NOT_PORTED_MEMBERS or name in _NOT_PORTED_BY_FAMILY.get(
-            primitive, ()
-        ):
+        if name in _NOT_PORTED_MEMBERS:
             raise ValueError(
                 f"Implementation '{name}' of {primitive} is not yet ported "
                 f"to ddlb_tpu_torch. Available: {sorted(table)}"

@@ -34,10 +34,12 @@ ALGORITHMS = ["xla_collective", "ring_rdma"]
 
 
 def check_algorithm_options(member) -> None:
-    """The JAX ``pallas`` members' dead-option rule, and ``detect_races``."""
+    """The JAX ``pallas`` members' dead-option rule, and ``detect_races``:
+    ``order`` has no effect under a kernel algorithm (``ring_rdma``,
+    ``a2a_rdma``), ``detect_races`` none under ``xla_collective``."""
     overridden = member._options_manager.overridden
-    ring = member.options["algorithm"] == "ring_rdma"
-    dead = ({"order"} if ring else {"detect_races"}) & overridden
+    kernel = member.options["algorithm"] != "xla_collective"
+    dead = ({"order"} if kernel else {"detect_races"}) & overridden
     if dead:
         raise ValueError(
             f"Option(s) {sorted(dead)} have no effect with "

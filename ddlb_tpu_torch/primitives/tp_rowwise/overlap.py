@@ -104,60 +104,74 @@ class OverlapTPRowwise(TPRowwise):
         return step
 
     def _build_p2p_pipeline(self):
-        if self.options["direction"] == "bidirectional":
-            return self._build_p2p_bidirectional()
         d = self.num_partitions
         b_rows = self.m // d
         shift = self.runtime.ring_shift
+        if self.options["direction"] == "bidirectional":
+            sched_f = ring_schedule(d, "rs_fwd")[self.rank]
+            sched_r = ring_schedule(d, "rs_bwd")[self.rank]
+
+            def step(a_shard, b_shard):
+                acc_f, acc_r = ring_rs_bidirectional(a_shard, b_shard, b_rows, sched_f,
+                                                     sched_r, shift)
+                return torch.cat([acc_f, acc_r]).to(a_shard.dtype)
+
+            return step
         # the accumulator a rank holds at the end is its own chunk, reduced
         sched = ring_schedule(d, "rs_fwd")[self.rank]
 
         def step(a_shard, b_shard):
-            acc_t, wire_t = chunked_fusion.accum_wire_dtypes(a_shard.dtype)
-            acc, handles = None, []
-            for t in range(d):
-                c = int(sched[t])
-                prod = accum_matmul(a_shard[c * b_rows:(c + 1) * b_rows], b_shard, acc_t)
-                if acc is None:
-                    acc = prod
-                else:
-                    for h in handles:
-                        h.wait()
-                    acc = received.to(acc_t) + prod
-                if t + 1 < d:  # the partial sums ride on in the operand dtype
-                    (received,), handles = shift(acc.to(wire_t))
-            return acc.to(a_shard.dtype)
+            return ring_rs_unidirectional(a_shard, b_shard, b_rows, sched,
+                                          shift).to(a_shard.dtype)
 
         return step
 
-    def _build_p2p_bidirectional(self):
-        d = self.num_partitions
-        b_rows = self.m // d
-        half = b_rows // 2
-        shift = self.runtime.ring_shift
-        sched_f = ring_schedule(d, "rs_fwd")[self.rank]
-        sched_r = ring_schedule(d, "rs_bwd")[self.rank]
 
-        def step(a_shard, b_shard):
-            acc_t, wire_t = chunked_fusion.accum_wire_dtypes(a_shard.dtype)
-            acc_f = acc_r = None
-            handles = []
-            for t in range(d):
-                cf, cr = int(sched_f[t]), int(sched_r[t])
-                prod_f = accum_matmul(a_shard[cf * b_rows:cf * b_rows + half], b_shard, acc_t)
-                prod_r = accum_matmul(a_shard[cr * b_rows + half:(cr + 1) * b_rows],
-                                      b_shard, acc_t)
-                if acc_f is None:
-                    acc_f, acc_r = prod_f, prod_r
-                else:
-                    for h in handles:
-                        h.wait()
-                    acc_f = recv_f.to(acc_t) + prod_f
-                    acc_r = recv_r.to(acc_t) + prod_r
-                if t + 1 < d:
-                    (recv_f,), h_f = shift(acc_f.to(wire_t), tag=0)
-                    (recv_r,), h_r = shift(acc_r.to(wire_t), reverse=True, tag=1)
-                    handles = h_f + h_r
-            return torch.cat([acc_f, acc_r]).to(a_shard.dtype)
+def ring_rs_unidirectional(a_shard, b_shard, b_rows: int, sched, shift) -> torch.Tensor:
+    """The p2p ring reduce-scatter of ``a_shard [d*b_rows, k/d] @ b_shard``:
+    at step ``t`` the rows of chunk ``sched[t]`` are multiplied (a float32
+    product of the operands in their own dtype, ``accum_matmul``) while the
+    accumulator's hop (``shift``, ``Runtime.ring_shift``) is in flight, then
+    folded in; the accumulator rides the wire in the operand dtype. Returns
+    this rank's reduced ``[b_rows, n]`` chunk in float32 (the integer
+    dtypes as they are). Shared with ``dp_allreduce``'s ``p2p_pipeline``."""
+    acc_t, wire_t = chunked_fusion.accum_wire_dtypes(a_shard.dtype)
+    acc, handles = None, []
+    for t, c in enumerate(int(c) for c in sched):
+        prod = accum_matmul(a_shard[c * b_rows:(c + 1) * b_rows], b_shard, acc_t)
+        if acc is None:
+            acc = prod
+        else:
+            for h in handles:
+                h.wait()
+            acc = received.to(acc_t) + prod
+        if t + 1 < len(sched):  # the partial sums ride on in the operand dtype
+            (received,), handles = shift(acc.to(wire_t))
+    return acc
 
-        return step
+
+def ring_rs_bidirectional(a_shard, b_shard, b_rows: int, sched_f, sched_r, shift):
+    """``ring_rs_unidirectional`` on both ring directions at once: the front
+    half of each chunk rides the forward ring (``sched_f``), the back half
+    the backward one (``sched_r``), with distinct tags. Returns the two
+    reduced halves."""
+    acc_t, wire_t = chunked_fusion.accum_wire_dtypes(a_shard.dtype)
+    half = b_rows // 2
+    acc_f = acc_r = None
+    handles = []
+    for t in range(len(sched_f)):
+        cf, cr = int(sched_f[t]), int(sched_r[t])
+        prod_f = accum_matmul(a_shard[cf * b_rows:cf * b_rows + half], b_shard, acc_t)
+        prod_r = accum_matmul(a_shard[cr * b_rows + half:(cr + 1) * b_rows], b_shard, acc_t)
+        if acc_f is None:
+            acc_f, acc_r = prod_f, prod_r
+        else:
+            for h in handles:
+                h.wait()
+            acc_f = recv_f.to(acc_t) + prod_f
+            acc_r = recv_r.to(acc_t) + prod_r
+        if t + 1 < len(sched_f):
+            (recv_f,), h_f = shift(acc_f.to(wire_t), tag=0)
+            (recv_r,), h_r = shift(acc_r.to(wire_t), reverse=True, tag=1)
+            handles = h_f + h_r
+    return acc_f, acc_r

@@ -1,19 +1,21 @@
 """Process runtime: rank, device binding, process group and barrier.
 
 The PyTorch counterpart of the JAX package's ``Runtime``. One process
-drives one device. Rank, local rank and world size come from the
-``torchrun`` environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``; a plain
-``python`` launch is rank 0 of a world of 1). ``device="cuda"`` binds
-``cuda:{local_rank}``, ``device="cpu"`` the host. When the world has more
-than one rank the default process group is opened once per process: NCCL
-on the card, gloo on the CPU, rendezvous through ``MASTER_ADDR`` /
-``MASTER_PORT`` (``env://``). At world 1 no group exists and every
-collective below is the identity: the all-gather and reduce-scatter of
-rows, the sum all-reduce, the ring hop (``batch_isend_irecv``), and the
-row and head/sequence all-to-alls (``all_to_all_single``).
-``Runtime.peer_buffer`` allocates card memory that every rank can address
-(``PeerBuffer``, symmetric memory over NVLink), for the hand-written ring
-kernels. ``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
+drives one device. Rank, local rank, world size and the ranks a node
+holds come from the ``torchrun`` environment (``RANK``, ``LOCAL_RANK``,
+``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``; a plain ``python`` launch is rank 0
+of a world of 1). ``device="cuda"`` binds ``cuda:{local_rank}``,
+``device="cpu"`` the host. When the world has more than one rank the
+default process group is opened once per process: NCCL on the card, gloo
+on the CPU, rendezvous through ``MASTER_ADDR`` / ``MASTER_PORT``
+(``env://``). At world 1 no group exists and every collective below is
+the identity: the all-gather and reduce-scatter of rows, the sum
+all-reduce, the ring hop (``batch_isend_irecv``, by one rank or by
+``offset``), and the row and head/sequence all-to-alls
+(``all_to_all_single``). ``Runtime.peer_buffer`` allocates card memory
+that every rank can address (``PeerBuffer``, symmetric memory over
+NVLink), for the hand-written ring and all-to-all kernels.
+``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
 (``Mesh``) whose per-axis groups carry the serving model's sum and
 all-gather and the training step's collectives, some of them
 differentiable.
@@ -58,6 +60,9 @@ class Runtime:
         self.rank = env_rank()
         self.local_rank = _env_int("LOCAL_RANK", 0)
         self.world_size = _env_int("WORLD_SIZE", 1)
+        #: ranks on this rank's node (``torchrun``'s ``LOCAL_WORLD_SIZE``;
+        #: the whole world when the launcher does not say)
+        self.local_world_size = _env_int("LOCAL_WORLD_SIZE", self.world_size)
         if not 0 <= self.rank < self.world_size:
             raise ValueError(
                 f"RANK={self.rank} outside WORLD_SIZE={self.world_size}"
@@ -136,32 +141,36 @@ class Runtime:
         )
         return (out, [work]) if async_op else out
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over ranks; every rank gets the whole sum."""
+    def all_reduce(self, x: torch.Tensor, async_op: bool = False):
+        """Sum ``x`` over ranks, in place where ``x`` is contiguous; every
+        rank gets the whole sum. With ``async_op`` returns ``(sum,
+        handles)``, as ``all_gather_rows``."""
         if self.world_size == 1:
-            return x
+            return (x, []) if async_op else x
         x = x.contiguous()
-        dist.all_reduce(x)
-        return x
+        work = dist.all_reduce(x, async_op=async_op)
+        return (x, [work]) if async_op else x
 
-    def all_to_all_rows(self, x: torch.Tensor) -> torch.Tensor:
+    def all_to_all_rows(self, x: torch.Tensor, async_op: bool = False):
         """Row block j of ``x`` (``d`` equal blocks along dim 0) goes to
         rank j; block i of the result came from rank i (the tiled
-        ``all_to_all`` with split and concat axis 0)."""
+        ``all_to_all`` with split and concat axis 0). With ``async_op``
+        returns ``(out, handles)``, as ``all_gather_rows``."""
         d = self.world_size
         if d == 1:
-            return x
+            return (x, []) if async_op else x
         if x.shape[0] % d:
             raise ValueError(f"{x.shape[0]} rows do not split over {d} ranks")
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
-        dist.all_to_all_single(out, x.contiguous())
-        return out
+        work = dist.all_to_all_single(out, x.contiguous(), async_op=async_op)
+        return (out, [work]) if async_op else out
 
     def ring_shift(self, *tensors: torch.Tensor, reverse: bool = False,
-                   tag: int = 0):
-        """Post one ring hop of each tensor: send to rank ``(r+1) % d``,
-        receive the same shape from rank ``(r-1) % d`` (the other way round
-        with ``reverse``).
+                   tag: int = 0, offset: int = 1):
+        """Post one ring hop of each tensor: send to rank ``(r+offset) % d``,
+        receive the same shape from rank ``(r-offset) % d`` (the other way
+        round with ``reverse``); ``offset`` 1 is the neighbour hop, ``t`` the
+        shift-by-``t`` exchange of an all-to-all.
 
         Returns ``(received, handles)``; the received tensors are valid
         once every handle's ``wait()`` has returned, so the caller can
@@ -169,15 +178,16 @@ class Runtime:
         receives in the same order, in one ``batch_isend_irecv``, with one
         tag per tensor counted from ``tag`` (two hops in flight at once,
         such as the two directions of a bidirectional ring, take distinct
-        tags). At world 1 the tensors themselves come back and there is
-        nothing to wait for.
+        tags). At world 1, or when ``offset`` is a multiple of the world
+        size, the tensors themselves come back and there is nothing to wait
+        for.
         """
         d = self.world_size
-        if d == 1:
+        if d == 1 or offset % d == 0:
             return tensors, []
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("ring_shift sends contiguous tensors only")
-        nxt, prv = (self.rank + 1) % d, (self.rank - 1) % d
+        nxt, prv = (self.rank + offset) % d, (self.rank - offset) % d
         if reverse:
             nxt, prv = prv, nxt
         received = tuple(torch.empty_like(t) for t in tensors)
@@ -245,9 +255,9 @@ class Runtime:
 
 class PeerBuffer:
     """A byte buffer on each rank's card that every rank of the world can
-    address: the peer memory of the hand-written ring kernels (K2, K3),
-    which store into a neighbour's buffer over NVLink and signal it through
-    flag words there.
+    address: the peer memory of the hand-written ring kernels (K2-K5) and
+    the all-to-all kernel (K6), which store into a peer's buffer over NVLink
+    and signal it through flag words there.
 
     ``local`` is this rank's ``[nbytes]`` uint8 tensor, zeroed; ``ptrs[i]``
     is rank ``i``'s buffer as this process addresses it. At world 1 it is an
@@ -404,7 +414,7 @@ class Mesh:
         )
         return out
 
-    def _tp_reduce_scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
+    def tp_reduce_scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp == 1:
             return x
         if x.shape[0] % self.tp:
@@ -489,14 +499,14 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _along(ctx.mesh._tp_reduce_scatter_rows, g, ctx.dim), None, None
+        return _along(ctx.mesh.tp_reduce_scatter_rows, g, ctx.dim), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim):
         ctx.mesh, ctx.dim = mesh, dim
-        return _along(mesh._tp_reduce_scatter_rows, x, dim)
+        return _along(mesh.tp_reduce_scatter_rows, x, dim)
 
     @staticmethod
     def backward(ctx, g):

@@ -688,6 +688,158 @@ def test_ring_kernels_reject_what_they_do_not_take(cuda_device):
         cm.ring_matmul_rs(a, b, Runtime("cuda"), ring)
 
 
+# -- K4, K5 and K6 in loopback: d virtual ranks in one launch ---------------------
+
+from ddlb_tpu_torch.ops import alltoall_matmul as am  # noqa: E402
+from ddlb_tpu_torch.ops import ring_collectives as rc  # noqa: E402
+
+#: (d, rows a rank, k): K5 splits the rows a rank into d chunks
+RING_COLL_CASES = [
+    (1, 64, 256),
+    (2, 256, 512),
+    (3, 96, 520),
+    (4, 512, 1024),
+    (4, 132, 72),
+]
+#: (d, g, n, k): g tokens a routing group
+A2A_CASES = [
+    (1, 64, 128, 256),
+    (2, 128, 256, 512),
+    (3, 100, 776, 520),
+    (4, 256, 512, 1024),
+    (4, 130, 264, 72),
+]
+
+
+def _make(shape, dtype, gen, device, integer):
+    if integer:
+        return torch.randint(-4, 5, shape, generator=gen, device=device).to(dtype)
+    return _uniform(shape, dtype, gen, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+@pytest.mark.parametrize("d,m_loc,k", RING_COLL_CASES)
+def test_ring_collectives_loopback_match_virtual(cuda_device, d, m_loc, k, dtype, integer):
+    """K4 and K5 running d virtual ranks in one launch, three calls on one
+    ring each (the epoch counters), against the plain ring run in one
+    process: bit for bit on any operands (K4 copies; K5 rounds the same
+    float32 sum of the same two values at every hop, in the same order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 11 + m_loc)
+    shards = [_make((m_loc, k), dtype, gen, cuda_device, integer) for _ in range(d)]
+    ring_ag = rc.loopback_ring("all_gather", d, m_loc * k, dtype, cuda_device)
+    ring_rs = rc.loopback_ring("reduce_scatter", d, (m_loc // d) * k, dtype, cuda_device)
+    want_ag = rc.ring_all_gather_virtual(shards)
+    want_rs = rc.ring_reduce_scatter_virtual(shards)
+    for call in range(3):
+        before = dict(rc.LAUNCHES)
+        got_ag = rc.ring_all_gather_loopback(shards, ring_ag)
+        got_rs = rc.ring_reduce_scatter_loopback(shards, ring_rs)
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES == {"ag": before["ag"] + 1, "rs": before["rs"] + 1}
+        for r in range(d):
+            assert got_ag[r].shape == (d * m_loc, k) and got_rs[r].shape == (m_loc // d, k)
+            assert torch.equal(got_ag[r], want_ag[r]), (call, r)
+            assert torch.equal(got_rs[r], want_rs[r]), (call, r)
+    assert ring_ag.epoch == ring_rs.epoch == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+@pytest.mark.parametrize("d,g,n,k", A2A_CASES)
+def test_alltoall_matmul_loopback_matches_virtual(cuda_device, d, g, n, k, dtype, integer):
+    """K6 running d virtual ranks in one launch, three calls on one set of
+    buffers, against the one-process version: bit for bit on integer
+    operands (every sum exact in float32), else each group within K1's
+    ``plain_gap_bound`` (f32 within 1e-5 * k)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 13 + g)
+    shards = [_make((d * g, k), dtype, gen, cuda_device, integer) for _ in range(d)]
+    experts = [_make((k, n), dtype, gen, cuda_device, integer) for _ in range(d)]
+    bufs = am.loopback_buffers(d, g, k, n, dtype, cuda_device)
+    want = am.alltoall_expert_matmul_virtual(shards, experts)
+    for call in range(3):
+        before = am.LAUNCHES["a2a"]
+        got = am.alltoall_expert_matmul_loopback(shards, experts, bufs)
+        torch.cuda.synchronize()
+        assert am.LAUNCHES["a2a"] == before + 1
+        for r in range(d):
+            assert got[r].shape == (d * g, n) and got[r].dtype == dtype
+            if integer:
+                assert torch.equal(got[r], want[r]), (call, r)
+            elif dtype == torch.float32:
+                np.testing.assert_allclose(to_numpy(got[r]), to_numpy(want[r]), rtol=0,
+                                           atol=1e-5 * k)
+            else:
+                for e in range(d):
+                    rows = slice(e * g, (e + 1) * g)
+                    bound = k1.plain_gap_bound(shards[r][rows], experts[e], got[r][rows],
+                                               want[r][rows])
+                    gap = (got[r][rows].float() - want[r][rows].float()).abs()
+                    assert bool((gap <= bound).all()), (call, r, e)
+    assert bufs.epoch == 3
+
+
+@pytest.mark.cuda
+def test_trio_kernels_reject_what_they_do_not_take(cuda_device):
+    a = torch.zeros((64, 32), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((32, 16), device=cuda_device, dtype=torch.bfloat16)
+    ring = rc.loopback_ring("all_gather", 2, 64 * 32, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="'all_gather' ring passed to the 'reduce_scatter'"):
+        rc.ring_reduce_scatter_loopback([a, a], ring)
+    with pytest.raises(ValueError, match="ring of torch.bfloat16"):
+        rc.ring_all_gather_loopback([a.half(), a.half()], ring)
+    with pytest.raises(ValueError, match="does not fit"):
+        rc.ring_all_gather_loopback([torch.cat([a, a])] * 2, ring)
+    with pytest.raises(ValueError, match="contiguous"):
+        rc.ring_all_gather_loopback([a[:, :16], a[:, :16]], ring)
+    with pytest.raises(ValueError, match="3 shards on a ring of 2"):
+        rc.ring_all_gather_loopback([a, a, a], ring)
+    bufs = am.loopback_buffers(2, 32, 32, 16, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="buffers for g=32"):
+        am.alltoall_expert_matmul_loopback([a[:32], a[:32]], [w, w], bufs)
+    with pytest.raises(ValueError, match="contiguous"):
+        am.alltoall_expert_matmul_loopback([a[:, :16]] * 2, [w[:16]] * 2)
+    # a CUDA tensor never takes the plain version: without this world's
+    # peer ring or buffers the wrappers raise
+    from ddlb_tpu_torch.runtime import Runtime
+
+    rt = Runtime("cuda")
+    with pytest.raises(ValueError, match="needs this world's peer ring"):
+        rc.ring_all_gather(a, rt)
+    with pytest.raises(ValueError, match="needs this world's peer ring"):
+        rc.ring_reduce_scatter(a, rt, ring)
+    with pytest.raises(ValueError, match="needs this world's peer buffers"):
+        am.alltoall_expert_matmul(a, w, rt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,options", [
+    ("collectives", {"op": "all_gather"}),
+    ("collectives", {"op": "reduce_scatter"}),
+    ("collectives", {"op": "all_reduce"}),
+    ("ep_alltoall", {"algorithm": "a2a_rdma"}),
+    ("dp_allreduce", {"algorithm": "ring_rdma"}),
+])
+def test_trio_cuda_members_run_their_kernels_and_validate(cuda_device, family, options):
+    """At world 1 the cuda members launch K4, K5 (both for all_reduce), K6 or
+    K3 once a call, on buffers set up once, and validate."""
+    impl = load_impl_class(family, "cuda")(256, 64, 512, dtype="bfloat16", **options)
+    counts = (lambda: (dict(rc.LAUNCHES), am.LAUNCHES["a2a"], dict(cm.LAUNCHES)))
+    before = counts()
+    result = impl.run()
+    torch.cuda.synchronize()
+    after = counts()
+    launched = (after[0]["ag"] - before[0]["ag"], after[0]["rs"] - before[0]["rs"],
+                after[1] - before[1], after[2]["rs"] - before[2]["rs"])
+    op = options.get("op")
+    want = (int(op in ("all_gather", "all_reduce")), int(op in ("reduce_scatter", "all_reduce")),
+            int(family == "ep_alltoall"), int(family == "dp_allreduce"))
+    assert launched == want
+    assert impl.validate(result)
+
+
 # -- K2 / K3 over NCCL: four ranks, one card each ------------------------------------
 
 NCCL_WORLD = 4
@@ -741,7 +893,13 @@ def _nccl_rank_main(rank, port, results):
                         bound = cm.ring_matmul_rs_gap_bound(a_rs, b_rs)[rank]
                         ok_rs = bool(((got_rs.float() - want_rs.float()).abs() <= bound).all())
                     out.append(((m_loc, n, k, str(dtype), integer), ok_ag, ok_rs, launches))
-        results.put((rank, "ok", out))
+        trio = []
+        for (m_loc, n, k) in NCCL_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                for integer in (True, False):
+                    trio.append(((m_loc, n, k, str(dtype), integer),
+                                 *_nccl_trio(rt, rank, m_loc, n, k, dtype, integer)))
+        results.put((rank, "ok", (out, trio)))
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))
     finally:
@@ -749,13 +907,56 @@ def _nccl_rank_main(rank, port, results):
             dist.destroy_process_group()
 
 
+def _nccl_trio(rt, rank, m_loc, n, k, dtype, integer):
+    """K4, K5 and K6 on this rank's card, three calls on one ring or set of
+    buffers, against their plain versions over NCCL: (K4 equal, K5 equal,
+    K6 within bounds, launches by kernel). K4 and K5 are bit for bit on any
+    operands; K6 on integer ones, else each group within K1's
+    ``plain_gap_bound`` (f32 within 1e-5 * k)."""
+    d, dev = NCCL_WORLD, rt.device
+    gen = torch.Generator(device=dev).manual_seed(m_loc + n + 1)
+    m_loc -= m_loc % d  # K5's chunks and K6's groups
+    shards = [_make((m_loc, k), dtype, gen, dev, integer) for _ in range(d)]
+    experts = [_make((k, n), dtype, gen, dev, integer) for _ in range(d)]
+    g = m_loc // d
+    ring_ag = rc.peer_ring(rt, "all_gather", m_loc * k, dtype)
+    ring_rs = rc.peer_ring(rt, "reduce_scatter", g * k, dtype)
+    bufs = am.peer_buffers(rt, g, k, n, dtype)
+    want_ag = rc.ring_all_gather_plain(shards[rank], rt)
+    want_rs = rc.ring_reduce_scatter_plain(shards[rank], rt)
+    want_a2a = am.alltoall_expert_matmul_plain(shards[rank], experts[rank], rt)
+    before = (dict(rc.LAUNCHES), am.LAUNCHES["a2a"])
+    for _ in range(NCCL_CALLS):
+        got_ag = rc.ring_all_gather(shards[rank], rt, ring_ag)
+        got_rs = rc.ring_reduce_scatter(shards[rank], rt, ring_rs)
+        got_a2a = am.alltoall_expert_matmul(shards[rank], experts[rank], rt, bufs)
+    torch.cuda.synchronize()
+    launches = {"ag": rc.LAUNCHES["ag"] - before[0]["ag"],
+                "rs": rc.LAUNCHES["rs"] - before[0]["rs"],
+                "a2a": am.LAUNCHES["a2a"] - before[1]}
+    if integer:
+        ok_a2a = torch.equal(got_a2a, want_a2a)
+    elif dtype == torch.float32:
+        ok_a2a = bool(((got_a2a - want_a2a).abs() <= 1e-5 * k).all())
+    else:
+        ok_a2a = True
+        for e in range(d):
+            rows = slice(e * g, (e + 1) * g)
+            mine = shards[rank][rows]
+            bound = k1.plain_gap_bound(mine, experts[e], got_a2a[rows], want_a2a[rows])
+            ok_a2a &= bool(((got_a2a[rows].float() - want_a2a[rows].float()).abs()
+                            <= bound).all())
+    return torch.equal(got_ag, want_ag), torch.equal(got_rs, want_rs), ok_a2a, launches
+
+
 @pytest.mark.cuda
 def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
-    """K2 and K3 on four cards (one process each, peer memory from
-    symmetric memory over NVLink), three calls on one ring, against their
-    plain versions over NCCL (``batch_isend_irecv`` hops): bit for bit on
-    integer operands, else within the bounds of the loopback test; exactly
-    one launch of each kernel a call."""
+    """K2 and K3, then K4, K5 and K6, on four cards (one process each, peer
+    memory from symmetric memory over NVLink), three calls on one ring,
+    against their plain versions over NCCL (``batch_isend_irecv`` hops):
+    bit for bit on integer operands (K4 and K5 on any), else within the
+    bounds of the loopback tests; exactly one launch of each kernel a
+    call."""
     import multiprocessing as mp
     import queue
     import socket
@@ -785,11 +986,14 @@ def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-    for rank, cases in got.items():
-        assert len(cases) == len(NCCL_SHAPES) * 4
+    for rank, (cases, trio) in got.items():
+        assert len(cases) == len(trio) == len(NCCL_SHAPES) * 4
         for case, ok_ag, ok_rs, launches in cases:
             assert ok_ag and ok_rs, (rank, case, ok_ag, ok_rs)
             assert launches == {"ag": NCCL_CALLS, "rs": NCCL_CALLS}, (rank, case)
+        for case, ok_k4, ok_k5, ok_k6, launches in trio:
+            assert ok_k4 and ok_k5 and ok_k6, (rank, case, ok_k4, ok_k5, ok_k6)
+            assert launches == dict.fromkeys(("ag", "rs", "a2a"), NCCL_CALLS), (rank, case)
 
 
 # -- the LM head's float32 product on the tensor cores ------------------------------

@@ -224,13 +224,13 @@ def test_runtime_on_cpu_world_of_one():
 @pytest.mark.parametrize(
     "primitive,name,match",
     [
-        ("dp_allreduce", "overlap", "not yet ported"),
+        ("dp_allreduce", "jax_spmd_hier", "not yet ported"),
         ("tp_rowwise", "xla_gspmd", "not yet ported"),
         ("tp_columnwise", "jax_spmd", "counterpart is 'pytorch'"),
         ("tp_rowwise", "pallas", "counterpart is 'cuda'"),
         ("tp_columnwise", "nope", "Unknown implementation"),
         ("dp_allreduce", "jax_spmd", "counterpart is 'pytorch'"),
-        ("dp_allreduce", "pallas", "not yet ported"),
+        ("dp_allreduce", "pallas", "counterpart is 'cuda'"),
         ("pp_pipeline", "jax_spmd", "not yet ported"),
         ("transformer_step", "xla_gspmd", "not yet ported"),
         ("bogus", "pytorch", "Unknown primitive"),
