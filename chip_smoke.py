@@ -127,6 +127,20 @@ def card_identity():
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_registers(library, kernel):
+    """``ptxas -v``'s registers and spill stores of each instantiation of
+    ``kernel`` in a library's build log, keyed by its operand dtype."""
+    from ddlb_tpu_torch.ops import _build
+
+    found = {}
+    for name, usage in _build.ptxas_usage(_build.build_log(library)).items():
+        if kernel in name:
+            dtype = ("bfloat16" if "bfloat16" in name else "float16" if "__half" in name
+                     else "float32")
+            found[dtype] = usage
+    return found
+
+
 def cuda_ms(fn, iterations, windows=3):
     """Median over windows of CUDA-event milliseconds per call."""
     import torch
@@ -588,13 +602,15 @@ def kernel_phase_matmul(k1, smi):
 #: loopback cases, (d, m_loc, n, k a rank, dtype): first the per-rank shapes
 #: of the GEMM path's 8192^3 bf16 at d = 4 (K2: [2048, 8192] @ [8192, 8192];
 #: K3: [8192, 2048] @ [2048, 8192]), then d = 2 and 3, a ragged case K1
-#: takes, fp16 and f32
+#: takes, fp16 and f32; K2 adds 16-bit rows that are not a multiple of 16
+#: bytes (its wmma tile: TMA cannot load them)
 RING_AG_CASES = [
     (4, PATH_MNK // 4, PATH_MNK, PATH_MNK, "bfloat16"),
     (2, 1024, 2048, 2048, "bfloat16"),
     (3, 1000, 776, 520, "bfloat16"),
     (3, 256, 384, 512, "float16"),
     (4, 512, 1024, 512, "float32"),
+    (3, 130, 262, 74, "bfloat16"),
 ]
 RING_RS_CASES = [
     (4, PATH_MNK // 4, PATH_MNK, PATH_MNK // 4, "bfloat16"),
@@ -640,6 +656,7 @@ def check_ring(cm, k1, kind, d, m_loc, n, k, dtype_name):
     what = f"K{2 if kind == 'ag' else 3} loopback d={d} {m_loc}x{n}x{k} {dtype_name}"
     loopback = cm.ring_ag_matmul_loopback if kind == "ag" else cm.ring_matmul_rs_loopback
     virtual = cm.ring_ag_matmul_virtual if kind == "ag" else cm.ring_matmul_rs_virtual
+    tiles_before = dict(cm.TILES)
     x, y = ring_operands(kind, d, m_loc, n, k, dtype, gen, integer=True)
     got, want = loopback(x, y), virtual(x, y)
     torch.cuda.synchronize()
@@ -648,6 +665,13 @@ def check_ring(cm, k1, kind, d, m_loc, n, k, dtype_name):
     x, y = ring_operands(kind, d, m_loc, n, k, dtype, gen, integer=False)
     got, want = loopback(x, y), virtual(x, y)
     torch.cuda.synchronize()
+    if kind == "ag":
+        # K2's two launches ran the tile its widths choose (K3 keeps K1's)
+        tile = cm.tile_for(dtype, k, n)
+        tiles_want = dict(tiles_before, **{tile: tiles_before[tile] + 2})
+        if cm.TILES != tiles_want:
+            fail(f"{what}: K2 launches by tile {cm.TILES}, expected {tiles_want}")
+        what += f" ({tile} tile)"
     if dtype_name == "float32":
         bounds = [torch.full_like(w, 1e-5 * k, dtype=torch.float32) for w in want]
         text = f"exact on integers; atol {1e-5 * k:g}"
@@ -709,6 +733,8 @@ def kernel_phase_ring(cm, k1, smi):
                 main = (case, result)
             torch.cuda.empty_cache()
         (d, m_loc, n, k, _), (max_err, tol, (x, y)) = main
+        if kind == "ag" and cm.tile_for(x[0].dtype, k, n) != "wgmma":
+            fail(f"K2 at the path's shapes would run the {cm.tile_for(x[0].dtype, k, n)} tile")
         ring = cm.loopback_ring(kind, d, m_loc * (k if kind == "ag" else n), x[0].dtype, "cuda")
         if kind == "ag":
             gathered = torch.cat(x)
@@ -830,7 +856,9 @@ def check_trio_a2a(am, k1, d, g, n, k, dtype_name):
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11 * d)
-    what = f"K6 loopback d={d} g={g} n={n} k={k} {dtype_name}"
+    tile = am.tile_for(dtype)
+    what = f"K6 loopback d={d} g={g} n={n} k={k} {dtype_name} ({tile} tile)"
+    tiles_want = dict(am.TILES, **{tile: am.TILES[tile] + 3})
     for kind in ("integer", "dyadic", "uniform"):
         shards = trio_operands([(d * g, k)] * d, dtype, gen, kind)
         experts = trio_operands([(k, n)] * d, dtype, gen, kind)
@@ -855,6 +883,8 @@ def check_trio_a2a(am, k1, d, g, n, k, dtype_name):
                 bad += int((err[rows] > bound).sum())
         if bad or not math.isfinite(max_err):
             fail(f"{what}: {bad} elements beyond the bound, max |err| {max_err}")
+    if am.TILES != tiles_want:
+        fail(f"{what}: launches by tile {am.TILES}, expected {tiles_want}")
     text = ("exact on integers and dyadic operands; "
             + ("atol 1e-5 * k" if dtype_name == "float32" else "plain_gap_bound"))
     print(f"{what}: max |err| {max_err!r} vs plain ({text}): ok")
@@ -944,6 +974,8 @@ def kernel_phase_trio(rc, am, k1, smi):
     torch.cuda.empty_cache()
 
     (d, g, n, k, _), (max_err, _, (shards, experts)) = a2a_main
+    if am.tile_for(torch.bfloat16) != "wgmma":
+        fail(f"K6 at the path's shapes would run the {am.tile_for(torch.bfloat16)} tile")
     bufs = am.loopback_buffers(d, g, k, n, torch.bfloat16, "cuda")
     # the library's layout: expert e's gathered groups, [d, d g, k] @ [d, k, n]
     xs = torch.stack([torch.cat([a[e * g:(e + 1) * g] for a in shards]) for e in range(d)])
@@ -2253,6 +2285,7 @@ def main():
         rows += drive_path(run_benchmark, "cuda", primitive,
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
     gemm_launches = {"k1": k1.LAUNCHES, **cm.LAUNCHES}
+    gemm_tiles = dict(cm.TILES)
     others = {**fa.LAUNCHES, **da.LAUNCHES, "int8": qm.LAUNCHES, **trio_counts()}
     # each cuda row runs its kernel once per warmup, per timed iteration
     # and for validation: K1 under xla_collective, K2 (tp_columnwise) or K3
@@ -2268,6 +2301,10 @@ def main():
             expected["k1"] += per_row
     if gemm_launches != expected or not all(expected.values()):
         fail(f"K1/K2/K3 launched {gemm_launches} on the GEMM path, expected {expected}")
+    # K2 at 8192^3 bf16 runs the Hopper tile, every launch
+    if gemm_tiles != {"wgmma": expected["ag"], "wmma": 0, "simt": 0}:
+        fail(f"K2's launches by tile on the GEMM path: {gemm_tiles}, expected "
+             f"{expected['ag']} on wgmma")
     if any(others.values()):
         fail(f"other kernels launched on the GEMM path: {others}")
     launches["gemm"] = gemm_launches
@@ -2300,6 +2337,10 @@ def main():
     missing = [key for key in ("k1", "rs", "k4", "k5", "k6") if not trio_launches[key]]
     if missing:
         fail(f"the trio path did not launch {missing}: {trio_launches}")
+    # K6 at 8192^3 bf16 runs the Hopper tile, every launch
+    if am.TILES != {"wgmma": trio_launches["k6"], "simt": 0}:
+        fail(f"K6's launches by tile on the trio path: {am.TILES}, expected "
+             f"{trio_launches['k6']} on wgmma")
     launches["trio"] = {key: n for key, n in trio_launches.items() if n}
     print(f"trio path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2372,6 +2413,11 @@ def main():
         entry["launches"] = total(key)
     for entry, key in zip(trio_entries, ("k4", "k5", "k6")):
         entry["launches"] = total(key)
+    # K2 and K6 ran the Hopper tile at the paths' shapes (asserted above)
+    for entry, library, kernel in ((ring_entries[0], "collective_matmul", "ring_ag_wgmma_kernel"),
+                                   (trio_entries[2], "alltoall_matmul", "a2a_wgmma_kernel")):
+        entry["tile"] = "wgmma"
+        entry["ptxas"] = ptxas_registers(library, kernel)
     print(json.dumps({"kernels": [matmul_entry, *ring_entries, *trio_entries, int8_entry,
                                   forward_entry, rect_entry, chunk_entry,
                                   *backward_entries, decode_entry, paged_entry]}))

@@ -22,7 +22,9 @@ CUDA events, after a barrier, the median of ``--iterations`` calls of:
   the port never calls them.
 
 Prints one JSON line on rank 0 with the slowest rank's median of each, in
-milliseconds, and the card's name.
+milliseconds, the card's name, and the GEMM tile K2 and K6 ran on
+(``tiles``: their launches by tile in this run, every one of them on the
+tile named, and the blocks a launch of each ran).
 """
 
 from __future__ import annotations
@@ -110,7 +112,16 @@ def main(argv=None) -> None:
         "nccl_reduce_scatter": lambda: rt.reduce_scatter_rows(a_ag),
         "pytorch_alltoall_matmul": lambda: rt.all_to_all_rows(rt.all_to_all_rows(a_ag) @ b_ag),
     }
+    cm.reset_launches()
+    am.reset_launches()
     medians = {key: _median_ms(fn, rt, args.iterations) for key, fn in calls.items()}
+    tiles = {
+        "ring_ag_matmul": {"tile": cm.tile_for(torch.bfloat16, k, n), "launches": dict(cm.TILES),
+                           "blocks": cm.grid_blocks("ag", torch.bfloat16, k, n, 1)},
+        "alltoall_expert_matmul": {"tile": am.tile_for(torch.bfloat16),
+                                   "launches": dict(am.TILES),
+                                   "blocks": am.grid_blocks(torch.bfloat16, 1)},
+    }
     library = {}
     fused = _fused_ops(rt)
     if fused is None:
@@ -133,7 +144,7 @@ def main(argv=None) -> None:
         print(json.dumps({
             "world": d, "m": m, "n": n, "k": k, "dtype": "bfloat16",
             "median_ms_slowest_rank": dict(zip(medians, (float(x) for x in slowest))),
-            "library": library, "device": rt.device_kind,
+            "library": library, "device": rt.device_kind, "tiles": tiles,
             "launches": {**cm.LAUNCHES, "k4": rc.LAUNCHES["ag"], "k5": rc.LAUNCHES["rs"],
                          "k6": am.LAUNCHES["a2a"]},
         }))

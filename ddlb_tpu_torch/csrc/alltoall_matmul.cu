@@ -15,40 +15,53 @@
 // 989 TFLOP/s), while 3 groups of [512, 8192] bf16 leave and 3 of
 // [512, 8192] come back (25 MB each way, 0.056 ms at 450 GB/s).
 //
-// Design (the protocol of the TPU kernel; right and simple first, the GEMM
-// is K1's tile, not wgmma):
+// Design (the protocol of the TPU kernel):
 //  1. A global entry barrier: every rank adds one to every rank's barrier
 //     counter and waits for d a call. It keeps a fast rank's next dispatch
 //     out of a slot, and its next combine out of a region, that a peer is
 //     still reading in the previous call.
-//  2. Dispatch: the first blocks of the grid are put blocks. They copy
-//     group p of the tokens into rank p's dispatch slot indexed by the
-//     sender, for every p != r, with 16-byte stores, and signal that
-//     slot's own arrival counter on rank p. The slots are distinct, so no
-//     credits are needed within a call. The local group is read where it
-//     is.
-//  3. The other blocks GEMM the groups in arrival order, source
-//     s = (r + t) % d at step t, each step waiting only on slot s's
-//     arrival counter.
+//  2. Dispatch: group p of the tokens goes into rank p's dispatch slot
+//     indexed by the sender, for every p != r, with 16-byte stores, and
+//     each sender signals that slot's own arrival counter on rank p. The
+//     slots are distinct, so no credits are needed within a call. The
+//     local group is read where it is.
+//  3. The GEMM takes the groups in arrival order, source s = (r + t) % d at
+//     step t, each step waiting only on slot s's arrival counter.
 //  4. Combine: the epilogue stores each finished group straight into the
 //     combine region r of source s's buffer (this rank's own group goes
 //     straight to the output) and signals s's arrival counter of expert r.
 //  5. The caller's output is not peer memory, so a rank cannot be written
-//     into it: once expert e's group has landed in combine region e, the
-//     put blocks copy it into the output rows of group e (an [m/d, n] pass
-//     less the local group; the next call reuses the regions, so the
-//     result is never a view of them). The kernel ends when every inbound
-//     group has landed and been copied.
+//     into it: once expert e's group has landed in combine region e, it is
+//     copied into the output rows of group e (an [m/d, n] pass less the
+//     local group; the next call reuses the regions, so the result is never
+//     a view of them). The kernel ends when every inbound group has landed
+//     and been copied.
+//  - bf16/fp16 (the host's choice, by dtype and shape): the Hopper tile of
+//    hopper_gemm.cuh, one 384-thread block an SM. The producer
+//    warpgroup's TMA thread waits for slot s's counter, fences the async
+//    proxy (a peer wrote the slot with generic stores; TMA reads it) and
+//    loads the group's 128x256 output tiles stage by stage: at g = 512 and
+//    n = 8192 a step is 128 tiles, one wave on 132 SMs. Its other three
+//    warps do the copies of steps 2 and 5, a share a block, so every block
+//    copies and no SM is kept from the GEMM. The consumers' epilogue is the
+//    combine store, 16 bytes a lane.
+//  - float32 (SimtTile, K1's f32 kernel): 256 threads; the first blocks of
+//    the grid are put blocks that do the copies, the rest walk 128x128
+//    tiles.
 //  - Counters: one per dispatch slot and one per combine region, each
-//    growing by the put blocks' (resp. the GEMM blocks') count every call;
+//    growing by the copying (resp. the GEMM) blocks' count every call;
 //    the host passes the call's epoch and waits compare with >= modulo
 //    2^32. Signals are red.release.sys after a system fence; waits are
-//    ld.acquire.sys; landed data is read through L2 only (cp.async.cg,
+//    ld.acquire.sys; landed data is read through L2 only (TMA, cp.async.cg,
 //    ld.global.cg). A wait of 20 s traps rather than holding the card.
 //  - One cooperative launch per rank: blocks spin on flags that other
 //    blocks and cards write, so every block must be resident at once.
 //  - Loopback: gridDim.y = d runs d virtual ranks on one card, each with
 //    its own buffer in that card's memory.
+//  - Tensor maps are built on the host for every launch and passed by
+//    value (__grid_constant__): per virtual rank the tokens and the
+//    dispatch slots, each as one [d, g, k] map, and the expert, 24 maps at
+//    most, under the classic 4 KB of kernel parameters.
 //
 // Plain C interface for ctypes; the entry point returns cudaGetLastError()
 // after its launch (0 = success). Launches on the caller's stream, never
@@ -57,12 +70,14 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper_gemm.cuh"
+#include "peer_flags.cuh"
 
 namespace {
+
+using namespace peer;
 
 constexpr int MAX_RANKS = 8;
 // flag words of a rank's buffer (uint32 offsets, one 128-byte line each):
@@ -92,76 +107,32 @@ struct A2AArgs {
 // flags
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned* flags_of(const A2AArgs& p, int rank) {
+template <typename Args>
+__device__ __forceinline__ unsigned* flags_of(const Args& p, int rank) {
   return reinterpret_cast<unsigned*>(p.buf[rank]);
 }
 
 // rank's dispatch slot holding the tokens of source s
-template <typename T>
-__device__ __forceinline__ T* dispatch_of(const A2AArgs& p, int rank, int s) {
+template <typename T, typename Args>
+__device__ __forceinline__ T* dispatch_of(const Args& p, int rank, int s) {
   return reinterpret_cast<T*>(p.buf[rank] + FLAG_BYTES) +
          static_cast<size_t>(s) * p.g * p.k;
 }
 
 // rank's combine region holding expert e's output for rank's group e
-template <typename T>
-__device__ __forceinline__ T* combine_of(const A2AArgs& p, int rank, int e) {
+template <typename T, typename Args>
+__device__ __forceinline__ T* combine_of(const Args& p, int rank, int e) {
   return reinterpret_cast<T*>(p.buf[rank] + FLAG_BYTES) +
          static_cast<size_t>(p.d) * p.g * p.k +
          static_cast<size_t>(e) * p.g * p.n;
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* f) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(f)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release_add(unsigned* f, unsigned v) {
-  asm volatile("red.release.sys.global.add.u32 [%0], %1;\n" ::"l"(f), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// A wait this long means a peer never signalled (a rank that did not
-// launch, or a protocol fault): trap, so the launch fails with an error
-// instead of holding the card forever.
-constexpr unsigned long long WAIT_LIMIT_NS = 20ull * 1000 * 1000 * 1000;
-
-// Block-wide: wait until *f >= target (mod 2^32), then every thread may
-// read what the signallers wrote before they signalled.
-__device__ __forceinline__ void block_wait(const unsigned* f,
-                                           unsigned target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long start = globaltimer_ns();
-    while (static_cast<int>(ld_acquire(f) - target) < 0) {
-      __nanosleep(64);
-      if (globaltimer_ns() - start > WAIT_LIMIT_NS) __trap();
-    }
-  }
-  __syncthreads();
-}
-
-// Block-wide: publish every thread's earlier writes, then add one to *f.
-__device__ __forceinline__ void block_signal(unsigned* f) {
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) red_release_add(f, 1u);
 }
 
 // Block (0, y) tells every rank that this rank entered the call (its
 // previous call is over); every block waits until every rank has. A rank
 // cannot run two calls ahead of another (its call ends only once every
 // peer has combined into it), so d signals a call on each counter suffice.
-__device__ __forceinline__ void global_barrier(const A2AArgs& p, int r) {
+template <typename Args>
+__device__ __forceinline__ void global_barrier(const Args& p, int r) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     for (int i = 0; i < p.d; ++i) red_release_add(flags_of(p, i) + BARRIER, 1u);
   }
@@ -198,19 +169,6 @@ struct Cvt<float> {
   static __device__ __forceinline__ float to_float(float x) { return x; }
 };
 
-// One element through L2 only (slot data may have been rewritten by a
-// peer since this SM last read the line).
-template <typename T>
-__device__ __forceinline__ T ldcg(const T* p) {
-  if constexpr (sizeof(T) == 2) {
-    const unsigned short bits =
-        __ldcg(reinterpret_cast<const unsigned short*>(p));
-    return *reinterpret_cast<const T*>(&bits);
-  } else {
-    return __ldcg(p);
-  }
-}
-
 // Round eight float32 values to T and store the first `avail` of them at
 // dst: 16-byte stores when whole and aligned, else one element at a time.
 template <typename T>
@@ -228,155 +186,14 @@ __device__ __forceinline__ void store8(T* dst, const float* v, int avail) {
 }
 
 // ---------------------------------------------------------------------------
-// the GEMM tile: K1's structure (csrc/matmul.cu), one 128x128 output tile of
-// A[rows, k] @ B[k, n] a call, with loads through L2 only
+// the float32 GEMM tile: K1's f32 kernel (csrc/matmul.cu) on the SIMT
+// cores, one 128x128 output tile of A[rows, k] @ B[k, n] a call, 8x8
+// outputs a thread, true f32 (no TF32), loads through L2 only
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;  // 256
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int PAD = 8;
-constexpr int LDA = BK + PAD, LDB = BN + PAD;
-constexpr int A_TILE = BM * LDA, B_TILE = BK * LDB;
-constexpr int STAGES = 2;
-constexpr int WMMA_SMEM = STAGES * (A_TILE + B_TILE) * 2;  // 37,888
-static_assert(WMMA_SMEM <= 48 * 1024, "static shared memory limit");
-static_assert((THREADS / 32) * 16 * 16 * 4 <= WMMA_SMEM,
-              "epilogue scratch aliases the tiles");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ void load_chunk(T* dst, const T* src, int r, int c,
-                                           int rows, int cols) {
-  if (r < rows && c + 8 <= cols) {
-    const T* q = src + static_cast<size_t>(r) * cols + c;
-    if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
-      cp_async16(dst, q);
-      return;
-    }
-  }
-  const T zero = Cvt<T>::from_float(0.0f);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    dst[e] = (r < rows && c + e < cols)
-                 ? ldcg(src + static_cast<size_t>(r) * cols + c + e)
-                 : zero;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_tiles(T* as, T* bs, const T* A,
-                                           const T* B, int rows, int n, int k,
-                                           int row0, int col0, int k0) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < (BM * BK / 8) / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-    load_chunk(as + r * LDA + cc, A, row0 + r, k0 + cc, rows, k);
-  }
-#pragma unroll
-  for (int i = 0; i < (BK * BN / 8) / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-    load_chunk(bs + r * LDB + cc, B, k0 + r, col0 + cc, k, n);
-  }
-}
-
-// bf16 / fp16 on the tensor cores
-template <typename T>
-struct WmmaTile {
-  static constexpr int SMEM = WMMA_SMEM;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-
-  __device__ void compute(const T* A, const T* B, int rows, int n, int k,
-                          int row0, int col0, unsigned char* smem) {
-    T* As = reinterpret_cast<T*>(smem);
-    T* Bs = As + STAGES * A_TILE;
-    const int warp = threadIdx.x / 32;
-    const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    __syncthreads();  // the last tile's epilogue is done with the scratch
-    const int ktiles = (k + BK - 1) / BK;
-    if (ktiles > 0) load_tiles(As, Bs, A, B, rows, n, k, row0, col0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < ktiles; ++kt) {
-      if (kt + 1 < ktiles) {
-        const int nxt = (kt + 1) % STAGES;
-        load_tiles(As + nxt * A_TILE, Bs + nxt * B_TILE, A, B, rows, n, k,
-                   row0, col0, (kt + 1) * BK);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* as = As + (kt % STAGES) * A_TILE;
-      const T* bs = Bs + (kt % STAGES) * B_TILE;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(fa[i], as + (wm * WM + i * 16) * LDA + kk,
-                                 LDA);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * WN + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // Hands each lane's eight consecutive float32 sums to st(row, col, v).
-  template <typename Store>
-  __device__ void store(int row0, int col0, unsigned char* smem,
-                        const Store& st) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-    float* scratch = reinterpret_cast<float*>(smem) + warp * 16 * 16;
-    const int r = lane / 2, c = (lane % 2) * 8;
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        st(row0 + wm * WM + i * 16 + r, col0 + wn * WN + j * 16 + c,
-           scratch + r * 16 + c);
-        __syncwarp();
-      }
-    }
-  }
-};
-
-// float32 on the SIMT cores (K1's f32 kernel: 8x8 outputs a thread, true
-// f32, no TF32)
+constexpr int BM = 128, BN = 128;
 constexpr int FBK = 8, FT = 8, F_PAD = 4;
+constexpr int THREADS = (BM / FT) * (BN / FT);  // 256
 
 struct SimtTile {
   static constexpr int SMEM = 2 * FBK * (BM + F_PAD) * 4;
@@ -438,15 +255,6 @@ struct SimtTile {
   }
 };
 
-template <typename T>
-struct TileFor {
-  using type = WmmaTile<T>;
-};
-template <>
-struct TileFor<float> {
-  using type = SimtTile;
-};
-
 
 // ---------------------------------------------------------------------------
 // the epilogue and the copies
@@ -480,10 +288,10 @@ __device__ void copy_part(void* dst, const void* src, size_t bytes, int part,
 // K6: dispatch, expert GEMM, combine
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// K6 on float32: put blocks do the copies, the rest run SimtTile.
 __global__ void __launch_bounds__(THREADS) a2a_matmul_kernel(A2AArgs p) {
-  using Tile = typename TileFor<T>::type;
-  __shared__ __align__(128) unsigned char smem[Tile::SMEM];
+  using T = float;
+  __shared__ __align__(128) unsigned char smem[SimtTile::SMEM];
   const int y = blockIdx.y, d = p.d, r = p.rank0 + y;
   const unsigned G = gridDim.x, P = p.put_blocks;
   const unsigned e = p.epoch;
@@ -513,7 +321,7 @@ __global__ void __launch_bounds__(THREADS) a2a_matmul_kernel(A2AArgs p) {
   const T* W = static_cast<const T*>(p.w[y]);
   const int tiles_n = (p.n + BN - 1) / BN;
   const int tiles = ((p.g + BM - 1) / BM) * tiles_n;
-  Tile tile;
+  SimtTile tile;
   for (int t = 0; t < d; ++t) {
     const int s = (r + t) % d;  // the source whose tokens this step multiplies
     if (t > 0) block_wait(mine + DISPATCH + s, (e + 1) * P);
@@ -528,54 +336,161 @@ __global__ void __launch_bounds__(THREADS) a2a_matmul_kernel(A2AArgs p) {
   }
 }
 
+// K6 on the Hopper tile (bf16 / fp16).
+struct A2ATmaArgs {
+  // per virtual rank (blockIdx.y): its tokens and its dispatch slots, each
+  // as a [d, g, k] map (a routing group or a source by depth), its expert
+  CUtensorMap tokens[MAX_RANKS];
+  CUtensorMap dispatch[MAX_RANKS];
+  CUtensorMap w[MAX_RANKS];
+  const void* a[MAX_RANKS];
+  void* out[MAX_RANKS];
+  unsigned char* buf[MAX_RANKS];
+  int rank0, d;
+  int g, n, k;
+  unsigned epoch;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(hopper::THREADS, 1)
+    a2a_wgmma_kernel(const __grid_constant__ A2ATmaArgs p) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = smem_of(smem_raw);
+  const int y = blockIdx.y, d = p.d, r = p.rank0 + y;
+  const unsigned G = gridDim.x, e = p.epoch;
+  unsigned* mine = flags_of(p, r);
+  const size_t gk = static_cast<size_t>(p.g) * p.k;
+  const size_t gn = static_cast<size_t>(p.g) * p.n;
+  T* out = static_cast<T*>(p.out[y]);
+  const Tiles tiles(p.g, p.n);
+
+  if (threadIdx.x == 0) init_barriers(sm);
+  global_barrier(p, r);  // its __syncthreads also publishes the barriers
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  if (wg == 0) {
+    producer_registers();
+    if (warp == 0) {
+      Pipe pipe;
+      for (int t = 0; t < d; ++t) {
+        const int s = (r + t) % d;  // the source whose tokens this step multiplies
+        if (t > 0) {
+          // the issuing lane acquires the slot, then orders it before its
+          // TMA reads
+          if (threadIdx.x == 0) {
+            spin_wait(mine + DISPATCH + s, (e + 1) * G);
+            fence_proxy_async();
+          }
+          __syncwarp();
+        }
+        const CUtensorMap* a = t == 0 ? &p.tokens[y] : &p.dispatch[y];
+        for (int j = first_tile(t * tiles.count); j < tiles.count; j += G)
+          load_tile(sm, pipe, a, t == 0 ? r : s, &p.w[y], tiles.row0(j), tiles.col0(j), p.n,
+                    p.k);
+      }
+      return;
+    }
+    const int tid = threadIdx.x - 32;
+    const T* A = static_cast<const T*>(p.a[y]);
+    // dispatch: group q of the tokens to rank q's slot of this source
+    for (int i = 1; i < d; ++i) {
+      const int q = (r + i) % d;
+      copy_share(dispatch_of<T>(p, q, r), A + q * gk, gk * sizeof(T), blockIdx.x, G, tid,
+                 COPY_THREADS);
+      group_signal(flags_of(p, q) + DISPATCH + r, tid, BAR_COPY, COPY_THREADS);
+    }
+    // combine: expert x reaches this rank's group at its step (r - x) % d,
+    // so the regions land in the order x = r - 1, r - 2, ...
+    for (int i = 1; i < d; ++i) {
+      const int x = (r + d - i) % d;
+      group_wait(mine + COMBINE + x, (e + 1) * G, tid, BAR_COPY, COPY_THREADS);
+      copy_share(out + x * gn, combine_of<T>(p, r, x), gn * sizeof(T), blockIdx.x, G, tid,
+                 COPY_THREADS);
+    }
+    return;
+  }
+  consumer_registers();
+  Pipe pipe;
+  float acc[128];
+  for (int t = 0; t < d; ++t) {
+    const int s = (r + t) % d;
+    const StoreRows<T> st{t == 0 ? out + r * gn : combine_of<T>(p, s, r), p.g, p.n};
+    for (int j = first_tile(t * tiles.count); j < tiles.count; j += G) {
+      mma_tile<T>(sm, pipe, acc, p.k, wg - 1);
+      store_tile(sm, acc, wg - 1, tiles.row0(j), tiles.col0(j), st);
+    }
+    if (t > 0)
+      group_signal(flags_of(p, s) + COMBINE + r, threadIdx.x - 128, BAR_CONSUMER,
+                   CONSUMER_THREADS);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-// Blocks a virtual rank gets: what the card holds at once, shared by the
-// ranks of the launch (a cooperative launch of more would be refused).
-template <typename K>
-int grid_for(K kernel, int vranks, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *blocks = per_sm * sms / vranks;
-  return *blocks >= 2 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
-}
-
-template <typename T>
-int launch(A2AArgs& p, int vranks, cudaStream_t s) {
+int launch_simt(A2AArgs& p, int vranks, cudaStream_t s) {
   int blocks = 0;
-  int rc = grid_for(a2a_matmul_kernel<T>, vranks, &blocks);
+  int rc = grid_for(a2a_matmul_kernel, THREADS, 0, vranks, &blocks);
   if (rc != 0) return rc;
   // one put block for every eight, at most 16
   const int share = blocks / 8 < 1 ? 1 : blocks / 8;
   p.put_blocks = share < 16 ? share : 16;
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(a2a_matmul_kernel<T>), dim3(blocks, vranks),
-      dim3(THREADS), args, 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coop(a2a_matmul_kernel, p, blocks, vranks, THREADS, 0, s);
 }
+
+// K6 on the Hopper tile: the tensor maps of every virtual rank, then one
+// launch of hopper::THREADS-thread blocks with hopper::SMEM_BYTES each.
+template <typename T>
+int launch_wgmma(int dtype, const A2AArgs& q, int vranks, cudaStream_t s) {
+  A2ATmaArgs p;
+  const unsigned long long group_bytes =
+      static_cast<unsigned long long>(q.g) * q.k * sizeof(T);
+  for (int y = 0; y < vranks; ++y) {
+    const unsigned char* slots = q.buf[q.rank0 + y] + FLAG_BYTES;
+    if (!hopper::tma_ok(q.a[y], q.k) || !hopper::tma_ok(q.w[y], q.n) ||
+        !hopper::tma_ok(slots, q.k))
+      return static_cast<int>(cudaErrorInvalidValue);
+    int rc = hopper::encode_a(&p.tokens[y], dtype, q.a[y], q.g, q.k, q.d, group_bytes);
+    if (rc == 0) rc = hopper::encode_a(&p.dispatch[y], dtype, slots, q.g, q.k, q.d, group_bytes);
+    if (rc == 0) rc = hopper::encode_b(&p.w[y], dtype, q.w[y], q.k, q.n);
+    if (rc != 0) return rc;
+    p.a[y] = q.a[y];
+    p.out[y] = q.out[y];
+  }
+  for (int i = 0; i < q.d; ++i) p.buf[i] = q.buf[i];
+  p.rank0 = q.rank0;
+  p.d = q.d;
+  p.g = q.g;
+  p.n = q.n;
+  p.k = q.k;
+  p.epoch = q.epoch;
+  int blocks = 0;
+  const int rc = grid_for(a2a_wgmma_kernel<T>, hopper::THREADS, hopper::SMEM_BYTES,
+                          vranks, &blocks);
+  if (rc != 0) return rc;
+  return launch_coop(a2a_wgmma_kernel<T>, p, blocks, vranks, hopper::THREADS,
+                     hopper::SMEM_BYTES, s);
+}
+
+// GEMM tiles (the host's choice, by dtype; the codes are K2's, whose
+// WmmaTile, code 1, K6 has no use for)
+constexpr int TILE_SIMT = 0, TILE_WGMMA = 2;
 
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.
+// tile: 0 = SimtTile (float32), 2 = the Hopper tile (16-bit, 16-byte
+// aligned operands and slots).
 // a, w, out: vranks device pointers each (the tokens [d * g, k], the
 // resident expert [k, n] and the output [d * g, n] of ranks rank0 ..
 // rank0 + vranks - 1); buf: d device pointers, each rank's buffer
 // (FLAG_BYTES of zeroed flags, then d dispatch slots [g, k], then d combine
 // regions [g, n]) as this process addresses it. k and n times the element
 // size must be multiples of 16 bytes.
-int ddlb_a2a_matmul(int dtype, const unsigned long long* a,
+int ddlb_a2a_matmul(int dtype, int tile, const unsigned long long* a,
                     const unsigned long long* w, const unsigned long long* out,
                     const unsigned long long* buf, int rank0, int vranks, int d,
                     int g, int n, int k, unsigned epoch, void* stream) {
@@ -597,16 +512,28 @@ int ddlb_a2a_matmul(int dtype, const unsigned long long* a,
   p.put_blocks = 0;
   p.epoch = epoch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(p, vranks, s);
-    case 1:
-      return launch<__half>(p, vranks, s);
-    case 2:
-      return launch<__nv_bfloat16>(p, vranks, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == 0 && tile == TILE_SIMT) return launch_simt(p, vranks, s);
+  if (dtype == 1 && tile == TILE_WGMMA) return launch_wgmma<__half>(dtype, p, vranks, s);
+  if (dtype == 2 && tile == TILE_WGMMA)
+    return launch_wgmma<__nv_bfloat16>(dtype, p, vranks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks a virtual rank gets in a launch of `vranks` ranks on `tile`, or
+// a negative cudaError.
+int ddlb_a2a_blocks(int dtype, int tile, int vranks) {
+  int blocks = 0, rc = 0;
+  if (dtype == 0 && tile == TILE_SIMT)
+    rc = grid_for(a2a_matmul_kernel, THREADS, 0, vranks, &blocks);
+  else if (dtype == 1 && tile == TILE_WGMMA)
+    rc = grid_for(a2a_wgmma_kernel<__half>, hopper::THREADS, hopper::SMEM_BYTES, vranks,
+                  &blocks);
+  else if (dtype == 2 && tile == TILE_WGMMA)
+    rc = grid_for(a2a_wgmma_kernel<__nv_bfloat16>, hopper::THREADS, hopper::SMEM_BYTES,
+                  vranks, &blocks);
+  else
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return rc != 0 ? -rc : blocks;
 }
 
 int ddlb_a2a_flag_bytes() { return FLAG_BYTES; }

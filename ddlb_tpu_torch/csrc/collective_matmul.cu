@@ -20,35 +20,55 @@
 // direction); K3 does a quarter of the FLOPs (0.278 ms) and sends the same
 // bytes. So the ring hides behind the GEMM when the two overlap.
 //
-// Design (right and simple first; the GEMM is K1's tile, not wgmma):
+// Design:
 //  - One cooperative launch per rank: every block of the grid is resident
 //    at once, because blocks spin on flags that other blocks (of this rank
 //    and of its neighbours) write. The grid is the occupancy times the SMs.
 //  - Peer memory: each rank owns a buffer of flag words and two slots of
 //    one chunk. The kernel gets a table of every rank's buffer (NVLink peer
 //    pointers from symmetric memory, or one card's memory in loopback).
-//  - K2: the first blocks are put blocks. At step t they copy the chunk
-//    held (the local shard at t = 0, else slot t % 2) into the right
-//    neighbour's slot (t + 1) % 2 with 16-byte stores and signal its
-//    arrival counter; the GEMM blocks walk the chunk's 128x128 output
-//    tiles (K1's two-stage cp.async pipeline into wmma, float32 sums).
+//  - K2 on bf16/fp16 operands whose rows are multiples of 16 bytes (TMA's
+//    rules; the host chooses by dtype and shape): the Hopper tile of
+//    hopper_gemm.cuh, one 384-thread block an SM. Its producer warpgroup's
+//    TMA thread waits for step t's chunk (the arrival counter), fences the
+//    async proxy (a peer wrote the slot with generic stores; TMA reads it)
+//    and loads the chunk's 128x256 output tiles stage by stage; the two
+//    consumer warpgroups run wgmma and store each tile's rows. The producer
+//    warpgroup's other three warps are the puts: at step t they copy this
+//    block's share of the chunk held (the local shard at t = 0, else slot
+//    t % 2) into the right neighbour's slot (t + 1) % 2 with 16-byte stores
+//    and signal its arrival counter, so every block puts and no SM is kept
+//    from the GEMM. The steps' tiles go round robin over the blocks as one
+//    sequence.
+//  - K2 on float32 (SimtTile, K1's f32 kernel) and on 16-bit operands of
+//    other widths (WmmaTile, K1's wmma structure), and K3 always: 256
+//    threads; the first blocks of K2's grid are put blocks and the rest walk
+//    128x128 output tiles.
 //  - K3: every block is a GEMM block; the epilogue waits for the received
 //    accumulator (so the inbound copy overlaps the main loop), folds it in
 //    and stores the sum straight into the right neighbour's slot (or the
 //    output at the last step): the put is the epilogue's store.
 //  - Credits: after step t >= 1 every block tells the left neighbour that
-//    it is done with slot t % 2; a sender waits for all of them before it
-//    overwrites that slot at step t + 1. An entry barrier with both
-//    neighbours keeps a fast rank's first put out of a slot its neighbour
-//    still reads in the previous call, and the last credits are drained.
+//    it is done with slot t % 2 (in the Hopper tile: once the puts have
+//    read it and every TMA load from it has landed, not merely been
+//    issued); a sender waits for all of them before it overwrites that
+//    slot at step t + 1. An entry barrier with both neighbours keeps a fast
+//    rank's first put out of a slot its neighbour still reads in the
+//    previous call, and the last credits are drained.
 //  - Flags never reset: each step has its own arrival and credit counter,
-//    each grows by the same count every call, the host passes the call's
-//    epoch (the number of earlier calls on the buffer) and waits compare
-//    with >= modulo 2^32. Signals are red.release.sys after a
-//    system fence; waits are ld.acquire.sys. Slot data is read through L2
-//    only (cp.async.cg, ld.global.cg), never from a stale L1 line.
+//    each grows by the same count every call (the arrival counter by the
+//    putting blocks: every block in the Hopper tile, the put blocks
+//    otherwise; a ring serves one tile), the host passes the call's epoch
+//    (the number of earlier calls on the buffer) and waits compare with
+//    >= modulo 2^32. Signals are red.release.sys after a system fence;
+//    waits are ld.acquire.sys. Slot data is read through L2 only
+//    (cp.async.cg, ld.global.cg, TMA), never from a stale L1 line.
 //  - Loopback: gridDim.y = d runs d virtual ranks on one card, each with
 //    its own buffer in that card's memory: the same protocol, on one card.
+//  - Tensor maps are built on the host for every launch and passed by
+//    value (__grid_constant__): per virtual rank the shard, the two slots
+//    as one 3-D map and B, 24 maps at most, so the argument struct stays
+//    under the classic 4 KB of kernel parameters.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // after its launch (0 = success). Launches on the caller's stream, never
@@ -60,9 +80,14 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+#include "peer_flags.cuh"
+
 using namespace nvcuda;
 
 namespace {
+
+using namespace peer;
 
 constexpr int MAX_RANKS = 8;
 // flag words of a rank's buffer (uint32 offsets, one 128-byte line each):
@@ -91,64 +116,20 @@ struct RingArgs {
 // flags
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned* flags_of(const RingArgs& p, int rank) {
+template <typename Args>
+__device__ __forceinline__ unsigned* flags_of(const Args& p, int rank) {
   return reinterpret_cast<unsigned*>(p.buf[rank]);
 }
 
-template <typename T>
-__device__ __forceinline__ T* slot_of(const RingArgs& p, int rank, int slot) {
+template <typename T, typename Args>
+__device__ __forceinline__ T* slot_of(const Args& p, int rank, int slot) {
   return reinterpret_cast<T*>(p.buf[rank] + FLAG_BYTES) + slot * p.slot_stride;
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* f) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(f)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release_add(unsigned* f, unsigned v) {
-  asm volatile("red.release.sys.global.add.u32 [%0], %1;\n" ::"l"(f), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// A wait this long means a peer never signalled (a rank that did not
-// launch, or a protocol fault): trap, so the launch fails with an error
-// instead of holding the card forever.
-constexpr unsigned long long WAIT_LIMIT_NS = 20ull * 1000 * 1000 * 1000;
-
-// Block-wide: wait until *f >= target (mod 2^32), then every thread may
-// read what the signallers wrote before they signalled.
-__device__ __forceinline__ void block_wait(const unsigned* f,
-                                           unsigned target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long start = globaltimer_ns();
-    while (static_cast<int>(ld_acquire(f) - target) < 0) {
-      __nanosleep(64);
-      if (globaltimer_ns() - start > WAIT_LIMIT_NS) __trap();
-    }
-  }
-  __syncthreads();
-}
-
-// Block-wide: publish every thread's earlier writes, then add one to *f.
-__device__ __forceinline__ void block_signal(unsigned* f) {
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) red_release_add(f, 1u);
 }
 
 // Block (0, y) tells both neighbours that this rank entered the call (its
 // previous call is over); every block waits until both neighbours have.
-__device__ __forceinline__ void entry_barrier(const RingArgs& p, int r) {
+template <typename Args>
+__device__ __forceinline__ void entry_barrier(const Args& p, int r) {
   const int d = p.d;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     red_release_add(flags_of(p, (r + d - 1) % d) + BARRIER, 1u);
@@ -550,6 +531,96 @@ __global__ void __launch_bounds__(THREADS) ring_ag_matmul_kernel(RingArgs p) {
   drain(mine, d, (e + 1) * G);
 }
 
+// K2 on the Hopper tile (bf16 / fp16, TMA's widths).
+struct RingTmaArgs {
+  // per virtual rank (blockIdx.y): the shard [m_loc, k], this rank's two
+  // slots as one [2, m_loc, k] map, B [k, n]
+  CUtensorMap shard[MAX_RANKS];
+  CUtensorMap slots[MAX_RANKS];
+  CUtensorMap b[MAX_RANKS];
+  const void* a[MAX_RANKS];
+  void* out[MAX_RANKS];
+  unsigned char* buf[MAX_RANKS];
+  int rank0, d;
+  int m_loc, n, k;
+  long long slot_stride;
+  unsigned epoch;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(hopper::THREADS, 1)
+    ring_ag_wgmma_kernel(const __grid_constant__ RingTmaArgs p) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = smem_of(smem_raw);
+  const int y = blockIdx.y, d = p.d, r = p.rank0 + y;
+  const int right = (r + 1) % d, left = (r + d - 1) % d;
+  const unsigned G = gridDim.x, e = p.epoch;
+  unsigned* mine = flags_of(p, r);
+  const Tiles tiles(p.m_loc, p.n);
+
+  if (threadIdx.x == 0) init_barriers(sm);
+  entry_barrier(p, r);  // its __syncthreads also publishes the barriers
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  if (wg == 0) {
+    producer_registers();
+    Pipe pipe;
+    long long issued = 0;
+    for (int t = 0; t < d; ++t) {
+      const T* held = t == 0 ? static_cast<const T*>(p.a[y]) : slot_of<T>(p, r, t & 1);
+      if (warp == 0) {
+        if (t > 0) {
+          // the chunk of step t has landed: every block of the left
+          // neighbour put its share at step t - 1. The issuing lane
+          // acquires it, then orders it before its TMA reads.
+          if (threadIdx.x == 0) {
+            spin_wait(mine + ARRIVE + t, (e + 1) * G);
+            fence_proxy_async();
+          }
+          __syncwarp();
+        }
+        const CUtensorMap* a = t == 0 ? &p.shard[y] : &p.slots[y];
+        for (int j = first_tile(t * tiles.count); j < tiles.count; j += G) {
+          load_tile(sm, pipe, a, t == 0 ? 0 : (t & 1), &p.b[y], tiles.row0(j), tiles.col0(j),
+                    p.n, p.k);
+          issued += k_blocks(p.k);
+        }
+        // the credit below may go only once slot t % 2 is read
+        if (t > 0) wait_landed(sm, pipe, issued);
+      } else if (t < d - 1) {
+        const int tid = threadIdx.x - 32;
+        if (t > 0) group_wait(mine + ARRIVE + t, (e + 1) * G, tid, BAR_COPY, COPY_THREADS);
+        // every block of the right neighbour is done with the target slot
+        // (it read it at its step t - 1)
+        if (t >= 2)
+          group_wait(mine + CREDIT + t - 1, (e + 1) * G, tid, BAR_COPY, COPY_THREADS);
+        copy_share(slot_of<T>(p, right, (t + 1) & 1), held,
+                   static_cast<size_t>(p.m_loc) * p.k * sizeof(T), blockIdx.x, G, tid,
+                   COPY_THREADS);
+        group_signal(flags_of(p, right) + ARRIVE + t + 1, tid, BAR_COPY, COPY_THREADS);
+      }
+      // this block is done with slot t % 2
+      if (t > 0) group_signal(flags_of(p, left) + CREDIT + t, threadIdx.x, BAR_PRODUCER, 128);
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      for (int t = 1; t < d; ++t) spin_wait(mine + CREDIT + t, (e + 1) * G);
+    }
+  } else {
+    consumer_registers();
+    Pipe pipe;
+    float acc[128];
+    for (int t = 0; t < d; ++t) {
+      const int chunk = (r - t + d) % d;
+      const StoreRows<T> st{static_cast<T*>(p.out[y]) + static_cast<size_t>(chunk) * p.m_loc * p.n,
+                            p.m_loc, p.n};
+      for (int j = first_tile(t * tiles.count); j < tiles.count; j += G) {
+        mma_tile<T>(sm, pipe, acc, p.k, wg - 1);
+        store_tile(sm, acc, wg - 1, tiles.row0(j), tiles.col0(j), st);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K3: GEMM + ring reduce-scatter
 // ---------------------------------------------------------------------------
@@ -600,36 +671,50 @@ __global__ void __launch_bounds__(THREADS) ring_matmul_rs_kernel(RingArgs p) {
 // launch
 // ---------------------------------------------------------------------------
 
-// Blocks a virtual rank gets: what the card holds at once, shared by the
-// ranks of the launch (a cooperative launch of more would be refused).
-template <typename K>
-int grid_for(K kernel, int vranks, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *blocks = per_sm * sms / vranks;
-  return *blocks >= 2 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
-}
-
 template <typename K>
 int launch(K kernel, RingArgs& p, int vranks, bool puts, cudaStream_t s) {
   int blocks = 0;
-  int rc = grid_for(kernel, vranks, &blocks);
+  int rc = grid_for(kernel, THREADS, 0, vranks, &blocks);
   if (rc != 0) return rc;
   // K2: one put block for every eight, at most 16
   const int share = blocks / 8 < 1 ? 1 : blocks / 8;
   p.put_blocks = puts ? (share < 16 ? share : 16) : 0;
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), dim3(blocks, vranks),
-      dim3(THREADS), args, 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coop(kernel, p, blocks, vranks, THREADS, 0, s);
+}
+
+// K2 on the Hopper tile: the tensor maps of every virtual rank, then one
+// launch of hopper::THREADS-thread blocks with hopper::SMEM_BYTES each.
+template <typename T>
+int launch_wgmma(int dtype, const RingArgs& q, int vranks, cudaStream_t s) {
+  RingTmaArgs p;
+  const long long slot_bytes = q.slot_stride * static_cast<long long>(sizeof(T));
+  if (slot_bytes % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int y = 0; y < vranks; ++y) {
+    const unsigned char* slots = q.buf[q.rank0 + y] + FLAG_BYTES;
+    if (!hopper::tma_ok(q.a[y], q.k) || !hopper::tma_ok(q.b[y], q.n) ||
+        !hopper::tma_ok(slots, q.k))
+      return static_cast<int>(cudaErrorInvalidValue);
+    int rc = hopper::encode_a(&p.shard[y], dtype, q.a[y], q.m_loc, q.k, 1, 0);
+    if (rc == 0) rc = hopper::encode_a(&p.slots[y], dtype, slots, q.m_loc, q.k, 2, slot_bytes);
+    if (rc == 0) rc = hopper::encode_b(&p.b[y], dtype, q.b[y], q.k, q.n);
+    if (rc != 0) return rc;
+    p.a[y] = q.a[y];
+    p.out[y] = q.out[y];
+  }
+  for (int i = 0; i < q.d; ++i) p.buf[i] = q.buf[i];
+  p.rank0 = q.rank0;
+  p.d = q.d;
+  p.m_loc = q.m_loc;
+  p.n = q.n;
+  p.k = q.k;
+  p.slot_stride = q.slot_stride;
+  p.epoch = q.epoch;
+  int blocks = 0;
+  const int rc = grid_for(ring_ag_wgmma_kernel<T>, hopper::THREADS, hopper::SMEM_BYTES,
+                          vranks, &blocks);
+  if (rc != 0) return rc;
+  return launch_coop(ring_ag_wgmma_kernel<T>, p, blocks, vranks, hopper::THREADS,
+                     hopper::SMEM_BYTES, s);
 }
 
 int fill(RingArgs& p, const unsigned long long* a, const unsigned long long* b,
@@ -655,8 +740,24 @@ int fill(RingArgs& p, const unsigned long long* a, const unsigned long long* b,
   return 0;
 }
 
+// GEMM tiles (the host's choice, by dtype and shape)
+constexpr int TILE_SIMT = 0, TILE_WMMA = 1, TILE_WGMMA = 2;
+
+// Whether `tile` computes `dtype` (0 = float32, 1 = float16, 2 = bfloat16)
+// for kernel `kind`: float32 on SimtTile, 16-bit on WmmaTile, and K2's
+// 16-bit on the Hopper tile.
+bool tile_takes(int kind, int dtype, int tile) {
+  if (dtype < 0 || dtype > 2) return false;
+  if (dtype == 0) return tile == TILE_SIMT;
+  return tile == TILE_WMMA || (kind == 0 && tile == TILE_WGMMA);
+}
+
 template <typename T>
-int run(int kind, RingArgs& p, int vranks, cudaStream_t s) {
+int run(int kind, int dtype, int tile, RingArgs& p, int vranks, cudaStream_t s) {
+  if (tile == TILE_WGMMA) {
+    if constexpr (sizeof(T) == 2) return launch_wgmma<T>(dtype, p, vranks, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return kind == 0 ? launch(ring_ag_matmul_kernel<T>, p, vranks, true, s)
                    : launch(ring_matmul_rs_kernel<T>, p, vranks, false, s);
 }
@@ -667,12 +768,15 @@ extern "C" {
 
 // kind: 0 = K2 ring_ag_matmul, 1 = K3 ring_matmul_rs.
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.
+// tile: 0 = SimtTile (float32), 1 = WmmaTile (16-bit), 2 = the Hopper tile
+// (K2, 16-bit, k and n times 2 bytes multiples of 16, 16-byte aligned
+// operands and slots).
 // a, b, out: vranks device pointers each (the operands and output of ring
 // ranks rank0 .. rank0 + vranks - 1); buf: d device pointers, each rank's
 // buffer (FLAG_BYTES of zeroed flags, then two slots slot_stride elements
 // apart) as this process addresses it. K2: a [m_loc, k], b [k, n],
 // out [d * m_loc, n]; K3: a [d * m_loc, k], b [k, n], out [m_loc, n].
-int ddlb_ring_matmul(int kind, int dtype, const unsigned long long* a,
+int ddlb_ring_matmul(int kind, int dtype, int tile, const unsigned long long* a,
                      const unsigned long long* b, const unsigned long long* out,
                      const unsigned long long* buf, int rank0, int vranks,
                      int d, int m_loc, int n, int k, long long slot_stride,
@@ -680,34 +784,40 @@ int ddlb_ring_matmul(int kind, int dtype, const unsigned long long* a,
   RingArgs p;
   int rc = fill(p, a, b, out, buf, rank0, vranks, d, m_loc, n, k, slot_stride,
                 epoch);
-  if (rc != 0 || (kind != 0 && kind != 1)) {
+  if (rc != 0 || (kind != 0 && kind != 1) || !tile_takes(kind, dtype, tile)) {
     return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run<float>(kind, p, vranks, s);
+      return run<float>(kind, dtype, tile, p, vranks, s);
     case 1:
-      return run<__half>(kind, p, vranks, s);
-    case 2:
-      return run<__nv_bfloat16>(kind, p, vranks, s);
+      return run<__half>(kind, dtype, tile, p, vranks, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return run<__nv_bfloat16>(kind, dtype, tile, p, vranks, s);
   }
 }
 
-// Blocks a virtual rank gets in a launch of `vranks` ranks (the counters'
-// increments a step depend on it), or a negative cudaError.
-int ddlb_ring_blocks(int kind, int dtype, int vranks) {
+// Blocks a virtual rank gets in a launch of `vranks` ranks on `tile` (the
+// counters' increments a step depend on it), or a negative cudaError.
+int ddlb_ring_blocks(int kind, int dtype, int tile, int vranks) {
+  if ((kind != 0 && kind != 1) || !tile_takes(kind, dtype, tile))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0, rc = 0;
+  if (tile == TILE_WGMMA) {
+    rc = dtype == 1 ? grid_for(ring_ag_wgmma_kernel<__half>, hopper::THREADS,
+                               hopper::SMEM_BYTES, vranks, &blocks)
+                    : grid_for(ring_ag_wgmma_kernel<__nv_bfloat16>, hopper::THREADS,
+                               hopper::SMEM_BYTES, vranks, &blocks);
+    return rc != 0 ? -rc : blocks;
+  }
   switch (dtype * 2 + kind) {
-    case 0: rc = grid_for(ring_ag_matmul_kernel<float>, vranks, &blocks); break;
-    case 1: rc = grid_for(ring_matmul_rs_kernel<float>, vranks, &blocks); break;
-    case 2: rc = grid_for(ring_ag_matmul_kernel<__half>, vranks, &blocks); break;
-    case 3: rc = grid_for(ring_matmul_rs_kernel<__half>, vranks, &blocks); break;
-    case 4: rc = grid_for(ring_ag_matmul_kernel<__nv_bfloat16>, vranks, &blocks); break;
-    case 5: rc = grid_for(ring_matmul_rs_kernel<__nv_bfloat16>, vranks, &blocks); break;
-    default: return -static_cast<int>(cudaErrorInvalidValue);
+    case 0: rc = grid_for(ring_ag_matmul_kernel<float>, THREADS, 0, vranks, &blocks); break;
+    case 1: rc = grid_for(ring_matmul_rs_kernel<float>, THREADS, 0, vranks, &blocks); break;
+    case 2: rc = grid_for(ring_ag_matmul_kernel<__half>, THREADS, 0, vranks, &blocks); break;
+    case 3: rc = grid_for(ring_matmul_rs_kernel<__half>, THREADS, 0, vranks, &blocks); break;
+    case 4: rc = grid_for(ring_ag_matmul_kernel<__nv_bfloat16>, THREADS, 0, vranks, &blocks); break;
+    default: rc = grid_for(ring_matmul_rs_kernel<__nv_bfloat16>, THREADS, 0, vranks, &blocks); break;
   }
   return rc != 0 ? -rc : blocks;
 }

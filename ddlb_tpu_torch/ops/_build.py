@@ -8,7 +8,9 @@ checkout (a directory ``.gitignore`` lists) with
          -Xcompiler -fPIC -Xptxas -v
 
 then loaded with ``ctypes``. The library's file name carries a hash of its
-source, so an edited kernel is rebuilt and a stale one is never loaded.
+source and of every header beside it (``csrc/*.cuh``, such as
+``hopper_gemm.cuh``, the Hopper GEMM tile of K2 and K6), so an edited
+kernel or header is rebuilt and a stale library is never loaded.
 ``nvcc``'s output, including ``-Xptxas -v``'s registers, shared memory and
 spills per kernel, is kept beside it as ``<name>-<hash>.log``. ``build``
 starts one ``nvcc`` per source, all at once. A failed build raises; there
@@ -53,10 +55,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source's hash."""
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by the hash of its source
+    and of every ``csrc/*.cuh`` (a header it may include)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def nvcc_command(nvcc: str, name: str, output: Path) -> list:
@@ -115,3 +120,18 @@ def build_log(name: str) -> str:
     """nvcc's output for the current source of ``name`` ('' if unbuilt)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.is_file() else ""
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """``ptxas -v``'s registers and spill stores a thread of every kernel in
+    a build log, keyed by the kernel's mangled name."""
+    found, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name and "Used" in line and "registers" in line:
+            found.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+        elif name and "spill stores" in line:
+            found.setdefault(name, {})["spill_stores"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+    return found

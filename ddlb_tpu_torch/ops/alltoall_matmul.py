@@ -14,17 +14,26 @@ d = 4): the GEMM ``[2048, 8192] @ [8192, 8192]``, 0.275 TFLOP, 0.278 ms at
 989 TFLOP/s; the wire, 25 MB each way, 0.056 ms at 450 GB/s.
 
 Design (``csrc/alltoall_matmul.cu`` has the full note): a global entry
-barrier over all ranks; put blocks copy group ``p`` into rank ``p``'s
-dispatch slot of this source, all at once (the slots are distinct, so no
-credits); GEMM blocks (K1's tile) multiply the groups in arrival order
-``(r + t) % d``, each waiting on its own slot's counter, and store each
-result straight into the combine region of the source's buffer; the put
-blocks copy the landed regions into the output (the caller's output is
-not peer memory: that copy is an ``[m/d, n]`` pass, and the result is
-never a view of the buffers, which the next call reuses). The buffers
-(``A2ABuffers``: flags, d dispatch slots ``[g, k]``, d combine regions
-``[g, n]``) are peer memory (``Runtime.peer_buffer``), or one card's
-memory for ``d`` virtual ranks in one launch (loopback).
+barrier over all ranks; group ``p`` is copied into rank ``p``'s dispatch
+slot of this source, all at once (the slots are distinct, so no
+credits); the GEMM multiplies the groups in arrival order ``(r + t) % d``,
+each step waiting on its own slot's counter, and stores each result
+straight into the combine region of the source's buffer; the landed
+regions are copied into the output (the caller's output is not peer
+memory: that copy is an ``[m/d, n]`` pass, and the result is never a view
+of the buffers, which the next call reuses). The GEMM tile is chosen per
+launch by dtype alone (``tile_for``; ``check_widths`` refuses rows that are
+not a multiple of 16 bytes): bf16/fp16 run the Hopper
+tile of ``csrc/hopper_gemm.cuh`` (one 384-thread block an SM, a TMA
+producer warp, two ``wgmma`` consumer warpgroups whose epilogue is the
+combine store; the producer warpgroup's three other warps do the copies,
+so every SM runs the GEMM; at ``g = 512``, ``n = 8192`` a step is one wave
+of 128 tiles); float32 runs K1's SIMT tile with dedicated put blocks.
+The tensor maps (tokens, dispatch slots, expert) are encoded on the host
+at each launch and passed by value. The buffers (``A2ABuffers``: flags,
+d dispatch slots ``[g, k]``, d combine regions ``[g, n]``) are peer
+memory (``Runtime.peer_buffer``), or one card's memory for ``d`` virtual
+ranks in one launch (loopback).
 
 Dispatch: a CPU tensor takes the plain version
 (``alltoall_expert_matmul_plain``: ``chunked_fusion.ring_a2a_chunk``'s
@@ -34,7 +43,7 @@ launches the kernel on the buffers the caller set up once, or raises.
 ``alltoall_expert_matmul_virtual`` runs the same arithmetic over ``d``
 ranks in one process. K6 takes K1's dtypes (float32, float16, bfloat16)
 with ``k`` and ``n`` rows of a multiple of 16 bytes. ``LAUNCHES["a2a"]``
-counts kernel launches.
+counts kernel launches, ``TILES`` the launches by GEMM tile.
 """
 
 from __future__ import annotations
@@ -46,12 +55,16 @@ from typing import List, Optional, Sequence
 import torch
 
 from ddlb_tpu_torch.ops import _build
+from ddlb_tpu_torch.ops import collective_matmul as cm
 from ddlb_tpu_torch.ops import matmul as k1
 from ddlb_tpu_torch.ops.chunked_fusion import ring_a2a_chunk
 
 #: kernel launches since the counts were last reset (plain calls excluded)
 LAUNCHES = {"a2a": 0}
+#: the launches by GEMM tile, since the counts were last reset
+TILES = {"wgmma": 0, "simt": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_TILE_CODES = cm._TILE_CODES
 #: ranks one launch's table holds (one node of cards)
 MAX_RANKS = 8
 #: bytes of flag words at the head of each rank's buffer (the kernel's
@@ -61,6 +74,18 @@ FLAG_BYTES = 4096
 
 def reset_launches() -> None:
     LAUNCHES["a2a"] = 0
+    for key in TILES:
+        TILES[key] = 0
+
+
+def tile_for(dtype: torch.dtype) -> str:
+    """K6's GEMM tile for operands of ``dtype``: ``wgmma`` for bf16/fp16,
+    ``simt`` for float32. The widths need no say: ``check_widths`` admits
+    only rows of a multiple of 16 bytes (K6's copies move 16-byte units),
+    which are TMA's widths too."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"K6 takes {[str(t) for t in _DTYPE_CODES]}, got {dtype}")
+    return "simt" if dtype == torch.float32 else "wgmma"
 
 
 # -- the buffers ---------------------------------------------------------------------
@@ -160,17 +185,30 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("alltoall_matmul")
     u64p = ctypes.POINTER(ctypes.c_ulonglong)
     lib.ddlb_a2a_matmul.argtypes = [
-        ctypes.c_int, u64p, u64p, u64p, u64p,
+        ctypes.c_int, ctypes.c_int, u64p, u64p, u64p, u64p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
     ]
     lib.ddlb_a2a_matmul.restype = ctypes.c_int
+    lib.ddlb_a2a_blocks.argtypes = [ctypes.c_int] * 3
+    lib.ddlb_a2a_blocks.restype = ctypes.c_int
     lib.ddlb_a2a_flag_bytes.restype = ctypes.c_int
     lib.ddlb_a2a_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_a2a_error_string.restype = ctypes.c_char_p
     if lib.ddlb_a2a_flag_bytes() != FLAG_BYTES:
         raise RuntimeError("csrc/alltoall_matmul.cu's FLAG_BYTES changed")
     return lib
+
+
+def grid_blocks(dtype: torch.dtype, vranks: int) -> int:
+    """Blocks a virtual rank gets in a K6 launch of ``vranks`` ranks of
+    ``dtype`` (every block copies and multiplies in the Hopper tile). Needs
+    the card."""
+    tile = tile_for(dtype)
+    got = _lib().ddlb_a2a_blocks(_DTYPE_CODES[dtype], _TILE_CODES[tile], vranks)
+    if got < 0:
+        raise RuntimeError(f"ddlb_a2a_blocks: {_lib().ddlb_a2a_error_string(-got).decode()}")
+    return got
 
 
 def _launch(bufs: A2ABuffers, a: Sequence[torch.Tensor], w: Sequence[torch.Tensor],
@@ -185,19 +223,21 @@ def _launch(bufs: A2ABuffers, a: Sequence[torch.Tensor], w: Sequence[torch.Tenso
     def table(ptrs):
         return (ctypes.c_ulonglong * len(ptrs))(*ptrs)
 
+    tile = tile_for(bufs.dtype)
     device = a[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ddlb_a2a_matmul(
-            _DTYPE_CODES[bufs.dtype], table([t.data_ptr() for t in a]),
+            _DTYPE_CODES[bufs.dtype], _TILE_CODES[tile], table([t.data_ptr() for t in a]),
             table([t.data_ptr() for t in w]), table([t.data_ptr() for t in out]),
             table(bufs.ptrs), bufs.rank0, vranks, bufs.d, bufs.g, bufs.n, bufs.k,
             bufs.epoch % 2**32, stream,
         )
     LAUNCHES["a2a"] += 1
+    TILES[tile] += 1
     if rc != 0:
         raise RuntimeError(
-            f"K6 alltoall_expert_matmul launch failed: "
+            f"K6 alltoall_expert_matmul launch failed on the {tile} tile: "
             f"{lib.ddlb_a2a_error_string(rc).decode()} (cudaError {rc})"
         )
     bufs.epoch += 1

@@ -22,13 +22,30 @@ chunks of 32 MiB on the wire (0.224 ms at 450 GB/s); K3's is a quarter of
 that (0.278 ms) against the same wire. Both are bound by the GEMM.
 
 Design (``csrc/collective_matmul.cu`` has the full note): one cooperative
-launch a rank, put blocks and K1-tile GEMM blocks in one grid, two slots
-of a chunk and monotonically growing flag counters in peer memory
-(``Runtime.peer_buffer``: symmetric memory over NVLink), credits from
-the right neighbour before a slot is reused, an entry barrier with both
-neighbours and a drain of the last credits. The same device code runs
-``d`` virtual ranks on one card (``loopback``: ``gridDim.y = d``, every
-buffer in that card's memory), which is how one card checks the protocol.
+launch a rank, two slots of a chunk and monotonically growing flag
+counters in peer memory (``Runtime.peer_buffer``: symmetric memory over
+NVLink), credits from the right neighbour before a slot is reused, an
+entry barrier with both neighbours and a drain of the last credits. K2's
+GEMM tile is chosen per launch by dtype and shape alone (``tile_for``):
+
+- ``wgmma``, bf16/fp16 with ``k`` and ``n`` rows of a multiple of 16 bytes
+  (TMA's rules): ``csrc/hopper_gemm.cuh``, one 384-thread block an SM, a
+  TMA producer warp feeding a 4-stage ring of 128x256x64 tiles to two
+  ``wgmma`` consumer warpgroups. The producer warpgroup's three other
+  warps are the puts, so every block puts its share of the chunk and
+  every SM runs the GEMM; the TMA thread fences the async proxy after it
+  acquires a slot a peer wrote, and a block's credit for a slot waits
+  until every TMA load from it has landed. The tensor maps (the shard,
+  the two slots, B) are encoded on the host at each launch (a host-only
+  call, no device work) and passed by value.
+- ``wmma`` (16-bit, other widths) and ``simt`` (float32): K1's tiles,
+  256 threads, put blocks beside 128x128 GEMM blocks.
+
+K3 keeps K1's tiles (``wmma``, ``simt``). A ring serves one tile: its
+counters grow by the putting blocks' count each call, which differs
+between the two. The same device code runs ``d`` virtual ranks on one
+card (``loopback``: ``gridDim.y = d``, every buffer in that card's
+memory), which is how one card checks the protocol.
 
 Dispatch: a CPU tensor takes the plain version (``ring_ag_matmul_plain``,
 ``ring_matmul_rs_plain``: the same ring over ``Runtime.ring_shift``, one
@@ -37,7 +54,8 @@ CUDA tensor launches the kernel on the ``Ring`` the caller set up once
 (``peer_ring``), or raises; there is no fallback. ``ring_*_virtual`` run
 the ring's arithmetic over a list of ``d`` shards in one process (the
 loopback check and the CPU tests). ``LAUNCHES`` counts kernel launches,
-``ag`` for K2 and ``rs`` for K3.
+``ag`` for K2 and ``rs`` for K3; ``TILES`` counts K2's launches by the
+GEMM tile they ran.
 """
 
 from __future__ import annotations
@@ -53,8 +71,11 @@ from ddlb_tpu_torch.ops import matmul as k1
 
 #: kernel launches since the counts were last reset (plain calls excluded)
 LAUNCHES = {"ag": 0, "rs": 0}
+#: K2's launches by GEMM tile, since the counts were last reset
+TILES = {"wgmma": 0, "wmma": 0, "simt": 0}
 _KINDS = {"ag": 0, "rs": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_TILE_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
 #: ring ranks one launch's table holds (one node of cards)
 MAX_RANKS = 8
 #: bytes of flag words at the head of each rank's buffer (the kernel's
@@ -63,8 +84,21 @@ FLAG_BYTES = 1024
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, TILES):
+        for key in counts:
+            counts[key] = 0
+
+
+def tile_for(dtype: torch.dtype, k: int, n: int) -> str:
+    """K2's GEMM tile for operands of ``dtype``, ``[., k] @ [k, n]``:
+    ``wgmma`` (the Hopper tile) for bf16/fp16 when ``k`` and ``n`` times
+    the element size are multiples of 16 bytes (TMA's rule for a row),
+    ``simt`` for float32, ``wmma`` for 16-bit rows of other widths."""
+    check_dtype(dtype)
+    if dtype == torch.float32:
+        return "simt"
+    size = torch.empty((), dtype=dtype).element_size()
+    return "wgmma" if (k * size) % 16 == 0 and (n * size) % 16 == 0 else "wmma"
 
 
 # -- the ring's buffers -----------------------------------------------------------
@@ -101,6 +135,8 @@ class Ring:
         self.d = len(self.ptrs)
         self.chunk_numel, self.dtype, self.owner = chunk_numel, dtype, owner
         self.epoch = 0
+        #: the GEMM tile of the launches on this ring (set by the first)
+        self.tile: Optional[str] = None
 
 
 def peer_ring(runtime, kind: str, chunk_numel: int, dtype: torch.dtype) -> Ring:
@@ -171,11 +207,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("collective_matmul")
     u64p = ctypes.POINTER(ctypes.c_ulonglong)
     lib.ddlb_ring_matmul.argtypes = [
-        ctypes.c_int, ctypes.c_int, u64p, u64p, u64p, u64p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, u64p, u64p, u64p, u64p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p,
     ]
     lib.ddlb_ring_matmul.restype = ctypes.c_int
+    lib.ddlb_ring_blocks.argtypes = [ctypes.c_int] * 4
+    lib.ddlb_ring_blocks.restype = ctypes.c_int
     lib.ddlb_ring_flag_bytes.restype = ctypes.c_int
     lib.ddlb_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_error_string.restype = ctypes.c_char_p
@@ -184,15 +222,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _kernel_tile(kind: str, dtype: torch.dtype, k: int, n: int) -> str:
+    """The tile a launch of ``kind`` runs: K2's ``tile_for``; K3 keeps K1's
+    tiles."""
+    if kind == "ag":
+        return tile_for(dtype, k, n)
+    return "simt" if dtype == torch.float32 else "wmma"
+
+
+def grid_blocks(kind: str, dtype: torch.dtype, k: int, n: int, vranks: int) -> int:
+    """Blocks a virtual rank gets in a launch of ``vranks`` ranks of ``kind``
+    at these widths: every block puts in the Hopper tile, so K2's counters
+    grow by it each call. Needs the card."""
+    tile = _kernel_tile(kind, dtype, k, n)
+    got = _lib().ddlb_ring_blocks(_KINDS[kind], _DTYPE_CODES[dtype], _TILE_CODES[tile], vranks)
+    if got < 0:
+        raise RuntimeError(f"ddlb_ring_blocks: {_lib().ddlb_error_string(-got).decode()}")
+    return got
+
+
 def _launch(kind: str, ring: Ring, a: Sequence[torch.Tensor],
             b: Sequence[torch.Tensor], out: Sequence[torch.Tensor],
             m_loc: int, n: int, k: int) -> None:
     """One launch of K2 (``ag``) or K3 (``rs``) for the virtual ranks
     ``ring.rank0 ..`` of ``a``, ``b`` and ``out``."""
-    lib = _lib()
     vranks = len(a)
     if ring.rank0 + vranks > ring.d:
         raise ValueError(f"ranks {ring.rank0}..{ring.rank0 + vranks - 1} of a ring of {ring.d}")
+    tile = _kernel_tile(kind, ring.dtype, k, n)
+    if ring.tile not in (None, tile):
+        raise ValueError(
+            f"a ring of the '{ring.tile}' tile launched on the '{tile}' tile: its "
+            f"counters grow by that tile's blocks; make a ring for these widths"
+        )
+    lib = _lib()
 
     def table(ptrs):
         return (ctypes.c_ulonglong * len(ptrs))(*ptrs)
@@ -201,7 +264,7 @@ def _launch(kind: str, ring: Ring, a: Sequence[torch.Tensor],
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ddlb_ring_matmul(
-            _KINDS[kind], _DTYPE_CODES[ring.dtype],
+            _KINDS[kind], _DTYPE_CODES[ring.dtype], _TILE_CODES[tile],
             table([t.data_ptr() for t in a]), table([t.data_ptr() for t in b]),
             table([t.data_ptr() for t in out]), table(ring.ptrs),
             ring.rank0, vranks, ring.d, m_loc, n, k,
@@ -209,11 +272,14 @@ def _launch(kind: str, ring: Ring, a: Sequence[torch.Tensor],
             stream,
         )
     LAUNCHES[kind] += 1
+    if kind == "ag":
+        TILES[tile] += 1
     if rc != 0:
         raise RuntimeError(
-            f"K{2 if kind == 'ag' else 3} ring_{kind} launch failed: "
+            f"K{2 if kind == 'ag' else 3} ring_{kind} launch failed on the {tile} tile: "
             f"{lib.ddlb_error_string(rc).decode()} (cudaError {rc})"
         )
+    ring.tile = tile
     ring.epoch += 1
 
 
@@ -223,7 +289,13 @@ def _launch(kind: str, ring: Ring, a: Sequence[torch.Tensor],
 def ring_ag_matmul(a_shard: torch.Tensor, b: torch.Tensor, runtime,
                    ring: Optional[Ring] = None) -> torch.Tensor:
     """``a_shard [m/d, k] @ b [k, n] -> [m, n]`` over the world's ring
-    (kernel K2 on the card, on ``ring`` from ``peer_ring``)."""
+    (kernel K2 on the card, on ``ring`` from ``peer_ring``).
+
+    On the card, bf16/fp16 operands with rows of a multiple of 16 bytes run
+    the Hopper tile (``tile_for``): every block is a TMA producer, three
+    put warps and two ``wgmma`` consumer warpgroups, so the chunk's
+    forwarding shares each SM with its GEMM instead of taking SMs of its
+    own. Other operands run K1's tiles beside dedicated put blocks."""
     _check_operands(a_shard, b)
     if a_shard.device.type == "cpu":
         return ring_ag_matmul_plain(a_shard, b, runtime)

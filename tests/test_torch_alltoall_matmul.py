@@ -121,6 +121,37 @@ def test_wrappers_reject_what_the_kernel_does_not_take(call, match):
         call(a, w, Runtime("cpu"))
 
 
+@pytest.mark.parametrize("dtype,k,n,tile", [
+    (torch.bfloat16, 8192, 8192, "wgmma"),
+    (torch.float16, 8192, 8192, "wgmma"),
+    (torch.bfloat16, 520, 776, "wgmma"),
+    (torch.float16, 72, 264, "wgmma"),
+    (torch.float32, 8192, 8192, "simt"),
+    (torch.float32, 36, 12, "simt"),
+    (torch.bfloat16, 36, 8192, None),
+    (torch.float16, 8192, 100, None),
+])
+def test_tile_choice_by_dtype_and_shape(dtype, k, n, tile):
+    """K6 runs the Hopper tile on 16-bit operands and K1's SIMT tile on
+    float32; it refuses 16-bit rows that are not a multiple of 16 bytes
+    (its copies move 16-byte units), so every width it takes is one TMA
+    can load."""
+    if tile is None:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            am.check_widths(k, n, dtype)
+    else:
+        am.check_widths(k, n, dtype)
+        assert am.tile_for(dtype) == tile
+
+
+def test_tile_choice_rejects_other_dtypes_and_counts_reset():
+    with pytest.raises(ValueError, match="K6 takes"):
+        am.tile_for(torch.int8)
+    am.TILES["wgmma"] += 1
+    am.reset_launches()
+    assert am.TILES == {"wgmma": 0, "simt": 0} and am.LAUNCHES["a2a"] == 0
+
+
 def test_buffer_layout():
     assert am.buffer_bytes(4, 8, 32, 16, torch.bfloat16) == am.FLAG_BYTES + 4 * 8 * 48 * 2
     bufs = am.loopback_buffers(3, 8, 32, 16, torch.float32, "cpu")

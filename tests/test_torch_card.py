@@ -781,6 +781,103 @@ def test_alltoall_matmul_loopback_matches_virtual(cuda_device, d, g, n, k, dtype
     assert bufs.epoch == 3
 
 
+#: the Hopper tile's edges, (d, rows a rank, n, k): K2's m_loc and K6's g
+#: not multiples of the tile's 128 rows, n not a multiple of its 256
+#: columns, k not a multiple of its 64-deep stage
+HOPPER_CASES = [(d, rows, 776, 520) for d in (2, 3, 4) for rows in (1000, 100)]
+
+
+def _hopper_operands(shapes, dtype, gen, device, kind):
+    out = []
+    for shape in shapes:
+        if kind == "integer":
+            x = torch.randint(-4, 5, shape, generator=gen, device=device).float()
+        else:
+            x = torch.rand(shape, generator=gen, device=device) * 2 - 1
+            if kind == "dyadic":
+                x = torch.round(x * 16) / 16
+        out.append(x.to(dtype))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "dyadic", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,rows,n,k", HOPPER_CASES)
+def test_hopper_tile_k2_and_k6_loopback_match_virtual(cuda_device, d, rows, n, k, dtype,
+                                                      kind):
+    """K2 and K6 on the Hopper tile (``csrc/hopper_gemm.cuh``), d virtual
+    ranks in one launch, three calls on one ring and one buffer set (the
+    epochs advance), at widths that reach every ragged edge of the tile:
+    bit for bit against the plain versions on integer and dyadic operands
+    (every sum exact in float32), within K1's ``plain_gap_bound`` on
+    uniform ones; the tile counters show the Hopper tile ran."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 17 + rows)
+    shards = _hopper_operands([(rows, k)] * d, dtype, gen, cuda_device, kind)
+    (b,) = _hopper_operands([(k, n)], dtype, gen, cuda_device, kind)
+    tokens = _hopper_operands([(d * rows, k)] * d, dtype, gen, cuda_device, kind)
+    experts = _hopper_operands([(k, n)] * d, dtype, gen, cuda_device, kind)
+    assert cm.tile_for(dtype, k, n) == am.tile_for(dtype) == "wgmma"
+    ring = cm.loopback_ring("ag", d, rows * k, dtype, cuda_device)
+    bufs = am.loopback_buffers(d, rows, k, n, dtype, cuda_device)
+    want_ag = cm.ring_ag_matmul_virtual(shards, b)
+    want_a2a = am.alltoall_expert_matmul_virtual(tokens, experts)
+    a_full = torch.cat(shards)
+    for call in range(3):
+        before = (dict(cm.TILES), dict(am.TILES))
+        got_ag = cm.ring_ag_matmul_loopback(shards, b, ring)
+        got_a2a = am.alltoall_expert_matmul_loopback(tokens, experts, bufs)
+        torch.cuda.synchronize()
+        assert cm.TILES == dict(before[0], wgmma=before[0]["wgmma"] + 1)
+        assert am.TILES == dict(before[1], wgmma=before[1]["wgmma"] + 1)
+        for r in range(d):
+            if kind != "uniform":
+                assert torch.equal(got_ag[r], want_ag[r]), (call, r)
+                assert torch.equal(got_a2a[r], want_a2a[r]), (call, r)
+                continue
+            gap = (got_ag[r].float() - want_ag[r].float()).abs()
+            assert bool((gap <= k1.plain_gap_bound(a_full, b, got_ag[r], want_ag[r])).all()), \
+                (call, r)
+            for e in range(d):
+                rows_e = slice(e * rows, (e + 1) * rows)
+                got, want = got_a2a[r][rows_e], want_a2a[r][rows_e]
+                bound = k1.plain_gap_bound(tokens[r][rows_e], experts[e], got, want)
+                assert bool(((got.float() - want.float()).abs() <= bound).all()), (call, r, e)
+    assert ring.epoch == bufs.epoch == 3 and ring.tile == "wgmma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "dyadic", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wmma_tile_k2_loopback_matches_virtual(cuda_device, dtype, kind):
+    """K2 on 16-bit operands whose rows TMA cannot load (k and n not
+    multiples of 8 elements) runs K1's wmma tile beside put blocks: three
+    virtual ranks in one launch, three calls on one ring, bit for bit
+    against the plain ring on integer and dyadic operands, within K1's
+    ``plain_gap_bound`` on uniform ones; the tile counter shows it ran."""
+    d, rows, n, k = 3, 130, 262, 74
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 17 + rows)
+    shards = _hopper_operands([(rows, k)] * d, dtype, gen, cuda_device, kind)
+    (b,) = _hopper_operands([(k, n)], dtype, gen, cuda_device, kind)
+    assert cm.tile_for(dtype, k, n) == "wmma"
+    ring = cm.loopback_ring("ag", d, rows * k, dtype, cuda_device)
+    want = cm.ring_ag_matmul_virtual(shards, b)
+    a_full = torch.cat(shards)
+    for call in range(3):
+        before = dict(cm.TILES)
+        got = cm.ring_ag_matmul_loopback(shards, b, ring)
+        torch.cuda.synchronize()
+        assert cm.TILES == dict(before, wmma=before["wmma"] + 1)
+        for r in range(d):
+            if kind != "uniform":
+                assert torch.equal(got[r], want[r]), (call, r)
+                continue
+            gap = (got[r].float() - want[r].float()).abs()
+            assert bool((gap <= k1.plain_gap_bound(a_full, b, got[r], want[r])).all()), \
+                (call, r)
+    assert ring.epoch == 3 and ring.tile == "wmma"
+
+
 @pytest.mark.cuda
 def test_trio_kernels_reject_what_they_do_not_take(cuda_device):
     a = torch.zeros((64, 32), device=cuda_device, dtype=torch.bfloat16)
@@ -875,12 +972,15 @@ def _nccl_rank_main(rank, port, results):
                     ring_rs = cm.peer_ring(rt, "rs", m_loc * n, dtype)
                     want_ag = cm.ring_ag_matmul_plain(shards[rank], b, rt)
                     want_rs = cm.ring_matmul_rs_plain(a_rs[rank], b_rs[rank], rt)
-                    before = dict(cm.LAUNCHES)
+                    before, tiles = dict(cm.LAUNCHES), dict(cm.TILES)
                     for _ in range(NCCL_CALLS):
                         got_ag = cm.ring_ag_matmul(shards[rank], b, rt, ring_ag)
                         got_rs = cm.ring_matmul_rs(a_rs[rank], b_rs[rank], rt, ring_rs)
                     torch.cuda.synchronize()
                     launches = {key: cm.LAUNCHES[key] - before[key] for key in before}
+                    # K2's launches by tile
+                    launches["tiles"] = {key: cm.TILES[key] - tiles[key] for key in tiles
+                                         if cm.TILES[key] != tiles[key]}
                     if integer:
                         ok_ag, ok_rs = torch.equal(got_ag, want_ag), torch.equal(got_rs, want_rs)
                     elif dtype == torch.float32:
@@ -925,7 +1025,7 @@ def _nccl_trio(rt, rank, m_loc, n, k, dtype, integer):
     want_ag = rc.ring_all_gather_plain(shards[rank], rt)
     want_rs = rc.ring_reduce_scatter_plain(shards[rank], rt)
     want_a2a = am.alltoall_expert_matmul_plain(shards[rank], experts[rank], rt)
-    before = (dict(rc.LAUNCHES), am.LAUNCHES["a2a"])
+    before = (dict(rc.LAUNCHES), am.LAUNCHES["a2a"], dict(am.TILES))
     for _ in range(NCCL_CALLS):
         got_ag = rc.ring_all_gather(shards[rank], rt, ring_ag)
         got_rs = rc.ring_reduce_scatter(shards[rank], rt, ring_rs)
@@ -933,7 +1033,9 @@ def _nccl_trio(rt, rank, m_loc, n, k, dtype, integer):
     torch.cuda.synchronize()
     launches = {"ag": rc.LAUNCHES["ag"] - before[0]["ag"],
                 "rs": rc.LAUNCHES["rs"] - before[0]["rs"],
-                "a2a": am.LAUNCHES["a2a"] - before[1]}
+                "a2a": am.LAUNCHES["a2a"] - before[1],
+                "tiles": {key: am.TILES[key] - before[2][key] for key in before[2]
+                          if am.TILES[key] != before[2][key]}}
     if integer:
         ok_a2a = torch.equal(got_a2a, want_a2a)
     elif dtype == torch.float32:
@@ -956,7 +1058,7 @@ def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
     against their plain versions over NCCL (``batch_isend_irecv`` hops):
     bit for bit on integer operands (K4 and K5 on any), else within the
     bounds of the loopback tests; exactly one launch of each kernel a
-    call."""
+    call, K2 and K6 on the Hopper tile for bf16 (SIMT for float32)."""
     import multiprocessing as mp
     import queue
     import socket
@@ -989,11 +1091,16 @@ def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
     for rank, (cases, trio) in got.items():
         assert len(cases) == len(trio) == len(NCCL_SHAPES) * 4
         for case, ok_ag, ok_rs, launches in cases:
+            # every 16-bit shape here has TMA's widths: K2 ran the Hopper tile
+            tile = "simt" if "float32" in case[3] else "wgmma"
             assert ok_ag and ok_rs, (rank, case, ok_ag, ok_rs)
-            assert launches == {"ag": NCCL_CALLS, "rs": NCCL_CALLS}, (rank, case)
+            assert launches == {"ag": NCCL_CALLS, "rs": NCCL_CALLS,
+                                "tiles": {tile: NCCL_CALLS}}, (rank, case, launches)
         for case, ok_k4, ok_k5, ok_k6, launches in trio:
+            tile = "simt" if "float32" in case[3] else "wgmma"
             assert ok_k4 and ok_k5 and ok_k6, (rank, case, ok_k4, ok_k5, ok_k6)
-            assert launches == dict.fromkeys(("ag", "rs", "a2a"), NCCL_CALLS), (rank, case)
+            assert launches == {**dict.fromkeys(("ag", "rs", "a2a"), NCCL_CALLS),
+                                "tiles": {tile: NCCL_CALLS}}, (rank, case, launches)
 
 
 # -- the LM head's float32 product on the tensor cores ------------------------------

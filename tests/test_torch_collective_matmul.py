@@ -181,6 +181,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, match):
         call(a, b, Runtime("cpu"))
 
 
+@pytest.mark.parametrize("dtype,k,n,tile", [
+    (torch.bfloat16, 8192, 8192, "wgmma"),
+    (torch.float16, 8192, 8192, "wgmma"),
+    (torch.bfloat16, 520, 776, "wgmma"),
+    (torch.float16, 72, 264, "wgmma"),
+    (torch.float32, 8192, 8192, "simt"),
+    (torch.float32, 33, 7, "simt"),
+    (torch.bfloat16, 33, 8192, "wmma"),
+    (torch.float16, 8192, 100, "wmma"),
+    (torch.bfloat16, 4, 12, "wmma"),
+])
+def test_tile_choice_by_dtype_and_shape(dtype, k, n, tile):
+    """K2 runs the Hopper tile where TMA can load its rows (16-bit, k and n
+    a multiple of 16 bytes), K1's SIMT tile on float32, K1's wmma tile on
+    other 16-bit widths."""
+    assert cm.tile_for(dtype, k, n) == tile
+    assert cm._kernel_tile("ag", dtype, k, n) == tile
+    # K3 keeps K1's tiles
+    assert cm._kernel_tile("rs", dtype, k, n) == ("simt" if dtype == torch.float32 else "wmma")
+
+
+def test_tile_choice_rejects_other_dtypes():
+    with pytest.raises(ValueError, match="K2/K3 take"):
+        cm.tile_for(torch.int8, 64, 64)
+
+
+def test_a_ring_serves_one_tile():
+    """A ring's counters grow by the putting blocks of its tile, so a launch
+    on another tile is refused before it reaches the card; the counts of
+    launches by tile reset with the launch counts."""
+    ring = cm.loopback_ring("ag", 2, 64 * 64, torch.bfloat16, "cpu")
+    ring.tile = "wgmma"
+    a, b = torch.zeros((64, 60), dtype=torch.bfloat16), torch.zeros((60, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="'wgmma' tile launched on the 'wmma' tile"):
+        cm._launch("ag", ring, [a, a], [b, b], [a, a], 64, 64, 60)
+    assert ring.epoch == 0
+    cm.TILES["wgmma"] += 1
+    cm.reset_launches()
+    assert cm.TILES == {"wgmma": 0, "wmma": 0, "simt": 0}
+
+
 def test_buffer_layout():
     assert cm.buffer_bytes(7, torch.bfloat16) == cm.FLAG_BYTES + 2 * 8 * 2
     assert cm.buffer_bytes(8, torch.float32) == cm.FLAG_BYTES + 2 * 8 * 4

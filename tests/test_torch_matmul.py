@@ -137,3 +137,44 @@ def test_library_path_tracks_source():
     path = _build.library_path("matmul")
     assert path.name.startswith("matmul-") and path.suffix == ".so"
     assert path == _build.library_path("matmul")
+
+
+def test_library_path_tracks_headers(monkeypatch, tmp_path):
+    """An edited ``csrc/*.cuh`` (the Hopper tile K2 and K6 include) gives
+    every library a new path, so a stale build is never loaded."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in ("collective_matmul", "matmul")}
+    header = csrc / "hopper_gemm.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in before}
+    assert all(after[name] != before[name] for name in before)
+    assert all(after[name].name.startswith(f"{name}-") for name in after)
+    # the source itself still counts
+    source = csrc / "collective_matmul.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build.library_path("collective_matmul") != after["collective_matmul"]
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """``ptxas -v``'s lines in a build log, read per kernel: the numbers
+    ``chip_smoke.py`` reports beside K2 and K6."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z16a2a_wgmma_kernelI13__nv_bfloat16EvN1_10A2ATmaArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z16a2a_wgmma_kernelI13__nv_bfloat16EvN1_10A2ATmaArgsE",
+        "    128 bytes stack frame, 128 bytes spill stores, 96 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 128 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z17a2a_matmul_kernelN1_7A2AArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z17a2a_matmul_kernelN1_7A2AArgsE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+    ])
+    assert _build.ptxas_usage(log) == {
+        "_Z16a2a_wgmma_kernelI13__nv_bfloat16EvN1_10A2ATmaArgsE":
+            {"spill_stores": 128, "registers": 168},
+        "_Z17a2a_matmul_kernelN1_7A2AArgsE": {"spill_stores": 0, "registers": 128},
+    }
+    assert _build.ptxas_usage("") == {}
