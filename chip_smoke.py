@@ -11,9 +11,12 @@ Phases, in order; any failure exits non-zero without the final line:
    (one ``nvcc`` each, in parallel), hold each against its plain PyTorch
    version on the card at the stated tolerance, and time it beside the
    plain version, the one PyTorch call that computes the same function
-   (``library_ms``) and its bound: K1 (the tiled GEMM), K8a/K8b (the flash
-   forward, triangle and rectangle, at the attention path's shapes and at
-   the serving path's prefill and admission shapes), K9 (the
+   (``library_ms``) and its bound: K1 (the tiled GEMM, each case on the
+   tile its widths choose: the Hopper ``wgmma`` tile, ``wmma`` or
+   ``simt``), K8a/K8b (the flash forward, triangle and rectangle, at the
+   attention path's shapes and at the serving path's prefill and admission
+   shapes; the triangle in bf16/fp16 on the ``wgmma`` kernel, ragged and
+   GQA cases included), K9 (the
    carried-chunk fold), K11 and K12 (single-token decode attention,
    contiguous and paged), K7 (the int8 GEMM, bit for bit at the GEMM
    path's 8192^3, the decode and prefill MLP's shapes and ragged ones,
@@ -67,7 +70,9 @@ Phases, in order; any failure exits non-zero without the final line:
    ``mlp_kernel=int8`` train row; K8a, K8b, K9, K10a-K10d, K7), with each
    row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
    be valid with a finite time, and the counts must be exactly what the
-   rows launch; then the LM head's product before and after it moved to
+   rows launch, every K1 launch of every path on the Hopper tile and every
+   K8a launch on the ``wgmma`` forward (``check_tiles``); then the LM
+   head's product before and after it moved to
    the tensor cores (``head_phase``: the full-width train row and a pallas
    decode row, each with the old float32 head and the new one);
 4. one ``kernels`` JSON line, then the last line
@@ -374,14 +379,19 @@ def check_flash_forward(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
     with the key at the query's own position) the output within
     ``fa.plain_gap_bound`` and lse within ``4*Δs + 2*skv*2**-23 + 1e-5``
     (the score gap and two summation orders of l; empty rows exactly
-    NEG_INF on both). Returns (max |err| of o over both, the uniform
-    inputs, keyword arguments)."""
+    NEG_INF on both); each of the three launches on the kernel
+    ``fa.forward_kernel`` names (``FORWARD_TILES``). Returns (max |err| of
+    o over both, the uniform inputs, keyword arguments)."""
     import torch
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kw = {"scale": dh ** -0.5, "row_offset": row_offset, "window": window}
-    what = f"flash forward {sq}x{skv} h={h}/{h_kv} dh={dh} off={row_offset} w={window} {dtype_name}"
+    kernel = fa.forward_kernel(fa.forward_case(sq, skv, row_offset, True, window)[0], dtype)
+    what = (f"flash forward {sq}x{skv} h={h}/{h_kv} dh={dh} off={row_offset} w={window} "
+            f"{dtype_name} ({kernel})")
+    tiles_want = dict(fa.FORWARD_TILES)
+    tiles_want[kernel] += 3  # band, uniform and peaked inputs
     q, k, v = band_inputs(sq, skv, h, h_kv, dh, dtype, gen)
     o, lse = fa.flash_forward(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -422,6 +432,8 @@ def check_flash_forward(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
               f"|o| {float(o_p.float().abs().median())!r}, share of |o| "
               f"below its bound {loose!r}): ok")
         errs.append(max_err)
+    if fa.FORWARD_TILES != tiles_want:
+        fail(f"{what}: forward launches by kernel {fa.FORWARD_TILES}, expected {tiles_want}")
     return max(errs), uniform, kw
 
 
@@ -547,23 +559,38 @@ def flash_bound(fa, sq, skv, h, h_kv, dh, itemsize, row_offset, col_offset,
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
+#: K1's phase: (m, n, k, dtype, the tile tile_for must give): the GEMM
+#: path's shape, fp16 and f32, a ragged shape whose rows are still 16-byte
+#: multiples (the Hopper tile's masked edge), and one whose n is not (wmma)
+K1_CASES = (
+    (PATH_MNK, PATH_MNK, PATH_MNK, "bfloat16", "wgmma"),
+    (2048, 2048, 2048, "float16", "wgmma"),
+    (2048, 2048, 2048, "float32", "simt"),
+    (1000, 776, 520, "bfloat16", "wgmma"),
+    (1000, 777, 520, "bfloat16", "wmma"),
+)
+
+
 def kernel_phase_matmul(k1, smi):
-    """K1 at every shape of its phase, then timed at the GEMM path's
-    shape. Returns its entry of the ``kernels`` line (launches filled in
-    later)."""
+    """K1 at every shape of its phase, each on the tile its widths choose,
+    then timed at the GEMM path's shape. Returns its entry of the
+    ``kernels`` line (launches filled in later)."""
     import torch
 
     main_err = None
-    for m, n, k, dtype_name in (
-        (PATH_MNK, PATH_MNK, PATH_MNK, "bfloat16"),
-        (2048, 2048, 2048, "float16"),
-        (2048, 2048, 2048, "float32"),
-        (1000, 776, 520, "bfloat16"),
-    ):
+    for m, n, k, dtype_name, tile in K1_CASES:
+        got = k1.tile_for(getattr(torch, dtype_name), k, n)
+        if got != tile:
+            fail(f"K1 {m}x{n}x{k} {dtype_name} would run the {got} tile, not {tile}")
+        tiles_before = dict(k1.TILES)
         max_err, tol, operands = check_matmul(k1, m, n, k, dtype_name)
+        # check_matmul launches twice (integer and uniform operands)
+        want = dict(tiles_before, **{tile: tiles_before[tile] + 2})
+        if k1.TILES != want:
+            fail(f"K1 {m}x{n}x{k} {dtype_name}: launches by tile {k1.TILES}, expected {want}")
         print(
-            f"K1 {m}x{n}x{k} {dtype_name}: max |err| {max_err!r} vs plain "
-            f"({tol}): ok"
+            f"K1 {m}x{n}x{k} {dtype_name} ({tile} tile): max |err| {max_err!r} "
+            f"vs plain ({tol}): ok"
         )
         if main_err is None:
             main_err, (a, b) = max_err, operands
@@ -594,6 +621,8 @@ def kernel_phase_matmul(k1, smi):
         "bound_ms": max(bound_ops_ms, bound_bytes_ms),
         "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
         "library_ms": times["library_ms"],
+        "tile": "wgmma",
+        "registers": ptxas_registers("matmul", "gemm_wgmma"),
     }
 
 
@@ -1026,6 +1055,9 @@ def kernel_phase_flash(fa, smi):
     rect_err = max(rect_err, path_rect_err)
     for args in (
         (2048, 2048, h, h, dh, "float16", 0, 0),
+        # K8a's wgmma kernel at ragged lengths and GQA 8/2, both 16-bit types
+        *((s, s, h, 2, dh, name, 0, 0) for s in (1, 127, 129, 1000)
+          for name in ("bfloat16", "float16")),
         (1024, 1024, 4, 4, dh, "float32", 0, 0),
         (1024, 2048, 4, 2, dh, "float32", 1024, 700),
         (1000, 1000, h, h, dh, "bfloat16", 0, 0),
@@ -1125,12 +1157,15 @@ def kernel_phase_flash(fa, smi):
 
     forward = entry("flash_forward", "ddlb_tpu/ops/flash_attention.py:373",
                     tri_err, tri_times, tri_bound)
+    forward["tile"] = "wgmma"
+    forward["registers"] = ptxas_registers("flash_attention", "flash_fwd_wgmma")
     # the same entry point is also K8b's counterpart; its case at the
     # windowed row's shape, with its own numbers
     forward["also_replaces"] = "ddlb_tpu/ops/flash_attention.py:96"
     forward["rect"] = entry("flash_forward (rect)",
                             "ddlb_tpu/ops/flash_attention.py:96", rect_err,
                             rect_times, rect_bound)
+    forward["rect"]["tile"] = "mma"
     chunk = entry("flash_chunk", "ddlb_tpu/ops/flash_attention.py:146",
                   chunk_err, chunk_times, chunk_bound)
     chunk["library_ms_note"] = (
@@ -1195,6 +1230,7 @@ def kernel_phase_flash_serving(fa, smi):
         "bound_ms": bound[0],
         "bound_by": bound[1],
         "library_ms": times["library_ms"],
+        "tile": "wgmma",
     }
 
 
@@ -2205,6 +2241,21 @@ def head_phase(run_benchmark, smi):
     return medians
 
 
+def check_tiles(what, k1, fa):
+    """Every K1 launch of a path ran the Hopper tile, every K8a launch the
+    wgmma forward and every K8b and K9 launch ``flash_mma`` (the main paths
+    are bf16, at 16-byte widths). Returns the path's launches by tile."""
+    want_k1 = {"wgmma": k1.LAUNCHES, "wmma": 0, "simt": 0}
+    if k1.TILES != want_k1:
+        fail(f"K1's launches by tile on {what}: {k1.TILES}, expected {want_k1}")
+    want_fa = {"wgmma": fa.LAUNCHES["tri"], "mma": fa.LAUNCHES["rect"] + fa.LAUNCHES["chunk"],
+               "simt": 0}
+    if fa.FORWARD_TILES != want_fa:
+        fail(f"the flash forward's launches by kernel on {what}: {fa.FORWARD_TILES}, "
+             f"expected {want_fa}")
+    return {"k1": dict(k1.TILES), "flash_forward": dict(fa.FORWARD_TILES)}
+
+
 def main():
     try:
         import torch
@@ -2262,7 +2313,7 @@ def main():
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     def reset():
-        k1.LAUNCHES = 0
+        k1.reset_launches()
         qm.LAUNCHES = 0
         fa.reset_launches()
         da.reset_launches()
@@ -2278,7 +2329,7 @@ def main():
                 **da.LAUNCHES, "int8": qm.LAUNCHES}
 
     # 3. the main paths, each with the counts zeroed just before it
-    launches = {}
+    launches, tiles = {}, {}
     reset()
     rows = []
     for primitive, implementations in GEMM_SWEEPS.items():
@@ -2307,6 +2358,7 @@ def main():
              f"{expected['ag']} on wgmma")
     if any(others.values()):
         fail(f"other kernels launched on the GEMM path: {others}")
+    tiles["gemm"] = check_tiles("the GEMM path", k1, fa)
     launches["gemm"] = gemm_launches
     print(f"GEMM path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2341,6 +2393,7 @@ def main():
     if am.TILES != {"wgmma": trio_launches["k6"], "simt": 0}:
         fail(f"K6's launches by tile on the trio path: {am.TILES}, expected "
              f"{trio_launches['k6']} on wgmma")
+    tiles["trio"] = check_tiles("the trio path", k1, fa)
     launches["trio"] = {key: n for key, n in trio_launches.items() if n}
     print(f"trio path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2360,6 +2413,7 @@ def main():
              f"path, expected {expected}")
     if any(others.values()):
         fail(f"K1, K7 or the decode kernels launched on the attention path: {others}")
+    tiles["attention"] = check_tiles("the attention path", k1, fa)
     launches["attention"] = flash_launches
     print(f"attention path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2370,6 +2424,7 @@ def main():
         fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
     if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
         fail(f"K2-K6 launched on the serving path: {cm.LAUNCHES} {trio_counts()}")
+    tiles["serving"] = check_tiles("the serving path", k1, fa)
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2381,12 +2436,14 @@ def main():
         fail(f"the training path did not launch {missing}: {training_launches}")
     if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
         fail(f"K2-K6 launched on the training path: {cm.LAUNCHES} {trio_counts()}")
+    tiles["training"] = check_tiles("the training path", k1, fa)
     launches["training"] = training_launches
     print(f"training path done at {time.perf_counter() - t_start:.1f} s")
 
     head_phase(run_benchmark, smi)
     print(f"head product phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
+    print(f"K1 and flash forward launches by tile, by path: {json.dumps(tiles)}")
 
     # 4. results
     def total(key):

@@ -1,11 +1,13 @@
 // K8a / K8b / K9: flash attention forward and the carried-chunk fold.
 //
 // Replaces, in ddlb_tpu/ops/flash_attention.py:
-//  - ddlb_flash_forward: _flash_forward (:433) with both of its Pallas
-//    kernels, the triangular-grid _flash_kernel_tri (:373, K8a: causal,
-//    offset 0, sq == skv) and the rectangular _flash_kernel (:96, K8b:
-//    runtime row_offset, sliding window, causal=False, GQA). Writes o in the
-//    operand dtype and lse = m + log(l) in f32 (NEG_INF for empty rows).
+//  - ddlb_flash_forward_tri and ddlb_flash_forward: _flash_forward (:433)
+//    with both of its Pallas kernels, the triangular-grid _flash_kernel_tri
+//    (:373, K8a: causal, offset 0, sq == skv; in bf16/fp16 the Hopper
+//    kernel of namespace tri below, ddlb_flash_forward_tri) and the
+//    rectangular _flash_kernel (:96, K8b: runtime row_offset, sliding
+//    window, causal=False, GQA). Writes o in the operand dtype and lse =
+//    m + log(l) in f32 (NEG_INF for empty rows).
 //  - ddlb_flash_chunk: flash_attention_chunk (:211) with _flash_chunk_kernel
 //    (:146, K9): the same walk, but the (acc, m, l) carry is read at the
 //    start and written back at the end, in place, instead of being created
@@ -19,8 +21,10 @@
 // it (989 TFLOP/s dense: 0.556 ms), not memory (0.040 ms at 3.35 TB/s), and
 // the exp of every live score is the next cost after the products.
 //
-// What the design does about it (simple and right first; wgmma, TMA and
-// warp specialisation are later work):
+// What the design does about it. K8a in bf16/fp16 runs flash_fwd_wgmma
+// (namespace tri, with its own design note): TMA loads, a producer
+// warpgroup and two consumer warpgroups on wgmma, 128-row query tiles. The
+// rest below is flash_mma and flash_f32, which K8b, K9 and float32 run:
 //  - One block per (query tile, head); blocks run in no order on 132 SMs, so
 //    the TPU's sequential kv grid axis becomes a loop inside the block. The
 //    loop walks only the key tiles that the tile's live band reaches (from
@@ -99,6 +103,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -1204,6 +1210,422 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkv_f32(Params p,
 }
 
 // ---------------------------------------------------------------------------
+// K8a on Hopper: the causal triangle with TMA, wgmma and warp specialisation
+// ---------------------------------------------------------------------------
+//
+// The triangle only (causal, offset 0, sq == skv, no window), bf16/fp16,
+// head_dim 128; its own names in namespace tri, its own argument struct
+// (the shared Params stays as it is: see Grads).
+//  - One block of 384 threads per (128-row query tile, head) on a 1-D grid.
+//    Heads go in groups whose K and V fit in L2 together (24 MB: the 128
+//    heads of the serving prefill in groups of 6, the 16 of a serve bucket
+//    in one); inside a group the heaviest query tiles first, so the blocks
+//    running at once read the same few heads' K and V. Query tile i meets
+//    key tiles 0..i; the walk goes from the diagonal tile i, the only one
+//    masked, down to key tile 0.
+//  - Warpgroup 0 is the producer (setmaxnreg down to 40): one thread issues
+//    TMA loads, the Q tile once, then K and V tiles into two rings of two
+//    stages each, with a full and an empty mbarrier a stage. K and V have
+//    rings of their own, so a K stage frees as soon as its QK^T has run.
+//  - Warpgroups 1 and 2 are the consumers (up to 232 registers), 64 query
+//    rows each. S = Q K^T is wgmma m64n128k16 from shared memory (Q and K
+//    both K-major); O += P V is wgmma m64n128k16 with P in registers (the S
+//    accumulators rounded to T are the A fragments, as in flash_mma) and V
+//    read MN-major through the transpose bit. A warpgroup runs QK^T, the
+//    softmax and PV of a tile one after the other, and the two consumer
+//    warpgroups overlap each other. (Issuing the QK^T of tile t + 1 beside
+//    the PV of tile t, so a warpgroup's softmax runs under its own products,
+//    needs S, P and O live at once: ptxas spilled P, and on an H100 that
+//    kernel measured slower than this one at every shape timed.)
+//  - Online softmax in base 2: m is the row max of the raw scores, p =
+//    exp2(s * c - m * c) with c = scale * log2(e), one FMA a score; l sums
+//    the unrounded p a thread at a time and is reduced over the quad once,
+//    at the end. lse = m * scale + log(l), in natural-log units, as the
+//    backward (K10a-d) reads it.
+//  - Tensor maps are 3-D over the [s, heads, dh] layout ({dh, heads, s},
+//    boxes of 64 dh x 1 head x 128 rows, 128-byte swizzle): two boxes per
+//    128-dh tile, GQA by the kv-head coordinate, no transposed copy. TMA
+//    fills rows past s with zeros; the causal mask drops those keys.
+//  - Epilogue: O / l rounded once to T, staged through this warpgroup's
+//    rows of the Q tile (its last QK^T has run) in a XOR-swizzled layout,
+//    then stored 16 bytes a lane; rows past sq are not stored.
+namespace tri {
+
+constexpr int D = 128, BQ = 128, BKV = 128, STAGES = 2;
+constexpr int THREADS = 384;
+constexpr int BOX = 64;                      // dh columns of one 128-byte swizzle span
+constexpr int TILE_BYTES = BQ * D * 2;       // Q, or one K or V stage: 32 KB
+constexpr int HALF_BYTES = TILE_BYTES / 2;   // one box of 128 rows x 64 dh
+constexpr int WG_ROWS_BYTES = 64 * BOX * 2;  // a consumer warpgroup's rows of a box
+static_assert(BQ == BKV, "query and key tiles line up: only tile i is masked");
+// Q, the K stages, the V stages (each 1 KB aligned), then the mbarriers:
+// q_full, k_full[2], k_empty[2], v_full[2], v_empty[2]
+constexpr int BAR_OFFSET = (1 + 2 * STAGES) * TILE_BYTES;
+constexpr int SMEM_BYTES = 1024 + BAR_OFFSET + (1 + 4 * STAGES) * 8;
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory on an H100");
+constexpr int CONSUMER_WARPS = 8;
+
+struct Args {
+  CUtensorMap q;  // [sq, h, dh]
+  CUtensorMap k;  // [sq, h_kv, dh]
+  CUtensorMap v;
+  void* o;        // [sq, h, dh]
+  float* lse;     // [h, sq]
+  int sq, h, group, q_tiles;
+  int head_group;           // query heads a group of blocks walks together
+  float scale, scale_log2;  // scale, scale * log2(e)
+};
+
+// Bytes of K and V that the blocks running at once should share in L2 (of
+// its 50 MB): the heads of a head group read at most this much together.
+constexpr long long L2_SHARE = 24ll << 20;
+
+struct Smem {
+  uint32_t base;       // shared-window address (1 KB aligned)
+  unsigned char* ptr;  // the same, as a generic pointer
+  __device__ uint32_t q(int half) const { return base + half * HALF_BYTES; }
+  __device__ uint32_t k(int s, int half) const {
+    return base + (1 + s) * TILE_BYTES + half * HALF_BYTES;
+  }
+  __device__ uint32_t v(int s, int half) const {
+    return base + (1 + STAGES + s) * TILE_BYTES + half * HALF_BYTES;
+  }
+  __device__ uint32_t q_full() const { return base + BAR_OFFSET; }
+  __device__ uint32_t k_full(int s) const { return q_full() + 8 * (1 + s); }
+  __device__ uint32_t k_empty(int s) const { return k_full(s) + 8 * STAGES; }
+  __device__ uint32_t v_full(int s) const { return k_empty(s) + 8 * STAGES; }
+  __device__ uint32_t v_empty(int s) const { return v_full(s) + 8 * STAGES; }
+};
+
+#define DDLB_TRI_D8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define DDLB_TRI_OPERANDS                                                 \
+  DDLB_TRI_D8(0), DDLB_TRI_D8(8), DDLB_TRI_D8(16), DDLB_TRI_D8(24),       \
+      DDLB_TRI_D8(32), DDLB_TRI_D8(40), DDLB_TRI_D8(48), DDLB_TRI_D8(56)
+#define DDLB_TRI_REGS                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+// S [64 x 128] (=|+)= A [64 x 16] @ B [16 x 128], both from shared memory,
+// K-major; accumulate = 0 overwrites d
+#define DDLB_TRI_SS(TYPE)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE \
+               " " DDLB_TRI_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"      \
+               : DDLB_TRI_OPERANDS                                        \
+               : "l"(da), "l"(db), "r"(accumulate))
+// O [64 x 128] += A [64 x 16] from registers @ B [16 x 128] MN-major
+#define DDLB_TRI_RS(TYPE)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE \
+               " " DDLB_TRI_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : DDLB_TRI_OPERANDS                                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
+struct Mma;
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db,
+                                            int accumulate) {
+    DDLB_TRI_SS("bf16");
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a,
+                                            uint64_t db) {
+    DDLB_TRI_RS("bf16");
+  }
+};
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db,
+                                            int accumulate) {
+    DDLB_TRI_SS("f16");
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a,
+                                            uint64_t db) {
+    DDLB_TRI_RS("f16");
+  }
+};
+#undef DDLB_TRI_RS
+#undef DDLB_TRI_SS
+#undef DDLB_TRI_REGS
+#undef DDLB_TRI_OPERANDS
+#undef DDLB_TRI_D8
+
+// Pin registers that an asynchronous wgmma wrote or read: uses after this
+// point cannot be moved above the wgmma wait before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// S = Q K^T of K stage st: 8 k-steps of 16 dh, 32 bytes along the swizzled
+// rows, the second box from dh 64.
+template <typename T>
+__device__ __forceinline__ void issue_qk(const Smem& sm, float (&s)[64], int st, int wg) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int half = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = hopper::smem_desc(sm.q(half) + wg * WG_ROWS_BYTES + off, 16, 1024);
+    const uint64_t db = hopper::smem_desc(sm.k(st, half) + off, 16, 1024);
+    Mma<T>::ss(s, da, db, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P V of V stage st: 8 k-steps of 16 keys (16 rows of 128 bytes down
+// both boxes, which sit HALF_BYTES apart).
+template <typename T>
+__device__ __forceinline__ void issue_pv(const Smem& sm, float (&o)[64],
+                                         const uint32_t (&pa)[32], int st) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < BKV / 16; ++kt) {
+    const uint64_t db = hopper::smem_desc(sm.v(st, 0) + kt * 16 * BOX * 2, HALF_BYTES, 1024);
+    Mma<T>::rs(o, pa + 4 * kt, db);
+  }
+  hopper::wgmma_commit();
+}
+
+// 2^x on the special-function unit (ex2.approx, subnormal results flushed
+// to zero: a p below 2^-126 of the row's largest is dropped from sums that
+// hold at least 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one score tile: the new row max (raw scores), the
+// factor the running sums scale by, and p = exp2(s c - m c) in place.
+// On the diagonal tile the keys after the query are masked and their p is
+// exactly 0, so a row with nothing live keeps l == 0.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&alpha)[2],
+                                             float (&sum)[2], float c, bool diag, int r0) {
+  const int t4 = threadIdx.x % 4;
+  if (diag) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t4 + (e & 1) > r0 + (e >= 2 ? 8 : 0)) s[4 * j + e] = NEG_INF;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    alpha[r] = ex2((m[r] - mx[r]) * c);
+    m[r] = mx[r];
+    sum[r] = 0.0f;
+  }
+  const float mc[2] = {mx[0] * c, mx[1] * c};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[4 * j + e];
+      const float pe = ex2(fmaf(x, c, -mc[e >> 1]));
+      s[4 * j + e] = (diag && x == NEG_INF) ? 0.0f : pe;
+    }
+    sum[0] += s[4 * j] + s[4 * j + 1];
+    sum[1] += s[4 * j + 2] + s[4 * j + 3];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i] = Half<T>::pack(s[2 * i], s[2 * i + 1]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_constant__ Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t aligned = (raw + 1023u) & ~1023u;
+  const Smem sm{aligned, smem_raw + (aligned - raw)};
+  // heads in groups of p.head_group, whose K and V fit in L2 together;
+  // inside a group the heaviest query tiles first, head by head
+  const int first = static_cast<int>(blockIdx.x) / (p.head_group * p.q_tiles) * p.head_group;
+  const int heads = min(p.head_group, p.h - first);
+  const int local = static_cast<int>(blockIdx.x) - first * p.q_tiles;
+  const int qt = p.q_tiles - 1 - local / heads;
+  const int hh = first + local % heads, kvh = hh / p.group;
+  const int q0 = qt * BQ, n_tiles = qt + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(sm.q_full(), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(sm.k_full(s), 1);
+      hopper::mbar_init(sm.v_full(s), 1);
+      hopper::mbar_init(sm.k_empty(s), CONSUMER_WARPS);
+      hopper::mbar_init(sm.v_empty(s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(sm.q_full(), TILE_BYTES);
+      for (int half = 0; half < 2; ++half)
+        hopper::tma_load(sm.q(half), &p.q, sm.q_full(), half * BOX, hh, q0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES;
+        const uint32_t phase = (i / STAGES) & 1;
+        const int k0 = (qt - i) * BKV;
+        hopper::mbar_wait(sm.k_empty(st), phase ^ 1u);
+        hopper::mbar_expect_tx(sm.k_full(st), TILE_BYTES);
+        for (int half = 0; half < 2; ++half)
+          hopper::tma_load(sm.k(st, half), &p.k, sm.k_full(st), half * BOX, kvh, k0);
+        hopper::mbar_wait(sm.v_empty(st), phase ^ 1u);
+        hopper::mbar_expect_tx(sm.v_full(st), TILE_BYTES);
+        for (int half = 0; half < 2; ++half)
+          hopper::tma_load(sm.v(st, half), &p.v, sm.v_full(st), half * BOX, kvh, k0);
+      }
+    }
+  } else {
+    hopper::consumer_registers();
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool arrives = lane == 0;
+    // this thread's rows within the tile: r0 and r0 + 8
+    const int r0 = 64 * c + 16 * warp + lane / 4;
+    float o[64], s[64];
+    uint32_t pa[32];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, alpha[2], sum[2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    hopper::mbar_wait(sm.q_full(), 0);
+
+    // the diagonal tile first, alone
+    hopper::mbar_wait(sm.k_full(0), 0);
+    issue_qk<T>(sm, s, 0, c);
+    hopper::wgmma_wait<0>();
+    fence_regs(s);
+    if (arrives) hopper::mbar_arrive(sm.k_empty(0));
+    softmax_tile(s, m, alpha, sum, p.scale_log2, true, r0);
+    l[0] = sum[0];
+    l[1] = sum[1];
+    pack_p<T>(pa, s);
+
+    hopper::mbar_wait(sm.v_full(0), 0);
+    issue_pv<T>(sm, o, pa, 0);
+    hopper::wgmma_wait<0>();
+    fence_regs(o);
+    if (arrives) hopper::mbar_arrive(sm.v_empty(0));
+
+    // the other tiles, one after the other: the two consumer warpgroups
+    // drift apart, so one's softmax runs under the other's products
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      hopper::mbar_wait(sm.k_full(st), ph);
+      issue_qk<T>(sm, s, st, c);
+      hopper::wgmma_wait<0>();
+      fence_regs(s);
+      if (arrives) hopper::mbar_arrive(sm.k_empty(st));
+      softmax_tile(s, m, alpha, sum, p.scale_log2, false, r0);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      l[0] = l[0] * alpha[0] + sum[0];
+      l[1] = l[1] * alpha[1] + sum[1];
+      pack_p<T>(pa, s);
+      hopper::mbar_wait(sm.v_full(st), ph);
+      issue_pv<T>(sm, o, pa, st);
+      hopper::wgmma_wait<0>();
+      fence_regs(o);
+      if (arrives) hopper::mbar_arrive(sm.v_empty(st));
+    }
+
+    // epilogue: lse, then O / l through this warpgroup's rows of Q
+    const int t4 = lane % 4, g = lane / 4;
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      den[r] = l[r] == 0.0f ? 1.0f : l[r];
+      const int row = q0 + r0 + 8 * r;
+      if (t4 == 0 && row < p.sq)
+        p.lse[static_cast<size_t>(hh) * p.sq + row] =
+            l[r] == 0.0f ? NEG_INF : m[r] * p.scale + logf(l[r]);
+    }
+    // a 16-byte chunk (8 dh) of row rw sits at chunk ^ (rw % 8) of its
+    // 128-byte row: conflict-free for the pairs written and the chunks read
+    unsigned char* stage = sm.ptr + c * WG_ROWS_BYTES;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int half = j / 8, chunk = j % 8;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rw = 16 * warp + g + 8 * r;
+        *reinterpret_cast<uint32_t*>(stage + half * HALF_BYTES + rw * 128 +
+                                     ((chunk ^ (rw % 8)) * 16) + t4 * 4) =
+            Half<T>::pack(o[4 * j + 2 * r] / den[r], o[4 * j + 2 * r + 1] / den[r]);
+      }
+    }
+    __syncwarp();
+    T* out = static_cast<T*>(p.o);
+#pragma unroll
+    for (int pass = 0; pass < 8; ++pass) {
+      const int rw = 16 * warp + 2 * pass + lane / 16;
+      const int half = (lane % 16) / 8, chunk = lane % 8;
+      const int row = q0 + 64 * c + rw;
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          stage + half * HALF_BYTES + rw * 128 + ((chunk ^ (rw % 8)) * 16));
+      if (row < p.sq)
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(row) * p.h + hh) * D +
+                                  half * BOX + chunk * 8) = val;
+    }
+  }
+}
+
+// A {dh, heads, s} map of a [s, heads, 128] operand, boxes of 64 x 1 x 128.
+int encode_heads(CUtensorMap* map, int dtype, const void* base, int s, int heads) {
+  hopper::EncodeTiled fn = nullptr;
+  const int rc = hopper::encode_tiled(&fn);
+  if (rc != 0) return rc;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2};
+  const cuuint32_t box[3] = {BOX, 1, BQ};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = fn(
+      map, dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  flash_fwd_wgmma<T><<<a.q_tiles * a.h, THREADS, SMEM_BYTES, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tri
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1378,6 +1800,39 @@ int ddlb_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   gr.dk = static_cast<float*>(dk);
   gr.dv = static_cast<float*>(dv);
   return static_cast<int>(launch_bwd(dtype, dh, 1, p, gr, stream));
+}
+
+// K8a on Hopper (namespace tri): the causal triangle at offset 0, sq == skv,
+// dtype 1 = float16 or 2 = bfloat16, dh 128. o [sq, h, dh], lse [h, sq]
+// f32. Every operand 16-byte aligned (TMA's rule; the wrapper checks).
+int ddlb_flash_forward_tri(int dtype, const void* q, const void* k, const void* v,
+                           void* o, void* lse, int sq, int h, int h_kv, int dh,
+                           float scale, void* stream) {
+  if (sq < 1 || h < 1 || h_kv < 1 || h % h_kv || dh != tri::D || (dtype != 1 && dtype != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (bases % 16) return static_cast<int>(cudaErrorInvalidValue);
+  tri::Args a;
+  int rc = tri::encode_heads(&a.q, dtype, q, sq, h);
+  if (rc == 0) rc = tri::encode_heads(&a.k, dtype, k, sq, h_kv);
+  if (rc == 0) rc = tri::encode_heads(&a.v, dtype, v, sq, h_kv);
+  if (rc != 0) return rc;
+  a.o = o;
+  a.lse = static_cast<float*>(lse);
+  a.sq = sq;
+  a.h = h;
+  a.group = h / h_kv;
+  a.q_tiles = (sq + tri::BQ - 1) / tri::BQ;
+  // a query head reads 2 * sq * 128 * 2 bytes of K and V, shared by its group
+  const long long per_head = 512ll * sq / a.group + 1;
+  const long long head_group = tri::L2_SHARE / per_head;
+  a.head_group = static_cast<int>(head_group < 1 ? 1 : head_group > h ? h : head_group);
+  a.scale = scale;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 1 ? tri::launch<__half>(a, s)
+                                     : tri::launch<__nv_bfloat16>(a, s));
 }
 
 const char* ddlb_flash_error_string(int code) {

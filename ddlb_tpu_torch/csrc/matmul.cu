@@ -9,22 +9,32 @@
 // byte, far above the card's ~295 FLOP/byte balance point. So the bf16
 // tensor cores bound it (989 TFLOP/s dense: 1.11 ms), not memory.
 //
-// What the design does about it (simple and right first; wgmma, TMA and
-// persistent scheduling are later work):
-//  - bf16/fp16: a 128x128 block tile walks k in steps of 32. A and B tiles
-//    are staged through shared memory with cp.async, two stages deep, so
-//    the next tile's copy overlaps this tile's tensor-core work. Rows are
-//    padded by 16 bytes against bank conflicts. Eight warps each own a
-//    64x32 sub-tile as 4x2 16x16x16 wmma fragments with float
-//    accumulators, the counterpart of the TPU kernel's f32 VMEM
+// What the design does about it, by tile (the wrapper's tile_for picks one):
+//  - wgmma (bf16/fp16 whose rows of A and B are multiples of 16 bytes, TMA's
+//    rule): gemm_wgmma runs the Hopper GEMM tile of hopper_gemm.cuh, the one
+//    K2 and K6 run, as it is: one persistent 384-thread block an SM walks
+//    the 128 x 256 output tiles, grouped eight tile rows at a time so a
+//    wave's blocks share panels of A and B in L2; the producer warp keeps
+//    a 4-stage ring of TMA loads (A [128, 64], B [64, 256], 128-byte
+//    swizzle) in flight while two consumer warpgroups run wgmma.m64n256k16
+//    with float32 sums in registers, and one tile's epilogue overlaps the
+//    next tile's loads. The epilogue (StoreC) masks the ragged rows, rounds
+//    each sum once to the operand dtype and stores 16 bytes. TMA fills
+//    loads past the edge with zeros. The tile's geometry comes from
+//    hopper::Tiles alone: this file's own BM/BN below name the wmma tile.
+//  - wmma (other 16-bit widths): a 128x128 block tile walks k in steps of
+//    32. A and B tiles are staged through shared memory with cp.async, two
+//    stages deep, rows padded by 16 bytes against bank conflicts. Eight
+//    warps each own a 64x32 sub-tile as 4x2 16x16x16 wmma fragments with
+//    float accumulators, the counterpart of the TPU kernel's f32 VMEM
 //    accumulator; the loop over k inside the block replaces the TPU's
 //    sequential k grid axis, since blocks run in no order on 132 SMs.
 //    Chunks past the ragged edge (or not 16-byte aligned) are loaded
 //    element by element and zero-filled; the epilogue rounds each f32 sum
 //    once to the operand dtype and writes with masks.
-//  - float32: a tiled SIMT kernel (128x128x8 block tile, 8x8 outputs per
-//    thread) with fmaf in true f32. No TF32: the f32 validation contract
-//    (atol = 1e-4 * k) needs the full mantissa.
+//  - simt (float32): a tiled SIMT kernel (128x128x8 block tile, 8x8
+//    outputs per thread) with fmaf in true f32. No TF32: the f32
+//    validation contract (atol = 1e-4 * k) needs the full mantissa.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // after its launch (0 = success). Launches on the caller's stream, never
@@ -35,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -301,12 +313,130 @@ dim3 grid_for(int m, int n) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 / fp16 on the Hopper GEMM tile (hopper_gemm.cuh): TMA + wgmma
+// ---------------------------------------------------------------------------
+
+namespace k1_hopper {
+
+struct Args {
+  CUtensorMap a;  // A [m, k], boxes of 128 rows x 64 k
+  CUtensorMap b;  // B [k, n], boxes of 64 k x 64 columns
+  void* c;        // C [m, n]
+  int m, n, k;
+};
+
+// Eight consecutive sums of row r from column col, rounded once to T and
+// stored 16 bytes at a time (n is a multiple of 8, so a chunk that starts
+// inside the row ends inside it); rows past m are not stored.
+template <typename T>
+struct StoreC {
+  T* c;
+  int m, n;
+  __device__ void operator()(int r, int col, const float* v) const {
+    if (r >= m || col >= n) return;
+    alignas(16) T vals[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) vals[e] = Cvt<T>::from_float(v[e]);
+    *reinterpret_cast<uint4*>(c + static_cast<size_t>(r) * n + col) =
+        *reinterpret_cast<const uint4*>(vals);
+  }
+};
+
+// The tile order: groups of RASTER tile rows, column by column inside a
+// group, so the blocks of one wave share a few panels of A and B in L2
+// (hopper::Tiles' plain row-major order measured slower at 8192^3 bf16 on
+// an H100).
+// Tile j's corner, from hopper::Tiles' geometry.
+constexpr int RASTER = 8;
+
+struct Raster {
+  int row0, col0;
+  __device__ Raster(const hopper::Tiles& t, int rows, int j) {
+    const int tiles_m = (rows + hopper::BM - 1) / hopper::BM;
+    const int group = j / (RASTER * t.across), first = group * RASTER;
+    const int height = tiles_m - first < RASTER ? tiles_m - first : RASTER;
+    const int local = j - group * RASTER * t.across;
+    row0 = (first + local % height) * hopper::BM;
+    col0 = (local / height) * hopper::BN;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(hopper::THREADS, 1)
+    gemm_wgmma(const __grid_constant__ Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  const hopper::Smem sm = hopper::smem_of(smem_raw);
+  const hopper::Tiles tiles(p.m, p.n);
+  if (threadIdx.x == 0) hopper::init_barriers(sm);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x / 32 == 0) {
+      hopper::Pipe pipe;
+      for (int j = blockIdx.x; j < tiles.count; j += gridDim.x) {
+        const Raster at(tiles, p.m, j);
+        hopper::load_tile(sm, pipe, &p.a, 0, &p.b, at.row0, at.col0, p.n, p.k);
+      }
+    }
+  } else {
+    hopper::consumer_registers();
+    hopper::Pipe pipe;
+    float acc[128];
+    const StoreC<T> st{static_cast<T*>(p.c), p.m, p.n};
+    for (int j = blockIdx.x; j < tiles.count; j += gridDim.x) {
+      const Raster at(tiles, p.m, j);
+      hopper::mma_tile<T>(sm, pipe, acc, p.k, wg - 1);
+      hopper::store_tile(sm, acc, wg - 1, at.row0, at.col0, st);
+    }
+  }
+}
+
+// One block an SM, or one a tile when there are fewer tiles.
+template <typename T>
+int launch(int dtype, const void* a, const void* b, void* c, int m, int n, int k,
+           cudaStream_t s) {
+  if (k < 1 || !hopper::tma_ok(a, k) || !hopper::tma_ok(b, n) || !hopper::tma_ok(c, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p;
+  int rc = hopper::encode_a(&p.a, dtype, a, m, k, 1, 0);
+  if (rc == 0) rc = hopper::encode_b(&p.b, dtype, b, k, n);
+  if (rc != 0) return rc;
+  p.c = c;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gemm_wgmma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             hopper::SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long count = static_cast<long long>((m + hopper::BM - 1) / hopper::BM) *
+                          ((n + hopper::BN - 1) / hopper::BN);
+  const int blocks = static_cast<int>(count < sms ? count : sms);
+  gemm_wgmma<T><<<blocks, hopper::THREADS, hopper::SMEM_BYTES, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k1_hopper
+
 extern "C" {
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. m, n >= 1; k >= 0.
-int ddlb_matmul(int dtype, const void* a, const void* b, void* c, int m,
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16; tile: 0 = simt (float32),
+// 1 = wmma, 2 = wgmma (16-bit dtypes). m, n >= 1; k >= 0 (k >= 1 on wgmma).
+int ddlb_matmul(int dtype, int tile, const void* a, const void* b, void* c, int m,
                 int n, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((dtype == 0) != (tile == 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile == 2) {
+    if (dtype == 1) return k1_hopper::launch<__half>(dtype, a, b, c, m, n, k, s);
+    if (dtype == 2) return k1_hopper::launch<__nv_bfloat16>(dtype, a, b, c, m, n, k, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tile != 0 && tile != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
       gemm_f32<<<grid_for<FBM, FBN>(m, n), F_THREADS, 0, s>>>(

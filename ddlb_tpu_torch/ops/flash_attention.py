@@ -33,11 +33,15 @@ may be ragged: the kernels mask their edges.
 The kernels (``csrc/flash_attention.cu``, whose design note gives the
 bound and what the design does about it): one block per (query tile,
 head) walks only the key tiles that its live band reaches, so the causal
-triangle costs half the square, as the TPU's triangular grid (K8a) does;
-bf16/fp16 multiply on the tensor cores (``mma.sync``) with float32 sums
-and the softmax state in registers, float32 runs a SIMT kernel in true
-float32. Built by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and
-called through ``ctypes`` on PyTorch's current stream.
+triangle costs half the square, as the TPU's triangular grid (K8a) does.
+K8a in bf16/fp16 runs ``flash_fwd_wgmma`` (entry point
+``ddlb_flash_forward_tri``), the Hopper kernel: a TMA producer warpgroup
+and two consumer warpgroups running ``wgmma`` over 128-row query tiles and
+128-key tiles, the softmax in base 2. K8b, K9 and the backward in
+bf16/fp16 run ``mma.sync`` kernels (``flash_mma`` for the forward cases)
+with float32 sums and the softmax state in registers; float32 runs SIMT
+kernels in true float32. Built by ``nvcc`` for ``sm_90a`` at first use
+(``_build.py``) and called through ``ctypes`` on PyTorch's current stream.
 
 Dispatch, as ``flash_attention`` (:1147-1167) states it: a window that
 covers every key at offset 0 collapses to ``window = 0``; a literal 0
@@ -47,7 +51,9 @@ everything else the rectangle (K8b). The backward follows :839-849
 literal offset 0 with square shapes, a mask and no window is the triangle
 (K10a/K10b), everything else the rectangle (K10c/K10d). ``LAUNCHES``
 counts kernel launches by case (``tri``, ``rect``, ``chunk``,
-``bwd_dq_tri``, ``bwd_dkv_tri``, ``bwd_dq_rect``, ``bwd_dkv_rect``). A CPU
+``bwd_dq_tri``, ``bwd_dkv_tri``, ``bwd_dq_rect``, ``bwd_dkv_rect``), and
+``FORWARD_TILES`` the forward and chunk launches by kernel (``wgmma``:
+``flash_fwd_wgmma``; ``mma``: ``flash_mma``; ``simt``: ``flash_f32``). A CPU
 tensor takes the plain PyTorch version beside each kernel
 (``flash_forward_plain``, ``flash_chunk_plain``, ``flash_backward_plain``),
 which follows the Pallas kernels' tile updates (``_online_softmax_update``,
@@ -77,6 +83,11 @@ NEG_INF = -1e30
 #: ``bwd_dkv_tri`` = K10b, ``bwd_dq_rect`` = K10c, ``bwd_dkv_rect`` = K10d
 LAUNCHES = {"tri": 0, "rect": 0, "chunk": 0, "bwd_dq_tri": 0, "bwd_dkv_tri": 0,
             "bwd_dq_rect": 0, "bwd_dkv_rect": 0}
+#: the forward's and the chunk fold's launches by kernel since the counts
+#: were last zeroed: ``wgmma`` = the Hopper K8a kernel (the triangle in
+#: bf16/fp16), ``mma`` = ``flash_mma`` (K8b and K9 in bf16/fp16), ``simt``
+#: = ``flash_f32`` (float32)
+FORWARD_TILES = {"wgmma": 0, "mma": 0, "simt": 0}
 
 #: how a chunk's keys relate to the queries (``flash_attention_chunk``)
 CHUNK_MODES = ("offset", "diagonal", "past")
@@ -98,8 +109,9 @@ Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, FORWARD_TILES):
+        for key in counts:
+            counts[key] = 0
 
 
 # -- the live band -------------------------------------------------------------
@@ -367,6 +379,10 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32,       # sq, skv, h, h_kv, dh
         f32, i32, i32, i32, ptr,       # scale, row_offset, causal, window, stream
     ]
+    lib.ddlb_flash_forward_tri.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr,  # dtype, q, k, v, o, lse
+        i32, i32, i32, i32, f32, ptr,  # sq, h, h_kv, dh, scale, stream
+    ]
     lib.ddlb_flash_chunk.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr,  # dtype, q, k, v, acc, m, l
         i32, i32, i32, i32, i32,            # sq, skv, h, h_kv, dh
@@ -382,7 +398,7 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32,
         f32, i32, i32, i32, i32, ptr,
     ]
-    for fn in (lib.ddlb_flash_forward, lib.ddlb_flash_chunk,
+    for fn in (lib.ddlb_flash_forward, lib.ddlb_flash_forward_tri, lib.ddlb_flash_chunk,
                lib.ddlb_flash_bwd_dq, lib.ddlb_flash_bwd_dkv):
         fn.restype = ctypes.c_int
     lib.ddlb_flash_error_string.argtypes = [ctypes.c_int]
@@ -408,6 +424,16 @@ def forward_case(sq: int, skv: int, row_offset: int, causal: bool,
     return ("tri" if tri else "rect"), window
 
 
+def forward_kernel(case: str, dtype: torch.dtype) -> str:
+    """The kernel a forward or chunk launch of ``case`` (``tri``, ``rect``
+    or ``chunk``) runs in ``dtype``: ``wgmma`` for the triangle in
+    bf16/fp16, ``simt`` for float32, ``mma`` otherwise."""
+    check_kernel_dtype(dtype)
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if case == "tri" else "mma"
+
+
 def flash_forward(
     q, k, v, *, scale: float, row_offset: int = 0, causal: bool = True,
     window: int = 0,
@@ -431,16 +457,24 @@ def flash_forward(
     lse = torch.empty((h, sq, 1), dtype=torch.float32, device=q.device)
     if sq == 0:
         return o, lse
+    kernel = forward_kernel(case, q.dtype)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ddlb_flash_forward(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), sq, skv, h, h_kv, dh, float(scale),
-            row_offset, int(bool(causal)), int(window), stream,
-        )
+        if kernel == "wgmma":
+            rc = lib.ddlb_flash_forward_tri(
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), sq, h, h_kv, dh, float(scale), stream,
+            )
+        else:
+            rc = lib.ddlb_flash_forward(
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), sq, skv, h, h_kv, dh, float(scale),
+                row_offset, int(bool(causal)), int(window), stream,
+            )
     LAUNCHES[case] += 1
-    _raise_on(rc, f"flash forward ({case})")
+    FORWARD_TILES[kernel] += 1
+    _raise_on(rc, f"flash forward ({case}, {kernel})")
     return o, lse
 
 
@@ -521,6 +555,7 @@ def flash_attention_chunk(
             CHUNK_MODES.index(causal), int(window), stream,
         )
     LAUNCHES["chunk"] += 1
+    FORWARD_TILES[forward_kernel("chunk", q.dtype)] += 1
     _raise_on(rc, "flash chunk")
     return carry
 

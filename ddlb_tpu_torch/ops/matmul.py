@@ -6,19 +6,31 @@ families call. ``matmul(a, b)`` computes ``a[m, k] @ b[k, n] -> [m, n]`` in
 the operand dtype with the sum kept in float32, for bfloat16, float16 and
 float32; other dtypes raise ``ValueError``.
 
-The kernel (``csrc/matmul.cu``) and its design note: at the main path's
+The kernels (``csrc/matmul.cu``) and their design note: at the main path's
 8192^3 bf16 the bf16 tensor cores bound it (2*m*n*k / 989 TFLOP/s = 1.11
-ms), not the 3 x 128 MiB of operands. bf16/fp16 run 128x128x32 block tiles
-staged through shared memory by ``cp.async`` into ``wmma`` 16x16x16
-fragments with f32 accumulators; float32 runs a tiled SIMT kernel in true
-f32 (no TF32). It is built by ``nvcc`` for ``sm_90a`` at first use
-(``_build.py``) and called through ``ctypes`` on PyTorch's current stream.
+ms), not the 3 x 128 MiB of operands. ``tile_for`` picks one of three
+tiles, each counted in ``TILES``:
+
+- ``wgmma``: bf16/fp16 whose rows of ``a`` and ``b`` are multiples of 16
+  bytes and whose bases are 16-byte aligned (TMA's rules). A persistent
+  kernel runs the Hopper GEMM tile of ``csrc/hopper_gemm.cuh`` (the one K2
+  and K6 run): one 384-thread block an SM over the 128x256 output tiles, a
+  TMA producer warp and two ``wgmma.m64n256k16`` consumer warpgroups. Its
+  grid is one-dimensional, so it has no row limit beyond 32-bit indices.
+- ``wmma``: other 16-bit widths; 128x128x32 block tiles staged through
+  shared memory by ``cp.async`` into ``wmma`` 16x16x16 fragments.
+- ``simt``: float32, a tiled SIMT kernel in true f32 (no TF32).
+
+They are built by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and
+called through ``ctypes`` on PyTorch's current stream.
 
 Dispatch: a CPU tensor takes ``matmul_plain``, the plain PyTorch version of
 the same function (used by the CPU tests and, on the card, by
 ``chip_smoke.py`` as the kernel's yardstick of correctness). A CUDA tensor
-launches the kernel or raises; there is no fallback. ``LAUNCHES`` counts
-kernel launches, so a run can show that it went through the kernel.
+launches the kernel ``tile_for`` names or raises; there is no fallback, from
+one tile to another or to the plain version. ``LAUNCHES`` counts kernel
+launches, so a run can show that it went through the kernel, and ``TILES``
+counts them by tile.
 """
 
 from __future__ import annotations
@@ -32,12 +44,38 @@ from ddlb_tpu_torch.ops import _build
 
 #: kernel launches since the count was last reset (plain calls excluded)
 LAUNCHES = 0
+#: the launches by tile since the counts were last reset
+TILES = {"wgmma": 0, "wmma": 0, "simt": 0}
 
 #: operand dtype -> the C entry point's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_TILE_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
 _INT_MAX = 2**31 - 1
-#: rows a launch covers: 128-row block tiles on a grid y extent of 65535
+#: rows a wmma or simt launch covers: 128-row block tiles on a grid y
+#: extent of 65535 (the wgmma kernel's grid is one-dimensional)
 _MAX_ROWS = 128 * 65535
+
+
+def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and ``TILES``."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for key in TILES:
+        TILES[key] = 0
+
+
+def tile_for(dtype: torch.dtype, k: int, n: int, *bases: int) -> str:
+    """K1's tile for ``[., k] @ [k, n]`` in ``dtype``: ``wgmma`` (the
+    Hopper tile) for bf16/fp16 when ``k`` and ``n`` times the element size
+    are multiples of 16 bytes and every base address in ``bases`` is
+    16-byte aligned (TMA's rules), and ``k > 0``; ``simt`` for float32;
+    ``wmma`` for 16-bit operands of other widths."""
+    check_dtype(dtype)
+    if dtype == torch.float32:
+        return "simt"
+    size = torch.empty((), dtype=dtype).element_size()
+    tma = (k * size) % 16 == 0 and (n * size) % 16 == 0 and all(b % 16 == 0 for b in bases)
+    return "wgmma" if tma and k > 0 else "wmma"
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,6 +131,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul")
     lib.ddlb_matmul.argtypes = [
         ctypes.c_int,
+        ctypes.c_int,
         ctypes.c_void_p,
         ctypes.c_void_p,
         ctypes.c_void_p,
@@ -118,8 +157,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul takes row-major contiguous operands")
     (m, k), n = a.shape, b.shape[1]
-    if max(m, n, k) > _INT_MAX or m > _MAX_ROWS:
-        raise ValueError(f"matmul shape out of the kernel's range: {m}, {n}, {k}")
+    tile = tile_for(a.dtype, k, n, a.data_ptr(), b.data_ptr())
+    if max(m, n, k) > _INT_MAX or (tile != "wgmma" and m > _MAX_ROWS):
+        raise ValueError(f"matmul shape out of the {tile} kernel's range: {m}, {n}, {k}")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
@@ -128,6 +168,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.ddlb_matmul(
             _DTYPE_CODES[a.dtype],
+            _TILE_CODES[tile],
             a.data_ptr(),
             b.data_ptr(),
             out.data_ptr(),
@@ -137,9 +178,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             stream,
         )
     LAUNCHES += 1
+    TILES[tile] += 1
     if rc != 0:
         raise RuntimeError(
-            f"K1 matmul launch failed: {lib.ddlb_error_string(rc).decode()} "
+            f"K1 matmul ({tile}) launch failed: {lib.ddlb_error_string(rc).decode()} "
             f"(cudaError {rc})"
         )
     return out

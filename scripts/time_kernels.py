@@ -1,0 +1,87 @@
+"""Time K1, K8a, K8b, K9 and K10a-K10d on one card, for one checkout.
+
+    python scripts/time_kernels.py --tree DIR [--label NAME]
+
+Runs ``chip_smoke.py``'s kernel phases of the checkout at ``DIR``
+(``kernel_phase_matmul``: K1; ``kernel_phase_flash``: K8a, K8b and K9;
+``kernel_phase_flash_serving``: K8a at the serving prefill's shape;
+``kernel_phase_flash_backward``: K10a-K10d), with that checkout's own
+package and kernels (built into ``DIR/build/ddlb_tpu_torch``), and prints
+one JSON line: the card's name and power limit, each kernel's entry (ms,
+plain ms, library ms, bound, max |err|), the build logs' ``ptxas``
+registers and spill stores, and the card's SM clock and power draw
+sampled while the phases run. Each phase checks its cases against the
+plain versions first and fails as ``chip_smoke.py`` does.
+
+To compare two commits on one card, unpack the other one with ``git
+archive`` into a directory ``.gitignore`` lists and run this script in
+turns, parent, change, change, parent, in one command: one process a
+tree, since each process imports one checkout's package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import threading
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from time_loopback import ptxas_usage, sample_clocks  # noqa: E402
+
+KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", required=True, help="root of the checkout to time")
+    parser.add_argument("--label", default=None)
+    args = parser.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no card: torch.cuda.is_available() is false")
+    import chip_smoke
+    import ddlb_tpu_torch
+    from ddlb_tpu_torch.ops import _build
+    from ddlb_tpu_torch.ops import flash_attention as fa
+    from ddlb_tpu_torch.ops import matmul as k1
+
+    if not os.path.abspath(ddlb_tpu_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"imported {ddlb_tpu_torch.__file__}, not the checkout at {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = chip_smoke.card_identity()
+    t0 = time.perf_counter()
+    _build.build("matmul", "flash_attention")
+    built = time.perf_counter() - t0
+    samples, stop = [], threading.Event()
+    sampler = threading.Thread(target=sample_clocks, args=(samples, stop), daemon=True)
+    sampler.start()
+    try:
+        entries = [chip_smoke.kernel_phase_matmul(k1, smi)]
+        forward, chunk = chip_smoke.kernel_phase_flash(fa, smi)
+        entries += [forward, forward["rect"], chunk]
+        serving = chip_smoke.kernel_phase_flash_serving(fa, smi)
+        torch.cuda.empty_cache()
+        entries += [serving, *chip_smoke.kernel_phase_flash_backward(fa, smi)]
+    finally:
+        stop.set()
+        sampler.join()
+    print(json.dumps({
+        "label": args.label or tree, "card": smi, "build_s": built,
+        "sm_mhz_min_max": [min(c for c, _ in samples), max(c for c, _ in samples)]
+        if samples else None,
+        "power_w_max": max(w for _, w in samples) if samples else None,
+        "ptxas": {name: ptxas_usage(_build.build_log(name))
+                  for name in ("matmul", "flash_attention")},
+        "kernels": {e["name"]: {key: e.get(key) for key in KEYS} for e in entries},
+    }))
+
+
+if __name__ == "__main__":
+    main()

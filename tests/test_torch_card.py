@@ -49,10 +49,12 @@ def test_kernel_matches_plain(cuda_device, m, n, k, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     a = _uniform((m, k), dtype, gen, cuda_device)
     b = _uniform((k, n), dtype, gen, cuda_device)
-    before = k1.LAUNCHES
+    before, tiles = k1.LAUNCHES, dict(k1.TILES)
     got = k1.matmul(a, b)
     torch.cuda.synchronize()
     assert k1.LAUNCHES == before + 1
+    tile = k1.tile_for(dtype, k, n)
+    assert k1.TILES == dict(tiles, **{tile: tiles[tile] + 1})
     want = k1.matmul_plain(a, b)
     assert got.shape == (m, n) and got.dtype == dtype
     if dtype == torch.float32:
@@ -75,6 +77,57 @@ def test_kernel_exact_on_integer_operands(cuda_device, m, n, k, dtype):
     got = k1.matmul(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, k1.matmul_plain(a, b))
+
+
+#: K1's Hopper tile at ragged widths: m not a multiple of 128, n not of
+#: 256, k not of 64 (rows still 16-byte multiples), and m past the rows a
+#: 2-D grid of 128-row tiles could cover (the old wmma kernel's limit)
+WGMMA_CASES = [
+    (300, 264, 72, torch.bfloat16),
+    (129, 520, 200, torch.float16),
+    (1000, 776, 520, torch.float16),
+    (64, 8, 8, torch.bfloat16),
+    (k1._MAX_ROWS + 1000, 8, 8, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,dtype", WGMMA_CASES)
+def test_wgmma_tile_matches_plain(cuda_device, m, n, k, dtype):
+    """Integer operands bit for bit, uniform ones within plain_gap_bound,
+    each call one launch of the wgmma tile."""
+    assert k1.tile_for(dtype, k, n) == "wgmma"
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for integer in (True, False):
+        if integer:
+            a = torch.randint(-4, 5, (m, k), generator=gen, device=cuda_device).to(dtype)
+            b = torch.randint(-4, 5, (k, n), generator=gen, device=cuda_device).to(dtype)
+        else:
+            a, b = _uniform((m, k), dtype, gen, cuda_device), _uniform((k, n), dtype, gen, cuda_device)
+        tiles = dict(k1.TILES)
+        got = k1.matmul(a, b)
+        torch.cuda.synchronize()
+        assert k1.TILES == dict(tiles, wgmma=tiles["wgmma"] + 1)
+        want = k1.matmul_plain(a, b)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            gap = (got.float() - want.float()).abs()
+            assert bool((gap <= k1.plain_gap_bound(a, b, got, want)).all())
+
+
+@pytest.mark.cuda
+def test_misaligned_base_takes_the_wmma_tile(cuda_device):
+    """A base that is not 16-byte aligned cannot be a TMA map: the wmma
+    tile takes it, and the result still matches the plain version."""
+    store = torch.randint(-4, 5, (64 * 64 + 1,), device=cuda_device).to(torch.bfloat16)
+    a = store[1:].view(64, 64)
+    assert k1.tile_for(a.dtype, 64, 64, a.data_ptr()) == "wmma"
+    tiles = dict(k1.TILES)
+    got = k1.matmul(a, a)
+    torch.cuda.synchronize()
+    assert k1.TILES == dict(tiles, wmma=tiles["wmma"] + 1)
+    assert torch.equal(got, k1.matmul_plain(a, a))
 
 
 @pytest.mark.cuda
@@ -146,10 +199,12 @@ def test_flash_forward_exact_on_band_inputs(cuda_device, case, dtype):
     q, k, v = _band_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
     kw = dict(scale=dh**-0.5, row_offset=off, causal=causal, window=window)
     case_name, _ = fa.forward_case(sq, skv, off, causal, window)
-    before = dict(fa.LAUNCHES)
+    kernel = fa.forward_kernel(case_name, dtype)
+    before, tiles = dict(fa.LAUNCHES), dict(fa.FORWARD_TILES)
     o, lse = fa.flash_forward(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.LAUNCHES[case_name] == before[case_name] + 1
+    assert fa.FORWARD_TILES == dict(tiles, **{kernel: tiles[kernel] + 1})
     o_plain, lse_plain = fa.flash_forward_plain(q, k, v, **kw)
     assert torch.equal(o, o_plain)
     torch.testing.assert_close(lse, lse_plain, rtol=1e-6, atol=0)
@@ -504,6 +559,36 @@ def test_quantized_member_runs_k7_and_validates(cuda_device, family):
 # the operand type before the tensor-core products, each scaled by the
 # magnitudes the plain tile loop sums (|dS||K|, |dS||Q|, P|dO|).
 
+#: K8a's Hopper kernel at ragged lengths (below one tile, one short of
+#: it, one past it, ragged past several) and GQA 8/2: (sq, h, h_kv)
+WGMMA_FLASH_CASES = [(1, 2, 2), (127, 2, 2), (129, 8, 2), (1000, 8, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", WGMMA_FLASH_CASES)
+def test_wgmma_flash_forward_matches_plain(cuda_device, case, dtype):
+    """The triangle on the wgmma kernel: exact on band inputs, within
+    plain_gap_bound and the lse tolerance on uniform and peaked ones,
+    every call one wgmma launch."""
+    sq, h, h_kv = case
+    dh = 128
+    kw = dict(scale=dh**-0.5)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    assert fa.forward_kernel(fa.forward_case(sq, sq, 0, True, 0)[0], dtype) == "wgmma"
+    tiles = dict(fa.FORWARD_TILES)
+    q, k, v = _band_qkv(sq, sq, h, h_kv, dh, dtype, gen, cuda_device)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_plain, lse_plain = fa.flash_forward_plain(q, k, v, **kw)
+    assert torch.equal(o, o_plain)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-6, atol=0)
+    _assert_forward_within_bound(*_uniform_qkv(sq, sq, h, h_kv, dh, dtype, gen, cuda_device), kw)
+    _assert_forward_within_bound(
+        *_peaked_qkv(sq, sq, h, h_kv, dh, dtype, gen, cuda_device, 0), kw)
+    assert fa.FORWARD_TILES == dict(tiles, wgmma=tiles["wgmma"] + 3)
+
+
 #: (sq, skv, h, h_kv, row_offset, col_offset, mode, window)
 BACKWARD_CASES = [
     (256, 256, 4, 4, 0, 0, "offset", 0),        # triangle (K10a/K10b)
@@ -590,6 +675,36 @@ def test_flash_attention_gradient_through_the_kernels(cuda_device, dtype):
         assert g.dtype == dtype
         torch.testing.assert_close(g.float(), r, rtol=2e-2 if half else 0,
                                    atol=3e-2 if half else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_forward_lse_feeds_the_backward(cuda_device, dtype):
+    """At 1024², the wgmma forward's lse (natural-log units) is what K10a and
+    K10b read: autograd through ``flash_attention`` against autograd of the
+    plain float32 einsum attention, within the tolerance of
+    ``test_flash_attention_gradient_through_the_kernels``."""
+    sq, h, dh = 1024, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = _uniform_qkv(sq, sq, h, h, dh, dtype, gen, cuda_device)
+    w = _uniform((sq, h, dh), torch.float32, gen, cuda_device)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    tiles, before = dict(fa.FORWARD_TILES), dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, scale=dh**-0.5)
+    grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert fa.FORWARD_TILES == dict(tiles, wgmma=tiles["wgmma"] + 1)
+    assert fa.LAUNCHES["bwd_dq_tri"] == before["bwd_dq_tri"] + 1
+    assert fa.LAUNCHES["bwd_dkv_tri"] == before["bwd_dkv_tri"] + 1
+    ref = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+    s = torch.einsum("qhd,khd->hqk", ref[0], ref[1]) * dh**-0.5
+    mask = torch.ones((sq, sq), dtype=torch.bool, device=cuda_device).tril()
+    p = torch.softmax(s.masked_fill(~mask, fa.NEG_INF), -1)
+    o_ref = torch.einsum("hqk,khd->qhd", p, ref[2])
+    want = torch.autograd.grad((o_ref * w).sum(), ref)
+    for g, r in zip(grads, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), r, rtol=2e-2, atol=3e-2)
 
 
 # -- K2 / K3: the ring collective matmuls, d virtual ranks on one card -------------

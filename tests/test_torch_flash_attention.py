@@ -242,3 +242,52 @@ def test_chunk_rejections():
         fa.flash_attention_chunk(
             torch.zeros((16, 3, DH)), q, q, fa.init_flash_carry(16, 3, DH), **kw
         )
+
+
+@pytest.mark.parametrize(
+    "case,dtype,kernel",
+    [
+        ("tri", torch.bfloat16, "wgmma"),
+        ("tri", torch.float16, "wgmma"),
+        ("tri", torch.float32, "simt"),
+        ("rect", torch.bfloat16, "mma"),
+        ("rect", torch.float16, "mma"),
+        ("rect", torch.float32, "simt"),
+        ("chunk", torch.bfloat16, "mma"),
+        ("chunk", torch.float16, "mma"),
+        ("chunk", torch.float32, "simt"),
+    ],
+)
+def test_forward_kernel_choice(case, dtype, kernel):
+    """The triangle in bf16/fp16 takes the Hopper wgmma kernel; the
+    rectangle and the chunk fold stay on flash_mma; float32 on the SIMT
+    kernel."""
+    assert fa.forward_kernel(case, dtype) == kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
+def test_forward_kernel_rejects_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="flash kernels take"):
+        fa.forward_kernel("tri", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("case", ["triangle", "offset", "window"])
+def test_cpu_forward_counts_no_kernel(case, dtype):
+    """A CPU tensor takes the plain version whatever kernel its case would
+    run on the card: no launch by case and none by kernel."""
+    sq, skv, h, h_kv, off, causal, window = FORWARD_CASES[case]
+    q, k, v = (t.to(dtype) for t in _torch(*_qkv(sq, skv, h, h_kv, seed=11)))
+    before, tiles = dict(fa.LAUNCHES), dict(fa.FORWARD_TILES)
+    kw = dict(scale=DH**-0.5, row_offset=off, causal=causal, window=window)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    assert fa.LAUNCHES == before and fa.FORWARD_TILES == tiles
+    o_plain, lse_plain = fa.flash_forward_plain(q, k, v, **kw)
+    assert torch.equal(o, o_plain) and torch.equal(lse, lse_plain)
+
+
+def test_reset_launches_zeroes_the_counts_by_kernel():
+    fa.FORWARD_TILES["wgmma"] += 3
+    fa.LAUNCHES["tri"] += 3
+    fa.reset_launches()
+    assert not any(fa.FORWARD_TILES.values()) and not any(fa.LAUNCHES.values())

@@ -178,3 +178,47 @@ def test_ptxas_usage_reads_registers_and_spills():
         "_Z17a2a_matmul_kernelN1_7A2AArgsE": {"spill_stores": 0, "registers": 128},
     }
     assert _build.ptxas_usage("") == {}
+
+
+@pytest.mark.parametrize(
+    "dtype,k,n,bases,tile",
+    [
+        (torch.bfloat16, 8192, 8192, (), "wgmma"),
+        (torch.float16, 520, 776, (0, 4096), "wgmma"),
+        (torch.bfloat16, 8, 8, (), "wgmma"),      # one 16-byte row
+        (torch.bfloat16, 520, 777, (), "wmma"),   # n rows of 1554 bytes
+        (torch.float16, 33, 64, (), "wmma"),      # k rows of 66 bytes
+        (torch.bfloat16, 64, 64, (2, 0), "wmma"),  # a base off 16 bytes
+        (torch.bfloat16, 64, 64, (0, 8), "wmma"),
+        (torch.bfloat16, 0, 64, (), "wmma"),      # an empty contraction
+        (torch.float32, 8192, 8192, (), "simt"),
+        (torch.float32, 7, 9, (), "simt"),
+    ],
+)
+def test_tile_for(dtype, k, n, bases, tile):
+    """bf16/fp16 with 16-byte rows and aligned bases take the Hopper tile,
+    other 16-bit widths the wmma tile, float32 the SIMT kernel."""
+    assert k1.tile_for(dtype, k, n, *bases) == tile
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
+def test_tile_for_rejects_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="K1 matmul takes"):
+        k1.tile_for(dtype, 64, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_cpu_tensor_counts_no_tile(dtype):
+    """A CPU tensor takes the plain version whatever tile its widths would
+    run on the card: no launch, none by tile."""
+    a, b = (torch.from_numpy(x).to(dtype) for x in _operands(64, 32, 48, seed=3))
+    before, tiles = k1.LAUNCHES, dict(k1.TILES)
+    got = k1.matmul(a, b)
+    assert k1.LAUNCHES == before and k1.TILES == tiles
+    assert torch.equal(got, k1.matmul_plain(a, b))
+
+
+def test_reset_launches_zeroes_the_tiles():
+    k1.TILES["wgmma"] += 2
+    k1.reset_launches()
+    assert k1.LAUNCHES == 0 and not any(k1.TILES.values())
