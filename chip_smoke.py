@@ -26,8 +26,9 @@ Phases, in order; any failure exits non-zero without the final line:
    windowed cases; each pass timed beside SDPA's backward), K2 and K3 (the
    ring collective matmuls) in loopback, d virtual ranks in one launch on
    the card, at d = 2, 3 and 4 (the GEMM path's per-rank shapes at d = 4,
-   a ragged case, fp16 and f32), bit for bit on integer operands and within
-   their bounds against the one-process plain ring, timed at d = 4; K4 and
+   ragged cases, fp16 and f32, each on the tile its widths choose and
+   counted by tile), bit for bit on integer operands and within their
+   bounds against the one-process plain ring, timed at d = 4; K4 and
    K5 (the pure ring all-gather and reduce-scatter) and K6 (the fused MoE
    all-to-all expert GEMM) in loopback at d = 2, 3 and 4 (the collectives
    and ep paths' per-rank shapes at d = 4, a ragged case, fp16 and f32):
@@ -70,10 +71,10 @@ Phases, in order; any failure exits non-zero without the final line:
    ``mlp_kernel=int8`` train row; K8a, K8b, K9, K10a-K10d, K7), with each
    row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
    be valid with a finite time, and the counts must be exactly what the
-   rows launch, every K1 launch of every path on the Hopper tile and every
-   K8a launch on the ``wgmma`` forward (``check_tiles``); then the LM
-   head's product before and after it moved to
-   the tensor cores (``head_phase``: the full-width train row and a pallas
+   rows launch, every K1, K2 and K3 launch of every path on the Hopper
+   tile and every K8a launch on the ``wgmma`` forward (``check_tiles``);
+   then the LM head's product before and after it moved to the tensor
+   cores (``head_phase``: the full-width train row and a pallas
    decode row, each with the old float32 head and the new one);
 4. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -630,9 +631,10 @@ def kernel_phase_matmul(k1, smi):
 
 #: loopback cases, (d, m_loc, n, k a rank, dtype): first the per-rank shapes
 #: of the GEMM path's 8192^3 bf16 at d = 4 (K2: [2048, 8192] @ [8192, 8192];
-#: K3: [8192, 2048] @ [2048, 8192]), then d = 2 and 3, a ragged case K1
-#: takes, fp16 and f32; K2 adds 16-bit rows that are not a multiple of 16
-#: bytes (its wmma tile: TMA cannot load them)
+#: K3: [8192, 2048] @ [2048, 8192]), then d = 2 and 3, a ragged case the
+#: Hopper tile takes, fp16 and f32; K3 adds a second ragged 16-bit case
+#: (m_loc, n and k/d off the tile's 128, 256 and 64); both add 16-bit rows
+#: that are not a multiple of 16 bytes (the wmma tile: TMA cannot load them)
 RING_AG_CASES = [
     (4, PATH_MNK // 4, PATH_MNK, PATH_MNK, "bfloat16"),
     (2, 1024, 2048, 2048, "bfloat16"),
@@ -647,6 +649,8 @@ RING_RS_CASES = [
     (3, 1000, 776, 520, "bfloat16"),
     (3, 256, 384, 512, "float16"),
     (4, 512, 1024, 512, "float32"),
+    (4, 130, 264, 72, "float16"),
+    (3, 130, 262, 74, "bfloat16"),
 ]
 
 
@@ -685,7 +689,8 @@ def check_ring(cm, k1, kind, d, m_loc, n, k, dtype_name):
     what = f"K{2 if kind == 'ag' else 3} loopback d={d} {m_loc}x{n}x{k} {dtype_name}"
     loopback = cm.ring_ag_matmul_loopback if kind == "ag" else cm.ring_matmul_rs_loopback
     virtual = cm.ring_ag_matmul_virtual if kind == "ag" else cm.ring_matmul_rs_virtual
-    tiles_before = dict(cm.TILES)
+    counts = cm.TILES if kind == "ag" else cm.RS_TILES
+    tiles_before = dict(counts)
     x, y = ring_operands(kind, d, m_loc, n, k, dtype, gen, integer=True)
     got, want = loopback(x, y), virtual(x, y)
     torch.cuda.synchronize()
@@ -694,13 +699,12 @@ def check_ring(cm, k1, kind, d, m_loc, n, k, dtype_name):
     x, y = ring_operands(kind, d, m_loc, n, k, dtype, gen, integer=False)
     got, want = loopback(x, y), virtual(x, y)
     torch.cuda.synchronize()
-    if kind == "ag":
-        # K2's two launches ran the tile its widths choose (K3 keeps K1's)
-        tile = cm.tile_for(dtype, k, n)
-        tiles_want = dict(tiles_before, **{tile: tiles_before[tile] + 2})
-        if cm.TILES != tiles_want:
-            fail(f"{what}: K2 launches by tile {cm.TILES}, expected {tiles_want}")
-        what += f" ({tile} tile)"
+    # both launches ran the tile the widths choose
+    tile = cm.tile_for(dtype, k, n)
+    tiles_want = dict(tiles_before, **{tile: tiles_before[tile] + 2})
+    if counts != tiles_want:
+        fail(f"{what}: launches by tile {counts}, expected {tiles_want}")
+    what += f" ({tile} tile)"
     if dtype_name == "float32":
         bounds = [torch.full_like(w, 1e-5 * k, dtype=torch.float32) for w in want]
         text = f"exact on integers; atol {1e-5 * k:g}"
@@ -762,8 +766,9 @@ def kernel_phase_ring(cm, k1, smi):
                 main = (case, result)
             torch.cuda.empty_cache()
         (d, m_loc, n, k, _), (max_err, tol, (x, y)) = main
-        if kind == "ag" and cm.tile_for(x[0].dtype, k, n) != "wgmma":
-            fail(f"K2 at the path's shapes would run the {cm.tile_for(x[0].dtype, k, n)} tile")
+        if cm.tile_for(x[0].dtype, k, n) != "wgmma":
+            fail(f"{name} at the path's shapes would run the "
+                 f"{cm.tile_for(x[0].dtype, k, n)} tile")
         ring = cm.loopback_ring(kind, d, m_loc * (k if kind == "ag" else n), x[0].dtype, "cuda")
         if kind == "ag":
             gathered = torch.cat(x)
@@ -2241,19 +2246,24 @@ def head_phase(run_benchmark, smi):
     return medians
 
 
-def check_tiles(what, k1, fa):
-    """Every K1 launch of a path ran the Hopper tile, every K8a launch the
-    wgmma forward and every K8b and K9 launch ``flash_mma`` (the main paths
-    are bf16, at 16-byte widths). Returns the path's launches by tile."""
-    want_k1 = {"wgmma": k1.LAUNCHES, "wmma": 0, "simt": 0}
-    if k1.TILES != want_k1:
-        fail(f"K1's launches by tile on {what}: {k1.TILES}, expected {want_k1}")
+def check_tiles(what, k1, cm, fa):
+    """Every K1, K2 and K3 launch of a path ran the Hopper tile, every K8a
+    launch the wgmma forward and every K8b and K9 launch ``flash_mma`` (the
+    main paths are bf16, at 16-byte widths). Returns the path's launches by
+    tile."""
+    for name, tiles, launched in (("K1", k1.TILES, k1.LAUNCHES),
+                                  ("K2", cm.TILES, cm.LAUNCHES["ag"]),
+                                  ("K3", cm.RS_TILES, cm.LAUNCHES["rs"])):
+        want = {"wgmma": launched, "wmma": 0, "simt": 0}
+        if tiles != want:
+            fail(f"{name}'s launches by tile on {what}: {tiles}, expected {want}")
     want_fa = {"wgmma": fa.LAUNCHES["tri"], "mma": fa.LAUNCHES["rect"] + fa.LAUNCHES["chunk"],
                "simt": 0}
     if fa.FORWARD_TILES != want_fa:
         fail(f"the flash forward's launches by kernel on {what}: {fa.FORWARD_TILES}, "
              f"expected {want_fa}")
-    return {"k1": dict(k1.TILES), "flash_forward": dict(fa.FORWARD_TILES)}
+    return {"k1": dict(k1.TILES), "k2": dict(cm.TILES), "k3": dict(cm.RS_TILES),
+            "flash_forward": dict(fa.FORWARD_TILES)}
 
 
 def main():
@@ -2336,7 +2346,6 @@ def main():
         rows += drive_path(run_benchmark, "cuda", primitive,
                            (PATH_MNK, PATH_MNK, PATH_MNK), implementations)
     gemm_launches = {"k1": k1.LAUNCHES, **cm.LAUNCHES}
-    gemm_tiles = dict(cm.TILES)
     others = {**fa.LAUNCHES, **da.LAUNCHES, "int8": qm.LAUNCHES, **trio_counts()}
     # each cuda row runs its kernel once per warmup, per timed iteration
     # and for validation: K1 under xla_collective, K2 (tp_columnwise) or K3
@@ -2352,13 +2361,9 @@ def main():
             expected["k1"] += per_row
     if gemm_launches != expected or not all(expected.values()):
         fail(f"K1/K2/K3 launched {gemm_launches} on the GEMM path, expected {expected}")
-    # K2 at 8192^3 bf16 runs the Hopper tile, every launch
-    if gemm_tiles != {"wgmma": expected["ag"], "wmma": 0, "simt": 0}:
-        fail(f"K2's launches by tile on the GEMM path: {gemm_tiles}, expected "
-             f"{expected['ag']} on wgmma")
     if any(others.values()):
         fail(f"other kernels launched on the GEMM path: {others}")
-    tiles["gemm"] = check_tiles("the GEMM path", k1, fa)
+    tiles["gemm"] = check_tiles("the GEMM path", k1, cm, fa)
     launches["gemm"] = gemm_launches
     print(f"GEMM path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2393,7 +2398,7 @@ def main():
     if am.TILES != {"wgmma": trio_launches["k6"], "simt": 0}:
         fail(f"K6's launches by tile on the trio path: {am.TILES}, expected "
              f"{trio_launches['k6']} on wgmma")
-    tiles["trio"] = check_tiles("the trio path", k1, fa)
+    tiles["trio"] = check_tiles("the trio path", k1, cm, fa)
     launches["trio"] = {key: n for key, n in trio_launches.items() if n}
     print(f"trio path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2413,7 +2418,7 @@ def main():
              f"path, expected {expected}")
     if any(others.values()):
         fail(f"K1, K7 or the decode kernels launched on the attention path: {others}")
-    tiles["attention"] = check_tiles("the attention path", k1, fa)
+    tiles["attention"] = check_tiles("the attention path", k1, cm, fa)
     launches["attention"] = flash_launches
     print(f"attention path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2424,7 +2429,7 @@ def main():
         fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
     if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
         fail(f"K2-K6 launched on the serving path: {cm.LAUNCHES} {trio_counts()}")
-    tiles["serving"] = check_tiles("the serving path", k1, fa)
+    tiles["serving"] = check_tiles("the serving path", k1, cm, fa)
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2436,14 +2441,14 @@ def main():
         fail(f"the training path did not launch {missing}: {training_launches}")
     if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
         fail(f"K2-K6 launched on the training path: {cm.LAUNCHES} {trio_counts()}")
-    tiles["training"] = check_tiles("the training path", k1, fa)
+    tiles["training"] = check_tiles("the training path", k1, cm, fa)
     launches["training"] = training_launches
     print(f"training path done at {time.perf_counter() - t_start:.1f} s")
 
     head_phase(run_benchmark, smi)
     print(f"head product phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
-    print(f"K1 and flash forward launches by tile, by path: {json.dumps(tiles)}")
+    print(f"K1, K2, K3 and flash forward launches by tile, by path: {json.dumps(tiles)}")
 
     # 4. results
     def total(key):
@@ -2470,11 +2475,13 @@ def main():
         entry["launches"] = total(key)
     for entry, key in zip(trio_entries, ("k4", "k5", "k6")):
         entry["launches"] = total(key)
-    # K2 and K6 ran the Hopper tile at the paths' shapes (asserted above)
+    # K2, K3 and K6 ran the Hopper tile at the paths' shapes (asserted above)
     for entry, library, kernel in ((ring_entries[0], "collective_matmul", "ring_ag_wgmma_kernel"),
+                                   (ring_entries[1], "collective_matmul", "ring_rs_wgmma_kernel"),
                                    (trio_entries[2], "alltoall_matmul", "a2a_wgmma_kernel")):
         entry["tile"] = "wgmma"
         entry["ptxas"] = ptxas_registers(library, kernel)
+    trio_entries[1]["ptxas"] = ptxas_registers("ring_collectives", "ring_reduce_scatter_kernel")
     print(json.dumps({"kernels": [matmul_entry, *ring_entries, *trio_entries, int8_entry,
                                   forward_entry, rect_entry, chunk_entry,
                                   *backward_entries, decode_entry, paged_entry]}))

@@ -22,7 +22,7 @@ CUDA events, after a barrier, the median of ``--iterations`` calls of:
   the port never calls them.
 
 Prints one JSON line on rank 0 with the slowest rank's median of each, in
-milliseconds, the card's name, and the GEMM tile K2 and K6 ran on
+milliseconds, the card's name, and the GEMM tile K2, K3 and K6 ran on
 (``tiles``: their launches by tile in this run, every one of them on the
 tile named, and the blocks a launch of each ran).
 """
@@ -118,6 +118,9 @@ def main(argv=None) -> None:
     tiles = {
         "ring_ag_matmul": {"tile": cm.tile_for(torch.bfloat16, k, n), "launches": dict(cm.TILES),
                            "blocks": cm.grid_blocks("ag", torch.bfloat16, k, n, 1)},
+        "ring_matmul_rs": {"tile": cm.tile_for(torch.bfloat16, k // d, n),
+                           "launches": dict(cm.RS_TILES),
+                           "blocks": cm.grid_blocks("rs", torch.bfloat16, k // d, n, 1)},
         "alltoall_expert_matmul": {"tile": am.tile_for(torch.bfloat16),
                                    "launches": dict(am.TILES),
                                    "blocks": am.grid_blocks(torch.bfloat16, 1)},

@@ -40,14 +40,33 @@
 //    and signal its arrival counter, so every block puts and no SM is kept
 //    from the GEMM. The steps' tiles go round robin over the blocks as one
 //    sequence.
-//  - K2 on float32 (SimtTile, K1's f32 kernel) and on 16-bit operands of
-//    other widths (WmmaTile, K1's wmma structure), and K3 always: 256
-//    threads; the first blocks of K2's grid are put blocks and the rest walk
-//    128x128 output tiles.
-//  - K3: every block is a GEMM block; the epilogue waits for the received
-//    accumulator (so the inbound copy overlaps the main loop), folds it in
-//    and stores the sum straight into the right neighbour's slot (or the
-//    output at the last step): the put is the epilogue's store.
+//  - K3 on the same Hopper tile (bf16/fp16, 16-byte rows of k/d and n):
+//    every block is a GEMM block and the epilogue's store is the put. A is
+//    local, so the producer's TMA thread loads every step's tiles without
+//    waiting on a flag (A as a 3-D map whose depth is the chunk: a ragged
+//    chunk's last tile fills with zeros, never the next chunk's rows) and
+//    runs ahead into the next step while the consumers wait on the ring.
+//    Before the first fold of step t one consumer thread acquires the
+//    step's arrival counter (and, for 2 <= t < d - 1, the right
+//    neighbour's credit for the slot it overwrites) and releases the 256
+//    consumer threads on their named barrier. The epilogue (fold_tile)
+//    reads the received accumulator as one 16-byte ld.global.cg per eight
+//    elements, issued four 32-column chunks ahead of their use so a tile's
+//    loads are in flight together, folds it and stores the sum with
+//    16-byte stores into the right neighbour's slot (t + 1) % 2, or the
+//    output at the last step. The tiles of a step go in K1's grouped
+//    order (hopper::Raster), so a wave of blocks shares panels of A and B
+//    in L2 instead of streaming all of B once a tile row. After
+//    the step's tiles the consumers signal the right neighbour's arrival
+//    counter and credit the left one for slot t % 2 (they alone read the
+//    slots). The producer warpgroup's three other warps have no put to do.
+//    At d = 1 K3 is one step that stores the GEMM into the output.
+//  - K2 and K3 on float32 (SimtTile, K1's f32 kernel) and on 16-bit
+//    operands of other widths (WmmaTile, K1's wmma structure): 256
+//    threads; the first blocks of K2's grid are put blocks and the rest
+//    walk 128x128 output tiles; every block of K3 is a GEMM block whose
+//    epilogue waits for the received accumulator, folds it in and stores
+//    the sum as above.
 //  - Credits: after step t >= 1 every block tells the left neighbour that
 //    it is done with slot t % 2 (in the Hopper tile: once the puts have
 //    read it and every TMA load from it has landed, not merely been
@@ -57,8 +76,8 @@
 //    previous call, and the last credits are drained.
 //  - Flags never reset: each step has its own arrival and credit counter,
 //    each grows by the same count every call (the arrival counter by the
-//    putting blocks: every block in the Hopper tile, the put blocks
-//    otherwise; a ring serves one tile), the host passes the call's epoch
+//    putting blocks: every block in the Hopper tile and in K3, K2's put
+//    blocks otherwise; a ring serves one tile), the host passes the call's epoch
 //    (the number of earlier calls on the buffer) and waits compare with
 //    >= modulo 2^32. Signals are red.release.sys after a system fence;
 //    waits are ld.acquire.sys. Slot data is read through L2 only
@@ -66,9 +85,9 @@
 //  - Loopback: gridDim.y = d runs d virtual ranks on one card, each with
 //    its own buffer in that card's memory: the same protocol, on one card.
 //  - Tensor maps are built on the host for every launch and passed by
-//    value (__grid_constant__): per virtual rank the shard, the two slots
-//    as one 3-D map and B, 24 maps at most, so the argument struct stays
-//    under the classic 4 KB of kernel parameters.
+//    value (__grid_constant__): per virtual rank K2's shard, its two slots
+//    as one 3-D map and B (24 maps at most), K3's chunked A and B, so the
+//    argument structs stay under the classic 4 KB of kernel parameters.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // after its launch (0 = success). Launches on the caller's stream, never
@@ -95,7 +114,10 @@ constexpr int MAX_RANKS = 8;
 // aggregate count would let a block that ran ahead to a later step stand
 // in for one still at work on an earlier one)
 constexpr int ARRIVE = 0, CREDIT = 32, BARRIER = 64;
-constexpr int FLAG_BYTES = 1024;  // the slots start here
+// the slots start here: every ring of K2-K5 has this layout, and K5's
+// per-block flags (csrc/ring_collectives.cu) take the words past the first
+// 1 KB, which K2 and K3 leave unused
+constexpr int FLAG_BYTES = 20480;
 
 struct RingArgs {
   // per virtual rank (blockIdx.y); index 0 only with one rank a process
@@ -439,6 +461,23 @@ struct StoreRows {
   }
 };
 
+// Eight elements at src as float32 through L2 only, the first `avail` of
+// them (the rest 0): 16-byte ld.global.cg when whole and aligned, else one
+// element at a time.
+template <typename T>
+__device__ __forceinline__ void load8(const T* src, int avail, float* w) {
+  if (avail >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    alignas(16) T vals[8];
+#pragma unroll
+    for (int q = 0; q < static_cast<int>(8 * sizeof(T) / 16); ++q)
+      reinterpret_cast<uint4*>(vals)[q] = __ldcg(reinterpret_cast<const uint4*>(src) + q);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e] = Cvt<T>::to_float(vals[e]);
+  } else {
+    for (int e = 0; e < 8; ++e) w[e] = e < avail ? Cvt<T>::to_float(ldcg(src + e)) : 0.0f;
+  }
+}
+
 // K3: partial = round(sum); with a received accumulator,
 // round(float(partial) + float(acc_in)); stored at dst (the right
 // neighbour's slot, or the output at the last step).
@@ -455,8 +494,10 @@ struct StoreFold {
     for (int e = 0; e < 8; ++e)
       w[e] = Cvt<T>::to_float(Cvt<T>::from_float(v[e]));
     if (acc_in != nullptr) {
-      for (int e = 0; e < 8 && c + e < n; ++e)
-        w[e] += Cvt<T>::to_float(ldcg(acc_in + at + e));
+      float in[8];
+      load8(acc_in + at, n - c, in);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w[e] += in[e];
     }
     store8(dst + at, w, n - c);
   }
@@ -667,6 +708,145 @@ __global__ void __launch_bounds__(THREADS) ring_matmul_rs_kernel(RingArgs p) {
   drain(mine, d, (e + 1) * G);
 }
 
+// K3's epilogue on the Hopper tile: hopper::store_tile's staging
+// (hopper::EpiStage) with the fold of StoreFold, for rows of n (a multiple
+// of 8) and 16-byte aligned dst and acc_in. The received accumulator's 16
+// bytes of each lane's store are loaded FOLD_AHEAD column chunks ahead of
+// their use, so a tile's loads overlap each other and the staging instead
+// of each one waiting in turn; a chunk's accumulator registers are dead
+// once it is staged, which makes room for the loads in flight.
+constexpr int FOLD_AHEAD = 4;
+
+template <typename T>
+__device__ __forceinline__ void fold_tile(const hopper::Smem& sm, const float (&d)[128],
+                                          int wg, int row0, int col0, T* dst,
+                                          const T* acc_in, int rows, int n) {
+  constexpr int CHUNKS = hopper::BN / hopper::EPI_COLS;
+  const hopper::EpiStage ep(sm, wg, row0, col0);
+  uint4 in[CHUNKS][2];
+  // the received 16 bytes of chunk `chunk`, call h (zeros past the edge)
+  auto load = [&](int chunk, int h) {
+    const int row = ep.row(h), col = ep.col(chunk, h);
+    in[chunk][h] = make_uint4(0u, 0u, 0u, 0u);
+    if (acc_in != nullptr && row < rows && col < n)
+      in[chunk][h] = __ldcg(reinterpret_cast<const uint4*>(acc_in + static_cast<size_t>(row) * n + col));
+  };
+#pragma unroll
+  for (int chunk = 0; chunk < FOLD_AHEAD; ++chunk) {
+    load(chunk, 0);
+    load(chunk, 1);
+  }
+#pragma unroll
+  for (int chunk = 0; chunk < CHUNKS; ++chunk) {
+    if (chunk + FOLD_AHEAD < CHUNKS) {
+      load(chunk + FOLD_AHEAD, 0);
+      load(chunk + FOLD_AHEAD, 1);
+    }
+    ep.put(d, chunk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ep.row(h), col = ep.col(chunk, h);
+      if (row < rows && col < n) {
+        const T* got = reinterpret_cast<const T*>(&in[chunk][h]);
+        const float* v = ep.sums(h);
+        float w[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          w[e] = Cvt<T>::to_float(Cvt<T>::from_float(v[e]));
+          if (acc_in != nullptr) w[e] += Cvt<T>::to_float(got[e]);
+        }
+        store8(dst + static_cast<size_t>(row) * n + col, w, 8);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// K3 on the Hopper tile (bf16 / fp16, TMA's widths).
+struct RingRsTmaArgs {
+  // per virtual rank (blockIdx.y): A [d * m_loc, k] as a 3-D map
+  // {k, m_loc, d} whose depth is the chunk, B [k, n]
+  CUtensorMap a[MAX_RANKS];
+  CUtensorMap b[MAX_RANKS];
+  void* out[MAX_RANKS];
+  unsigned char* buf[MAX_RANKS];
+  int rank0, d;
+  int m_loc, n, k;  // k: K3's k / d
+  long long slot_stride;
+  unsigned epoch;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(hopper::THREADS, 1)
+    ring_rs_wgmma_kernel(const __grid_constant__ RingRsTmaArgs p) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = smem_of(smem_raw);
+  const int y = blockIdx.y, d = p.d, r = p.rank0 + y;
+  const int right = (r + 1) % d, left = (r + d - 1) % d;
+  const unsigned G = gridDim.x, e = p.epoch;
+  unsigned* mine = flags_of(p, r);
+  const Tiles tiles(p.m_loc, p.n);
+
+  if (threadIdx.x == 0) init_barriers(sm);
+  entry_barrier(p, r);  // its __syncthreads also publishes the barriers
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    producer_registers();
+    // warps 1-3 have no puts to copy: the consumers' stores are the puts
+    if (threadIdx.x >= 32) return;
+    // every step's loads, ahead of the ring: A is this rank's own
+    Pipe pipe;
+    for (int t = 0; t < d; ++t) {
+      const int chunk = (r + d - 1 - t) % d;
+      for (int j = first_tile(t * tiles.count); j < tiles.count; j += G) {
+        const Raster at(tiles, p.m_loc, j);
+        load_tile(sm, pipe, &p.a[y], chunk, &p.b[y], at.row0, at.col0, p.n, p.k);
+      }
+    }
+    // every credit of the call: the right neighbour is done with our puts
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      for (int t = 1; t < d; ++t) spin_wait(mine + CREDIT + t, (e + 1) * G);
+    }
+    return;
+  }
+  consumer_registers();
+  const int tid = threadIdx.x - 128;
+  Pipe pipe;
+  float acc[128];
+  for (int t = 0; t < d; ++t) {
+    T* dst = t < d - 1 ? slot_of<T>(p, right, (t + 1) & 1) : static_cast<T*>(p.out[y]);
+    const T* acc_in = t > 0 ? slot_of<T>(p, r, t & 1) : nullptr;
+    bool ready = false;
+    for (int j = first_tile(t * tiles.count); j < tiles.count; j += G) {
+      mma_tile<T>(sm, pipe, acc, p.k, wg - 1);
+      if (!ready) {
+        // the accumulator of step t has landed (the left neighbour's
+        // epilogues of step t - 1), and every block of the right neighbour
+        // is done with the slot this step writes (its step t - 1)
+        if (tid == 0) {
+          if (t > 0) spin_wait(mine + ARRIVE + t, (e + 1) * G);
+          if (t >= 2 && t < d - 1) spin_wait(mine + CREDIT + t - 1, (e + 1) * G);
+        }
+        named_sync(BAR_CONSUMER, CONSUMER_THREADS);
+        ready = true;
+      }
+      const Raster at(tiles, p.m_loc, j);
+      fold_tile(sm, acc, wg - 1, at.row0, at.col0, dst, acc_in, p.m_loc, p.n);
+    }
+    // publish this step's puts to the right neighbour; this block is done
+    // with slot t % 2
+    if (d > 1) {
+      __threadfence_system();
+      named_sync(BAR_CONSUMER, CONSUMER_THREADS);
+      if (tid == 0) {
+        if (t < d - 1) red_release_add(flags_of(p, right) + ARRIVE + t + 1, 1u);
+        if (t > 0) red_release_add(flags_of(p, left) + CREDIT + t, 1u);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -682,8 +862,27 @@ int launch(K kernel, RingArgs& p, int vranks, bool puts, cudaStream_t s) {
   return launch_coop(kernel, p, blocks, vranks, THREADS, 0, s);
 }
 
-// K2 on the Hopper tile: the tensor maps of every virtual rank, then one
-// launch of hopper::THREADS-thread blocks with hopper::SMEM_BYTES each.
+// A Hopper-tile launch of K2 or K3 (args p, tensor maps filled): the
+// fields both copy from q, then one launch of hopper::THREADS-thread blocks
+// with hopper::SMEM_BYTES each.
+template <typename K, typename Args>
+int launch_tma(K kernel, Args& p, const RingArgs& q, int vranks, cudaStream_t s) {
+  for (int i = 0; i < q.d; ++i) p.buf[i] = q.buf[i];
+  p.rank0 = q.rank0;
+  p.d = q.d;
+  p.m_loc = q.m_loc;
+  p.n = q.n;
+  p.k = q.k;
+  p.slot_stride = q.slot_stride;
+  p.epoch = q.epoch;
+  int blocks = 0;
+  const int rc = grid_for(kernel, hopper::THREADS, hopper::SMEM_BYTES, vranks, &blocks);
+  if (rc != 0) return rc;
+  return launch_coop(kernel, p, blocks, vranks, hopper::THREADS, hopper::SMEM_BYTES, s);
+}
+
+// K2 on the Hopper tile: the tensor maps of every virtual rank, then the
+// launch.
 template <typename T>
 int launch_wgmma(int dtype, const RingArgs& q, int vranks, cudaStream_t s) {
   RingTmaArgs p;
@@ -701,20 +900,26 @@ int launch_wgmma(int dtype, const RingArgs& q, int vranks, cudaStream_t s) {
     p.a[y] = q.a[y];
     p.out[y] = q.out[y];
   }
-  for (int i = 0; i < q.d; ++i) p.buf[i] = q.buf[i];
-  p.rank0 = q.rank0;
-  p.d = q.d;
-  p.m_loc = q.m_loc;
-  p.n = q.n;
-  p.k = q.k;
-  p.slot_stride = q.slot_stride;
-  p.epoch = q.epoch;
-  int blocks = 0;
-  const int rc = grid_for(ring_ag_wgmma_kernel<T>, hopper::THREADS, hopper::SMEM_BYTES,
-                          vranks, &blocks);
-  if (rc != 0) return rc;
-  return launch_coop(ring_ag_wgmma_kernel<T>, p, blocks, vranks, hopper::THREADS,
-                     hopper::SMEM_BYTES, s);
+  return launch_tma(ring_ag_wgmma_kernel<T>, p, q, vranks, s);
+}
+
+// K3 on the Hopper tile: A's and B's maps for every virtual rank, then the
+// launch.
+template <typename T>
+int launch_rs_wgmma(int dtype, const RingArgs& q, int vranks, cudaStream_t s) {
+  RingRsTmaArgs p;
+  const uint64_t chunk_bytes = static_cast<uint64_t>(q.m_loc) * q.k * sizeof(T);
+  if ((q.slot_stride * static_cast<long long>(sizeof(T))) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int y = 0; y < vranks; ++y) {
+    if (!hopper::tma_ok(q.a[y], q.k) || !hopper::tma_ok(q.b[y], q.n))
+      return static_cast<int>(cudaErrorInvalidValue);
+    int rc = hopper::encode_a(&p.a[y], dtype, q.a[y], q.m_loc, q.k, q.d, chunk_bytes);
+    if (rc == 0) rc = hopper::encode_b(&p.b[y], dtype, q.b[y], q.k, q.n);
+    if (rc != 0) return rc;
+    p.out[y] = q.out[y];
+  }
+  return launch_tma(ring_rs_wgmma_kernel<T>, p, q, vranks, s);
 }
 
 int fill(RingArgs& p, const unsigned long long* a, const unsigned long long* b,
@@ -743,23 +948,34 @@ int fill(RingArgs& p, const unsigned long long* a, const unsigned long long* b,
 // GEMM tiles (the host's choice, by dtype and shape)
 constexpr int TILE_SIMT = 0, TILE_WMMA = 1, TILE_WGMMA = 2;
 
-// Whether `tile` computes `dtype` (0 = float32, 1 = float16, 2 = bfloat16)
-// for kernel `kind`: float32 on SimtTile, 16-bit on WmmaTile, and K2's
-// 16-bit on the Hopper tile.
-bool tile_takes(int kind, int dtype, int tile) {
+// Whether `tile` computes `dtype` (0 = float32, 1 = float16, 2 = bfloat16):
+// float32 on SimtTile, 16-bit on WmmaTile or the Hopper tile (K2 and K3).
+bool tile_takes(int dtype, int tile) {
   if (dtype < 0 || dtype > 2) return false;
   if (dtype == 0) return tile == TILE_SIMT;
-  return tile == TILE_WMMA || (kind == 0 && tile == TILE_WGMMA);
+  return tile == TILE_WMMA || tile == TILE_WGMMA;
 }
 
 template <typename T>
 int run(int kind, int dtype, int tile, RingArgs& p, int vranks, cudaStream_t s) {
   if (tile == TILE_WGMMA) {
-    if constexpr (sizeof(T) == 2) return launch_wgmma<T>(dtype, p, vranks, s);
+    if constexpr (sizeof(T) == 2) {
+      return kind == 0 ? launch_wgmma<T>(dtype, p, vranks, s)
+                       : launch_rs_wgmma<T>(dtype, p, vranks, s);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return kind == 0 ? launch(ring_ag_matmul_kernel<T>, p, vranks, true, s)
                    : launch(ring_matmul_rs_kernel<T>, p, vranks, false, s);
+}
+
+// The Hopper tile's grid for kernel `kind` (0 = K2, 1 = K3).
+template <typename T>
+int wgmma_grid(int kind, int vranks, int* blocks) {
+  return kind == 0 ? grid_for(ring_ag_wgmma_kernel<T>, hopper::THREADS, hopper::SMEM_BYTES,
+                              vranks, blocks)
+                   : grid_for(ring_rs_wgmma_kernel<T>, hopper::THREADS, hopper::SMEM_BYTES,
+                              vranks, blocks);
 }
 
 }  // namespace
@@ -769,8 +985,8 @@ extern "C" {
 // kind: 0 = K2 ring_ag_matmul, 1 = K3 ring_matmul_rs.
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.
 // tile: 0 = SimtTile (float32), 1 = WmmaTile (16-bit), 2 = the Hopper tile
-// (K2, 16-bit, k and n times 2 bytes multiples of 16, 16-byte aligned
-// operands and slots).
+// (16-bit, k and n times 2 bytes multiples of 16, 16-byte aligned operands
+// and slots).
 // a, b, out: vranks device pointers each (the operands and output of ring
 // ranks rank0 .. rank0 + vranks - 1); buf: d device pointers, each rank's
 // buffer (FLAG_BYTES of zeroed flags, then two slots slot_stride elements
@@ -784,7 +1000,7 @@ int ddlb_ring_matmul(int kind, int dtype, int tile, const unsigned long long* a,
   RingArgs p;
   int rc = fill(p, a, b, out, buf, rank0, vranks, d, m_loc, n, k, slot_stride,
                 epoch);
-  if (rc != 0 || (kind != 0 && kind != 1) || !tile_takes(kind, dtype, tile)) {
+  if (rc != 0 || (kind != 0 && kind != 1) || !tile_takes(dtype, tile)) {
     return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -801,14 +1017,12 @@ int ddlb_ring_matmul(int kind, int dtype, int tile, const unsigned long long* a,
 // Blocks a virtual rank gets in a launch of `vranks` ranks on `tile` (the
 // counters' increments a step depend on it), or a negative cudaError.
 int ddlb_ring_blocks(int kind, int dtype, int tile, int vranks) {
-  if ((kind != 0 && kind != 1) || !tile_takes(kind, dtype, tile))
+  if ((kind != 0 && kind != 1) || !tile_takes(dtype, tile))
     return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0, rc = 0;
   if (tile == TILE_WGMMA) {
-    rc = dtype == 1 ? grid_for(ring_ag_wgmma_kernel<__half>, hopper::THREADS,
-                               hopper::SMEM_BYTES, vranks, &blocks)
-                    : grid_for(ring_ag_wgmma_kernel<__nv_bfloat16>, hopper::THREADS,
-                               hopper::SMEM_BYTES, vranks, &blocks);
+    rc = dtype == 1 ? wgmma_grid<__half>(kind, vranks, &blocks)
+                    : wgmma_grid<__nv_bfloat16>(kind, vranks, &blocks);
     return rc != 0 ? -rc : blocks;
   }
   switch (dtype * 2 + kind) {

@@ -280,6 +280,25 @@ struct Tiles {
   __device__ int col0(int j) const { return (j % across) * BN; }
 };
 
+// The grouped tile order: groups of RASTER tile rows, column by column
+// inside a group, so the blocks of one wave share a few panels of A and B
+// in L2 (Tiles' plain row-major order streams all of B once a tile row;
+// it measured slower for K1 at 8192^3 bf16 and for K3 on an H100). Tile
+// j's corner, from Tiles' geometry.
+constexpr int RASTER = 8;
+
+struct Raster {
+  int row0, col0;
+  __device__ Raster(const Tiles& t, int rows, int j) {
+    const int tiles_m = (rows + BM - 1) / BM;
+    const int group = j / (RASTER * t.across), first = group * RASTER;
+    const int height = tiles_m - first < RASTER ? tiles_m - first : RASTER;
+    const int local = j - group * RASTER * t.across;
+    row0 = (first + local % height) * BM;
+    col0 = (local / height) * BN;
+  }
+};
+
 // The tile loop's order: this block's first tile of a step whose tiles
 // follow `before` tiles of earlier steps, so the blocks take the steps'
 // tiles round robin as one sequence.
@@ -364,20 +383,27 @@ __device__ __forceinline__ void mma_tile(const Smem& sm, Pipe& p,
   if (held >= 0 && threadIdx.x % 32 == 0) mbar_arrive(sm.empty(held));
 }
 
-// Hand the warpgroup's sums to st(row, col, v), eight consecutive float32
-// sums of one row a call. The accumulator layout of m64nNk16: warp w of
-// the warpgroup holds rows 16 w + lane / 4 (d[4 j], d[4 j + 1]) and 8 more
-// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 (lane % 4) + {0, 1}.
-template <typename Store>
-__device__ __forceinline__ void store_tile(const Smem& sm, const float (&d)[128],
-                                          int wg, int row0, int col0,
-                                          const Store& st) {
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  float* stage = sm.epi(wg * 4 + warp);
-  const int r = lane / 4, c = 2 * (lane % 4);
-  const int rows = row0 + 64 * wg + 16 * warp;
-#pragma unroll
-  for (int chunk = 0; chunk < BN / EPI_COLS; ++chunk) {
+// The epilogue's staging, shared by store_tile and a kernel's own
+// epilogue (K3's fold): warp `warp` of consumer warpgroup `wg` stages the
+// sums of one column chunk (its 16 rows x EPI_COLS) in its area of shared
+// memory, then each lane takes eight consecutive sums of one row a call,
+// calls h = 0, 1: row row(h), column col(chunk, h), the sums at sums(h).
+// The accumulator layout of m64nNk16: warp w of the warpgroup holds rows
+// 16 w + lane / 4 (d[4 j], d[4 j + 1]) and 8 more (d[4 j + 2],
+// d[4 j + 3]) at columns 8 j + 2 (lane % 4) + {0, 1}.
+struct EpiStage {
+  float* stage;
+  int lane, rows0, col0;
+
+  __device__ EpiStage(const Smem& sm, int wg, int row0, int col0_)
+      : lane(threadIdx.x % 32), col0(col0_) {
+    const int warp = (threadIdx.x / 32) % 4;
+    stage = sm.epi(wg * 4 + warp);
+    rows0 = row0 + 64 * wg + 16 * warp;
+  }
+  // Stage chunk `chunk`'s sums; the warp has read the previous chunk's.
+  __device__ __forceinline__ void put(const float (&d)[128], int chunk) const {
+    const int r = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
     for (int jj = 0; jj < EPI_COLS / 8; ++jj) {
       const int j = chunk * (EPI_COLS / 8) + jj;
@@ -387,11 +413,31 @@ __device__ __forceinline__ void store_tile(const Smem& sm, const float (&d)[128]
           make_float2(d[4 * j + 2], d[4 * j + 3]);
     }
     __syncwarp();
+  }
+  // call h's row among the warp's 16 and column in the chunk
+  __device__ __forceinline__ int row_in(int h) const { return (lane + 32 * h) / 4; }
+  __device__ __forceinline__ int col_in(int h) const { return ((lane + 32 * h) % 4) * 8; }
+  __device__ __forceinline__ int row(int h) const { return rows0 + row_in(h); }
+  __device__ __forceinline__ int col(int chunk, int h) const {
+    return col0 + chunk * EPI_COLS + col_in(h);
+  }
+  __device__ __forceinline__ const float* sums(int h) const {
+    return stage + row_in(h) * EPI_LD + col_in(h);
+  }
+};
+
+// Hand the warpgroup's sums to st(row, col, v), eight consecutive float32
+// sums of one row a call.
+template <typename Store>
+__device__ __forceinline__ void store_tile(const Smem& sm, const float (&d)[128],
+                                          int wg, int row0, int col0,
+                                          const Store& st) {
+  const EpiStage ep(sm, wg, row0, col0);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int g = lane + 32 * h, rr = g / 4, cc = (g % 4) * 8;
-      st(rows + rr, col0 + chunk * EPI_COLS + cc, stage + rr * EPI_LD + cc);
-    }
+  for (int chunk = 0; chunk < BN / EPI_COLS; ++chunk) {
+    ep.put(d, chunk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) st(ep.row(h), ep.col(chunk, h), ep.sums(h));
     __syncwarp();
   }
 }

@@ -343,25 +343,6 @@ struct StoreC {
   }
 };
 
-// The tile order: groups of RASTER tile rows, column by column inside a
-// group, so the blocks of one wave share a few panels of A and B in L2
-// (hopper::Tiles' plain row-major order measured slower at 8192^3 bf16 on
-// an H100).
-// Tile j's corner, from hopper::Tiles' geometry.
-constexpr int RASTER = 8;
-
-struct Raster {
-  int row0, col0;
-  __device__ Raster(const hopper::Tiles& t, int rows, int j) {
-    const int tiles_m = (rows + hopper::BM - 1) / hopper::BM;
-    const int group = j / (RASTER * t.across), first = group * RASTER;
-    const int height = tiles_m - first < RASTER ? tiles_m - first : RASTER;
-    const int local = j - group * RASTER * t.across;
-    row0 = (first + local % height) * hopper::BM;
-    col0 = (local / height) * hopper::BN;
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(hopper::THREADS, 1)
     gemm_wgmma(const __grid_constant__ Args p) {
@@ -376,7 +357,7 @@ __global__ void __launch_bounds__(hopper::THREADS, 1)
     if (threadIdx.x / 32 == 0) {
       hopper::Pipe pipe;
       for (int j = blockIdx.x; j < tiles.count; j += gridDim.x) {
-        const Raster at(tiles, p.m, j);
+        const hopper::Raster at(tiles, p.m, j);
         hopper::load_tile(sm, pipe, &p.a, 0, &p.b, at.row0, at.col0, p.n, p.k);
       }
     }
@@ -386,7 +367,7 @@ __global__ void __launch_bounds__(hopper::THREADS, 1)
     float acc[128];
     const StoreC<T> st{static_cast<T*>(p.c), p.m, p.n};
     for (int j = blockIdx.x; j < tiles.count; j += gridDim.x) {
-      const Raster at(tiles, p.m, j);
+      const hopper::Raster at(tiles, p.m, j);
       hopper::mma_tile<T>(sm, pipe, acc, p.k, wg - 1);
       hopper::store_tile(sm, acc, wg - 1, at.row0, at.col0, st);
     }

@@ -20,37 +20,50 @@
 // loopback, d virtual ranks on one card, the same bytes cross the card's
 // memory (3.35 TB/s) instead.
 //
-// Design (collective_matmul.cu's ring protocol without the GEMM; right and
-// simple first):
+// Design (collective_matmul.cu's ring protocol without the GEMM):
 //  - One cooperative launch per rank: every block of the grid is resident
 //    at once, because blocks spin on flags that other blocks (of this rank
-//    and of its neighbours) write. The grid is at most two blocks an SM.
+//    and of its neighbours) write. The grid is at most two blocks of 512
+//    threads an SM.
 //  - Peer memory: each rank owns a buffer of flag words and two slots of
 //    one chunk; the kernel gets a table of every rank's buffer (NVLink peer
 //    pointers from symmetric memory, or one card's memory in loopback).
 //    The output is this rank's own fresh tensor: only the slots are
 //    written from other cards.
 //  - Every block owns one contiguous share of the chunk's 16-byte units at
-//    every step. K4: it reads its share of the chunk it holds once and
-//    stores it twice, into its output rows and into the right neighbour's
-//    slot (t + 1) % 2. K5: it reads its share of its own chunk and of the
-//    received accumulator, adds them in float32, rounds once and stores
-//    the sum into the right neighbour's slot (the put is the fold's
-//    store), or into the output at the last step.
-//  - Signals: after its share, a block adds one to the right neighbour's
-//    arrival counter of the next step; a rank reads a slot once all the
-//    left neighbour's blocks have signalled. After reading slot t % 2 a
-//    block credits the left neighbour, which waits for every credit before
-//    it overwrites that slot two steps later. An entry barrier with both
-//    neighbours keeps a fast rank's first put out of a slot its neighbour
-//    still reads in the previous call, and the last credits are drained.
-//  - Flags never reset: each step has its own arrival and credit counter
-//    (an aggregate count would let a block that ran ahead stand in for one
-//    still at work), each grows by the grid size every call, the host
-//    passes the call's epoch and waits compare with >= modulo 2^32.
-//    Signals are red.release.sys after a system fence; waits are
-//    ld.acquire.sys. Slot data is read through L2 only (ld.global.cg).
-//    A wait of 20 s traps rather than holding the card.
+//    every step, the same share on every rank (share_of). K4: it reads its
+//    share of the chunk it holds once and stores it twice, into its output
+//    rows and into the right neighbour's slot (t + 1) % 2. K5: it reads its
+//    share of its own chunk and of the received accumulator, adds them in
+//    float32, rounds once and stores the sum into the right neighbour's
+//    slot (the put is the fold's store), or into the output at the last
+//    step, each thread with four 16-byte loads of each in flight.
+//  - K4's signals are step-wide: after its share, a block adds one to the
+//    right neighbour's arrival counter of the next step; a rank reads a
+//    slot once all the left neighbour's blocks have signalled. After
+//    reading slot t % 2 a block credits the left neighbour, which waits
+//    for every credit before it overwrites that slot two steps later;
+//    block 0 drains the last credits.
+//  - K5's signals are point to point: block b's share at step t depends on
+//    block b of the left rank at step t - 1 alone, so block b waits for
+//    that block's arrival (arrive[b][t] in its own flags), and before it
+//    overwrites the right rank's slot for that block's credit
+//    (credit[b][t - 1]); after its fold it signals arrive[b][t + 1] at the
+//    right rank and credit[b][t] at the left one, one fence, one barrier
+//    and one thread for both. Blocks move through the ring at their own
+//    pace, so a slow block holds up its own column of the ring only, and
+//    the steps pipeline across blocks. Each block drains its own last
+//    credits. The per-block words sit past the step counters' first 1 KB
+//    of the flag area, 64 bytes a block, which caps K5's grid at
+//    MAX_FLAG_BLOCKS.
+//  - An entry barrier with both neighbours keeps a fast rank's first put
+//    out of a slot its neighbour still reads in the previous call.
+//  - Flags never reset: each counter grows by the same count every call
+//    (K4's by the grid size, K5's by one), the host passes the call's
+//    epoch and waits compare with >= modulo 2^32. Signals are
+//    red.release.sys after a system fence; waits are ld.acquire.sys. Slot
+//    data is read through L2 only (ld.global.cg). A wait of 20 s traps
+//    rather than holding the card.
 //  - Loopback: gridDim.y = d runs d virtual ranks on one card, each with
 //    its own buffer in that card's memory: the same protocol, on one card.
 //
@@ -66,9 +79,17 @@
 namespace {
 
 constexpr int MAX_RANKS = 8;
-// flag words of a rank's buffer (uint32 offsets, one 128-byte line each)
+// flag words of a rank's buffer (uint32 offsets, one 128-byte line each):
+// K4's step counters and the entry barrier
 constexpr int ARRIVE = 0, CREDIT = 32, BARRIER = 64;
-constexpr int FLAG_BYTES = 1024;  // the slots start here
+// K5's per-block words from byte 1024 on: block b's arrival counters of
+// steps 0 .. MAX_RANKS - 1, then its credits
+constexpr int BLOCK_FLAGS = 256, BLOCK_WORDS = 2 * MAX_RANKS;
+constexpr int FLAG_BYTES = 20480;  // the slots start here (every ring's layout)
+constexpr int MAX_FLAG_BLOCKS = (FLAG_BYTES / 4 - BLOCK_FLAGS) / BLOCK_WORDS;  // 304
+static_assert(BARRIER < BLOCK_FLAGS, "the step counters' words come first");
+static_assert(4 * (BLOCK_FLAGS + MAX_FLAG_BLOCKS * BLOCK_WORDS) <= FLAG_BYTES,
+              "K5's per-block words end before the slots");
 constexpr int THREADS = 512;
 constexpr int MAX_BLOCKS_PER_SM = 2;
 
@@ -91,6 +112,13 @@ struct RingCollArgs {
 
 __device__ __forceinline__ unsigned* flags_of(const RingCollArgs& p, int rank) {
   return reinterpret_cast<unsigned*>(p.buf[rank]);
+}
+
+// Block b's arrival counters in rank `rank`'s flags; its credits follow at
+// + MAX_RANKS.
+__device__ __forceinline__ unsigned* block_flags(const RingCollArgs& p, int rank,
+                                                 int b) {
+  return flags_of(p, rank) + BLOCK_FLAGS + b * BLOCK_WORDS;
 }
 
 __device__ __forceinline__ uint4* slot_of(const RingCollArgs& p, int rank,
@@ -124,17 +152,20 @@ __device__ __forceinline__ unsigned long long globaltimer_ns() {
 // instead of holding the card forever.
 constexpr unsigned long long WAIT_LIMIT_NS = 20ull * 1000 * 1000 * 1000;
 
+// One thread: wait until *f >= target (mod 2^32).
+__device__ __forceinline__ void spin_wait(const unsigned* f, unsigned target) {
+  const unsigned long long start = globaltimer_ns();
+  while (static_cast<int>(ld_acquire(f) - target) < 0) {
+    __nanosleep(64);
+    if (globaltimer_ns() - start > WAIT_LIMIT_NS) __trap();
+  }
+}
+
 // Block-wide: wait until *f >= target (mod 2^32), then every thread may
 // read what the signallers wrote before they signalled.
 __device__ __forceinline__ void block_wait(const unsigned* f,
                                            unsigned target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long start = globaltimer_ns();
-    while (static_cast<int>(ld_acquire(f) - target) < 0) {
-      __nanosleep(64);
-      if (globaltimer_ns() - start > WAIT_LIMIT_NS) __trap();
-    }
-  }
+  if (threadIdx.x == 0) spin_wait(f, target);
   __syncthreads();
 }
 
@@ -264,8 +295,12 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS) ring_reduce_scatter_kernel(RingCollArgs p) {
   const int y = blockIdx.y, d = p.d, r = p.rank0 + y;
   const int right = (r + 1) % d, left = (r + d - 1) % d;
-  const unsigned G = gridDim.x, e = p.epoch;
-  unsigned* mine = flags_of(p, r);
+  const unsigned e = p.epoch;
+  // this block's arrivals and credits, and its peers' at both neighbours
+  unsigned* arrive = block_flags(p, r, blockIdx.x);
+  unsigned* credit = arrive + MAX_RANKS;
+  unsigned* arrive_right = block_flags(p, right, blockIdx.x);
+  unsigned* credit_left = block_flags(p, left, blockIdx.x) + MAX_RANKS;
   const long long units = p.chunk_units;
   long long lo, hi;
   share_of(units, &lo, &hi);
@@ -276,18 +311,48 @@ __global__ void __launch_bounds__(THREADS) ring_reduce_scatter_kernel(RingCollAr
     const uint4* chunk = A + static_cast<long long>((r + d - 1 - t) % d) * units;
     const uint4* received = t > 0 ? slot_of(p, r, t & 1) : nullptr;
     const bool put = t < d - 1;
-    if (t > 0) block_wait(mine + ARRIVE + t, (e + 1) * G);
-    if (put && t >= 2) block_wait(mine + CREDIT + t - 1, (e + 1) * G);
+    // block b of the left rank put this block's share of step t, and block
+    // b of the right rank is done with the share this step overwrites
+    // (it read it at its step t - 1)
+    if (threadIdx.x == 0) {
+      if (t > 0) spin_wait(arrive + t, e + 1);
+      if (put && t >= 2) spin_wait(credit + t - 1, e + 1);
+    }
+    __syncthreads();
     uint4* dst = put ? slot_of(p, right, (t + 1) & 1) : static_cast<uint4*>(p.out[y]);
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    long long i = lo + threadIdx.x;
+    for (; i + 3 * THREADS < hi; i += 4 * THREADS) {
+      uint4 v[4], w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldcg(chunk + i + u * THREADS);
+      if (received != nullptr) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) w[u] = __ldcg(received + i + u * THREADS);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = add16<T>(v[u], w[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) __stcg(dst + i + u * THREADS, v[u]);
+    }
+    for (; i < hi; i += THREADS) {
       uint4 v = __ldcg(chunk + i);
       if (received != nullptr) v = add16<T>(v, __ldcg(received + i));
       __stcg(dst + i, v);
     }
-    if (put) block_signal(flags_of(p, right) + ARRIVE + t + 1);
-    if (t > 0) block_signal(flags_of(p, left) + CREDIT + t);
+    // publish the put to block b of the right rank; done with slot t % 2
+    if (put || t > 0) {
+      __threadfence_system();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        if (put) red_release_add(arrive_right + t + 1, 1u);
+        if (t > 0) red_release_add(credit_left + t, 1u);
+      }
+    }
   }
-  drain(mine, d, (e + 1) * G);
+  // the right rank's block b is done with every slot this block wrote
+  if (threadIdx.x == 0) {
+    for (int t = 1; t < d; ++t) spin_wait(credit + t, e + 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -295,7 +360,8 @@ __global__ void __launch_bounds__(THREADS) ring_reduce_scatter_kernel(RingCollAr
 // ---------------------------------------------------------------------------
 
 // Blocks a virtual rank gets: at most two an SM, shared by the ranks of the
-// launch (a cooperative launch of more than the card holds is refused).
+// launch (a cooperative launch of more than the card holds is refused), and
+// at most MAX_FLAG_BLOCKS (K5's per-block flags).
 template <typename K>
 int grid_for(K kernel, int vranks, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -308,6 +374,7 @@ int grid_for(K kernel, int vranks, int* blocks) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
   *blocks = per_sm * sms / vranks;
+  if (*blocks > MAX_FLAG_BLOCKS) *blocks = MAX_FLAG_BLOCKS;
   return *blocks >= 1 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 

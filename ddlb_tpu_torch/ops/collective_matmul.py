@@ -25,27 +25,36 @@ Design (``csrc/collective_matmul.cu`` has the full note): one cooperative
 launch a rank, two slots of a chunk and monotonically growing flag
 counters in peer memory (``Runtime.peer_buffer``: symmetric memory over
 NVLink), credits from the right neighbour before a slot is reused, an
-entry barrier with both neighbours and a drain of the last credits. K2's
-GEMM tile is chosen per launch by dtype and shape alone (``tile_for``):
+entry barrier with both neighbours and a drain of the last credits. The
+GEMM tile of K2 and K3 is chosen per launch by dtype and shape alone
+(``tile_for``):
 
-- ``wgmma``, bf16/fp16 with ``k`` and ``n`` rows of a multiple of 16 bytes
-  (TMA's rules): ``csrc/hopper_gemm.cuh``, one 384-thread block an SM, a
-  TMA producer warp feeding a 4-stage ring of 128x256x64 tiles to two
-  ``wgmma`` consumer warpgroups. The producer warpgroup's three other
-  warps are the puts, so every block puts its share of the chunk and
-  every SM runs the GEMM; the TMA thread fences the async proxy after it
-  acquires a slot a peer wrote, and a block's credit for a slot waits
-  until every TMA load from it has landed. The tensor maps (the shard,
-  the two slots, B) are encoded on the host at each launch (a host-only
-  call, no device work) and passed by value.
+- ``wgmma``, bf16/fp16 with ``k`` (K3: ``k/d``) and ``n`` rows of a
+  multiple of 16 bytes (TMA's rules): ``csrc/hopper_gemm.cuh``, one
+  384-thread block an SM, a TMA producer warp feeding a 4-stage ring of
+  128x256x64 tiles to two ``wgmma`` consumer warpgroups. In K2 the
+  producer warpgroup's three other warps are the puts, so every block
+  puts its share of the chunk and every SM runs the GEMM; the TMA thread
+  fences the async proxy after it acquires a slot a peer wrote, and a
+  block's credit for a slot waits until every TMA load from it has
+  landed. In K3 A is local, so the TMA thread loads every step's tiles
+  without a flag and runs ahead of the ring; the consumers wait for the
+  step's accumulator once, fold it with 16-byte loads and store the sum
+  into the right neighbour's slot (the put), then signal and credit. The
+  tensor maps (K2: the shard, the two slots, B; K3: A by chunk, B) are
+  encoded on the host at each launch (a host-only call, no device work)
+  and passed by value.
 - ``wmma`` (16-bit, other widths) and ``simt`` (float32): K1's tiles,
-  256 threads, put blocks beside 128x128 GEMM blocks.
+  256 threads; K2's put blocks beside 128x128 GEMM blocks, K3's GEMM
+  blocks folding in their epilogue.
 
-K3 keeps K1's tiles (``wmma``, ``simt``). A ring serves one tile: its
-counters grow by the putting blocks' count each call, which differs
-between the two. The same device code runs ``d`` virtual ranks on one
-card (``loopback``: ``gridDim.y = d``, every buffer in that card's
-memory), which is how one card checks the protocol.
+A ring serves one tile: its counters grow by the putting blocks' count
+each call, which differs between the tiles. The same device code runs
+``d`` virtual ranks on one card (``loopback``: ``gridDim.y = d``, every
+buffer in that card's memory), which is how one card checks the protocol.
+Every ring of K2-K5 has one layout (``FLAG_BYTES`` of flags, then the two
+slots); the flag area is sized for K5's per-block flags
+(``ops/ring_collectives.py``), which K2 and K3 leave unused.
 
 Dispatch: a CPU tensor takes the plain version (``ring_ag_matmul_plain``,
 ``ring_matmul_rs_plain``: the same ring over ``Runtime.ring_shift``, one
@@ -55,7 +64,7 @@ CUDA tensor launches the kernel on the ``Ring`` the caller set up once
 the ring's arithmetic over a list of ``d`` shards in one process (the
 loopback check and the CPU tests). ``LAUNCHES`` counts kernel launches,
 ``ag`` for K2 and ``rs`` for K3; ``TILES`` counts K2's launches by the
-GEMM tile they ran.
+GEMM tile they ran and ``RS_TILES`` K3's.
 """
 
 from __future__ import annotations
@@ -73,24 +82,28 @@ from ddlb_tpu_torch.ops import matmul as k1
 LAUNCHES = {"ag": 0, "rs": 0}
 #: K2's launches by GEMM tile, since the counts were last reset
 TILES = {"wgmma": 0, "wmma": 0, "simt": 0}
+#: K3's launches by GEMM tile, likewise
+RS_TILES = {"wgmma": 0, "wmma": 0, "simt": 0}
 _KINDS = {"ag": 0, "rs": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _TILE_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
 #: ring ranks one launch's table holds (one node of cards)
 MAX_RANKS = 8
-#: bytes of flag words at the head of each rank's buffer (the kernel's
-#: FLAG_BYTES); the two slots follow
-FLAG_BYTES = 1024
+#: bytes of flag words at the head of each rank's buffer (the kernels'
+#: FLAG_BYTES, one size for every ring of K2-K5: the step counters in the
+#: first 1 KB, K5's per-block flags after them); the two slots follow
+FLAG_BYTES = 20480
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, TILES):
+    for counts in (LAUNCHES, TILES, RS_TILES):
         for key in counts:
             counts[key] = 0
 
 
 def tile_for(dtype: torch.dtype, k: int, n: int) -> str:
-    """K2's GEMM tile for operands of ``dtype``, ``[., k] @ [k, n]``:
+    """The GEMM tile of K2 and K3 for operands of ``dtype``, ``[., k] @
+    [k, n]`` (K3's ``k`` is a rank's ``k/d``):
     ``wgmma`` (the Hopper tile) for bf16/fp16 when ``k`` and ``n`` times
     the element size are multiples of 16 bytes (TMA's rule for a row),
     ``simt`` for float32, ``wmma`` for 16-bit rows of other widths."""
@@ -222,19 +235,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _kernel_tile(kind: str, dtype: torch.dtype, k: int, n: int) -> str:
-    """The tile a launch of ``kind`` runs: K2's ``tile_for``; K3 keeps K1's
-    tiles."""
-    if kind == "ag":
-        return tile_for(dtype, k, n)
-    return "simt" if dtype == torch.float32 else "wmma"
-
-
 def grid_blocks(kind: str, dtype: torch.dtype, k: int, n: int, vranks: int) -> int:
     """Blocks a virtual rank gets in a launch of ``vranks`` ranks of ``kind``
-    at these widths: every block puts in the Hopper tile, so K2's counters
-    grow by it each call. Needs the card."""
-    tile = _kernel_tile(kind, dtype, k, n)
+    at these widths: every block puts in the Hopper tile (and in K3 on any
+    tile), so the ring's counters grow by it each call. Needs the card."""
+    tile = tile_for(dtype, k, n)
     got = _lib().ddlb_ring_blocks(_KINDS[kind], _DTYPE_CODES[dtype], _TILE_CODES[tile], vranks)
     if got < 0:
         raise RuntimeError(f"ddlb_ring_blocks: {_lib().ddlb_error_string(-got).decode()}")
@@ -249,7 +254,7 @@ def _launch(kind: str, ring: Ring, a: Sequence[torch.Tensor],
     vranks = len(a)
     if ring.rank0 + vranks > ring.d:
         raise ValueError(f"ranks {ring.rank0}..{ring.rank0 + vranks - 1} of a ring of {ring.d}")
-    tile = _kernel_tile(kind, ring.dtype, k, n)
+    tile = tile_for(ring.dtype, k, n)
     if ring.tile not in (None, tile):
         raise ValueError(
             f"a ring of the '{ring.tile}' tile launched on the '{tile}' tile: its "
@@ -272,8 +277,7 @@ def _launch(kind: str, ring: Ring, a: Sequence[torch.Tensor],
             stream,
         )
     LAUNCHES[kind] += 1
-    if kind == "ag":
-        TILES[tile] += 1
+    (TILES if kind == "ag" else RS_TILES)[tile] += 1
     if rc != 0:
         raise RuntimeError(
             f"K{2 if kind == 'ag' else 3} ring_{kind} launch failed on the {tile} tile: "
@@ -373,7 +377,13 @@ def ring_matmul_rs(a_shard: torch.Tensor, b_shard: torch.Tensor, runtime,
                    ring: Optional[Ring] = None) -> torch.Tensor:
     """``a_shard [m, k/d] @ b_shard [k/d, n] -> [m/d, n]``, this rank's rows
     of the sum over the world's ring (kernel K3 on the card, on ``ring``
-    from ``peer_ring``)."""
+    from ``peer_ring``).
+
+    On the card, bf16/fp16 operands with rows of a multiple of 16 bytes run
+    the Hopper tile (``tile_for``): the TMA producer loads every step's
+    tiles ahead of the ring, and the ``wgmma`` consumers fold the received
+    accumulator into each tile and store it into the right neighbour's
+    slot. Other operands run K1's tiles."""
     _check_operands(a_shard, b_shard)
     d = runtime.world_size
     if a_shard.shape[0] % d:

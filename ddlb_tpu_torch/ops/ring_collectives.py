@@ -24,13 +24,23 @@ Design (``csrc/ring_collectives.cu`` has the full note): K2's ring
 protocol without the GEMM. One cooperative launch a rank; every block
 reads its share of the chunk once and stores it twice (K4: the output rows
 and the right neighbour's slot) or folds it (K5: the sum's store is the
-put); two slots of a chunk in peer memory (``Runtime.peer_buffer``), a
-flag counter per ring step, credits before a slot is reused, an entry
-barrier with both neighbours, epochs instead of resets. The buffers have
-K2/K3's layout (``collective_matmul.Ring``: flags, then two slots), so
-``peer_ring`` and ``loopback_ring`` make them, with kind ``all_gather`` or
-``reduce_scatter``; a ring serves one kernel only (its counters grow by
-that kernel's count).
+put, four 16-byte loads of each operand in flight a thread); two slots of
+a chunk in peer memory (``Runtime.peer_buffer``), credits before a slot is
+reused, an entry barrier with both neighbours, epochs instead of resets.
+K4 signals a flag counter per ring step, which the left neighbour's whole
+grid feeds. K5 signals point to point: block ``b``'s share at step ``t``
+depends on block ``b`` of the left rank at step ``t - 1`` alone (every
+rank splits a chunk the same way), so each block waits for that block's
+arrival and for the right rank's block ``b``'s credit, and the blocks move
+through the ring at their own pace. Its per-block words
+(``block_flag_offsets``) fill the flag area past the step counters' first
+1 KB: the rings share K2/K3's layout (``collective_matmul.Ring``:
+``collective_matmul.FLAG_BYTES`` of flags, then two slots), whose flag
+area is sized for them, so ``peer_ring`` and ``loopback_ring`` make them
+with kind ``all_gather`` or ``reduce_scatter``, and ``buffer_bytes`` is
+the same for every kind; K5's grid is at most ``MAX_FLAG_BLOCKS`` blocks
+a rank. A ring serves one kernel only (its counters grow by that kernel's
+count).
 
 Dispatch: a CPU tensor takes the plain version (``ring_*_plain``: the same
 ring over ``Runtime.ring_shift``, one hop in flight). A CUDA tensor
@@ -62,11 +72,28 @@ KINDS = {"all_gather": 0, "reduce_scatter": 1}
 _COUNTER = {"all_gather": "ag", "reduce_scatter": "rs"}
 _NAMES = {"all_gather": "K4 ring_all_gather", "reduce_scatter": "K5 ring_reduce_scatter"}
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+#: K5's per-block flag area, as ``csrc/ring_collectives.cu`` lays it out
+#: (its ``BLOCK_FLAGS``, ``BLOCK_WORDS`` and ``MAX_FLAG_BLOCKS``, held inside
+#: ``FLAG_BYTES`` by a ``static_assert`` there): its first uint32 word, the
+#: words a block (arrivals of steps 0..7, then credits) and the blocks it
+#: holds, which caps K5's grid. The kernel addresses its flags itself; these
+#: describe the layout to the tests.
+BLOCK_FLAG_WORD, BLOCK_FLAG_WORDS, MAX_FLAG_BLOCKS = 256, 16, 304
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def block_flag_offsets(block: int, step: int):
+    """Byte offsets in a K5 ring's buffer of block ``block``'s arrival
+    counter and credit of ring step ``step``."""
+    if not (0 <= block < MAX_FLAG_BLOCKS and 0 <= step < cm.MAX_RANKS):
+        raise ValueError(f"block {block}, step {step}: K5 holds {MAX_FLAG_BLOCKS} "
+                         f"blocks of {cm.MAX_RANKS} steps")
+    word = BLOCK_FLAG_WORD + block * BLOCK_FLAG_WORDS + step
+    return 4 * word, 4 * (word + cm.MAX_RANKS)
 
 
 def peer_ring(runtime, kind: str, chunk_numel: int, dtype: torch.dtype) -> cm.Ring:

@@ -98,7 +98,7 @@ def main(argv=None) -> None:
         if samples else None,
         "power_w_max": max(w for _, w in samples) if samples else None,
         "ptxas": {name: ptxas_usage(_build.build_log(name))
-                  for name in ("collective_matmul", "alltoall_matmul")},
+                  for name in ("collective_matmul", "ring_collectives", "alltoall_matmul")},
         "kernels": {e["name"]: {key: e[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "mode")}
             for e in entries},

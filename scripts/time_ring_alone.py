@@ -12,9 +12,19 @@ named, with that module's timer: after a barrier, the median of
 ``time_ring_kernels`` runs K2 first, so K3 and the others follow K2's
 launches there; here they can run with nothing before them, or after K2
 (``--kernels ring_ag_matmul,ring_matmul_rs``), to tell a kernel's own
-time from what an earlier kernel left on the card. Rank 0 samples every
-card's SM clock and power draw with ``nvidia-smi`` every quarter second
-while the calls run and prints one JSON line.
+time from what an earlier kernel left on the card. Each is also timed
+over ``BATCH`` calls back to back after one barrier (the CUDA-event time
+over ``BATCH``, median of five such runs, slowest rank; its key ends in
+`` batch``): the single-call median includes the time the card waits for
+the caller's host work after the barrier, and the batch hides it behind
+the previous call wherever the call's card time is the longer of the
+two. The library calls beside K3 and K5 (``pytorch_matmul_rs``:
+``torch.matmul`` then NCCL's reduce-scatter; ``nccl_reduce_scatter``;
+``fused_matmul_reduce_scatter``, symmetric memory's fused operator, where
+this torch has it) go through both timers too, so a kernel and its
+yardstick are compared on one timer. Rank 0 samples every card's SM
+clock and power draw with ``nvidia-smi`` every quarter second while the
+calls run and prints one JSON line.
 
 To compare two commits, unpack the other one with ``git archive`` into a
 directory ``.gitignore`` lists and run this script in turns, parent,
@@ -32,7 +42,30 @@ import threading
 from time_loopback import sample_clocks
 
 KERNELS = ("ring_ag_matmul", "ring_matmul_rs", "ring_all_gather", "ring_reduce_scatter",
-           "alltoall_expert_matmul")
+           "alltoall_expert_matmul", "pytorch_matmul_rs", "nccl_reduce_scatter",
+           "fused_matmul_reduce_scatter")
+#: calls back to back in the batch timing
+BATCH = 20
+
+
+def _batch_ms(fn, rt, calls: int) -> float:
+    """Median over five runs of the CUDA-event milliseconds a call of
+    ``calls`` launched back to back after one barrier."""
+    import torch
+
+    times = []
+    for _ in range(5):
+        rt.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[2]
 
 
 def main(argv=None) -> None:
@@ -54,7 +87,7 @@ def main(argv=None) -> None:
 
     import chip_smoke
     import ddlb_tpu_torch
-    from ddlb_tpu_torch.cli.time_ring_kernels import _median_ms
+    from ddlb_tpu_torch.cli.time_ring_kernels import _fused_ops, _median_ms
     from ddlb_tpu_torch.ops import alltoall_matmul as am
     from ddlb_tpu_torch.ops import collective_matmul as cm
     from ddlb_tpu_torch.ops import ring_collectives as rc
@@ -88,6 +121,16 @@ def main(argv=None) -> None:
         if name == "ring_reduce_scatter":
             ring = rc.peer_ring(rt, "reduce_scatter", a_ag.numel() // d, torch.bfloat16)
             return lambda: rc.ring_reduce_scatter(a_ag, rt, ring)
+        if name == "pytorch_matmul_rs":
+            return lambda: rt.reduce_scatter_rows(a_rs @ b_rs)
+        if name == "nccl_reduce_scatter":
+            return lambda: rt.reduce_scatter_rows(a_ag)
+        if name == "fused_matmul_reduce_scatter":
+            fused = _fused_ops(rt)
+            if fused is None:
+                raise SystemExit("torch.ops.symm_mem has no fused_matmul_reduce_scatter")
+            ops, group = fused
+            return lambda: ops.fused_matmul_reduce_scatter(a_rs, b_rs, "sum", 0, group)
         bufs = am.peer_buffers(rt, m // d // d, k, n, torch.bfloat16)
         return lambda: am.alltoall_expert_matmul(a_ag, b_ag, rt, bufs)
 
@@ -99,6 +142,8 @@ def main(argv=None) -> None:
         sampler.start()
     try:
         medians = {name: _median_ms(fn, rt, args.iterations) for name, fn in calls.items()}
+        medians.update({f"{name} batch": _batch_ms(fn, rt, BATCH)
+                        for name, fn in calls.items()})
     finally:
         stop.set()
         if r == 0:

@@ -993,6 +993,95 @@ def test_wmma_tile_k2_loopback_matches_virtual(cuda_device, dtype, kind):
     assert ring.epoch == 3 and ring.tile == "wmma"
 
 
+#: K3 on the Hopper tile, (d, m_loc, n, k/d): m_loc not a multiple of the
+#: tile's 128 rows, n not of its 256 columns, k/d not of its 64-deep stage
+#: (d = 1 is one step that stores the GEMM into the output)
+K3_HOPPER_CASES = [(1, 1000, 776, 520), (2, 1000, 776, 520), (3, 130, 264, 72),
+                   (4, 100, 776, 520)]
+
+
+def _k3_loopback_against_virtual(d, m_loc, n, kd, dtype, kind, tile, device):
+    """Three K3 loopback calls on one ring against ``ring_matmul_rs_virtual``:
+    bit for bit on integer and dyadic operands (every partial and every
+    hop's sum exact in float32, so both sides round the same values), within
+    ``ring_matmul_rs_gap_bound`` on uniform ones; ``RS_TILES`` grows by one
+    on ``tile`` a call and ``TILES`` (K2's) not at all."""
+    gen = torch.Generator(device=device).manual_seed(d * 19 + m_loc)
+    a = _hopper_operands([(d * m_loc, kd)] * d, dtype, gen, device, kind)
+    b = _hopper_operands([(kd, n)] * d, dtype, gen, device, kind)
+    assert cm.tile_for(dtype, kd, n) == tile
+    ring = cm.loopback_ring("rs", d, m_loc * n, dtype, device)
+    want = cm.ring_matmul_rs_virtual(a, b)
+    bounds = cm.ring_matmul_rs_gap_bound(a, b) if kind == "uniform" else None
+    for call in range(3):
+        before = (dict(cm.RS_TILES), dict(cm.TILES), dict(cm.LAUNCHES))
+        got = cm.ring_matmul_rs_loopback(a, b, ring)
+        torch.cuda.synchronize()
+        assert cm.RS_TILES == dict(before[0], **{tile: before[0][tile] + 1})
+        assert cm.TILES == before[1]
+        assert cm.LAUNCHES == dict(before[2], rs=before[2]["rs"] + 1)
+        for r in range(d):
+            assert got[r].shape == (m_loc, n) and got[r].dtype == dtype
+            if kind != "uniform":
+                assert torch.equal(got[r], want[r]), (call, r)
+                continue
+            gap = (got[r].float() - want[r].float()).abs()
+            assert bool((gap <= bounds[r]).all()), (call, r, float((gap - bounds[r]).max()))
+    assert ring.epoch == 3 and ring.tile == tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "dyadic", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,m_loc,n,kd", K3_HOPPER_CASES)
+def test_hopper_tile_k3_loopback_matches_virtual(cuda_device, d, m_loc, n, kd, dtype, kind):
+    """K3 on the Hopper tile (``ring_rs_wgmma_kernel``), d virtual ranks in
+    one launch, at widths that reach every ragged edge of the tile and of a
+    chunk (TMA fills the last tile of a chunk with zeros, not the next
+    chunk's rows)."""
+    _k3_loopback_against_virtual(d, m_loc, n, kd, dtype, kind, "wgmma", cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "dyadic", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wmma_tile_k3_loopback_matches_virtual(cuda_device, dtype, kind):
+    """K3 on 16-bit operands whose rows TMA cannot load (k/d and n not
+    multiples of 8 elements) runs K1's wmma tile."""
+    _k3_loopback_against_virtual(3, 130, 262, 74, dtype, kind, "wmma", cuda_device)
+
+
+#: K5 on its per-block flags, (d, rows a rank, k): a chunk far smaller than
+#: the grid (7 units: most blocks have no share and still signal), a
+#: ragged one, and the collectives path's [2048, 8192] a rank at d = 4
+K5_CASES = [(2, 14, 8), (3, 3 * 67, 520), (4, 2048, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "dyadic", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d,m_loc,k", K5_CASES)
+def test_k5_loopback_bit_for_bit_over_three_calls(cuda_device, d, m_loc, k, dtype, kind):
+    """K5, d virtual ranks in one launch, three calls on one ring (every
+    block's arrival and credit words advance one epoch a call), bit for bit
+    against ``ring_reduce_scatter_virtual`` on integer, dyadic and uniform
+    operands: both round the same float32 sum of the same two values at
+    every hop, in the same order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 23 + m_loc)
+    shards = _hopper_operands([(m_loc, k)] * d, dtype, gen, cuda_device, kind)
+    ring = rc.loopback_ring("reduce_scatter", d, (m_loc // d) * k, dtype, cuda_device)
+    want = rc.ring_reduce_scatter_virtual(shards)
+    for call in range(3):
+        before = dict(rc.LAUNCHES)
+        got = rc.ring_reduce_scatter_loopback(shards, ring)
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES == dict(before, rs=before["rs"] + 1)
+        for r in range(d):
+            assert got[r].shape == (m_loc // d, k)
+            assert torch.equal(got[r], want[r]), (call, r)
+    assert ring.epoch == 3
+
+
 @pytest.mark.cuda
 def test_trio_kernels_reject_what_they_do_not_take(cuda_device):
     a = torch.zeros((64, 32), device=cuda_device, dtype=torch.bfloat16)
@@ -1087,15 +1176,19 @@ def _nccl_rank_main(rank, port, results):
                     ring_rs = cm.peer_ring(rt, "rs", m_loc * n, dtype)
                     want_ag = cm.ring_ag_matmul_plain(shards[rank], b, rt)
                     want_rs = cm.ring_matmul_rs_plain(a_rs[rank], b_rs[rank], rt)
-                    before, tiles = dict(cm.LAUNCHES), dict(cm.TILES)
+                    before = dict(cm.LAUNCHES)
+                    tiles, rs_tiles = dict(cm.TILES), dict(cm.RS_TILES)
                     for _ in range(NCCL_CALLS):
                         got_ag = cm.ring_ag_matmul(shards[rank], b, rt, ring_ag)
                         got_rs = cm.ring_matmul_rs(a_rs[rank], b_rs[rank], rt, ring_rs)
                     torch.cuda.synchronize()
                     launches = {key: cm.LAUNCHES[key] - before[key] for key in before}
-                    # K2's launches by tile
+                    # K2's and K3's launches by tile
                     launches["tiles"] = {key: cm.TILES[key] - tiles[key] for key in tiles
                                          if cm.TILES[key] != tiles[key]}
+                    launches["rs_tiles"] = {key: cm.RS_TILES[key] - rs_tiles[key]
+                                            for key in rs_tiles
+                                            if cm.RS_TILES[key] != rs_tiles[key]}
                     if integer:
                         ok_ag, ok_rs = torch.equal(got_ag, want_ag), torch.equal(got_rs, want_rs)
                     elif dtype == torch.float32:
@@ -1173,7 +1266,7 @@ def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
     against their plain versions over NCCL (``batch_isend_irecv`` hops):
     bit for bit on integer operands (K4 and K5 on any), else within the
     bounds of the loopback tests; exactly one launch of each kernel a
-    call, K2 and K6 on the Hopper tile for bf16 (SIMT for float32)."""
+    call, K2, K3 and K6 on the Hopper tile for bf16 (SIMT for float32)."""
     import multiprocessing as mp
     import queue
     import socket
@@ -1206,11 +1299,13 @@ def test_ring_kernels_over_nccl_match_plain_on_four_cards(cuda_device):
     for rank, (cases, trio) in got.items():
         assert len(cases) == len(trio) == len(NCCL_SHAPES) * 4
         for case, ok_ag, ok_rs, launches in cases:
-            # every 16-bit shape here has TMA's widths: K2 ran the Hopper tile
+            # every 16-bit shape here has TMA's widths (K3's k/d too): K2 and
+            # K3 ran the Hopper tile
             tile = "simt" if "float32" in case[3] else "wgmma"
             assert ok_ag and ok_rs, (rank, case, ok_ag, ok_rs)
             assert launches == {"ag": NCCL_CALLS, "rs": NCCL_CALLS,
-                                "tiles": {tile: NCCL_CALLS}}, (rank, case, launches)
+                                "tiles": {tile: NCCL_CALLS},
+                                "rs_tiles": {tile: NCCL_CALLS}}, (rank, case, launches)
         for case, ok_k4, ok_k5, ok_k6, launches in trio:
             tile = "simt" if "float32" in case[3] else "wgmma"
             assert ok_k4 and ok_k5 and ok_k6, (rank, case, ok_k4, ok_k5, ok_k6)

@@ -12,6 +12,9 @@ ring order that rounds the partial and every hop's sum to bf16, the rounding
 the JAX kernel pins (``test_ring_matmul_rs_wire_dtype_pin``).
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -193,13 +196,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, match):
     (torch.bfloat16, 4, 12, "wmma"),
 ])
 def test_tile_choice_by_dtype_and_shape(dtype, k, n, tile):
-    """K2 runs the Hopper tile where TMA can load its rows (16-bit, k and n
-    a multiple of 16 bytes), K1's SIMT tile on float32, K1's wmma tile on
-    other 16-bit widths."""
+    """K2 and K3 run the Hopper tile where TMA can load their rows (16-bit,
+    k (K3's k/d) and n a multiple of 16 bytes), K1's SIMT tile on float32,
+    K1's wmma tile on other 16-bit widths; the launches of both kernels
+    choose by ``tile_for`` (``test_launches_choose_and_count_the_tile``)."""
     assert cm.tile_for(dtype, k, n) == tile
-    assert cm._kernel_tile("ag", dtype, k, n) == tile
-    # K3 keeps K1's tiles
-    assert cm._kernel_tile("rs", dtype, k, n) == ("simt" if dtype == torch.float32 else "wmma")
 
 
 def test_tile_choice_rejects_other_dtypes():
@@ -220,6 +221,99 @@ def test_a_ring_serves_one_tile():
     cm.TILES["wgmma"] += 1
     cm.reset_launches()
     assert cm.TILES == {"wgmma": 0, "wmma": 0, "simt": 0}
+
+
+class _FakeLib:
+    """The built library's stand-in on the CPU: records each
+    ``ddlb_ring_matmul`` call's kind, dtype and tile codes and returns
+    ``rc``."""
+
+    def __init__(self):
+        self.rc, self.calls = 0, []
+
+    def ddlb_ring_matmul(self, kind, dtype, tile, *rest):
+        self.calls.append((kind, dtype, tile))
+        return self.rc
+
+    def ddlb_error_string(self, rc):
+        return b"refused"
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """``_launch``'s host side on CPU tensors: the library and the CUDA
+    stream lookup replaced, every count zeroed before and after."""
+    lib = _FakeLib()
+    monkeypatch.setattr(cm, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    cm.reset_launches()
+    yield lib
+    cm.reset_launches()
+
+
+def _rs_launch(ring, d, m_loc, kd, n, dtype):
+    a = [torch.zeros((d * m_loc, kd), dtype=dtype)] * d
+    b = [torch.zeros((kd, n), dtype=dtype)] * d
+    out = [torch.zeros((m_loc, n), dtype=dtype)] * d
+    cm._launch("rs", ring, a, b, out, m_loc, n, kd)
+
+
+@pytest.mark.parametrize("kind", ["ag", "rs"])
+@pytest.mark.parametrize("dtype,kd,n,tile", [
+    (torch.bfloat16, 520, 776, "wgmma"),
+    (torch.float16, 72, 264, "wgmma"),
+    (torch.bfloat16, 74, 262, "wmma"),
+    (torch.float32, 72, 264, "simt"),
+])
+def test_launches_choose_and_count_the_tile(fake_lib, kind, dtype, kd, n, tile):
+    """A launch of K2 or K3 passes the library the tile ``tile_for`` chose
+    from its dtype and widths, once a launch, and counts it by tile: K2's
+    in ``TILES``, K3's in ``RS_TILES``."""
+    d, m_loc = 3, 4
+    ring = cm.loopback_ring(kind, d, m_loc * (kd if kind == "ag" else n), dtype, "cpu")
+    for _ in range(2):
+        if kind == "rs":
+            _rs_launch(ring, d, m_loc, kd, n, dtype)
+        else:
+            a = [torch.zeros((m_loc, kd), dtype=dtype)] * d
+            out = [torch.zeros((d * m_loc, n), dtype=dtype)] * d
+            cm._launch("ag", ring, a, [torch.zeros((kd, n), dtype=dtype)] * d, out, m_loc, n, kd)
+    codes = (cm._KINDS[kind], cm._DTYPE_CODES[dtype], cm._TILE_CODES[tile])
+    assert fake_lib.calls == [codes] * 2
+    zeros = {"wgmma": 0, "wmma": 0, "simt": 0}
+    counted, other = (cm.TILES, cm.RS_TILES) if kind == "ag" else (cm.RS_TILES, cm.TILES)
+    assert counted == dict(zeros, **{tile: 2}) and other == zeros
+    assert cm.LAUNCHES == {"ag": 0, "rs": 0, kind: 2}
+    assert ring.tile == tile and ring.epoch == 2
+    cm.reset_launches()
+    assert cm.TILES == cm.RS_TILES == zeros
+
+
+def test_a_k3_ring_serves_one_tile(fake_lib):
+    """K3's counters grow by its grid, which differs between tiles: a ring
+    that ran the Hopper tile refuses a launch whose widths choose K1's wmma
+    tile, before the library is called."""
+    d, m_loc, n = 2, 8, 64
+    ring = cm.loopback_ring("rs", d, m_loc * n, torch.bfloat16, "cpu")
+    _rs_launch(ring, d, m_loc, 64, n, torch.bfloat16)
+    with pytest.raises(ValueError, match="'wgmma' tile launched on the 'wmma' tile"):
+        _rs_launch(ring, d, m_loc, 60, n, torch.bfloat16)
+    assert len(fake_lib.calls) == 1 and ring.epoch == 1
+    assert cm.RS_TILES == {"wgmma": 1, "wmma": 0, "simt": 0}
+
+
+def test_a_failed_k3_launch_raises_without_a_retry(fake_lib):
+    """A launch the library refuses raises, naming the kernel and the tile;
+    nothing retries it on another tile or on the plain version, and the
+    ring's epoch and tile stay as they were."""
+    fake_lib.rc = 2
+    ring = cm.loopback_ring("rs", 2, 8 * 64, torch.bfloat16, "cpu")
+    with pytest.raises(RuntimeError, match="K3 ring_rs launch failed on the wgmma tile: refused"):
+        _rs_launch(ring, 2, 8, 64, 64, torch.bfloat16)
+    assert fake_lib.calls == [(1, 2, 2)]
+    assert ring.epoch == 0 and ring.tile is None
 
 
 def test_buffer_layout():

@@ -14,6 +14,12 @@ Each hop stays under the interpreter's 12 KB envelope
 (``ddlb_tpu/ops/ring_collectives.py:29-37``).
 """
 
+import multiprocessing as mp
+import os
+import queue
+import socket
+import traceback
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +29,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from ddlb_tpu.ops.collective_matmul import ring_matmul_rs
 from ddlb_tpu.ops.ring_collectives import ring_all_gather, ring_reduce_scatter
 from ddlb_tpu_torch.ops import collective_matmul as cm
 from ddlb_tpu_torch.ops import ring_collectives as rc
@@ -170,3 +177,127 @@ def test_rings_share_the_collective_matmul_layout():
     with pytest.raises(ValueError, match="'ag' ring passed to the 'all_gather'"):
         cm.check_launch(cm.loopback_ring("ag", 2, ROWS * K, torch.float32, "cpu"),
                          "all_gather", (a,), ROWS * K)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("blocks", [1, 66, 132, 264, rc.MAX_FLAG_BLOCKS])
+def test_k5_flag_layout_fits_every_grid(d, blocks):
+    """K5's per-block flags: at every ring size and grid (two blocks an SM
+    of an H100's 132 is 264; loopback shares them among d ranks), each
+    block's arrival and credit words of every step are distinct words of
+    the flag area, clear of K4's step counters and the entry barrier in
+    its first 1 KB; the slots follow the flag area as in every ring."""
+    words = set()
+    for b in range(blocks):
+        for t in range(d):
+            arrive, credit = rc.block_flag_offsets(b, t)
+            words.update((arrive, credit))
+            assert 1024 <= arrive < credit < cm.FLAG_BYTES
+            assert arrive % 4 == credit % 4 == 0
+    assert len(words) == 2 * blocks * d
+    for chunk_numel, dtype in ((7, torch.bfloat16), (512 * 8192, torch.bfloat16),
+                               (3, torch.float32)):
+        size = torch.empty((), dtype=dtype).element_size()
+        slot = -(-chunk_numel * size // 16) * 16
+        assert cm.buffer_bytes(chunk_numel, dtype) == cm.FLAG_BYTES + 2 * slot
+        ring = rc.loopback_ring("reduce_scatter", d, chunk_numel, dtype, "cpu")
+        assert ring.owner.numel() >= d * cm.buffer_bytes(chunk_numel, dtype)
+        assert all(p % 256 == 0 for p in np.diff(ring.ptrs))
+
+
+def test_k5_flag_layout_refuses_what_it_does_not_hold():
+    assert rc.MAX_FLAG_BLOCKS >= 2 * 132  # two blocks on each SM of an H100
+    for block, step in ((rc.MAX_FLAG_BLOCKS, 0), (-1, 0), (0, cm.MAX_RANKS)):
+        with pytest.raises(ValueError, match="K5 holds"):
+            rc.block_flag_offsets(block, step)
+
+
+# -- the plain K3 and K5 rings on gloo worlds of 2, 3 and 4 ranks ---------------------
+
+DEADLINE_S = 120
+#: K3 a rank: [d M_LOC, d KD] @ [d KD, N] over the world, rows M_LOC a rank out
+M_LOC, KD, N = 8, 16, 32
+
+
+def _plain_rank_main(rank, world, port, results):
+    os.environ.update(
+        RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+        MASTER_ADDR="localhost", MASTER_PORT=str(port),
+    )
+    import torch.distributed as dist
+
+    try:
+        rt = Runtime("cpu")
+        a, b, payload = _plain_operands(world)
+        k3 = cm.ring_matmul_rs(a[:, rank * KD:(rank + 1) * KD].contiguous(),
+                               b[rank * KD:(rank + 1) * KD], rt)
+        k5 = rc.ring_reduce_scatter(payload[rank * world * ROWS:(rank + 1) * world * ROWS], rt)
+        results.put((rank, "ok", (k3.float().numpy(), k5.float().numpy())))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _plain_operands(world):
+    """bf16 K3 operands (multiples of 1/64) and a K5 payload of
+    [world^2 ROWS, K] (multiples of 1/64), from a seed."""
+    rng = np.random.default_rng(60 + world)
+    a = np.round(rng.uniform(-1, 1, (world * M_LOC, world * KD)) * 64) / 64
+    b = np.round(rng.uniform(-1, 1, (world * KD, N)) * 64) / 64
+    payload = np.round(rng.uniform(-1, 1, (world * world * ROWS, K)) * 64) / 64
+    return tuple(torch.from_numpy(x.astype(np.float32)).bfloat16() for x in (a, b, payload))
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_plain_k3_and_k5_on_a_gloo_ring_match_jax(world):
+    """``ring_matmul_rs_plain`` and ``ring_reduce_scatter_plain`` (the
+    wrappers on CPU tensors) on a gloo world of 2, 3 and 4 ranks, one hop
+    of ``Runtime.ring_shift`` a step, against the JAX package's Pallas
+    kernels under the distributed interpreter on a mesh of as many
+    devices: bit for bit on bf16 multiples of 1/64 (every partial and
+    every hop's sum exact in float32, both sides rounding the same values
+    to bf16 at every hop)."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_plain_rank_main, args=(r, world, port, results), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(world):
+            rank, status, payload = results.get(timeout=DEADLINE_S)
+            assert status == "ok", f"rank {rank} failed:\n{payload}"
+            got[rank] = payload
+    except queue.Empty:
+        raise AssertionError(f"the {world}-rank world did not finish within {DEADLINE_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    a, b, payload = _plain_operands(world)
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:world]), ("tp",))
+    specs = (P(None, "tp"), P("tp", None))
+
+    def k3_body(a_s, b_s):
+        return ring_matmul_rs(a_s, b_s, axis_size=world, block_n=16, block_k=8,
+                              interpret=pltpu.InterpretParams())
+
+    k3 = jax.jit(jax.shard_map(k3_body, mesh=mesh, in_specs=specs, out_specs=P("tp", None),
+                               check_vma=False))
+    want_k3 = np.asarray(k3(*(jax.device_put(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                                             NamedSharding(mesh, spec))
+                              for x, spec in ((a, specs[0]), (b, specs[1]))))
+                         .astype(jnp.float32))
+    want_k5 = _jax_collective("reduce_scatter", world,
+                              jnp.asarray(payload.float().numpy()).astype(jnp.bfloat16))
+    for rank, (k3_out, k5_out) in got.items():
+        np.testing.assert_array_equal(k3_out, want_k3[rank * M_LOC:(rank + 1) * M_LOC])
+        np.testing.assert_array_equal(k5_out, want_k5[rank * ROWS:(rank + 1) * ROWS])
