@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero without the final line:
    each output dtype), K10a-K10d (the flash backward's dQ and dK/dV
    passes, triangle and rectangle, within ``backward_gap_bound`` at the
    training path's shapes and ragged, GQA, offset, past, diagonal and
-   windowed cases; each pass timed beside SDPA's backward), K2 and K3 (the
+   windowed cases, the triangle in bf16/fp16 on the Hopper ``wgmma``
+   passes, each call counted by kernel; each pass timed beside SDPA's
+   backward), K2 and K3 (the
    ring collective matmuls) in loopback, d virtual ranks in one launch on
    the card, at d = 2, 3 and 4 (the GEMM path's per-rank shapes at d = 4,
    ragged cases, fp16 and f32, each on the tile its widths choose and
@@ -72,7 +74,9 @@ Phases, in order; any failure exits non-zero without the final line:
    row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
    be valid with a finite time, and the counts must be exactly what the
    rows launch, every K1, K2 and K3 launch of every path on the Hopper
-   tile and every K8a launch on the ``wgmma`` forward (``check_tiles``);
+   tile, every K8a launch on the ``wgmma`` forward, every K10a/K10b pass
+   on the ``wgmma`` backward and every K10c/K10d pass on ``mma.sync``
+   (``check_tiles``);
    then the LM head's product before and after it moved to the tensor
    cores (``head_phase``: the full-width train row and a pallas
    decode row, each with the old float32 head and the new one);
@@ -1786,6 +1790,9 @@ TRAIN_BWD_SHAPES = ((2048, 32, 32, 0), (2048, 16, 16, 0), (4096, 64, 64, 0),
 #: further cases: (sq, skv, h, h_kv, row_offset, col_offset, mode, window, dtype)
 BWD_EXTRA = (
     (1000, 1000, 8, 8, 0, 0, "offset", 0, "bfloat16"),      # ragged triangle
+    (320, 320, 8, 8, 0, 0, "offset", 0, "bfloat16"),        # 64 x 5 query steps
+    (129, 129, 4, 4, 0, 0, "offset", 0, "float16"),         # one past a tile
+    (1000, 1000, 8, 2, 0, 0, "offset", 0, "float16"),       # ragged, GQA 4
     (2048, 2048, 8, 2, 0, 0, "offset", 0, "bfloat16"),      # GQA 8/2 triangle
     (1024, 2048, 8, 2, 1024, 0, "offset", 0, "bfloat16"),   # an offset, GQA
     (1024, 1024, 8, 8, 3072, 1024, "past", 0, "bfloat16"),  # a past ring chunk
@@ -1814,8 +1821,10 @@ def check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, row_offset,
     ``fa.backward_gap_bound``: the score gap, the dP summation order, the
     rounding of P and dS to the operand type before the tensor-core
     products and two float32 summation orders, each scaled by the
-    magnitudes the plain tile loop sums. Returns (max |err| over dq, dk,
-    dv and both inputs, the uniform inputs, keyword arguments)."""
+    magnitudes the plain tile loop sums. Each call must run both passes on
+    the kernel ``fa.backward_kernel`` names (``BACKWARD_TILES``). Returns
+    (max |err| over dq, dk, dv and both inputs, the uniform inputs, keyword
+    arguments)."""
     import torch
 
     dtype = getattr(torch, dtype_name)
@@ -1828,11 +1837,17 @@ def check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, row_offset,
     uniform = uniform_inputs(sq, skv, h, h_kv, dh, dtype, gen)
     peaked = peaked_inputs(sq, skv, h, h_kv, dh, dtype, gen, row_offset - col_offset)
     do = (torch.rand((sq, h, dh), generator=gen, device="cuda") * 2 - 1).to(dtype)
+    kernel = fa.backward_kernel(fa.backward_case(sq, skv, row_offset, col_offset, mode,
+                                                 window)[0], dtype)
     errs, first = [], None
     for name, (q, k, v) in (("uniform", uniform), ("peaked", peaked)):
         o, lse = backward_forward(fa, q, k, v, row_offset, col_offset, mode, window)
+        tiles = dict(fa.BACKWARD_TILES)
         got = fa.flash_backward(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        if fa.BACKWARD_TILES != dict(tiles, **{kernel: tiles[kernel] + 2}):
+            fail(f"{what}: backward passes by kernel {fa.BACKWARD_TILES}, expected two "
+                 f"more on {kernel} than {tiles}")
         want = fa.flash_backward_plain(q, k, v, o, lse, do, **kw)
         bounds = fa.backward_gap_bound(q, k, v, o, lse, do, want, **kw)
         parts = []
@@ -1848,7 +1863,7 @@ def check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, row_offset,
                          f"{float(b.max())!r}, median |{grad}| "
                          f"{float(w.abs().median())!r}, share below its bound {loose!r})")
             errs.append(max_err)
-        print(f"{what}, {name} inputs: " + "; ".join(parts) + ": ok")
+        print(f"{what}, {name} inputs, {kernel}: " + "; ".join(parts) + ": ok")
         if first is None:
             first = (q, k, v, o, lse, do)
         del got, want, bounds
@@ -1977,8 +1992,11 @@ def kernel_phase_flash_backward(fa, smi):
             bound = backward_bound(fa, q.shape[0], k.shape[0], q.shape[1], k.shape[1],
                                    dh, 2, 0, 0, "offset", kw["window"], pass_)
             print(f"{what} {pass_}: bound {bound[0]!r} ms ({bound[1]}; {smi})")
+            kernel = {"tri": "wgmma", "rect": "mma"}[case]
             entry = {
                 "name": f"flash_backward_{pass_}" + (" (rect)" if case == "rect" else ""),
+                "kernel": kernel,
+                "ptxas": ptxas_registers("flash_attention", f"flash_bwd_{pass_}_{kernel}"),
                 "route": "cuda",
                 "source": "ddlb_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"ddlb_tpu/ops/flash_attention.py:{line}",
@@ -2248,9 +2266,10 @@ def head_phase(run_benchmark, smi):
 
 def check_tiles(what, k1, cm, fa):
     """Every K1, K2 and K3 launch of a path ran the Hopper tile, every K8a
-    launch the wgmma forward and every K8b and K9 launch ``flash_mma`` (the
-    main paths are bf16, at 16-byte widths). Returns the path's launches by
-    tile."""
+    launch the wgmma forward, every K8b and K9 launch ``flash_mma``, every
+    K10a/K10b pass (``bwd_*_tri``) the wgmma backward and every K10c/K10d
+    pass (``bwd_*_rect``) ``flash_bwd_*_mma`` (the main paths are bf16, at
+    16-byte widths). Returns the path's launches by tile."""
     for name, tiles, launched in (("K1", k1.TILES, k1.LAUNCHES),
                                   ("K2", cm.TILES, cm.LAUNCHES["ag"]),
                                   ("K3", cm.RS_TILES, cm.LAUNCHES["rs"])):
@@ -2262,8 +2281,13 @@ def check_tiles(what, k1, cm, fa):
     if fa.FORWARD_TILES != want_fa:
         fail(f"the flash forward's launches by kernel on {what}: {fa.FORWARD_TILES}, "
              f"expected {want_fa}")
+    want_bwd = {"wgmma": fa.LAUNCHES["bwd_dq_tri"] + fa.LAUNCHES["bwd_dkv_tri"],
+                "mma": fa.LAUNCHES["bwd_dq_rect"] + fa.LAUNCHES["bwd_dkv_rect"], "simt": 0}
+    if fa.BACKWARD_TILES != want_bwd:
+        fail(f"the flash backward's passes by kernel on {what}: {fa.BACKWARD_TILES}, "
+             f"expected {want_bwd}")
     return {"k1": dict(k1.TILES), "k2": dict(cm.TILES), "k3": dict(cm.RS_TILES),
-            "flash_forward": dict(fa.FORWARD_TILES)}
+            "flash_forward": dict(fa.FORWARD_TILES), "flash_backward": dict(fa.BACKWARD_TILES)}
 
 
 def main():
@@ -2448,7 +2472,7 @@ def main():
     head_phase(run_benchmark, smi)
     print(f"head product phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
-    print(f"K1, K2, K3 and flash forward launches by tile, by path: {json.dumps(tiles)}")
+    print(f"K1, K2, K3 and flash launches by tile or kernel, by path: {json.dumps(tiles)}")
 
     # 4. results
     def total(key):

@@ -57,10 +57,13 @@
 // _flash_bwd_dq_kernel_tri (:706, K10a) and _flash_bwd_dkv_kernel_tri (:741,
 // K10b), and the rectangular _flash_bwd_dq_kernel (:624, K10c) and
 // _flash_bwd_dkv_kernel (:664, K10d) for runtime offsets, the window, the
-// past and none modes and GQA. Two entry points, ddlb_flash_bwd_dq and
-// ddlb_flash_bwd_dkv; as in the forward, the triangle and the rectangle are
-// the same walk with other band parameters, and the wrapper counts the four
-// cases apart. Each tile recomputes S = scale q k^T and P = exp(S - lse)
+// past and none modes and GQA. In bf16/fp16 the triangle runs the Hopper
+// kernels of namespace tri_bwd (entry points ddlb_flash_bwd_dq_tri and
+// ddlb_flash_bwd_dkv_tri, with their own design note); everything else runs
+// ddlb_flash_bwd_dq and ddlb_flash_bwd_dkv, which also still take a masked
+// offset-0 square. As in the forward, there the triangle and the rectangle
+// are the same walk with other band parameters, and the wrapper counts the
+// four cases apart. Each tile recomputes S = scale q k^T and P = exp(S - lse)
 // (masked), then dP = dO v^T and dS = P (dP - delta), with delta =
 // rowsum(dO o) computed by the wrapper:
 //  - ddlb_flash_bwd_dq: one block per (query tile, head) walks the key tiles
@@ -78,9 +81,9 @@
 // the training path's full width (S = 4096, 64 merged heads of 128) that is
 // 1.0e12 operations over 5.4e8 live pairs against about 0.67 GB of bf16
 // operands and float32 gradients: the bf16 tensor cores bound it (about
-// 1 ms), not memory (0.2 ms). Like the forward, this first version is
-// simple: mma.sync m16n8k16 with f32 sums, cp.async double buffering, no
-// wgmma or TMA.
+// 1 ms), not memory (0.2 ms). The kernels below are the first version,
+// simple: in bf16/fp16 mma.sync m16n8k16 with f32 sums, cp.async double
+// buffering, no wgmma or TMA.
 //  - bf16/fp16 dQ: 64-row query tiles, four warps of 16 rows; Q and dO stay
 //    in registers as A fragments; K and V tiles are staged through shared
 //    memory, two stages deep. dS goes from the C registers of dP straight
@@ -1209,6 +1212,17 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkv_f32(Params p,
   }
 }
 
+// Launch kernel with `smem` bytes of dynamic shared memory on stream s.
+template <typename Kernel, typename... Args>
+cudaError_t launch_with(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t s,
+                        const Args&... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // K8a on Hopper: the causal triangle with TMA, wgmma and warp specialisation
 // ---------------------------------------------------------------------------
@@ -1595,8 +1609,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
   }
 }
 
-// A {dh, heads, s} map of a [s, heads, 128] operand, boxes of 64 x 1 x 128.
-int encode_heads(CUtensorMap* map, int dtype, const void* base, int s, int heads) {
+// A {dh, heads, s} map of a [s, heads, 128] operand, boxes of 64 dh x 1 head
+// x box_rows rows.
+int encode_heads(CUtensorMap* map, int dtype, const void* base, int s, int heads,
+                 int box_rows = BQ) {
   hopper::EncodeTiled fn = nullptr;
   const int rc = hopper::encode_tiled(&fn);
   if (rc != 0) return rc;
@@ -1604,7 +1620,7 @@ int encode_heads(CUtensorMap* map, int dtype, const void* base, int s, int heads
                               static_cast<cuuint64_t>(s)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(heads) * D * 2};
-  const cuuint32_t box[3] = {BOX, 1, BQ};
+  const cuuint32_t box[3] = {BOX, 1, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = fn(
       map, dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
@@ -1612,6 +1628,13 @@ int encode_heads(CUtensorMap* map, int dtype, const void* base, int s, int heads
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Heads a group of blocks walks together: as many as share L2_SHARE bytes,
+// each head reading `per_head` bytes.
+int head_group(long long per_head, int heads) {
+  const long long g = L2_SHARE / (per_head + 1);
+  return static_cast<int>(g < 1 ? 1 : g > heads ? heads : g);
 }
 
 template <typename T>
@@ -1624,6 +1647,573 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 }
 
 }  // namespace tri
+
+// ---------------------------------------------------------------------------
+// K10a / K10b on Hopper: the causal triangle's backward on TMA and wgmma
+// ---------------------------------------------------------------------------
+//
+// The triangle only (causal, offset 0, sq == skv, no window), bf16/fp16,
+// head_dim 128, as flash_fwd_wgmma; each kernel has its own argument
+// struct with __grid_constant__ tensor maps (Params and Grads stay as they
+// are). The arithmetic is flash_bwd_*_mma's: P = exp(scale S - lse) with
+// the causal mask, dS = P (dP - delta) in float32, P and dS rounded once
+// to T as the A operands of their products, float32 sums; in base 2, p =
+// ex2(s c - lse log2(e)) with c = scale log2(e), one FMA a score.
+//  - Shape: one block of 384 threads; warpgroup 0 is the producer
+//    (setmaxnreg down to 40), warpgroups 1 and 2 the consumers (up to 232
+//    registers), 64 rows each. Tensor maps are tri's 3-D {dh, heads, s}
+//    maps (128-byte swizzle, two 64-dh boxes a tile; TMA fills rows past s
+//    with zeros); both kernels walk from the diagonal outwards, and only
+//    the tiles that cross it (or the ragged end) run the masked
+//    instantiation of their elementwise code.
+//  - Registers decide the shape. On sm_90a ptxas kept the wgmma pipeline
+//    only while a consumer's live values fit the kernel's 168 registers
+//    (65536 / 384 threads), setmaxnreg or not: past that it spilled and
+//    put a wait after every wgmma (C7512, "serialized due to insufficient
+//    register resources"). A 64-register accumulator that persists, the
+//    score tiles of one product step and the packed A operand fit; two
+//    persistent accumulators (dK and dV) beside any score tile did not.
+//  - flash_bwd_dq_wgmma (K10a): one block per (128-row query tile, query
+//    head), tri's head groups and heaviest-first order. Q and dO are
+//    loaded once; K and V tiles of 128 keys stream through two rings of two
+//    stages. A consumer takes each key tile in halves of 64 keys: S = Q
+//    K^T and dP = dO V^T (SS m64n64k16, K-major), dS in place of S, then
+//    dQ += dS K (RS m64n128k16, K read MN-major through the transpose bit,
+//    as issue_pv reads V); 64 + 32 + 32 + 16 registers. On the diagonal
+//    tile warpgroup 0 skips the second half, wholly after its rows. lse
+//    and delta are two values a thread, read once.
+//  - flash_bwd_dkv_wgmma (K10b): one block per (128-key tile, kv head), key
+//    tile 0 (the most live query tiles) first, kv heads grouped for L2 as
+//    K10a groups query heads. K and V are loaded once; Q and dO tiles of
+//    64 rows stream through a ring of three stages, for each of the
+//    group's query heads in turn (GQA is summed in the accumulator), from
+//    the diagonal to the end, twice: a consumer first walks them for dV
+//    (S^T = K Q^T, SS m64n64k16; P^T; dV += P^T dO, RS m64n128k16 with dO
+//    MN-major), stores dV, then walks them again for dK (S^T and dP^T =
+//    V dO^T; dS^T; dK += dS^T Q), one 64-register accumulator at a time.
+//    The second walk recomputes S^T and its exp: 10 dh operations a live
+//    pair instead of 8, the price of keeping ptxas's pipeline. lse and
+//    delta are indexed by query (column) here: the producer warp loads
+//    each step's 64 values of lse log2(e) and delta while the stage
+//    drains, stores them beside it and arrives on the stage's barrier
+//    beside TMA's bytes. A warpgroup skips a query tile wholly before its
+//    keys.
+//  - Epilogues: scale dQ, dV, scale dK in float32, stored 8 bytes a lane
+//    for rows below sq.
+namespace tri_bwd {
+
+using tri::BOX;
+using tri::D;
+using tri::fence_regs;
+using tri::Mma;
+constexpr int THREADS = 384, CONSUMER_WARPS = 8;
+constexpr int ROWS = 128;                   // a dQ block's queries, a dK/dV block's keys
+constexpr int Q_STEP = 64;                  // a dK/dV step's queries
+constexpr int TILE_BYTES = ROWS * D * 2;    // Q, dO, K or V of 128 rows: 32 KB
+constexpr int HALF_BYTES = TILE_BYTES / 2;  // one 64-dh box of 128 rows
+constexpr int STEP_BYTES = Q_STEP * D * 2;  // Q or dO of 64 rows: 16 KB
+constexpr int STEP_HALF = STEP_BYTES / 2;   // one 64-dh box of 64 rows
+// 64 rows of a 128-row box: a consumer warpgroup's rows, or half a tile's keys
+constexpr int WG_ROWS_BYTES = 64 * BOX * 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K10a: Q, dO, the K stages, the V stages (32 KB each, 1 KB aligned), then
+// the mbarriers q_full, k_full[2], k_empty[2], v_full[2], v_empty[2]
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_BAR_OFFSET = (2 + 2 * DQ_STAGES) * TILE_BYTES;
+constexpr int DQ_SMEM_BYTES = 1024 + DQ_BAR_OFFSET + (1 + 4 * DQ_STAGES) * 8;
+static_assert(DQ_SMEM_BYTES <= 232448, "a block's shared memory on an H100");
+
+// K10b: K, V (32 KB each), the Q and dO stages (16 KB each), each stage's
+// lse log2(e) and delta (64 floats each), then the mbarriers kv_full,
+// full[3], empty[3]
+constexpr int DKV_STAGES = 3;
+constexpr int DKV_VEC_OFFSET = 2 * TILE_BYTES + DKV_STAGES * 2 * STEP_BYTES;
+constexpr int DKV_BAR_OFFSET = DKV_VEC_OFFSET + DKV_STAGES * 2 * Q_STEP * 4;
+constexpr int DKV_SMEM_BYTES = 1024 + DKV_BAR_OFFSET + (1 + 2 * DKV_STAGES) * 8;
+static_assert(DKV_SMEM_BYTES <= 232448, "a block's shared memory on an H100");
+// a stage turns when TMA's bytes have landed and each lane of the producer
+// warp has stored its share of lse and delta
+constexpr int DKV_FULL_ARRIVALS = 1 + 32;
+
+struct DqArgs {
+  CUtensorMap q, dout;  // [sq, h, dh], boxes of 128 rows
+  CUtensorMap k, v;     // [sq, h_kv, dh], boxes of 128 rows
+  const float* lse;     // [h, sq]
+  const float* delta;   // [h, sq]
+  float* dq;            // [sq, h, dh]
+  int sq, h, group, q_tiles;
+  int head_group;           // query heads a group of blocks walks together
+  float scale, scale_log2;  // scale, scale * log2(e)
+};
+
+struct DkvArgs {
+  CUtensorMap q, dout;  // [sq, h, dh], boxes of 64 rows
+  CUtensorMap k, v;     // [sq, h_kv, dh], boxes of 128 rows
+  const float* lse;     // [h, sq]
+  const float* delta;   // [h, sq]
+  float* dk;            // [sq, h_kv, dh]
+  float* dv;
+  int sq, h_kv, group, k_tiles, q_steps;
+  int head_group;  // kv heads a group of blocks walks together
+  float scale, scale_log2;
+};
+
+struct DqSmem {
+  uint32_t base;  // shared-window address (1 KB aligned)
+  __device__ uint32_t q() const { return base; }
+  __device__ uint32_t dout() const { return base + TILE_BYTES; }
+  __device__ uint32_t k(int s) const { return base + (2 + s) * TILE_BYTES; }
+  __device__ uint32_t v(int s) const { return base + (2 + DQ_STAGES + s) * TILE_BYTES; }
+  __device__ uint32_t q_full() const { return base + DQ_BAR_OFFSET; }
+  __device__ uint32_t k_full(int s) const { return q_full() + 8 * (1 + s); }
+  __device__ uint32_t k_empty(int s) const { return k_full(s) + 8 * DQ_STAGES; }
+  __device__ uint32_t v_full(int s) const { return k_empty(s) + 8 * DQ_STAGES; }
+  __device__ uint32_t v_empty(int s) const { return v_full(s) + 8 * DQ_STAGES; }
+};
+
+struct DkvSmem {
+  uint32_t base;       // shared-window address (1 KB aligned)
+  unsigned char* ptr;  // the same, as a generic pointer
+  __device__ uint32_t k() const { return base; }
+  __device__ uint32_t v() const { return base + TILE_BYTES; }
+  __device__ uint32_t q(int s) const { return base + 2 * TILE_BYTES + s * 2 * STEP_BYTES; }
+  __device__ uint32_t dout(int s) const { return q(s) + STEP_BYTES; }
+  // stage s's lse log2(e) [64], then its delta [64]
+  __device__ float* vec(int s) const {
+    return reinterpret_cast<float*>(ptr + DKV_VEC_OFFSET) + s * 2 * Q_STEP;
+  }
+  __device__ uint32_t kv_full() const { return base + DKV_BAR_OFFSET; }
+  __device__ uint32_t full(int s) const { return kv_full() + 8 * (1 + s); }
+  __device__ uint32_t empty(int s) const { return full(s) + 8 * DKV_STAGES; }
+};
+
+#define DDLB_BWD_8(C, i)                                                  \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]),  \
+      C(d[i + 6]), C(d[i + 7])
+// S [64 x 64] (=|+)= A [64 x 16] @ B [16 x 64], both from shared memory,
+// K-major. The first k-step (scale-d 0) only writes d: with "=f" operands
+// the compiler need not keep the last step's S and dP alive into this one,
+// which leaves their registers to the packed A operand of the product in
+// between (with "+f" ptxas serialised the pipeline).
+#define DDLB_BWD_SS(TYPE, C, ACCUMULATE)                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE   \
+               " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+               "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+               "%27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"        \
+               : DDLB_BWD_8(C, 0), DDLB_BWD_8(C, 8), DDLB_BWD_8(C, 16),     \
+                 DDLB_BWD_8(C, 24)                                        \
+               : "l"(da), "l"(db), "r"(ACCUMULATE))
+
+template <typename T>
+struct Ss;
+template <>
+struct Ss<__nv_bfloat16> {
+  static __device__ __forceinline__ void first(float (&d)[32], uint64_t da, uint64_t db) {
+    DDLB_BWD_SS("bf16", "=f", 0);
+  }
+  static __device__ __forceinline__ void next(float (&d)[32], uint64_t da, uint64_t db) {
+    DDLB_BWD_SS("bf16", "+f", 1);
+  }
+};
+template <>
+struct Ss<__half> {
+  static __device__ __forceinline__ void first(float (&d)[32], uint64_t da, uint64_t db) {
+    DDLB_BWD_SS("f16", "=f", 0);
+  }
+  static __device__ __forceinline__ void next(float (&d)[32], uint64_t da, uint64_t db) {
+    DDLB_BWD_SS("f16", "+f", 1);
+  }
+};
+#undef DDLB_BWD_SS
+#undef DDLB_BWD_8
+
+// S = A B^T over the 128 dh of two K-major operands in shared memory: A's
+// 64 rows at a, B's 64 rows at b, the second 64-dh box of each a_half and
+// b_half bytes on; 8 k-steps of 32 bytes along the swizzled rows. The
+// caller fences before and commits after.
+template <typename T>
+__device__ __forceinline__ void ss_dh(float (&d)[32], uint32_t a, uint32_t a_half, uint32_t b,
+                                      uint32_t b_half) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int half = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = hopper::smem_desc(a + half * a_half + off, 16, 1024);
+    const uint64_t db = hopper::smem_desc(b + half * b_half + off, 16, 1024);
+    if (kk == 0)
+      Ss<T>::first(d, da, db);
+    else
+      Ss<T>::next(d, da, db);
+  }
+}
+
+// Hide a value's origin from the compiler: descriptors built from it are
+// built in the loop where they are used, not hoisted out of it into 32
+// registers that the accumulators need.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// d += A B over STEPS k-steps of 16 rows: A from registers (4 a step), B
+// [rows, 128 dh] in shared memory at b, read MN-major, its two 64-dh boxes
+// b_half bytes apart. The caller fences before and commits after.
+template <typename T, int STEPS>
+__device__ __forceinline__ void rs_rows(float (&d)[64], const uint32_t* a, uint32_t b,
+                                        uint32_t b_half) {
+#pragma unroll
+  for (int kt = 0; kt < STEPS; ++kt)
+    Mma<T>::rs(d, a + 4 * kt, hopper::smem_desc(b + kt * 16 * BOX * 2, b_half, 1024));
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void pack(uint32_t (&a)[N / 2], const float (&s)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) a[i] = Half<T>::pack(s[2 * i], s[2 * i + 1]);
+}
+
+// The rows' (rw, rw + 8 of a block's 128, from row0) lse log2(e) and delta;
+// 0 past sq, where Q and dO are zeros and so is dS.
+__device__ __forceinline__ void row_terms(const float* lse, const float* delta, int sq,
+                                          size_t head_row0, int row0, float (&lse2)[2],
+                                          float (&dl)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row0 + 8 * r < sq;
+    lse2[r] = in ? lse[head_row0 + 8 * r] * LOG2E : 0.0f;
+    dl[r] = in ? delta[head_row0 + 8 * r] : 0.0f;
+  }
+}
+
+// This thread's two rows (row, row + 8) of a 64 x 128 float32 accumulator
+// times mul, stored 8 bytes a lane at out + row * stride, below sq.
+__device__ __forceinline__ void store_rows(float* out, size_t stride, const float (&acc)[64],
+                                           float mul, int row, int sq) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(out + (row + 8 * r) * stride + 8 * j + 2 * t4) =
+          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// dS = P (dP - delta) into s for this thread's rows r0, r0 + 8 (local to the
+// tile) and keys key0 + 8 j + 2 t4 + (e & 1); MASKED (the diagonal tile
+// only) zeroes p of the keys after the query. Its own instantiation, so the
+// other tiles carry no mask arithmetic.
+template <bool MASKED>
+__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
+                                        const float (&lse2)[2], const float (&dl)[2], float c,
+                                        int r0, int key0) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float pe = tri::ex2(fmaf(s[4 * j + e], c, -lse2[r]));
+      if (MASKED && key0 + 8 * j + 2 * t4 + (e & 1) > r0 + 8 * r) pe = 0.0f;
+      s[4 * j + e] = pe * (dp[4 * j + e] - dl[r]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ DqArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const DqSmem sm{(raw + 1023u) & ~1023u};
+  // tri's order: heads in groups whose K and V fit in L2 together, the
+  // heaviest query tiles first inside a group
+  const int first = static_cast<int>(blockIdx.x) / (p.head_group * p.q_tiles) * p.head_group;
+  const int heads = min(p.head_group, p.h - first);
+  const int local = static_cast<int>(blockIdx.x) - first * p.q_tiles;
+  const int qt = p.q_tiles - 1 - local / heads;
+  const int hh = first + local % heads, kvh = hh / p.group;
+  const int q0 = qt * ROWS, n_tiles = qt + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(sm.q_full(), 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(sm.k_full(s), 1);
+      hopper::mbar_init(sm.v_full(s), 1);
+      hopper::mbar_init(sm.k_empty(s), CONSUMER_WARPS);
+      hopper::mbar_init(sm.v_empty(s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(sm.q_full(), 2 * TILE_BYTES);
+      for (int half = 0; half < 2; ++half) {
+        hopper::tma_load(sm.q() + half * HALF_BYTES, &p.q, sm.q_full(), half * BOX, hh, q0);
+        hopper::tma_load(sm.dout() + half * HALF_BYTES, &p.dout, sm.q_full(), half * BOX, hh,
+                         q0);
+      }
+      // key tiles from the diagonal (qt) down to 0
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % DQ_STAGES;
+        const uint32_t phase = (i / DQ_STAGES) & 1;
+        const int k0 = (qt - i) * ROWS;
+        hopper::mbar_wait(sm.k_empty(st), phase ^ 1u);
+        hopper::mbar_expect_tx(sm.k_full(st), TILE_BYTES);
+        for (int half = 0; half < 2; ++half)
+          hopper::tma_load(sm.k(st) + half * HALF_BYTES, &p.k, sm.k_full(st), half * BOX, kvh,
+                           k0);
+        hopper::mbar_wait(sm.v_empty(st), phase ^ 1u);
+        hopper::mbar_expect_tx(sm.v_full(st), TILE_BYTES);
+        for (int half = 0; half < 2; ++half)
+          hopper::tma_load(sm.v(st) + half * HALF_BYTES, &p.v, sm.v_full(st), half * BOX, kvh,
+                           k0);
+      }
+    }
+  } else {
+    hopper::consumer_registers();
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool arrives = lane == 0;
+    // this thread's rows within the tile: r0 and r0 + 8
+    const int r0 = 64 * c + 16 * warp + lane / 4;
+    float lse2[2], dl[2];
+    row_terms(p.lse, p.delta, p.sq, static_cast<size_t>(hh) * p.sq + q0 + r0, q0 + r0, lse2, dl);
+    float dq[64], s[32], dp[32];
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.0f;
+    const uint32_t qa = sm.q() + c * WG_ROWS_BYTES, da = sm.dout() + c * WG_ROWS_BYTES;
+    hopper::mbar_wait(sm.q_full(), 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % DQ_STAGES;
+      const uint32_t ph = (i / DQ_STAGES) & 1;
+      hopper::mbar_wait(sm.k_full(st), ph);
+      hopper::mbar_wait(sm.v_full(st), ph);
+      // the tile's keys in halves of 64 (dQ, S and dP of a whole 128-key
+      // tile, 192 registers, serialise ptxas's wgmma pipeline); on the
+      // diagonal tile (i = 0) the second half lies after every row of
+      // warpgroup 0, which skips it
+      const bool diag = i == 0;
+      const int halves = diag && c == 0 ? 1 : 2;
+      for (int h2 = 0; h2 < halves; ++h2) {
+        const uint32_t koff = h2 * WG_ROWS_BYTES;
+        hopper::wgmma_fence();
+        ss_dh<T>(s, opaque(qa), HALF_BYTES, sm.k(st) + koff, HALF_BYTES);
+        ss_dh<T>(dp, opaque(da), HALF_BYTES, sm.v(st) + koff, HALF_BYTES);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (arrives && h2 == halves - 1) hopper::mbar_arrive(sm.v_empty(st));
+        // dS = P (dP - delta) into s; on the diagonal tile the keys after
+        // the query are masked and their p is exactly 0
+        if (diag)
+          ds_rows<true>(s, dp, lse2, dl, p.scale_log2, r0, 64 * h2);
+        else
+          ds_rows<false>(s, dp, lse2, dl, p.scale_log2, r0, 64 * h2);
+        pack<T, 32>(pa, s);
+        hopper::wgmma_fence();
+        rs_rows<T, 4>(dq, pa, sm.k(st) + koff, HALF_BYTES);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      if (arrives) hopper::mbar_arrive(sm.k_empty(st));
+    }
+
+    store_rows(p.dq + static_cast<size_t>(hh) * D, static_cast<size_t>(p.h) * D, dq, p.scale,
+               q0 + r0, p.sq);
+  }
+}
+
+// P^T, or (DK) dS^T = P^T (dP^T - delta), into s for this thread's keys
+// kb + kr, + 8 and queries q0 + 8 j + 2 t4 + (e & 1), from the stage's lse
+// log2(e) and delta at vec. MASKED (the diagonal and ragged query tiles)
+// zeroes p of queries before the key or past sq; its own instantiation, so
+// the other tiles carry no mask arithmetic.
+template <bool DK, bool MASKED>
+__device__ __forceinline__ void p_cols(float (&s)[32], const float (&dp)[32], const float* vec,
+                                       float c, int q0, int kpos0, int sq) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+    const float2 l2 = *reinterpret_cast<const float2*>(vec + col);
+    const float2 dl = DK ? *reinterpret_cast<const float2*>(vec + Q_STEP + col) : l2;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pe = tri::ex2(fmaf(s[4 * j + e], c, -((e & 1) ? l2.y : l2.x)));
+      if (MASKED) {
+        const int qpos = q0 + col + (e & 1), kpos = kpos0 + 8 * (e >> 1);
+        if (qpos < kpos || qpos >= sq) pe = 0.0f;
+      }
+      s[4 * j + e] = DK ? pe * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) : pe;
+    }
+  }
+}
+
+// One walk of a consumer warpgroup over its block's query steps (ring
+// positions it0 ...): dV += P^T dO, or (DK) dK += dS^T Q, into acc.
+template <typename T, bool DK>
+__device__ __forceinline__ void dkv_walk(const DkvArgs& p, const DkvSmem& sm, int it0, int steps,
+                                         int per_head, int k0, int kb, uint32_t ka, uint32_t va,
+                                         float (&acc)[64]) {
+  const bool arrives = threadIdx.x % 32 == 0;
+  const int kpos0 = kb + 16 * ((threadIdx.x / 32) % 4) + (threadIdx.x % 32) / 4;
+  float s[32], dp[32];
+  uint32_t pa[16];
+  for (int i = 0; i < steps; ++i) {
+    const int it = it0 + i;
+    const int st = it % DKV_STAGES;
+    const uint32_t ph = (it / DKV_STAGES) & 1;
+    const int q0 = k0 + (i % per_head) * Q_STEP;
+    hopper::mbar_wait(sm.full(st), ph);
+    if (q0 + Q_STEP <= kb) {  // every query before this warpgroup's keys
+      if (arrives) hopper::mbar_arrive(sm.empty(st));
+      continue;
+    }
+    hopper::wgmma_fence();
+    ss_dh<T>(s, opaque(ka), HALF_BYTES, sm.q(st), STEP_HALF);
+    if (DK) ss_dh<T>(dp, opaque(va), HALF_BYTES, sm.dout(st), STEP_HALF);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_regs(s);
+    if (DK) fence_regs(dp);
+    // masked on the diagonal tile (queries before the key) and past sq
+    if (q0 < kb + 64 || q0 + Q_STEP > p.sq)
+      p_cols<DK, true>(s, dp, sm.vec(st), p.scale_log2, q0, kpos0, p.sq);
+    else
+      p_cols<DK, false>(s, dp, sm.vec(st), p.scale_log2, q0, kpos0, p.sq);
+    pack<T, 32>(pa, s);
+    // dV += P^T dO, or dK += dS^T Q: dO and Q read MN-major
+    hopper::wgmma_fence();
+    rs_rows<T, Q_STEP / 16>(acc, pa, DK ? sm.q(st) : sm.dout(st), STEP_HALF);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_regs(acc);
+    if (arrives) hopper::mbar_arrive(sm.empty(st));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ DkvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t aligned = (raw + 1023u) & ~1023u;
+  const DkvSmem sm{aligned, smem_raw + (aligned - raw)};
+  // kv heads in groups whose Q and dO fit in L2 together; inside a group
+  // key tile 0 (the most live query tiles) first, head by head
+  const int first = static_cast<int>(blockIdx.x) / (p.head_group * p.k_tiles) * p.head_group;
+  const int heads = min(p.head_group, p.h_kv - first);
+  const int local = static_cast<int>(blockIdx.x) - first * p.k_tiles;
+  const int kt = local / heads, kvh = first + local % heads;
+  const int k0 = kt * ROWS;
+  // the live query steps of each query head: from the diagonal (k0) to the end
+  const int per_head = p.q_steps - 2 * kt, steps = p.group * per_head;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(sm.kv_full(), 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      hopper::mbar_init(sm.full(s), DKV_FULL_ARRIVALS);
+      hopper::mbar_init(sm.empty(s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x < 32) {  // the producer warp; lane 0 issues the loads
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(sm.kv_full(), 2 * TILE_BYTES);
+        for (int half = 0; half < 2; ++half) {
+          hopper::tma_load(sm.k() + half * HALF_BYTES, &p.k, sm.kv_full(), half * BOX, kvh, k0);
+          hopper::tma_load(sm.v() + half * HALF_BYTES, &p.v, sm.kv_full(), half * BOX, kvh, k0);
+        }
+      }
+      // the query steps twice: for dV's walk, then for dK's
+      for (int it = 0; it < 2 * steps; ++it) {
+        const int st = it % DKV_STAGES;
+        const uint32_t phase = (it / DKV_STAGES) & 1;
+        const int i = it % steps;
+        const int hh = kvh * p.group + i / per_head;
+        const int q0 = k0 + (i % per_head) * Q_STEP;
+        // this lane's share of lse and delta, loaded while the stage drains
+        float lse2[2], dl[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = lane + 32 * u;
+          const bool in = q0 + r < p.sq;
+          const size_t idx = static_cast<size_t>(hh) * p.sq + q0 + r;
+          lse2[u] = in ? p.lse[idx] * LOG2E : 0.0f;
+          dl[u] = in ? p.delta[idx] : 0.0f;
+        }
+        hopper::mbar_wait(sm.empty(st), phase ^ 1u);
+        if (lane == 0) {
+          hopper::mbar_expect_tx(sm.full(st), 2 * STEP_BYTES);
+          for (int half = 0; half < 2; ++half) {
+            hopper::tma_load(sm.q(st) + half * STEP_HALF, &p.q, sm.full(st), half * BOX, hh, q0);
+            hopper::tma_load(sm.dout(st) + half * STEP_HALF, &p.dout, sm.full(st), half * BOX,
+                             hh, q0);
+          }
+        }
+        float* vec = sm.vec(st);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          vec[lane + 32 * u] = lse2[u];
+          vec[Q_STEP + lane + 32 * u] = dl[u];
+        }
+        hopper::mbar_arrive(sm.full(st));
+      }
+    }
+  } else {
+    hopper::consumer_registers();
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    // this warpgroup's keys start at kb; this thread's are kb + kr, + 8
+    const int kb = k0 + 64 * c, kr = 16 * warp + lane / 4;
+    const size_t stride = static_cast<size_t>(p.h_kv) * D;
+    float acc[64];
+    const uint32_t ka = sm.k() + c * WG_ROWS_BYTES, va = sm.v() + c * WG_ROWS_BYTES;
+    hopper::mbar_wait(sm.kv_full(), 0);
+
+    // two walks of the same query steps: dV, then dK
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    dkv_walk<T, false>(p, sm, 0, steps, per_head, k0, kb, ka, va, acc);
+    store_rows(p.dv + static_cast<size_t>(kvh) * D, stride, acc, 1.0f, kb + kr, p.sq);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    dkv_walk<T, true>(p, sm, steps, steps, per_head, k0, kb, ka, va, acc);
+    store_rows(p.dk + static_cast<size_t>(kvh) * D, stride, acc, p.scale, kb + kr, p.sq);
+  }
+}
+
+// Check the operands and encode the four maps (Q and dO in boxes of q_rows
+// rows, K and V of ROWS); 0 or a cudaError.
+int encode_maps(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                const void* out0, const void* out1, int sq, int h, int h_kv, int dh, int q_rows,
+                CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk, CUtensorMap* mv) {
+  if (sq < 1 || h < 1 || h_kv < 1 || h % h_kv || dh != tri::D || (dtype != 1 && dtype != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(out0) | reinterpret_cast<uintptr_t>(out1);
+  if (bases % 16) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = tri::encode_heads(mq, dtype, q, sq, h, q_rows);
+  if (rc == 0) rc = tri::encode_heads(mdo, dtype, dout, sq, h, q_rows);
+  if (rc == 0) rc = tri::encode_heads(mk, dtype, k, sq, h_kv, ROWS);
+  if (rc == 0) rc = tri::encode_heads(mv, dtype, v, sq, h_kv, ROWS);
+  return rc;
+}
+
+}  // namespace tri_bwd
 
 // ---------------------------------------------------------------------------
 // launch
@@ -1661,16 +2251,6 @@ cudaError_t launch(int dtype, int dh, const Params& p, void* stream) {
   return cudaErrorInvalidValue;
 }
 
-template <typename Kernel>
-cudaError_t launch_with(Kernel kernel, dim3 grid, int threads, int smem,
-                        const Params& p, const Grads& gr, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, s>>>(p, gr);
-  return cudaGetLastError();
-}
-
 // the backward: dkv = 0 launches the dQ pass, 1 the dK/dV pass
 cudaError_t launch_bwd(int dtype, int dh, int dkv, const Params& p,
                        const Grads& gr, void* stream) {
@@ -1683,23 +2263,23 @@ cudaError_t launch_bwd(int dtype, int dh, int dkv, const Params& p,
     const int rows = dkv ? p.skv : p.sq;
     const dim3 grid((rows + FB_ROWS - 1) / FB_ROWS, dkv ? p.h_kv : p.h);
     return dkv ? launch_with(flash_bwd_dkv_f32<D>, grid, FB_THREADS,
-                             f32_bwd_smem_bytes<D>(), p, gr, s)
+                             f32_bwd_smem_bytes<D>(), s, p, gr)
                : launch_with(flash_bwd_dq_f32<D>, grid, FB_THREADS,
-                             f32_bwd_smem_bytes<D>(), p, gr, s);
+                             f32_bwd_smem_bytes<D>(), s, p, gr);
   }
   if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
   if (dkv) {
     const dim3 grid((p.skv + BKV - 1) / BKV, p.h_kv);
     return dtype == 1 ? launch_with(flash_bwd_dkv_mma<__half, D>, grid, THREADS,
-                                    dkv_smem_bytes<D>(), p, gr, s)
+                                    dkv_smem_bytes<D>(), s, p, gr)
                       : launch_with(flash_bwd_dkv_mma<__nv_bfloat16, D>, grid,
-                                    THREADS, dkv_smem_bytes<D>(), p, gr, s);
+                                    THREADS, dkv_smem_bytes<D>(), s, p, gr);
   }
   const dim3 grid((p.sq + BQ - 1) / BQ, p.h);
   return dtype == 1 ? launch_with(flash_bwd_dq_mma<__half, D>, grid, THREADS,
-                                  mma_smem_bytes<D>(), p, gr, s)
+                                  mma_smem_bytes<D>(), s, p, gr)
                     : launch_with(flash_bwd_dq_mma<__nv_bfloat16, D>, grid,
-                                  THREADS, mma_smem_bytes<D>(), p, gr, s);
+                                  THREADS, mma_smem_bytes<D>(), s, p, gr);
 }
 
 Params make_params(const void* q, const void* k, const void* v, int sq,
@@ -1825,14 +2405,75 @@ int ddlb_flash_forward_tri(int dtype, const void* q, const void* k, const void* 
   a.group = h / h_kv;
   a.q_tiles = (sq + tri::BQ - 1) / tri::BQ;
   // a query head reads 2 * sq * 128 * 2 bytes of K and V, shared by its group
-  const long long per_head = 512ll * sq / a.group + 1;
-  const long long head_group = tri::L2_SHARE / per_head;
-  a.head_group = static_cast<int>(head_group < 1 ? 1 : head_group > h ? h : head_group);
+  a.head_group = tri::head_group(512ll * sq / a.group, h);
   a.scale = scale;
   a.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dtype == 1 ? tri::launch<__half>(a, s)
                                      : tri::launch<__nv_bfloat16>(a, s));
+}
+
+// K10a / K10b on Hopper (namespace tri_bwd): the causal triangle at offset
+// 0, sq == skv, dtype 1 = float16 or 2 = bfloat16, dh 128. q, dout [sq, h,
+// dh] and k, v [sq, h_kv, dh] in the operand dtype, each 16-byte aligned
+// (TMA's rule; the wrapper checks); lse, delta [h, sq] f32.
+// ddlb_flash_bwd_dq_tri writes dq [sq, h, dh] f32, ddlb_flash_bwd_dkv_tri
+// dk, dv [sq, h_kv, dh] f32, summed over each kv head's group.
+int ddlb_flash_bwd_dq_tri(int dtype, const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta, void* dq,
+                          int sq, int h, int h_kv, int dh, float scale, void* stream) {
+  tri_bwd::DqArgs a;
+  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, dq, dq, sq, h, h_kv, dh,
+                                      tri_bwd::ROWS, &a.q, &a.dout, &a.k, &a.v);
+  if (rc != 0) return rc;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = static_cast<float*>(dq);
+  a.sq = sq;
+  a.h = h;
+  a.group = h / h_kv;
+  a.q_tiles = (sq + tri_bwd::ROWS - 1) / tri_bwd::ROWS;
+  // a query head reads 2 * sq * 128 * 2 bytes of K and V, shared by its group
+  a.head_group = tri::head_group(512ll * sq / a.group, h);
+  a.scale = scale;
+  a.scale_log2 = scale * tri_bwd::LOG2E;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = a.q_tiles * h;
+  return static_cast<int>(
+      dtype == 1 ? launch_with(tri_bwd::flash_bwd_dq_wgmma<__half>, blocks, tri_bwd::THREADS,
+                               tri_bwd::DQ_SMEM_BYTES, s, a)
+                 : launch_with(tri_bwd::flash_bwd_dq_wgmma<__nv_bfloat16>, blocks,
+                               tri_bwd::THREADS, tri_bwd::DQ_SMEM_BYTES, s, a));
+}
+
+int ddlb_flash_bwd_dkv_tri(int dtype, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta, void* dk,
+                           void* dv, int sq, int h, int h_kv, int dh, float scale,
+                           void* stream) {
+  tri_bwd::DkvArgs a;
+  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, dk, dv, sq, h, h_kv, dh,
+                                      tri_bwd::Q_STEP, &a.q, &a.dout, &a.k, &a.v);
+  if (rc != 0) return rc;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.sq = sq;
+  a.h_kv = h_kv;
+  a.group = h / h_kv;
+  a.k_tiles = (sq + tri_bwd::ROWS - 1) / tri_bwd::ROWS;
+  a.q_steps = (sq + tri_bwd::Q_STEP - 1) / tri_bwd::Q_STEP;
+  // a kv head's blocks read Q and dO of its group: 2 * sq * 128 * 2 bytes a query head
+  a.head_group = tri::head_group(512ll * sq * a.group, h_kv);
+  a.scale = scale;
+  a.scale_log2 = scale * tri_bwd::LOG2E;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = a.k_tiles * h_kv;
+  return static_cast<int>(
+      dtype == 1 ? launch_with(tri_bwd::flash_bwd_dkv_wgmma<__half>, blocks, tri_bwd::THREADS,
+                               tri_bwd::DKV_SMEM_BYTES, s, a)
+                 : launch_with(tri_bwd::flash_bwd_dkv_wgmma<__nv_bfloat16>, blocks,
+                               tri_bwd::THREADS, tri_bwd::DKV_SMEM_BYTES, s, a));
 }
 
 const char* ddlb_flash_error_string(int code) {

@@ -11,8 +11,10 @@ Replaces, in ``ddlb_tpu/ops/flash_attention.py``:
   ``flash_attention_chunk`` (``ddlb_flash_chunk``);
 - the backward ``flash_attention_bwd`` (:781) with its four Pallas kernels,
   the triangular dQ and dK/dV kernels (:706 K10a, :741 K10b) and the
-  rectangular ones (:624 K10c, :664 K10d): here ``flash_backward``, two
-  CUDA entry points (``ddlb_flash_bwd_dq``, ``ddlb_flash_bwd_dkv``), each
+  rectangular ones (:624 K10c, :664 K10d): here ``flash_backward``, the
+  triangle in bf16/fp16 on two Hopper entry points
+  (``ddlb_flash_bwd_dq_tri``, ``ddlb_flash_bwd_dkv_tri``) and everything
+  else on two more (``ddlb_flash_bwd_dq``, ``ddlb_flash_bwd_dkv``), each
   case counted apart; ``delta = rowsum(do * o)`` is taken outside, as
   :826 does, and GQA's dK/dV are summed over the group inside the dK/dV
   pass;
@@ -37,10 +39,13 @@ triangle costs half the square, as the TPU's triangular grid (K8a) does.
 K8a in bf16/fp16 runs ``flash_fwd_wgmma`` (entry point
 ``ddlb_flash_forward_tri``), the Hopper kernel: a TMA producer warpgroup
 and two consumer warpgroups running ``wgmma`` over 128-row query tiles and
-128-key tiles, the softmax in base 2. K8b, K9 and the backward in
-bf16/fp16 run ``mma.sync`` kernels (``flash_mma`` for the forward cases)
-with float32 sums and the softmax state in registers; float32 runs SIMT
-kernels in true float32. Built by ``nvcc`` for ``sm_90a`` at first use
+128-key tiles, the softmax in base 2; K10a and K10b in bf16/fp16 run
+``flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma`` on the same design
+(128-row query tiles against streamed 128-key tiles for dQ; 128-key tiles
+against streamed 64-row query tiles for dK/dV). K8b, K9 and K10c/K10d in
+bf16/fp16 run ``mma.sync`` kernels (``flash_mma``, ``flash_bwd_dq_mma``,
+``flash_bwd_dkv_mma``) with float32 sums; float32 runs SIMT kernels in
+true float32. Built by ``nvcc`` for ``sm_90a`` at first use
 (``_build.py``) and called through ``ctypes`` on PyTorch's current stream.
 
 Dispatch, as ``flash_attention`` (:1147-1167) states it: a window that
@@ -53,7 +58,8 @@ literal offset 0 with square shapes, a mask and no window is the triangle
 counts kernel launches by case (``tri``, ``rect``, ``chunk``,
 ``bwd_dq_tri``, ``bwd_dkv_tri``, ``bwd_dq_rect``, ``bwd_dkv_rect``), and
 ``FORWARD_TILES`` the forward and chunk launches by kernel (``wgmma``:
-``flash_fwd_wgmma``; ``mma``: ``flash_mma``; ``simt``: ``flash_f32``). A CPU
+``flash_fwd_wgmma``; ``mma``: ``flash_mma``; ``simt``: ``flash_f32``),
+``BACKWARD_TILES`` the backward's pass launches by kernel. A CPU
 tensor takes the plain PyTorch version beside each kernel
 (``flash_forward_plain``, ``flash_chunk_plain``, ``flash_backward_plain``),
 which follows the Pallas kernels' tile updates (``_online_softmax_update``,
@@ -88,6 +94,11 @@ LAUNCHES = {"tri": 0, "rect": 0, "chunk": 0, "bwd_dq_tri": 0, "bwd_dkv_tri": 0,
 #: bf16/fp16), ``mma`` = ``flash_mma`` (K8b and K9 in bf16/fp16), ``simt``
 #: = ``flash_f32`` (float32)
 FORWARD_TILES = {"wgmma": 0, "mma": 0, "simt": 0}
+#: the backward's pass launches by kernel since the counts were last
+#: zeroed: ``wgmma`` = the Hopper K10a/K10b kernels (the triangle in
+#: bf16/fp16), ``mma`` = ``flash_bwd_*_mma`` (K10c/K10d in bf16/fp16),
+#: ``simt`` = ``flash_bwd_*_f32`` (float32)
+BACKWARD_TILES = {"wgmma": 0, "mma": 0, "simt": 0}
 
 #: how a chunk's keys relate to the queries (``flash_attention_chunk``)
 CHUNK_MODES = ("offset", "diagonal", "past")
@@ -109,7 +120,7 @@ Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FORWARD_TILES):
+    for counts in (LAUNCHES, FORWARD_TILES, BACKWARD_TILES):
         for key in counts:
             counts[key] = 0
 
@@ -398,8 +409,17 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32,
         f32, i32, i32, i32, i32, ptr,
     ]
+    lib.ddlb_flash_bwd_dq_tri.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # dtype, q, k, v, dout, lse, delta, dq
+        i32, i32, i32, i32, f32, ptr,            # sq, h, h_kv, dh, scale, stream
+    ]
+    lib.ddlb_flash_bwd_dkv_tri.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # ..., delta, dk, dv
+        i32, i32, i32, i32, f32, ptr,
+    ]
     for fn in (lib.ddlb_flash_forward, lib.ddlb_flash_forward_tri, lib.ddlb_flash_chunk,
-               lib.ddlb_flash_bwd_dq, lib.ddlb_flash_bwd_dkv):
+               lib.ddlb_flash_bwd_dq, lib.ddlb_flash_bwd_dkv, lib.ddlb_flash_bwd_dq_tri,
+               lib.ddlb_flash_bwd_dkv_tri):
         fn.restype = ctypes.c_int
     lib.ddlb_flash_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_flash_error_string.restype = ctypes.c_char_p
@@ -588,6 +608,13 @@ def backward_case(sq: int, skv: int, row_offset: int, col_offset: int,
     return ("tri" if tri else "rect"), int(row_offset), int(col_offset)
 
 
+def backward_kernel(case: str, dtype: torch.dtype) -> str:
+    """The kernel a backward pass of ``case`` (``tri`` or ``rect``) runs in
+    ``dtype``, by the forward's rule: ``wgmma`` for the triangle in
+    bf16/fp16, ``simt`` for float32, ``mma`` otherwise."""
+    return forward_kernel(case, dtype)
+
+
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(do * o)`` in float32, ``[h, sq, 1]`` (:826-830)."""
     return (do.float() * o.float()).sum(-1, keepdim=True).transpose(0, 1).contiguous()
@@ -714,26 +741,32 @@ def flash_backward(
 def backward_pass(name: str, q, k, v, do, lse, delta, out, *, scale: float,
                   row_offset: int, col_offset: int, causal: str, window: int) -> None:
     """Launch one pass of the flash backward into ``out``: ``dq`` (K10a or
-    K10c) writes ``(dq,)``, ``dkv`` (K10b or K10d) ``(dk, dv)``; counted
-    in ``LAUNCHES`` under ``bwd_{name}_{case}``. ``flash_backward`` runs
-    both after checking the operands."""
+    K10c) writes ``(dq,)``, ``dkv`` (K10b or K10d) ``(dk, dv)``, on the
+    kernel ``backward_kernel`` names; counted in ``LAUNCHES`` under
+    ``bwd_{name}_{case}`` and in ``BACKWARD_TILES`` by kernel.
+    ``flash_backward`` runs both after checking the operands."""
     sq, h, dh = q.shape
     skv, h_kv = k.shape[0], k.shape[1]
     case, row_offset, col_offset = backward_case(sq, skv, row_offset,
                                                  col_offset, causal, window)
+    kernel = backward_kernel(case, q.dtype)
     lib = _lib()
-    entry = {"dq": lib.ddlb_flash_bwd_dq, "dkv": lib.ddlb_flash_bwd_dkv}[name]
+    head = (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in out))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = entry(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in out), sq, skv, h, h_kv, dh, float(scale),
-            row_offset, col_offset, int(causal not in ("past", "none")),
-            int(window), stream,
-        )
+        if kernel == "wgmma":
+            entry = {"dq": lib.ddlb_flash_bwd_dq_tri, "dkv": lib.ddlb_flash_bwd_dkv_tri}[name]
+            rc = entry(*head, sq, h, h_kv, dh, float(scale), stream)
+        else:
+            entry = {"dq": lib.ddlb_flash_bwd_dq, "dkv": lib.ddlb_flash_bwd_dkv}[name]
+            rc = entry(
+                *head, sq, skv, h, h_kv, dh, float(scale), row_offset, col_offset,
+                int(causal not in ("past", "none")), int(window), stream,
+            )
     LAUNCHES[f"bwd_{name}_{case}"] += 1
-    _raise_on(rc, f"flash backward {name} ({case})")
+    BACKWARD_TILES[kernel] += 1
+    _raise_on(rc, f"flash backward {name} ({case}, {kernel})")
 
 
 # -- the context-parallel ring ---------------------------------------------------

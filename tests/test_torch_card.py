@@ -557,7 +557,9 @@ def test_quantized_member_runs_k7_and_validates(cuda_device, family):
 # peaked inputs, within fa.backward_gap_bound: the score gap, the order of
 # the dP products and of the float32 sums, and the rounding of P and dS to
 # the operand type before the tensor-core products, each scaled by the
-# magnitudes the plain tile loop sums (|dS||K|, |dS||Q|, P|dO|).
+# magnitudes the plain tile loop sums (|dS||K|, |dS||Q|, P|dO|). Each pass
+# is counted by kernel (``BACKWARD_TILES``): the triangle in bf16/fp16 on
+# the Hopper wgmma passes, the rectangle on mma.sync, float32 on SIMT.
 
 #: K8a's Hopper kernel at ragged lengths (below one tile, one short of
 #: it, one past it, ragged past several) and GQA 8/2: (sq, h, h_kv)
@@ -600,6 +602,12 @@ BACKWARD_CASES = [
     (128, 128, 8, 2, 256, 128, "past", 0),      # a past ring chunk, GQA 4
     (130, 70, 2, 1, 0, 0, "none", 0),           # bidirectional, ragged
     (64, 64, 2, 2, 100, 0, "offset", 60),       # rows with an empty band
+    # the triangle across the Hopper kernels' seams (128-row dQ tiles,
+    # 128-key dK/dV tiles over 64-query steps, the producers' rings)
+    (320, 320, 4, 4, 0, 0, "offset", 0),        # 64 x 5: an odd number of steps
+    (129, 129, 2, 2, 0, 0, "offset", 0),        # one past a tile
+    (1000, 1000, 8, 2, 0, 0, "offset", 0),      # ragged, GQA 4
+    (2048, 2048, 16, 16, 0, 0, "offset", 0),    # the rings wrap many times
 ]
 
 
@@ -629,12 +637,16 @@ def test_flash_backward_within_bound(cuda_device, case, dtype, peaked):
     o, lse = _backward_forward(q, k, v, ro, co, mode, window)
     kw = dict(scale=dh**-0.5, row_offset=ro, col_offset=co, causal=mode, window=window)
     case_name, _, _ = fa.backward_case(sq, skv, ro, co, mode, window)
-    before = dict(fa.LAUNCHES)
+    kernel = fa.backward_kernel(case_name, dtype)
+    assert kernel == ("simt" if dtype == torch.float32
+                      else "wgmma" if case_name == "tri" else "mma")
+    before, tiles = dict(fa.LAUNCHES), dict(fa.BACKWARD_TILES)
     got = fa.flash_backward(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     for pass_ in ("dq", "dkv"):
         key = f"bwd_{pass_}_{case_name}"
         assert fa.LAUNCHES[key] == before[key] + 1
+    assert fa.BACKWARD_TILES == dict(tiles, **{kernel: tiles[kernel] + 2})
     want = fa.flash_backward_plain(q, k, v, o, lse, do, **kw)
     bounds = fa.backward_gap_bound(q, k, v, o, lse, do, want, **kw)
     for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
@@ -658,12 +670,14 @@ def test_flash_attention_gradient_through_the_kernels(cuda_device, dtype):
     q, k, v = _uniform_qkv(sq, sq, h, h, dh, dtype, gen, cuda_device)
     w = _uniform((sq, h, dh), torch.float32, gen, cuda_device)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    before = dict(fa.LAUNCHES)
+    before, tiles = dict(fa.LAUNCHES), dict(fa.BACKWARD_TILES)
     out = fa.flash_attention(*leaves, scale=dh**-0.5)
     grads = torch.autograd.grad((out.float() * w).sum(), leaves)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["bwd_dq_tri"] == before["bwd_dq_tri"] + 1
     assert fa.LAUNCHES["bwd_dkv_tri"] == before["bwd_dkv_tri"] + 1
+    kernel = "simt" if dtype == torch.float32 else "wgmma"
+    assert fa.BACKWARD_TILES == dict(tiles, **{kernel: tiles[kernel] + 2})
     ref = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
     s = torch.einsum("qhd,khd->hqk", ref[0], ref[1]) * dh**-0.5
     mask = torch.ones((sq, sq), dtype=torch.bool, device=cuda_device).tril()
@@ -681,19 +695,21 @@ def test_flash_attention_gradient_through_the_kernels(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_wgmma_forward_lse_feeds_the_backward(cuda_device, dtype):
     """At 1024², the wgmma forward's lse (natural-log units) is what K10a and
-    K10b read: autograd through ``flash_attention`` against autograd of the
-    plain float32 einsum attention, within the tolerance of
-    ``test_flash_attention_gradient_through_the_kernels``."""
+    K10b (the wgmma backward) read: autograd through ``flash_attention``
+    against autograd of the plain float32 einsum attention, within the
+    tolerance of ``test_flash_attention_gradient_through_the_kernels``."""
     sq, h, dh = 1024, 4, 128
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     q, k, v = _uniform_qkv(sq, sq, h, h, dh, dtype, gen, cuda_device)
     w = _uniform((sq, h, dh), torch.float32, gen, cuda_device)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     tiles, before = dict(fa.FORWARD_TILES), dict(fa.LAUNCHES)
+    bwd_tiles = dict(fa.BACKWARD_TILES)
     out = fa.flash_attention(*leaves, scale=dh**-0.5)
     grads = torch.autograd.grad((out.float() * w).sum(), leaves)
     torch.cuda.synchronize()
     assert fa.FORWARD_TILES == dict(tiles, wgmma=tiles["wgmma"] + 1)
+    assert fa.BACKWARD_TILES == dict(bwd_tiles, wgmma=bwd_tiles["wgmma"] + 2)
     assert fa.LAUNCHES["bwd_dq_tri"] == before["bwd_dq_tri"] + 1
     assert fa.LAUNCHES["bwd_dkv_tri"] == before["bwd_dkv_tri"] + 1
     ref = [x.float().clone().requires_grad_(True) for x in (q, k, v)]

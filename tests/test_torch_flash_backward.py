@@ -7,7 +7,10 @@ windows, GQA groups of 1, 2 and 4 and nonzero offsets, in float32 and
 bfloat16, on numpy-seeded inputs with blocks of 16 on both sides: both
 run the same float32 tile recurrence and differ only in the order of
 float32 sums, so float32 agrees within rtol = atol = 1e-5, and bfloat16
-operands (upcast to float32 on both sides) within the same. The
+operands (upcast to float32 on both sides) within the same. The triangle
+is also held at the Hopper kernels' tile split (128 x 128 for dQ, 128 keys
+x 64 queries for dK/dV), ragged and GQA 4/2, with the JAX side on blocks
+that divide the length. The
 autograd Function behind ``flash_attention`` and ``ring_flash_attention``
 is held against autograd of plain float32 einsum attention (atol 1e-5),
 and per-chunk backward calls against the whole-span call, as
@@ -38,6 +41,19 @@ CASES = {
     "past_gqa4": (32, 32, 4, 1, 64, 32, "past", 0),
     "none": (32, 48, 2, 2, 0, 0, "none", 0),
     "empty_band_rows": (32, 32, 2, 2, 60, 0, "offset", 20),
+    # the triangle at the Hopper kernels' tile split (SPLITS)
+    "ragged_triangle_64x128": (200, 200, 2, 2, 0, 0, "offset", 0),
+    "ragged_triangle_128x128": (200, 200, 2, 2, 0, 0, "offset", 0),
+    "gqa2_triangle_64x128": (192, 192, 4, 2, 0, 0, "offset", 0),
+    "gqa2_triangle_128x128": (192, 192, 4, 2, 0, 0, "offset", 0),
+}
+#: id -> (the JAX side's block, the plain version's block_q, block_kv);
+#: the other cases take BLOCK on both sides
+SPLITS = {
+    "ragged_triangle_64x128": (40, 64, 128),
+    "ragged_triangle_128x128": (40, 128, 128),
+    "gqa2_triangle_64x128": (32, 64, 128),
+    "gqa2_triangle_128x128": (32, 128, 128),
 }
 
 
@@ -50,7 +66,7 @@ def _inputs(sq, skv, h, h_kv, seed, dtype):
     return arrays
 
 
-def _forward_for(q, k, v, ro, co, mode, window):
+def _forward_for(q, k, v, ro, co, mode, window, block=BLOCK):
     """The JAX forward's (o, lse) over this span, as the backward takes
     them: relative offsets, or no mask for past and none."""
     if mode in ("past", "none"):
@@ -58,30 +74,32 @@ def _forward_for(q, k, v, ro, co, mode, window):
     else:
         off, causal = (0 if mode == "diagonal" else ro - co), True
     return jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), off,
-                              DH**-0.5, BLOCK, BLOCK, True, causal, window)
+                              DH**-0.5, block, block, True, causal, window)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(CASES), ids=str)
 def test_backward_plain_matches_pallas(case, dtype):
     sq, skv, h, h_kv, ro, co, mode, window = CASES[case]
+    jax_block, block_q, block_kv = SPLITS.get(case, (BLOCK, BLOCK, BLOCK))
     q, k, v, do = _inputs(sq, skv, h, h_kv, len(case), dtype)
-    o, lse = _forward_for(q, k, v, ro, co, mode, window)
+    o, lse = _forward_for(q, k, v, ro, co, mode, window, jax_block)
     want = jfa.flash_attention_bwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse, jnp.asarray(do),
-        scale=DH**-0.5, row_offset=ro, col_offset=co, block_q=BLOCK, block_kv=BLOCK,
-        interpret=True, causal=mode, window=window,
+        scale=DH**-0.5, row_offset=ro, col_offset=co, block_q=jax_block,
+        block_kv=jax_block, interpret=True, causal=mode, window=window,
     )
     tq, tk, tv, to, tl, tdo = (torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do))
     if dtype == "bfloat16":
         tq, tk, tv, tdo = (x.bfloat16() for x in (tq, tk, tv, tdo))
-    before = dict(fa.LAUNCHES)
+    before, tiles = dict(fa.LAUNCHES), dict(fa.BACKWARD_TILES)
     got = fa.flash_backward(tq, tk, tv, to, tl, tdo, scale=DH**-0.5, row_offset=ro,
                             col_offset=co, causal=mode, window=window)
-    assert fa.LAUNCHES == before  # a CPU tensor takes the plain version
+    # a CPU tensor takes the plain version
+    assert fa.LAUNCHES == before and fa.BACKWARD_TILES == tiles
     plain = fa.flash_backward_plain(tq, tk, tv, to, tl, tdo, scale=DH**-0.5,
                                     row_offset=ro, col_offset=co, causal=mode,
-                                    window=window, block_q=BLOCK, block_kv=BLOCK)
+                                    window=window, block_q=block_q, block_kv=block_kv)
     for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
         assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=name)
@@ -103,6 +121,53 @@ def test_backward_case_follows_the_dispatch_rule(sq, skv, ro, co, mode, window):
     assert case == ("tri" if tri else "rect")
     if mode == "diagonal" and sq == skv:
         assert (r, c) == (0, 0)
+
+
+@pytest.mark.parametrize(
+    "case,dtype,kernel",
+    [
+        ("tri", torch.bfloat16, "wgmma"),
+        ("tri", torch.float16, "wgmma"),
+        ("tri", torch.float32, "simt"),
+        ("rect", torch.bfloat16, "mma"),
+        ("rect", torch.float16, "mma"),
+        ("rect", torch.float32, "simt"),
+    ],
+)
+def test_backward_kernel_choice(case, dtype, kernel):
+    """The triangle in bf16/fp16 takes the Hopper wgmma passes; the
+    rectangle stays on flash_bwd_*_mma; float32 on the SIMT kernels."""
+    assert fa.backward_kernel(case, dtype) == kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
+def test_backward_kernel_rejects_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="flash kernels take"):
+        fa.backward_kernel("tri", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("case", ["triangle", "window", "diagonal", "past_gqa4"])
+def test_cpu_backward_counts_no_kernel(case, dtype):
+    """A CPU tensor takes the plain version whatever kernel its case would
+    run on the card: no launch by case and none by kernel."""
+    sq, skv, h, h_kv, ro, co, mode, window = CASES[case]
+    q, k, v, do = (torch.from_numpy(x).to(dtype)
+                   for x in _inputs(sq, skv, h, h_kv, 13, "float32"))
+    o, lse = fa.flash_forward_plain(q, k, v, scale=DH**-0.5, causal=mode != "past")
+    kw = dict(scale=DH**-0.5, row_offset=ro, col_offset=co, causal=mode, window=window)
+    before, tiles = dict(fa.LAUNCHES), dict(fa.BACKWARD_TILES)
+    got = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    assert fa.LAUNCHES == before and fa.BACKWARD_TILES == tiles
+    for g, w in zip(got, fa.flash_backward_plain(q, k, v, o, lse, do, **kw)):
+        assert torch.equal(g, w)
+
+
+def test_reset_launches_zeroes_the_backward_counts():
+    fa.BACKWARD_TILES["wgmma"] += 2
+    fa.LAUNCHES["bwd_dq_tri"] += 1
+    fa.reset_launches()
+    assert not any(fa.BACKWARD_TILES.values()) and not any(fa.LAUNCHES.values())
 
 
 def _einsum_attention(q, k, v, scale, row_offset=0, window=0):
