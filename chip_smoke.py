@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero without the final line:
    carried-chunk fold), K11 and K12 (single-token decode attention,
    contiguous and paged), K7 (the int8 GEMM, bit for bit at the GEMM
    path's 8192^3, the decode and prefill MLP's shapes and ragged ones,
-   each output dtype), K10a-K10d (the flash backward's dQ and dK/dV
+   each output dtype, on a column-major and a row-major weight, each call
+   on the tile its layout and widths choose: ``wgmma``, ``small_m`` or
+   ``mma``, counted in ``TILES``; the decode shapes timed also from a
+   CUDA graph and beside ``torch._int_mm`` on A padded to 32 rows),
+   K10a-K10d (the flash backward's dQ and dK/dV
    passes, triangle and rectangle, within ``backward_gap_bound`` at the
    training path's shapes and ragged, GQA, offset, past, diagonal and
    windowed cases, the triangle in bf16/fp16 on the Hopper ``wgmma``
@@ -76,7 +80,9 @@ Phases, in order; any failure exits non-zero without the final line:
    rows launch, every K1, K2 and K3 launch of every path on the Hopper
    tile, every K8a launch on the ``wgmma`` forward, every K10a/K10b pass
    on the ``wgmma`` backward and every K10c/K10d pass on ``mma.sync``
-   (``check_tiles``);
+   (``check_tiles``), and every K7 launch on ``wgmma`` (8192^3, the
+   prompt passes, training) or ``small_m`` (the decode steps), none on
+   ``mma``;
    then the LM head's product before and after it moved to the tensor
    cores (``head_phase``: the full-width train row and a pallas
    decode row, each with the old float32 head and the new one);
@@ -1522,7 +1528,14 @@ def kernel_phase_decode(da, smi):
 #: dtype, tag of a shape that is also timed). The GEMM path's 8192^3; the
 #: decode MLP's two products at batch 8 (the first into float32, before
 #: the activation); the int8 prefill MLP's at m = 8192 (65,536 rows);
-#: ragged and small shapes in every output dtype
+#: ragged and small shapes in every output dtype: both sides of the
+#: small-m cut (64, 65), small_m's widths N = 8, 32 and 64 with k split
+#: and unsplit (33,800 columns make 529 weight tiles, one split), output
+#: rows that are not a multiple of 16 bytes (wgmma's staged epilogue
+#: instead of its TMA stores), and k not a multiple of 16 (the mma
+#: tile). Each shape runs on a column-major weight (the paths' layout:
+#: wgmma, small_m, or mma where TMA cannot take the widths) and on a
+#: row-major one (mma).
 INT8_CHECKS = (
     (PATH_MNK, PATH_MNK, PATH_MNK, "bfloat16", "gemm"),
     (8, 8192, 2048, "float32", "decode_w1"),
@@ -1534,14 +1547,72 @@ INT8_CHECKS = (
     (1000, 776, 520, "float32", None),
     (2048, 2048, 2048, "float16", None),
     (129, 131, 7, "bfloat16", None),
+    (17, 1000, 1040, "float16", None),
+    (64, 33800, 256, "bfloat16", None),
+    (65, 200, 2048, "float32", None),
+    (300, 1003, 512, "bfloat16", None),
 )
 #: timed iterations of (K7, its plain version, the library call) by tag
 INT8_TIMED = {
     "gemm": (20, 2, 20),
-    "decode_w1": (100, 10, 0),
-    "decode_w2": (100, 10, 0),
+    "decode_w1": (100, 10, 100),
+    "decode_w2": (100, 10, 100),
     "prefill_w1": (5, 1, 5),
 }
+#: rows the decode yardstick pads A to: torch._int_mm takes m > 16 only
+INT8_LIBRARY_ROWS = 32
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """CUDA-event milliseconds per call of ``calls`` calls captured in one
+    CUDA graph, the median of ``replays`` replays: the card's time without
+    the caller's host work between launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / calls)
+    del graph
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def k7_ptxas():
+    """``ptxas -v``'s registers and spill stores of K7's kernels, by tile,
+    output dtype and (small_m) N or (mma) weight layout."""
+    import re
+
+    from ddlb_tpu_torch.ops import _build
+
+    found = {}
+    for name, usage in _build.ptxas_usage(_build.build_log("quantized_matmul")).items():
+        if "int8_gemm" not in name:
+            continue
+        dtype = ("bfloat16" if "bfloat16" in name else "float16" if "__half" in name
+                 else "float32")
+        if "int8_gemm_wgmma" in name:
+            key = f"wgmma {dtype}"
+        elif "int8_gemm_small_m" in name:
+            width = re.findall(r"Li(\d+)E", name)[-1]
+            key = f"small_m N={width} {dtype}"
+        else:
+            key = f"mma {'col' if 'Lb1E' in name else 'row'} {dtype}"
+        found[key] = usage
+    return found
 
 
 def int8_bound(m, n, k, out_itemsize):
@@ -1558,68 +1629,90 @@ def int8_bound(m, n, k, out_itemsize):
 def kernel_phase_int8(qm, smi):
     """K7 against ``int8_matmul_plain`` at every shape of ``INT8_CHECKS``
     (bit for bit: both sum the int8 products exactly and apply the same
-    epilogue), then the tagged shapes timed beside the plain version, the
-    library call (``torch._int_mm`` on a column-major weight, the layout
-    the ``kernel=xla`` rows keep, plus the same epilogue: ``int8_matmul``,
-    itself held bit for bit to the plain version; null where
-    ``torch._int_mm`` refuses the shape) and the bound. Returns K7's entry
-    of the ``kernels`` line."""
+    epilogue), on a column-major and on a row-major weight, each launch on
+    the tile ``tile_for`` names (counted in ``TILES``); then the tagged
+    shapes timed on the column-major weight beside the plain version, the
+    library call (``torch._int_mm`` on the column-major weight plus the
+    same epilogue: ``int8_matmul``, itself held bit for bit to the plain
+    version; at the decode shapes, which it refuses, on A padded with zero
+    rows to ``INT8_LIBRARY_ROWS``, labelled so) and the bound; at 8192^3
+    also the mma tile on the row-major weight (``mma_ms``), and at the
+    decode shapes each time also from a CUDA graph (``graph_ms``). Returns
+    K7's entry of the ``kernels`` line."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     timed = {}
+    qm.reset_launches()
     for m, n, k, dtype_name, tag in INT8_CHECKS:
         out_dtype = getattr(torch, dtype_name)
         aq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
         bq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
         sa = torch.rand((m, 1), generator=gen, device="cuda") * 2e-2 + 1e-4
         sb = torch.rand((1, n), generator=gen, device="cuda") * 2e-2 + 1e-4
-        what = f"K7 {m}x{n}x{k} -> {dtype_name}"
-        got = qm.int8_matmul_kernel(aq, bq, sa, sb, out_dtype=out_dtype)
-        torch.cuda.synchronize()
+        bq_col = qm.column_major(bq)
         want = qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)
-        err = float((got.double() - want.double()).abs().max())
-        if not torch.equal(got, want):
-            fail(f"{what}: {int((got != want).sum())} elements differ from the "
-                 f"plain version, max |err| {err}")
-        print(f"{what}: bit for bit equal to the plain version: ok")
-        del got, want
+        err = 0.0
+        for layout, weight in (("col", bq_col), ("row", bq)):
+            tile = qm.tile_for(m, n, k, layout, aq.data_ptr(), weight.data_ptr())
+            what = f"K7 {m}x{n}x{k} -> {dtype_name}, {layout}-major weight, {tile} tile"
+            before = dict(qm.TILES)
+            got = qm.int8_matmul_kernel(aq, weight, sa, sb, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            if qm.TILES != dict(before, **{tile: before[tile] + 1}):
+                fail(f"{what}: launches by tile {qm.TILES}, before {before}")
+            err = max(err, float((got.double() - want.double()).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"{what}: {int((got != want).sum())} elements differ from the "
+                     f"plain version, max |err| {err}")
+            print(f"{what}: bit for bit equal to the plain version: ok")
+            del got
+        del want
         if tag is None:
             continue
         iters, plain_iters, lib_iters = INT8_TIMED.get(tag, (0, 0, 0))
         if not iters:
             continue
         calls = {
-            "ms": lambda: qm.int8_matmul_kernel(aq, bq, sa, sb, out_dtype=out_dtype),
+            "ms": lambda: qm.int8_matmul_kernel(aq, bq_col, sa, sb, out_dtype=out_dtype),
             "plain_ms": lambda: qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype),
         }
         iterations = {"ms": iters, "plain_ms": plain_iters}
+        if tag == "gemm":
+            calls["mma_ms"] = lambda: qm.int8_matmul_kernel(aq, bq, sa, sb, out_dtype=out_dtype)
+            iterations["mma_ms"] = iters
         note = None
-        bq_col = bq.t().contiguous().t()
-        try:
-            lib = qm.int8_matmul(aq, bq_col, sa, sb, out_dtype=out_dtype)
-        except RuntimeError as exc:  # the library's own shape rule
-            note = f"null: torch._int_mm refuses m = {m} ({str(exc).splitlines()[0]})"
-        else:
-            if not torch.equal(lib, qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)):
-                fail(f"{what}: the library yardstick differs from the plain version")
-            del lib
-            calls["library_ms"] = lambda: qm.int8_matmul(aq, bq_col, sa, sb, out_dtype=out_dtype)
-            iterations["library_ms"] = lib_iters
+        lib_a, lib_sa = aq, sa
+        if m <= 16:  # torch._int_mm refuses m <= 16: A padded with zero rows
+            lib_a = torch.zeros((INT8_LIBRARY_ROWS, k), dtype=torch.int8, device="cuda")
+            lib_sa = torch.ones((INT8_LIBRARY_ROWS, 1), device="cuda")
+            lib_a[:m], lib_sa[:m] = aq, sa
+            note = (f"torch._int_mm on A padded with zero rows to m = {INT8_LIBRARY_ROWS} "
+                    f"(it refuses m <= 16) and a column-major weight, plus the epilogue")
+        lib = qm.int8_matmul(lib_a, bq_col, lib_sa, sb, out_dtype=out_dtype)
+        if not torch.equal(lib[:m], qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)):
+            fail(f"K7 {tag}: the library yardstick differs from the plain version")
+        del lib
+        calls["library_ms"] = lambda: qm.int8_matmul(lib_a, bq_col, lib_sa, sb,
+                                                     out_dtype=out_dtype)
+        iterations["library_ms"] = lib_iters
         times, turns = time_turns(calls, iterations)
-        times.setdefault("library_ms", None)
+        if m <= qm.SMALL_M:
+            times["graph_ms"] = graph_ms(calls["ms"])
+            times["library_graph_ms"] = graph_ms(calls["library_ms"])
         bound = int8_bound(m, n, k, torch.empty((), dtype=out_dtype).element_size())
-        print(f"K7 {tag} ({m}x{n}x{k} -> {dtype_name}): kernel {times['ms']!r} ms, "
-              f"library {times['library_ms']!r} ms, plain {times['plain_ms']!r} ms, "
+        tile = qm.tile_for(m, n, k, "col", aq.data_ptr(), bq_col.data_ptr())
+        print(f"K7 {tag} ({m}x{n}x{k} -> {dtype_name}, {tile} tile): {json.dumps(times)}, "
               f"bound {bound[0]!r} ms ({bound[1]}; {smi}); turns {turns}")
-        timed[tag] = {"shape": [m, n, k], "out": dtype_name, "max_abs_err": err,
-                      "ms": times["ms"],
-                      "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
+        timed[tag] = {"shape": [m, n, k], "out": dtype_name, "tile": tile,
+                      "max_abs_err": err, **times,
                       "bound_ms": bound[0], "bound_by": bound[1]}
         if note:
             timed[tag]["library_ms_note"] = note
-        del aq, bq, bq_col, sa, sb, calls
+        del aq, bq, bq_col, sa, sb, lib_a, lib_sa, calls
         torch.cuda.empty_cache()
+    # every launch of this phase, checks and timed calls, by tile
+    phase_tiles = dict(qm.TILES)
     main = timed.pop("gemm")
     return {
         "name": "int8_matmul",
@@ -1634,6 +1727,10 @@ def kernel_phase_int8(qm, smi):
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library_ms_note": "torch._int_mm on a column-major weight plus the epilogue",
+        "tile": main["tile"],
+        "mma_ms": main["mma_ms"],
+        "phase_tiles": phase_tiles,
+        "ptxas": k7_ptxas(),
         "variants": timed,
     }
 
@@ -1686,6 +1783,13 @@ SERVE_ROWS = [
 ]
 
 
+def int8_tile_counts(qm):
+    """K7's launches by tile as the paths' counts key them (all zero
+    without ``qm``)."""
+    tiles = ("wgmma", "small_m", "mma")
+    return {f"int8_{t}": (qm.TILES[t] if qm is not None else 0) for t in tiles}
+
+
 def expected_serving_launches(row, calls):
     """The kernel launches one serving row makes in ``calls`` measured
     calls (warmups, timed iterations, the validation run): K8a once a
@@ -1694,18 +1798,28 @@ def expected_serving_launches(row, calls):
     pallas decode step, K12 once a layer per tick of a paged pallas
     serve row; with an int8 MLP, K7 twice a layer (the expert's two
     products; one expert block at world 1) per forward: the set-up
-    prefill, every call and the memoised oracle of the validation;
-    nothing else."""
+    prefill, every call and the memoised oracle of the validation,
+    the decode steps on K7's ``small_m`` tile and every prompt pass on
+    ``wgmma``; nothing else."""
+    from ddlb_tpu_torch.ops import quantized_matmul as qm
+
     o = row_options(row)
     L, phase = int(o["layers"]), o["phase"]
     flash = o["attn_kernel"] == "flash"
     want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
-            "int8": 0, **dict.fromkeys(BWD_KEYS, 0)}
+            "int8": 0, **dict.fromkeys(BWD_KEYS, 0), **int8_tile_counts(None)}
     if o["mlp_kernel"] != "bf16":
         forwards = {"decode": 1 + calls + 1, "prefill": calls + 1}.get(phase)
         if forwards is None:
             fail(f"no K7 launch rule for an int8 MLP in phase={phase}")
         want["int8"] = 2 * L * forwards
+        # a decode step's products run the batch's rows (small_m); the
+        # prompt passes (set-up prefill, each prefill call, the oracle)
+        # batch x prompt rows (wgmma)
+        steps = 2 * L * calls if phase == "decode" else 0
+        step_tile = "small_m" if int(o["batch"]) <= qm.SMALL_M else "wgmma"
+        want[f"int8_{step_tile}"] += steps
+        want["int8_wgmma"] += want["int8"] - steps
     if phase == "decode":
         want["tri"] = L if flash else 0
         if o["decode_kernel"] == "pallas":
@@ -1730,7 +1844,8 @@ def serving_path(run_benchmark, k1, fa, da, qm, smi):
     from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
 
     def counts():
-        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES,
+                **int8_tile_counts(qm)}
 
     rows = []
     total_start = counts()
@@ -2065,10 +2180,11 @@ def expected_training_launches(row, calls):
     (``torch.utils.checkpoint``), and each backward pass once (K10a/K10b,
     or K10c/K10d under a window); an int8 MLP runs K7 twice a layer and
     tick in each of the two forwards, and twice a layer and microbatch in
-    the row's one oracle loss. compute_only rows launch nothing."""
+    the row's one oracle loss, each on K7's wgmma tile. compute_only rows
+    launch nothing."""
     o = row_options(row)
     want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
-            "int8": 0, **dict.fromkeys(BWD_KEYS, 0)}
+            "int8": 0, **dict.fromkeys(BWD_KEYS, 0), **int8_tile_counts(None)}
     if row["base_implementation"] == "compute_only":
         if o["mlp_kernel"] != "bf16":
             fail("no launch rule for a compute_only row with an int8 MLP")
@@ -2089,7 +2205,8 @@ def expected_training_launches(row, calls):
             case = "rect" if windowed else "tri"
             want[f"bwd_dq_{case}"] = want[f"bwd_dkv_{case}"] = per_call
     if o["mlp_kernel"] == "int8":
-        want["int8"] = 2 * passes * per_call + 2 * L * mb
+        # every product runs a microbatch's rows: the wgmma tile
+        want["int8"] = want["int8_wgmma"] = 2 * passes * per_call + 2 * L * mb
     return want
 
 
@@ -2103,7 +2220,8 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
     from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
 
     def counts():
-        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES}
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES,
+                **int8_tile_counts(qm)}
 
     total_start = counts()
     for shape, impls in training_rows():
@@ -2348,7 +2466,7 @@ def main():
 
     def reset():
         k1.reset_launches()
-        qm.LAUNCHES = 0
+        qm.reset_launches()
         fa.reset_launches()
         da.reset_launches()
         cm.reset_launches()
@@ -2408,9 +2526,13 @@ def main():
     expected = pallas_rows * (NUM_WARMUPS + NUM_ITERATIONS + 1)
     if int8_launches != expected or int8_launches == 0:
         fail(f"K7 launched {int8_launches} times on the quantized path, expected {expected}")
+    # at 8192^3 on the members' column-major weights, every launch on wgmma
+    if qm.TILES != {"wgmma": int8_launches, "small_m": 0, "mma": 0}:
+        fail(f"K7's launches by tile on the quantized path: {qm.TILES}, expected "
+             f"{int8_launches} on wgmma")
     if any(others.values()):
         fail(f"other kernels launched on the quantized path: {others}")
-    launches["quantized"] = {"int8": int8_launches}
+    launches["quantized"] = {"int8": int8_launches, **int8_tile_counts(qm)}
     print(f"quantized path done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
@@ -2495,6 +2617,10 @@ def main():
         "quantized": launches["quantized"]["int8"], "serving": serving_launches["int8"],
         "training": training_launches["int8"],
     }
+    int8_entry["launches_by_tile"] = {
+        t: total(f"int8_{t}") for t in ("wgmma", "small_m", "mma")}
+    if int8_entry["launches_by_tile"]["mma"]:
+        fail(f"K7 ran the mma tile on a main path: {int8_entry['launches_by_tile']}")
     for entry, key in zip(backward_entries, BWD_KEYS):
         entry["launches"] = total(key)
     for entry, key in zip(trio_entries, ("k4", "k5", "k6")):
@@ -2505,6 +2631,7 @@ def main():
                                    (trio_entries[2], "alltoall_matmul", "a2a_wgmma_kernel")):
         entry["tile"] = "wgmma"
         entry["ptxas"] = ptxas_registers(library, kernel)
+    trio_entries[0]["ptxas"] = ptxas_registers("ring_collectives", "ring_all_gather_kernel")
     trio_entries[1]["ptxas"] = ptxas_registers("ring_collectives", "ring_reduce_scatter_kernel")
     print(json.dumps({"kernels": [matmul_entry, *ring_entries, *trio_entries, int8_entry,
                                   forward_entry, rect_entry, chunk_entry,

@@ -20,7 +20,8 @@
 // loopback, d virtual ranks on one card, the same bytes cross the card's
 // memory (3.35 TB/s) instead.
 //
-// Design (collective_matmul.cu's ring protocol without the GEMM):
+// Design (collective_matmul.cu's ring protocol without the GEMM, on
+// per-block flags):
 //  - One cooperative launch per rank: every block of the grid is resident
 //    at once, because blocks spin on flags that other blocks (of this rank
 //    and of its neighbours) write. The grid is at most two blocks of 512
@@ -37,33 +38,29 @@
 //    share of its own chunk and of the received accumulator, adds them in
 //    float32, rounds once and stores the sum into the right neighbour's
 //    slot (the put is the fold's store), or into the output at the last
-//    step, each thread with four 16-byte loads of each in flight.
-//  - K4's signals are step-wide: after its share, a block adds one to the
-//    right neighbour's arrival counter of the next step; a rank reads a
-//    slot once all the left neighbour's blocks have signalled. After
-//    reading slot t % 2 a block credits the left neighbour, which waits
-//    for every credit before it overwrites that slot two steps later;
-//    block 0 drains the last credits.
-//  - K5's signals are point to point: block b's share at step t depends on
+//    step. Each thread keeps four 16-byte loads in flight before its
+//    stores, then a tail loop takes the rest.
+//  - Signals are point to point: block b's share at step t depends on
 //    block b of the left rank at step t - 1 alone, so block b waits for
 //    that block's arrival (arrive[b][t] in its own flags), and before it
 //    overwrites the right rank's slot for that block's credit
-//    (credit[b][t - 1]); after its fold it signals arrive[b][t + 1] at the
+//    (credit[b][t - 1]); after its share it signals arrive[b][t + 1] at the
 //    right rank and credit[b][t] at the left one, one fence, one barrier
 //    and one thread for both. Blocks move through the ring at their own
 //    pace, so a slow block holds up its own column of the ring only, and
-//    the steps pipeline across blocks. Each block drains its own last
-//    credits. The per-block words sit past the step counters' first 1 KB
-//    of the flag area, 64 bytes a block, which caps K5's grid at
-//    MAX_FLAG_BLOCKS.
+//    the d - 1 steps pipeline across blocks instead of meeting at a barrier
+//    across two cards. Each block drains its own last credits. The
+//    per-block words sit past the entry barrier's first 1 KB of the flag
+//    area, 64 bytes a block, which caps the grid at MAX_FLAG_BLOCKS. K4's
+//    and K5's rings are their own (a ring serves one kernel), so both use
+//    the same words.
 //  - An entry barrier with both neighbours keeps a fast rank's first put
 //    out of a slot its neighbour still reads in the previous call.
-//  - Flags never reset: each counter grows by the same count every call
-//    (K4's by the grid size, K5's by one), the host passes the call's
-//    epoch and waits compare with >= modulo 2^32. Signals are
-//    red.release.sys after a system fence; waits are ld.acquire.sys. Slot
-//    data is read through L2 only (ld.global.cg). A wait of 20 s traps
-//    rather than holding the card.
+//  - Flags never reset: each counter grows by one every call, the host
+//    passes the call's epoch and waits compare with >= modulo 2^32.
+//    Signals are red.release.sys after a system fence; waits are
+//    ld.acquire.sys. Slot data is read through L2 only (ld.global.cg). A
+//    wait of 20 s traps rather than holding the card.
 //  - Loopback: gridDim.y = d runs d virtual ranks on one card, each with
 //    its own buffer in that card's memory: the same protocol, on one card.
 //
@@ -76,20 +73,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int MAX_RANKS = 8;
-// flag words of a rank's buffer (uint32 offsets, one 128-byte line each):
-// K4's step counters and the entry barrier
-constexpr int ARRIVE = 0, CREDIT = 32, BARRIER = 64;
-// K5's per-block words from byte 1024 on: block b's arrival counters of
+// flag words of a rank's buffer (uint32 offsets): the entry barrier, then
+// from byte 1024 on the per-block words, block b's arrival counters of
 // steps 0 .. MAX_RANKS - 1, then its credits
+constexpr int BARRIER = 64;
 constexpr int BLOCK_FLAGS = 256, BLOCK_WORDS = 2 * MAX_RANKS;
 constexpr int FLAG_BYTES = 20480;  // the slots start here (every ring's layout)
 constexpr int MAX_FLAG_BLOCKS = (FLAG_BYTES / 4 - BLOCK_FLAGS) / BLOCK_WORDS;  // 304
-static_assert(BARRIER < BLOCK_FLAGS, "the step counters' words come first");
+static_assert(BARRIER < BLOCK_FLAGS, "the entry barrier's word comes first");
 static_assert(4 * (BLOCK_FLAGS + MAX_FLAG_BLOCKS * BLOCK_WORDS) <= FLAG_BYTES,
-              "K5's per-block words end before the slots");
+              "the per-block words end before the slots");
 constexpr int THREADS = 512;
 constexpr int MAX_BLOCKS_PER_SM = 2;
 
@@ -169,13 +167,6 @@ __device__ __forceinline__ void block_wait(const unsigned* f,
   __syncthreads();
 }
 
-// Block-wide: publish every thread's earlier writes, then add one to *f.
-__device__ __forceinline__ void block_signal(unsigned* f) {
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) red_release_add(f, 1u);
-}
-
 // Block (0, y) tells both neighbours that this rank entered the call (its
 // previous call is over); every block waits until both neighbours have.
 __device__ __forceinline__ void entry_barrier(const RingCollArgs& p, int r) {
@@ -185,14 +176,6 @@ __device__ __forceinline__ void entry_barrier(const RingCollArgs& p, int r) {
     red_release_add(flags_of(p, (r + 1) % d) + BARRIER, 1u);
   }
   block_wait(flags_of(p, r) + BARRIER, 2u * (p.epoch + 1u));
-}
-
-// Block 0 waits for every credit of the call: the right neighbour has
-// finished with the slots we wrote and will signal into us no more.
-__device__ __forceinline__ void drain(const unsigned* mine, int d,
-                                      unsigned target) {
-  if (blockIdx.x != 0) return;
-  for (int t = 1; t < d; ++t) block_wait(mine + CREDIT + t, target);
 }
 
 // ---------------------------------------------------------------------------
@@ -256,8 +239,12 @@ __device__ __forceinline__ void share_of(long long units, long long* lo,
 __global__ void __launch_bounds__(THREADS) ring_all_gather_kernel(RingCollArgs p) {
   const int y = blockIdx.y, d = p.d, r = p.rank0 + y;
   const int right = (r + 1) % d, left = (r + d - 1) % d;
-  const unsigned G = gridDim.x, e = p.epoch;
-  unsigned* mine = flags_of(p, r);
+  const unsigned e = p.epoch;
+  // this block's arrivals and credits, and its peers' at both neighbours
+  unsigned* arrive = block_flags(p, r, blockIdx.x);
+  unsigned* credit = arrive + MAX_RANKS;
+  unsigned* arrive_right = block_flags(p, right, blockIdx.x);
+  unsigned* credit_left = block_flags(p, left, blockIdx.x) + MAX_RANKS;
   const long long units = p.chunk_units;
   long long lo, hi;
   share_of(units, &lo, &hi);
@@ -268,23 +255,47 @@ __global__ void __launch_bounds__(THREADS) ring_all_gather_kernel(RingCollArgs p
     const uint4* held =
         t == 0 ? static_cast<const uint4*>(p.a[y]) : slot_of(p, r, t & 1);
     const bool put = t < d - 1;
-    // the chunk of step t has landed (every block of the left neighbour
-    // signalled at its step t - 1), and every block of the right neighbour
-    // is done with the slot this step writes (it read it at its step t - 1)
-    if (t > 0) block_wait(mine + ARRIVE + t, (e + 1) * G);
-    if (put && t >= 2) block_wait(mine + CREDIT + t - 1, (e + 1) * G);
+    // block b of the left rank put this block's share of step t, and block
+    // b of the right rank is done with the share this step overwrites (it
+    // read it at its step t - 1)
+    if (threadIdx.x == 0) {
+      if (t > 0) spin_wait(arrive + t, e + 1);
+      if (put && t >= 2) spin_wait(credit + t - 1, e + 1);
+    }
+    __syncthreads();
     uint4* rows = out + static_cast<long long>((r - t + d) % d) * units;
     uint4* next = put ? slot_of(p, right, (t + 1) & 1) : nullptr;
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    long long i = lo + threadIdx.x;
+    for (; i + 3 * THREADS < hi; i += 4 * THREADS) {
+      uint4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldcg(held + i + u * THREADS);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) __stcg(rows + i + u * THREADS, v[u]);
+      if (put) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) __stcg(next + i + u * THREADS, v[u]);
+      }
+    }
+    for (; i < hi; i += THREADS) {
       const uint4 v = __ldcg(held + i);
       __stcg(rows + i, v);
       if (put) __stcg(next + i, v);
     }
-    if (put) block_signal(flags_of(p, right) + ARRIVE + t + 1);
-    // this block is done with slot t % 2
-    if (t > 0) block_signal(flags_of(p, left) + CREDIT + t);
+    // publish the put to block b of the right rank; done with slot t % 2
+    if (put || t > 0) {
+      __threadfence_system();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        if (put) red_release_add(arrive_right + t + 1, 1u);
+        if (t > 0) red_release_add(credit_left + t, 1u);
+      }
+    }
   }
-  drain(mine, d, (e + 1) * G);
+  // the right rank's block b is done with every slot this block wrote
+  if (threadIdx.x == 0) {
+    for (int t = 1; t < d; ++t) spin_wait(credit + t, e + 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -361,19 +372,44 @@ __global__ void __launch_bounds__(THREADS) ring_reduce_scatter_kernel(RingCollAr
 
 // Blocks a virtual rank gets: at most two an SM, shared by the ranks of the
 // launch (a cooperative launch of more than the card holds is refused), and
-// at most MAX_FLAG_BLOCKS (K5's per-block flags).
+// at most MAX_FLAG_BLOCKS (the per-block flags). A card's SM count and a
+// kernel's resident blocks an SM do not change within a process: they are
+// asked once a (kernel, device) and read from a table after that, which
+// keeps CUDA's queries off every launch's host time.
+struct GridEntry {
+  const void* kernel;
+  int device, per_card;
+};
+constexpr int GRID_CACHE = 64;
+GridEntry grid_cache[GRID_CACHE];
+int grid_cached = 0;
+std::mutex grid_mutex;
+
 template <typename K>
 int grid_for(K kernel, int vranks, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
-  *blocks = per_sm * sms / vranks;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int per_card = -1;
+  {
+    std::lock_guard<std::mutex> lock(grid_mutex);
+    for (int i = 0; i < grid_cached; ++i)
+      if (grid_cache[i].kernel == key && grid_cache[i].device == dev)
+        per_card = grid_cache[i].per_card;
+  }
+  if (per_card < 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
+    per_card = per_sm * sms;
+    std::lock_guard<std::mutex> lock(grid_mutex);
+    if (grid_cached < GRID_CACHE) grid_cache[grid_cached++] = {key, dev, per_card};
+  }
+  *blocks = per_card / vranks;
   if (*blocks > MAX_FLAG_BLOCKS) *blocks = MAX_FLAG_BLOCKS;
   return *blocks >= 1 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }

@@ -20,7 +20,8 @@ stage-stacked on a leading ``pp`` axis, ``w_qkv [pp, L, 3, D, D]`` (MHA)
 or ``w_q [pp, L, D, D]`` + ``w_kv [pp, L, 2, D, kv_dim]`` (GQA),
 ``w_o [pp, L, D, D]``, ``moe_w1 [pp, L, E, D, F]``, ``moe_w2 [pp, L, E, F,
 D]``, norms, ``embed [V, D]`` and ``head [D, V]``; under
-``mlp_kernel='int8_weights'`` the two expert weights are int8 with float32
+``mlp_kernel='int8_weights'`` the two expert weights are int8 (each
+trailing matrix column-major, the values unchanged) with float32
 ``moe_w1_scale [pp, L, E, 1, F]`` and ``moe_w2_scale [pp, L, E, 1, D]``.
 One rank's slice over a ``(dp, tp, pp)`` mesh keeps its stage, its tp
 block of the q/k/v columns and of the ``w_o`` rows (whole under ring
@@ -57,6 +58,7 @@ from ddlb_tpu_torch.ops.flash_attention import (
     ring_flash_attention,
 )
 from ddlb_tpu_torch.ops.quantized_matmul import (
+    column_major,
     int8_matmul_kernel,
     int8_ste_matmul,
     quantize_rowwise,
@@ -158,7 +160,8 @@ def init_params(
     for bit in float32. For a half dtype the float64 draw is rounded to
     float32 first, then to the dtype. Under ``int8_weights`` the expert
     weights are then quantized per output feature (JAX :222-231, an
-    eager call there, hence ``eager=True``)."""
+    eager call there, hence ``eager=True``), each trailing matrix
+    column-major (k contiguous: the layout K7's Hopper tiles read)."""
     check_mlp_kernel(cfg.mlp_kernel)
     rng = np.random.default_rng(seed)
     D, Fd, L, V = cfg.d_model, cfg.d_ff, cfg.layers_per_stage, cfg.vocab
@@ -209,11 +212,13 @@ def params_from_numpy(params, cfg: TransformerConfig, device="cuda") -> Params:
     """A JAX parameter dict pulled to the host (``{name: np.ndarray}``,
     bf16 as ml_dtypes' bfloat16) as this package's parameters, bit for
     bit, on ``device``: each in ``cfg.dtype``, except the int8 expert
-    weights and their float32 scales."""
-    return {
-        name: _tensor_from_numpy(arr).to(device).to(_leaf_dtype(name, cfg))
-        for name, arr in params.items()
-    }
+    weights (column-major, as ``init_params`` lays them out) and their
+    float32 scales."""
+    out = {}
+    for name, arr in params.items():
+        x = _tensor_from_numpy(arr).to(device).to(_leaf_dtype(name, cfg))
+        out[name] = column_major(x) if x.dtype == torch.int8 else x
+    return out
 
 
 #: leaves without a stage axis (replicated over pp)
@@ -263,8 +268,13 @@ def shard_params(params: Params, cfg: TransformerConfig, tp: int,
 
 
 def place_params(params: Params, device) -> Params:
-    """Every parameter as a contiguous tensor on ``device``."""
-    return {name: p.to(device).contiguous() for name, p in params.items()}
+    """Every parameter as a contiguous tensor on ``device``; the int8
+    expert stacks keep each trailing matrix column-major (k contiguous),
+    the layout K7's Hopper tiles read."""
+    return {
+        name: column_major(p.to(device)) if p.dtype == torch.int8 else p.to(device).contiguous()
+        for name, p in params.items()
+    }
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):

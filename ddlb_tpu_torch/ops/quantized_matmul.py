@@ -12,7 +12,12 @@ The port of the JAX package's ``ops/quantized_matmul.py``:
   port; ``round`` is half-to-even in both. Called eagerly, JAX divides,
   and a scale can differ from the compiled one in its last bit: its
   ``init_params`` quantizes the ``int8_weights`` experts that way, and
-  ``quantize_weight_stack(w, eager=True)`` does the same.
+  ``quantize_weight_stack(w, eager=True)`` does the same. The weight
+  roles (``quantize_colwise``, ``quantize_weight_stack``) return their
+  int8 values column-major (``column_major``: each ``[k, n]`` matrix with
+  k contiguous), the layout K7's Hopper tiles and the library's int8 GEMM
+  read: the same values, quantized from a transposed float32 copy, so no
+  transpose of the int8 result is ever made or timed.
 - ``quantization_atol`` (:72-86): the validation tolerance of the
   quantized members.
 - ``int8_matmul`` (:89-98): the counterpart of XLA's int8 dot, a library
@@ -24,18 +29,34 @@ The port of the JAX package's ``ops/quantized_matmul.py``:
   (:175, ``_int8_kernel`` :154). The same function, ``aq [m, k]`` int8
   times ``bq [k, n]`` int8 summed exactly in int32, then ``(float)acc *
   sa[m, 1] * sb[1, n]`` in float32, cast once (round to nearest) to
-  bfloat16 or float16, or stored as float32. The kernel
-  (``csrc/quantized_matmul.cu``) and its design note: at 8192^3 the int8
-  tensor cores bound it (2mnk / 1979 TOP/s = 0.556 ms); at the decode
-  MLP's 8 rows the bytes of ``bq`` do (a few microseconds at 3.35 TB/s).
-  128x128 block tiles walk k in steps of 64 bytes, staged by ``cp.async``
-  two deep, into ``mma.sync`` m16n8k32 s8 fragments with int32
-  accumulators; ``bq`` keeps its row-major layout and each thread turns a
-  4x4 byte block of it into four k-major B fragments with ``__byte_perm``.
-  Any ``m, n >= 1`` and ``k >= 0`` (ragged edges zero-filled); ``k`` is
-  capped where 127^2 * k could leave int32. It is built by ``nvcc`` for
-  ``sm_90a`` at first use (``_build.py``) and called through ``ctypes`` on
-  PyTorch's current stream.
+  bfloat16 or float16, or stored as float32. ``bq`` may be row-major or
+  column-major; the wrapper reads its strides. The kernels
+  (``csrc/quantized_matmul.cu``) and their design note: at 8192^3 the
+  int8 tensor cores bound it (2mnk / 1979 TOP/s = 0.556 ms); at the
+  decode MLP's 8 rows the bytes of ``bq`` do (5 us at 3.35 TB/s).
+  ``tile_for`` picks one of three tiles, each counted in ``TILES``:
+
+  - ``wgmma``: a column-major ``bq`` at TMA's widths (``k`` a multiple of
+    16, 16-byte aligned bases), ``m > SMALL_M``. The Hopper GEMM tile of
+    ``csrc/hopper_gemm.cuh`` in int8: a persistent block an SM over 128 x
+    256 output tiles, a TMA producer warp, two consumer warpgroups on
+    ``wgmma.m64n256k32.s32.s8.s8`` (s8 ``wgmma`` reads both operands
+    K-major, hence the column-major weight).
+  - ``small_m``: the same operands at ``m <= SMALL_M`` (decode). The
+    operands swap (``C^T = B^T A^T``): 64 weight rows a block are
+    ``wgmma``'s 64-row operand, the few activation rows its N = 8..64;
+    ``k`` is split so that about four blocks an SM stream the weight, the
+    splits' int32 sums added exactly in a zeroed workspace (one a device
+    and stream, left zero by every launch) and dequantized once by the
+    last block of a tile.
+  - ``mma``: any other widths and either layout (``k % 16 != 0``, an
+    unaligned base, a row-major ``bq``): 128x128 block tiles of
+    ``mma.sync`` m16n8k32 s8 fragments staged by ``cp.async``.
+
+  Any ``m, n >= 1`` and ``k >= 0``; ``k`` is capped where 127^2 * k could
+  leave int32. It is built by ``nvcc`` for ``sm_90a`` at first use
+  (``_build.py``) and called through ``ctypes`` on PyTorch's current
+  stream.
 - ``int8_ste_matmul`` (:101-151): the training path's product, K7
   forward and the straight-through float32 backward, as an autograd
   Function.
@@ -48,8 +69,9 @@ its plain version, ``int8_matmul`` and both JAX functions round the same
 values the same way and agree bit for bit.
 
 Dispatch: ``int8_matmul_kernel`` on a CPU tensor takes
-``int8_matmul_plain``; on a CUDA tensor it launches the kernel or raises,
-with no fallback. ``LAUNCHES`` counts kernel launches.
+``int8_matmul_plain``; on a CUDA tensor it launches the kernel
+``tile_for`` names or raises, with no fallback from one tile to another.
+``LAUNCHES`` counts kernel launches and ``TILES`` counts them by tile.
 """
 
 from __future__ import annotations
@@ -64,6 +86,8 @@ from ddlb_tpu_torch.ops import _build
 
 #: kernel launches since the count was last reset (plain calls excluded)
 LAUNCHES = 0
+#: the launches by tile since the counts were last reset
+TILES = {"wgmma": 0, "small_m": 0, "mma": 0}
 
 #: int8 symmetric range: values quantize to [-127, 127] (-128 unused, so
 #: the grid is symmetric and |q * s| <= max|x|)
@@ -75,10 +99,57 @@ _MIN_SCALE = 1e-30
 
 #: output dtype -> the C entry point's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_TILE_CODES = {"mma": 0, "wgmma": 1, "small_m": 2}
+#: the most rows the small_m tile takes (its widest N)
+SMALL_M = 64
 #: the longest contraction whose int32 sum cannot overflow: 127^2 * k < 2^31
 MAX_K = (2**31 - 1) // (127 * 127)
-#: rows a launch covers: 128-row block tiles on a grid y extent of 65535
+#: rows an mma launch covers: 128-row block tiles on a grid y extent of
+#: 65535 (the wgmma kernel's grid is one-dimensional, small_m's rows few)
 _MAX_ROWS = 128 * 65535
+
+
+def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and ``TILES``."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for key in TILES:
+        TILES[key] = 0
+
+
+def layout_of(bq: torch.Tensor) -> str:
+    """``col`` for a column-major ``[k, n]`` weight (k contiguous: the
+    layout K7's Hopper tiles read), ``row`` for a row-major one; raises on
+    any other strides. A matrix both layouts describe (one row or one
+    column) counts as ``col``."""
+    if bq.t().is_contiguous():
+        return "col"
+    if bq.is_contiguous():
+        return "row"
+    raise ValueError(
+        f"int8_matmul takes a contiguous row-major or column-major weight, got "
+        f"strides {bq.stride()}"
+    )
+
+
+def tile_for(m: int, n: int, k: int, layout: str, *bases: int) -> str:
+    """K7's tile for ``[m, k] @ [k, n]`` with a ``layout`` (``row`` or
+    ``col``) weight: ``small_m`` (m <= ``SMALL_M``) or ``wgmma`` when the
+    weight is column-major, ``k`` a positive multiple of 16 and every base
+    address in ``bases`` 16-byte aligned (TMA's rules); ``mma`` otherwise."""
+    if layout not in ("row", "col"):
+        raise ValueError(f"layout must be 'row' or 'col', got {layout!r}")
+    tma = layout == "col" and k > 0 and k % 16 == 0 and all(b % 16 == 0 for b in bases)
+    if not tma:
+        return "mma"
+    return "small_m" if m <= SMALL_M else "wgmma"
+
+
+def column_major(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each trailing ``[k, n]`` matrix column-major (k
+    contiguous), the matrices packed one after another: the same values,
+    copied only when ``x`` is laid out otherwise."""
+    return x.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
 def _quantize(x: torch.Tensor, dim: int, eager: bool = False):
@@ -98,18 +169,30 @@ def quantize_rowwise(x: torch.Tensor):
     return _quantize(x, 1)
 
 
+def _quantize_columns(x: torch.Tensor, eager: bool = False):
+    """Per-column quantization of every trailing ``[k, n]`` matrix of ``x``,
+    computed on a transposed float32 copy (the one pass that turns ``x``
+    into float32), so that ``q`` comes out column-major."""
+    xt = torch.empty(
+        (*x.shape[:-2], x.shape[-1], x.shape[-2]), dtype=torch.float32, device=x.device
+    )
+    xt.copy_(x.transpose(-1, -2))
+    q, s = _quantize(xt, -1, eager)
+    return q.transpose(-1, -2), s.transpose(-1, -2)
+
+
 def quantize_colwise(x: torch.Tensor):
-    """Per-column quantization of the right operand: ``(q [k, n] int8, s
-    [1, n] float32)``."""
-    return _quantize(x, 0)
+    """Per-column quantization of the right operand: ``(q [k, n] int8
+    column-major, s [1, n] float32)``."""
+    return _quantize_columns(x)
 
 
 def quantize_weight_stack(w: torch.Tensor, *, eager: bool = False):
     """Per-output-feature quantization of stacked weights ``[..., k, n]``:
     ``(q [..., k, n] int8, s [..., 1, n] float32)``, each trailing matrix
-    as ``quantize_colwise`` would; ``eager`` as the JAX function called
-    outside ``jit``."""
-    return _quantize(w, -2, eager)
+    as ``quantize_colwise`` would (column-major); ``eager`` as the JAX
+    function called outside ``jit``."""
+    return _quantize_columns(w, eager)
 
 
 def quantization_atol(k: int) -> float:
@@ -168,6 +251,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("quantized_matmul")
     lib.ddlb_int8_matmul.argtypes = [
         ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
         ctypes.c_void_p,
         ctypes.c_void_p,
         ctypes.c_void_p,
@@ -176,37 +261,66 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int,
         ctypes.c_int,
         ctypes.c_int,
+        ctypes.c_void_p,
         ctypes.c_void_p,
     ]
     lib.ddlb_int8_matmul.restype = ctypes.c_int
+    lib.ddlb_int8_work_ints.argtypes = [ctypes.c_int]
+    lib.ddlb_int8_work_ints.restype = ctypes.c_longlong
+    lib.ddlb_int8_small_m_max.restype = ctypes.c_int
     lib.ddlb_int8_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_int8_error_string.restype = ctypes.c_char_p
+    if lib.ddlb_int8_small_m_max() != SMALL_M:
+        raise RuntimeError("csrc/quantized_matmul.cu's small-m cut is not SMALL_M")
     return lib
 
 
+#: small_m's split-k workspaces, one a (device, stream): int32 zeros that
+#: every launch leaves zero
+_WORKSPACES = {}
+
+
+def _workspace(lib, device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The zeroed int32 workspace of small_m launches at width ``n`` on
+    ``stream``, grown when a wider launch needs more."""
+    need = lib.ddlb_int8_work_ints(n)
+    key = (device.index, stream)
+    work = _WORKSPACES.get(key)
+    if work is None or work.numel() < need:
+        work = torch.zeros(need, dtype=torch.int32, device=device)
+        _WORKSPACES[key] = work
+    return work
+
+
 def int8_matmul_kernel(aq, bq, sa, sb, *, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``aq [m, k] @ bq [k, n]`` int8 with the scale epilogue (kernel K7)."""
+    """``aq [m, k] @ bq [k, n]`` int8 with the scale epilogue (kernel K7);
+    ``bq`` row-major or column-major."""
     global LAUNCHES
     _check(aq, bq, sa, sb, out_dtype)
     if aq.device.type == "cpu":
         return int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)
     if aq.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu tensors, got {aq.device}")
-    if not all(t.is_contiguous() for t in (aq, bq, sa, sb)):
-        raise ValueError("int8_matmul takes row-major contiguous operands and scales")
+    if not all(t.is_contiguous() for t in (aq, sa, sb)):
+        raise ValueError("int8_matmul takes a row-major contiguous aq and contiguous scales")
+    layout = layout_of(bq)
     (m, k), n = aq.shape, bq.shape[1]
     if k > MAX_K:
         raise ValueError(f"k={k} > {MAX_K}: the int32 sum could overflow")
-    if m > _MAX_ROWS or n > 2**31 - 1:
-        raise ValueError(f"int8_matmul shape out of the kernel's range: {m}, {n}, {k}")
+    tile = tile_for(m, n, k, layout, aq.data_ptr(), bq.data_ptr())
+    if n > 2**31 - 1 or (tile == "mma" and m > _MAX_ROWS):
+        raise ValueError(f"int8_matmul shape out of the {tile} kernel's range: {m}, {n}, {k}")
     out = torch.empty((m, n), dtype=out_dtype, device=aq.device)
     if m == 0 or n == 0:
         return out
     lib = _lib()
     with torch.cuda.device(aq.device):
         stream = torch.cuda.current_stream(aq.device).cuda_stream
+        work = _workspace(lib, aq.device, stream, n).data_ptr() if tile == "small_m" else None
         rc = lib.ddlb_int8_matmul(
             _DTYPE_CODES[out_dtype],
+            _TILE_CODES[tile],
+            int(layout == "col"),
             aq.data_ptr(),
             bq.data_ptr(),
             sa.data_ptr(),
@@ -215,12 +329,14 @@ def int8_matmul_kernel(aq, bq, sa, sb, *, out_dtype=torch.bfloat16) -> torch.Ten
             m,
             n,
             k,
+            work,
             stream,
         )
     LAUNCHES += 1
+    TILES[tile] += 1
     if rc != 0:
         raise RuntimeError(
-            f"K7 int8_matmul launch failed: "
+            f"K7 int8_matmul ({tile}) launch failed: "
             f"{lib.ddlb_int8_error_string(rc).decode()} (cudaError {rc})"
         )
     return out

@@ -21,26 +21,27 @@ d = 4, the data sheet's 450 GB/s a direction of NVLink): K4 sends 3 shards
 of 32 MiB, 0.224 ms; K5 3 chunks of 8 MiB, 0.056 ms. Both move bytes only.
 
 Design (``csrc/ring_collectives.cu`` has the full note): K2's ring
-protocol without the GEMM. One cooperative launch a rank; every block
-reads its share of the chunk once and stores it twice (K4: the output rows
-and the right neighbour's slot) or folds it (K5: the sum's store is the
-put, four 16-byte loads of each operand in flight a thread); two slots of
-a chunk in peer memory (``Runtime.peer_buffer``), credits before a slot is
-reused, an entry barrier with both neighbours, epochs instead of resets.
-K4 signals a flag counter per ring step, which the left neighbour's whole
-grid feeds. K5 signals point to point: block ``b``'s share at step ``t``
+protocol without the GEMM, on per-block flags. One cooperative launch a
+rank; every block reads its share of the chunk once and stores it twice
+(K4: the output rows and the right neighbour's slot) or folds it (K5: the
+sum's store is the put), four 16-byte loads in flight a thread; two slots
+of a chunk in peer memory (``Runtime.peer_buffer``), credits before a
+slot is reused, an entry barrier with both neighbours, epochs instead of
+resets. Both signal point to point: block ``b``'s share at step ``t``
 depends on block ``b`` of the left rank at step ``t - 1`` alone (every
 rank splits a chunk the same way), so each block waits for that block's
 arrival and for the right rank's block ``b``'s credit, and the blocks move
-through the ring at their own pace. Its per-block words
-(``block_flag_offsets``) fill the flag area past the step counters' first
+through the ring at their own pace. The per-block words
+(``block_flag_offsets``) fill the flag area past the entry barrier's first
 1 KB: the rings share K2/K3's layout (``collective_matmul.Ring``:
 ``collective_matmul.FLAG_BYTES`` of flags, then two slots), whose flag
 area is sized for them, so ``peer_ring`` and ``loopback_ring`` make them
 with kind ``all_gather`` or ``reduce_scatter``, and ``buffer_bytes`` is
-the same for every kind; K5's grid is at most ``MAX_FLAG_BLOCKS`` blocks
-a rank. A ring serves one kernel only (its counters grow by that kernel's
-count).
+the same for every kind; a grid is at most ``MAX_FLAG_BLOCKS`` blocks a
+rank. A ring serves one kernel only (its counters grow by one a launch).
+A launch's host work is kept small: the buffer table of a ring, its slot
+stride and the element sizes are computed once, and the library asks
+CUDA for a kernel's grid once a process.
 
 Dispatch: a CPU tensor takes the plain version (``ring_*_plain``: the same
 ring over ``Runtime.ring_shift``, one hop in flight). A CUDA tensor
@@ -72,12 +73,13 @@ KINDS = {"all_gather": 0, "reduce_scatter": 1}
 _COUNTER = {"all_gather": "ag", "reduce_scatter": "rs"}
 _NAMES = {"all_gather": "K4 ring_all_gather", "reduce_scatter": "K5 ring_reduce_scatter"}
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-#: K5's per-block flag area, as ``csrc/ring_collectives.cu`` lays it out
-#: (its ``BLOCK_FLAGS``, ``BLOCK_WORDS`` and ``MAX_FLAG_BLOCKS``, held inside
-#: ``FLAG_BYTES`` by a ``static_assert`` there): its first uint32 word, the
-#: words a block (arrivals of steps 0..7, then credits) and the blocks it
-#: holds, which caps K5's grid. The kernel addresses its flags itself; these
-#: describe the layout to the tests.
+_ITEMSIZE = {torch.float32: 4, torch.float16: 2, torch.bfloat16: 2}
+#: K4's and K5's per-block flag area, as ``csrc/ring_collectives.cu`` lays
+#: it out (its ``BLOCK_FLAGS``, ``BLOCK_WORDS`` and ``MAX_FLAG_BLOCKS``, held
+#: inside ``FLAG_BYTES`` by a ``static_assert`` there): its first uint32
+#: word, the words a block (arrivals of steps 0..7, then credits) and the
+#: blocks it holds, which caps both grids. The kernels address their flags
+#: themselves; these describe the layout to the tests.
 BLOCK_FLAG_WORD, BLOCK_FLAG_WORDS, MAX_FLAG_BLOCKS = 256, 16, 304
 
 
@@ -87,10 +89,10 @@ def reset_launches() -> None:
 
 
 def block_flag_offsets(block: int, step: int):
-    """Byte offsets in a K5 ring's buffer of block ``block``'s arrival
-    counter and credit of ring step ``step``."""
+    """Byte offsets in a K4 or K5 ring's buffer of block ``block``'s
+    arrival counter and credit of ring step ``step``."""
     if not (0 <= block < MAX_FLAG_BLOCKS and 0 <= step < cm.MAX_RANKS):
-        raise ValueError(f"block {block}, step {step}: K5 holds {MAX_FLAG_BLOCKS} "
+        raise ValueError(f"block {block}, step {step}: K4/K5 hold {MAX_FLAG_BLOCKS} "
                          f"blocks of {cm.MAX_RANKS} steps")
     word = BLOCK_FLAG_WORD + block * BLOCK_FLAG_WORDS + step
     return 4 * word, 4 * (word + cm.MAX_RANKS)
@@ -125,7 +127,7 @@ def check_rows(k: int, dtype: torch.dtype) -> None:
     bytes."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"K4/K5 take {[str(d) for d in _DTYPE_CODES]}, got {dtype}")
-    size = torch.empty((), dtype=dtype).element_size()
+    size = _ITEMSIZE[dtype]
     if k < 1 or (k * size) % 16:
         raise ValueError(
             f"K4/K5 move 16-byte units: rows of {k} x {size} bytes are not a "
@@ -161,6 +163,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _table(ptrs):
+    return (ctypes.c_ulonglong * len(ptrs))(*ptrs)
+
+
+@functools.lru_cache(maxsize=64)
+def _ring_table(ptrs: tuple):
+    """A ring's buffer table as the C entry point takes it (a ring's
+    buffers never move)."""
+    return _table(ptrs)
+
+
+@functools.lru_cache(maxsize=64)
+def _slot_stride_bytes(chunk_numel: int, dtype: torch.dtype) -> int:
+    return cm._slot_stride(chunk_numel, dtype) * _ITEMSIZE[dtype]
+
+
 def _launch(kind: str, ring: cm.Ring, a: Sequence[torch.Tensor],
             out: Sequence[torch.Tensor], chunk_numel: int) -> None:
     """One launch of K4 or K5 for the virtual ranks ``ring.rank0 ..`` of
@@ -169,19 +187,15 @@ def _launch(kind: str, ring: cm.Ring, a: Sequence[torch.Tensor],
     vranks = len(a)
     if ring.rank0 + vranks > ring.d:
         raise ValueError(f"ranks {ring.rank0}..{ring.rank0 + vranks - 1} of a ring of {ring.d}")
-
-    def table(ptrs):
-        return (ctypes.c_ulonglong * len(ptrs))(*ptrs)
-
-    size = a[0].element_size()
     device = a[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ddlb_ring_collective(
             KINDS[kind], _DTYPE_CODES[ring.dtype],
-            table([t.data_ptr() for t in a]), table([t.data_ptr() for t in out]),
-            table(ring.ptrs), ring.rank0, vranks, ring.d,
-            chunk_numel * size // 16, cm._slot_stride(ring.chunk_numel, ring.dtype) * size,
+            _table([t.data_ptr() for t in a]), _table([t.data_ptr() for t in out]),
+            _ring_table(ring.ptrs), ring.rank0, vranks, ring.d,
+            chunk_numel * _ITEMSIZE[ring.dtype] // 16,
+            _slot_stride_bytes(ring.chunk_numel, ring.dtype),
             ring.epoch % 2**32, stream,
         )
     LAUNCHES[_COUNTER[kind]] += 1

@@ -77,9 +77,8 @@ class QuantizedGEMMMixin:
 
     def _weight_layout(self, bq: torch.Tensor) -> torch.Tensor:
         """The quantized weight as this member's GEMM reads it, laid out
-        once at set-up so that no transpose is timed: row-major ``[k, n]``
-        for K7, column-major (k contiguous, cuBLASLt's int8 layout) for the
-        library's GEMM."""
-        if self.options["kernel"] == "pallas":
-            return bq.contiguous()
-        return bq.t().contiguous().t()
+        once at set-up so that no transpose is timed: column-major (k
+        contiguous) for both kernels, the layout of K7's Hopper tiles and
+        of cuBLASLt's int8 GEMM, so the ``xla`` and ``pallas`` rows read
+        the same bytes. ``quantize_colwise`` already returns it."""
+        return qm.column_major(bq)

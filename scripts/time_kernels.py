@@ -1,11 +1,18 @@
-"""Time K1, K8a, K8b, K9 and K10a-K10d on one card, for one checkout.
+"""Time K1, K8a, K8b, K9 and K10a-K10d, or K7, on one card, for one checkout.
 
-    python scripts/time_kernels.py --tree DIR [--label NAME]
+    python scripts/time_kernels.py --tree DIR [--phase flash|int8|quantized_path] \
+        [--label NAME]
 
-Runs ``chip_smoke.py``'s kernel phases of the checkout at ``DIR``
-(``kernel_phase_matmul``: K1; ``kernel_phase_flash``: K8a, K8b and K9;
-``kernel_phase_flash_serving``: K8a at the serving prefill's shape;
-``kernel_phase_flash_backward``: K10a-K10d), with that checkout's own
+Runs ``chip_smoke.py``'s kernel phases of the checkout at ``DIR``: with
+``--phase flash`` (the default) ``kernel_phase_matmul`` (K1),
+``kernel_phase_flash`` (K8a, K8b and K9), ``kernel_phase_flash_serving``
+(K8a at the serving prefill's shape) and ``kernel_phase_flash_backward``
+(K10a-K10d); with ``--phase int8`` ``kernel_phase_int8`` alone (K7 at the
+GEMM path's, the decode MLP's and the prefill MLP's shapes, with its
+timed variants); with ``--phase quantized_path`` the rows of
+``chip_smoke.py``'s quantized path (``QUANT_SWEEPS`` at 8192^3 bf16
+through the sweep runner, validated; each row's median host-clock ms
+under ``rows``). It uses that checkout's own
 package and kernels (built into ``DIR/build/ddlb_tpu_torch``), and prints
 one JSON line: the card's name and power limit, each kernel's entry (ms,
 plain ms, library ms, bound, max |err|), the build logs' ``ptxas``
@@ -32,11 +39,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from time_loopback import ptxas_usage, sample_clocks  # noqa: E402
 
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+#: the libraries each phase builds and reads the build logs of
+LIBRARIES = {"flash": ("matmul", "flash_attention"), "int8": ("quantized_matmul",),
+             "quantized_path": ("quantized_matmul",)}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", required=True, help="root of the checkout to time")
+    parser.add_argument("--phase", choices=sorted(LIBRARIES), default="flash")
     parser.add_argument("--label", default=None)
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
@@ -51,24 +62,41 @@ def main(argv=None) -> None:
     from ddlb_tpu_torch.ops import _build
     from ddlb_tpu_torch.ops import flash_attention as fa
     from ddlb_tpu_torch.ops import matmul as k1
+    from ddlb_tpu_torch.ops import quantized_matmul as qm
 
     if not os.path.abspath(ddlb_tpu_torch.__file__).startswith(tree + os.sep):
         raise SystemExit(f"imported {ddlb_tpu_torch.__file__}, not the checkout at {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = chip_smoke.card_identity()
     t0 = time.perf_counter()
-    _build.build("matmul", "flash_attention")
+    libraries = LIBRARIES[args.phase]
+    _build.build(*libraries)
     built = time.perf_counter() - t0
     samples, stop = [], threading.Event()
     sampler = threading.Thread(target=sample_clocks, args=(samples, stop), daemon=True)
     sampler.start()
+    rows = {}
     try:
-        entries = [chip_smoke.kernel_phase_matmul(k1, smi)]
-        forward, chunk = chip_smoke.kernel_phase_flash(fa, smi)
-        entries += [forward, forward["rect"], chunk]
-        serving = chip_smoke.kernel_phase_flash_serving(fa, smi)
-        torch.cuda.empty_cache()
-        entries += [serving, *chip_smoke.kernel_phase_flash_backward(fa, smi)]
+        if args.phase == "quantized_path":
+            from ddlb_tpu_torch.cli.benchmark import run_benchmark
+
+            entries = []
+            for primitive, implementations in chip_smoke.QUANT_SWEEPS.items():
+                for row in chip_smoke.drive_path(run_benchmark, "cuda", primitive,
+                                                 (chip_smoke.PATH_MNK,) * 3,
+                                                 implementations):
+                    rows[f"{primitive} {row['implementation']} {row['option']}"] = (
+                        row["median time (ms)"])
+                torch.cuda.empty_cache()
+        elif args.phase == "int8":
+            entries = [chip_smoke.kernel_phase_int8(qm, smi)]
+        else:
+            entries = [chip_smoke.kernel_phase_matmul(k1, smi)]
+            forward, chunk = chip_smoke.kernel_phase_flash(fa, smi)
+            entries += [forward, forward["rect"], chunk]
+            serving = chip_smoke.kernel_phase_flash_serving(fa, smi)
+            torch.cuda.empty_cache()
+            entries += [serving, *chip_smoke.kernel_phase_flash_backward(fa, smi)]
     finally:
         stop.set()
         sampler.join()
@@ -77,9 +105,11 @@ def main(argv=None) -> None:
         "sm_mhz_min_max": [min(c for c, _ in samples), max(c for c, _ in samples)]
         if samples else None,
         "power_w_max": max(w for _, w in samples) if samples else None,
-        "ptxas": {name: ptxas_usage(_build.build_log(name))
-                  for name in ("matmul", "flash_attention")},
-        "kernels": {e["name"]: {key: e.get(key) for key in KEYS} for e in entries},
+        "ptxas": {name: ptxas_usage(_build.build_log(name)) for name in libraries},
+        "kernels": {e["name"]: {key: e.get(key) for key in (*KEYS, "mma_ms", "variants")
+                                if key in e or key in KEYS}
+                    for e in entries},
+        "rows": rows,
     }))
 
 

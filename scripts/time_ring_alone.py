@@ -18,11 +18,14 @@ over ``BATCH``, median of five such runs, slowest rank; its key ends in
 `` batch``): the single-call median includes the time the card waits for
 the caller's host work after the barrier, and the batch hides it behind
 the previous call wherever the call's card time is the longer of the
-two. The library calls beside K3 and K5 (``pytorch_matmul_rs``:
-``torch.matmul`` then NCCL's reduce-scatter; ``nccl_reduce_scatter``;
+two. The library calls beside K3, K4 and K5 (``pytorch_matmul_rs``:
+``torch.matmul`` then NCCL's reduce-scatter; ``nccl_all_gather``:
+NCCL's ``all_gather_into_tensor``; ``nccl_reduce_scatter``;
 ``fused_matmul_reduce_scatter``, symmetric memory's fused operator, where
 this torch has it) go through both timers too, so a kernel and its
-yardstick are compared on one timer. Rank 0 samples every card's SM
+yardstick are compared on one timer. Before it is timed, K4's first call
+is held bit for bit against NCCL's all-gather of the same shards
+(``k4_equals_nccl``, every rank). Rank 0 samples every card's SM
 clock and power draw with ``nvidia-smi`` every quarter second while the
 calls run and prints one JSON line.
 
@@ -42,8 +45,8 @@ import threading
 from time_loopback import sample_clocks
 
 KERNELS = ("ring_ag_matmul", "ring_matmul_rs", "ring_all_gather", "ring_reduce_scatter",
-           "alltoall_expert_matmul", "pytorch_matmul_rs", "nccl_reduce_scatter",
-           "fused_matmul_reduce_scatter")
+           "alltoall_expert_matmul", "pytorch_matmul_rs", "nccl_all_gather",
+           "nccl_reduce_scatter", "fused_matmul_reduce_scatter")
 #: calls back to back in the batch timing
 BATCH = 20
 
@@ -107,6 +110,8 @@ def main(argv=None) -> None:
     a_ag, b_ag = uniform(m // d, k), uniform(k, n)
     a_rs, b_rs = uniform(m, k // d), uniform(k // d, n)
 
+    checks = {}
+
     def call(name):
         """The timed call of ``name`` on its own ring or buffers."""
         if name == "ring_ag_matmul":
@@ -117,12 +122,16 @@ def main(argv=None) -> None:
             return lambda: cm.ring_matmul_rs(a_rs, b_rs, rt, ring)
         if name == "ring_all_gather":
             ring = rc.peer_ring(rt, "all_gather", a_ag.numel(), torch.bfloat16)
+            same = torch.equal(rc.ring_all_gather(a_ag, rt, ring), rt.all_gather_rows(a_ag))
+            checks["k4_equals_nccl"] = rt.all_ranks(same)
             return lambda: rc.ring_all_gather(a_ag, rt, ring)
         if name == "ring_reduce_scatter":
             ring = rc.peer_ring(rt, "reduce_scatter", a_ag.numel() // d, torch.bfloat16)
             return lambda: rc.ring_reduce_scatter(a_ag, rt, ring)
         if name == "pytorch_matmul_rs":
             return lambda: rt.reduce_scatter_rows(a_rs @ b_rs)
+        if name == "nccl_all_gather":
+            return lambda: rt.all_gather_rows(a_ag)
         if name == "nccl_reduce_scatter":
             return lambda: rt.reduce_scatter_rows(a_ag)
         if name == "fused_matmul_reduce_scatter":
@@ -152,7 +161,7 @@ def main(argv=None) -> None:
     if r == 0:
         print(json.dumps({
             "label": args.label or tree, "world": d, "m": m, "n": n, "k": k,
-            "dtype": "bfloat16", "card": card, "order": names,
+            "dtype": "bfloat16", "card": card, "order": names, **checks,
             "median_ms_slowest_rank": dict(zip(medians, (float(x) for x in slowest))),
             "sm_mhz_min_max": [min(c for c, _ in samples), max(c for c, _ in samples)]
             if samples else None,

@@ -517,14 +517,85 @@ def test_int8_kernel_bit_equal_to_plain(cuda_device, m, n, k, out_dtype):
     assert torch.equal(got, want), int((got != want).sum())
 
 
+#: the Hopper tiles' edges (TMA widths, k % 16 == 0, k not a multiple of
+#: their 128-byte stage): m on both sides of the small-m cut (small_m's N
+#: = 8, 16, 32 and 64 at m = 1, 8, 17 and 64; wgmma at 65 and 129), n
+#: ragged to both tiles' column blocks (at 131 the output's rows are not
+#: a multiple of 16 bytes, so wgmma stores through its staged epilogue
+#: instead of TMA); at 200 columns the small_m grid splits k, at 33,800
+#: (529 tiles of 64) it does not
+K7_TILE_M = [1, 8, 17, 64, 65, 129]
+K7_TILE_NK = [(200, 1040), (1000, 272), (131, 528)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", INT8_OUT)
+@pytest.mark.parametrize("n,k", K7_TILE_NK)
+@pytest.mark.parametrize("m", K7_TILE_M)
+def test_int8_hopper_tiles_bit_equal_to_plain(cuda_device, m, n, k, out_dtype):
+    """K7 on a column-major weight runs ``small_m`` (m <= 64) or ``wgmma``
+    and equals the plain version bit for bit; the launch is counted on
+    that tile alone. Twice in a row: small_m leaves its split-k workspace
+    zero for the next launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * n + k)
+    aq, bq, sa, sb = _int8_operands(m, n, k, gen, cuda_device)
+    col = qm.column_major(bq)
+    tile = "small_m" if m <= qm.SMALL_M else "wgmma"
+    assert qm.tile_for(m, n, k, qm.layout_of(col), aq.data_ptr(), col.data_ptr()) == tile
+    want = qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype)
+    for _ in range(2):
+        before = dict(qm.TILES)
+        got = qm.int8_matmul_kernel(aq, col, sa, sb, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert qm.TILES == dict(before, **{tile: before[tile] + 1})
+        assert got.shape == (m, n) and got.dtype == out_dtype
+        assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [8, 64])
+def test_int8_small_m_single_split_bit_equal_to_plain(cuda_device, m, out_dtype):
+    """small_m at 529 weight tiles (33,800 columns): one k split, the
+    epilogue from each block's own sums."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    aq, bq, sa, sb = _int8_operands(m, 33800, 256, gen, cuda_device)
+    got = qm.int8_matmul_kernel(aq, qm.column_major(bq), sa, sb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", INT8_OUT)
+@pytest.mark.parametrize("m,n,k,offset", [(129, 131, 7, 0), (1000, 776, 520, 0),
+                                          (8, 200, 1024, 1), (300, 264, 64, 1)])
+def test_int8_mma_tile_on_a_column_major_weight(cuda_device, m, n, k, offset, out_dtype):
+    """The mma tile's K-major read of a column-major weight, where TMA
+    cannot take the operands: k not a multiple of 16, or an unaligned base
+    (A one byte into its storage)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    aq, bq, sa, sb = _int8_operands(m, n, k, gen, cuda_device)
+    if offset:
+        storage = torch.empty(m * k + offset, dtype=torch.int8, device=cuda_device)
+        storage[offset:].view(m, k).copy_(aq)
+        aq = storage[offset:].view(m, k)
+    col = qm.column_major(bq)
+    assert qm.tile_for(m, n, k, "col", aq.data_ptr(), col.data_ptr()) == "mma"
+    before = dict(qm.TILES)
+    got = qm.int8_matmul_kernel(aq, col, sa, sb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qm.TILES == dict(before, mma=before["mma"] + 1)
+    assert torch.equal(got, qm.int8_matmul_plain(aq, bq, sa, sb, out_dtype=out_dtype))
+
+
 @pytest.mark.cuda
 def test_int8_kernel_rejects_what_it_does_not_take(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     aq, bq, sa, sb = _int8_operands(64, 64, 64, gen, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         qm.int8_matmul_kernel(aq.t(), bq, sa, sb)
-    with pytest.raises(ValueError, match="contiguous"):
-        qm.int8_matmul_kernel(aq, bq.t().contiguous().t(), sa, sb)
+    with pytest.raises(ValueError, match="row-major or column-major"):
+        qm.int8_matmul_kernel(aq, torch.cat([bq, bq], 1)[:, ::2], sa, sb)
     with pytest.raises(ValueError, match="int8 operands"):
         qm.int8_matmul_kernel(aq.float(), bq, sa, sb)
     with pytest.raises(ValueError, match="float32"):
@@ -1096,6 +1167,35 @@ def test_k5_loopback_bit_for_bit_over_three_calls(cuda_device, d, m_loc, k, dtyp
             assert got[r].shape == (m_loc // d, k)
             assert torch.equal(got[r], want[r]), (call, r)
     assert ring.epoch == 3
+
+
+#: K4 on its per-block flags, (d, rows a rank, k): a shard far smaller than
+#: the grid (most blocks have no share and still signal), a ragged one,
+#: and the collectives path's [2048, 8192] a rank at d = 4
+K4_CASES = [(2, 2, 8), (3, 67, 520), (4, 2048, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d,m_loc,k", K4_CASES)
+def test_k4_loopback_bit_for_bit_twice_on_one_ring(cuda_device, d, m_loc, k, dtype, kind):
+    """K4, d virtual ranks in one launch, two calls in a row on one ring
+    (every block's arrival and credit words advance one epoch a call), bit
+    for bit against ``ring_all_gather_virtual``: it copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 29 + m_loc)
+    shards = _hopper_operands([(m_loc, k)] * d, dtype, gen, cuda_device, kind)
+    ring = rc.loopback_ring("all_gather", d, m_loc * k, dtype, cuda_device)
+    want = rc.ring_all_gather_virtual(shards)
+    for call in range(2):
+        before = dict(rc.LAUNCHES)
+        got = rc.ring_all_gather_loopback(shards, ring)
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES == dict(before, ag=before["ag"] + 1)
+        for r in range(d):
+            assert got[r].shape == (d * m_loc, k)
+            assert torch.equal(got[r], want[r]), (call, r)
+    assert ring.epoch == 2
 
 
 @pytest.mark.cuda

@@ -179,14 +179,12 @@ def test_rings_share_the_collective_matmul_layout():
                          "all_gather", (a,), ROWS * K)
 
 
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("blocks", [1, 66, 132, 264, rc.MAX_FLAG_BLOCKS])
-def test_k5_flag_layout_fits_every_grid(d, blocks):
-    """K5's per-block flags: at every ring size and grid (two blocks an SM
-    of an H100's 132 is 264; loopback shares them among d ranks), each
-    block's arrival and credit words of every step are distinct words of
-    the flag area, clear of K4's step counters and the entry barrier in
-    its first 1 KB; the slots follow the flag area as in every ring."""
+def _check_flag_layout(kind, d, blocks):
+    """Per-block flags of a ``kind`` ring at ring size ``d`` and a grid of
+    ``blocks``: each block's arrival and credit words of every step are
+    distinct words of the flag area, clear of the entry barrier (and K2/K3's
+    step counters) in its first 1 KB; the slots follow the flag area as in
+    every ring."""
     words = set()
     for b in range(blocks):
         for t in range(d):
@@ -200,15 +198,30 @@ def test_k5_flag_layout_fits_every_grid(d, blocks):
         size = torch.empty((), dtype=dtype).element_size()
         slot = -(-chunk_numel * size // 16) * 16
         assert cm.buffer_bytes(chunk_numel, dtype) == cm.FLAG_BYTES + 2 * slot
-        ring = rc.loopback_ring("reduce_scatter", d, chunk_numel, dtype, "cpu")
+        ring = rc.loopback_ring(kind, d, chunk_numel, dtype, "cpu")
         assert ring.owner.numel() >= d * cm.buffer_bytes(chunk_numel, dtype)
         assert all(p % 256 == 0 for p in np.diff(ring.ptrs))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("blocks", [1, 66, 132, 264, rc.MAX_FLAG_BLOCKS])
+def test_k5_flag_layout_fits_every_grid(d, blocks):
+    """K5's per-block flags at every ring size and grid (two blocks an SM
+    of an H100's 132 is 264; loopback shares them among d ranks)."""
+    _check_flag_layout("reduce_scatter", d, blocks)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("blocks", [1, 66, 132, 264, rc.MAX_FLAG_BLOCKS])
+def test_k4_flag_layout_fits_every_grid(d, blocks):
+    """K4's per-block flags, the same words on its own ring."""
+    _check_flag_layout("all_gather", d, blocks)
 
 
 def test_k5_flag_layout_refuses_what_it_does_not_hold():
     assert rc.MAX_FLAG_BLOCKS >= 2 * 132  # two blocks on each SM of an H100
     for block, step in ((rc.MAX_FLAG_BLOCKS, 0), (-1, 0), (0, cm.MAX_RANKS)):
-        with pytest.raises(ValueError, match="K5 holds"):
+        with pytest.raises(ValueError, match="K4/K5 hold"):
             rc.block_flag_offsets(block, step)
 
 
