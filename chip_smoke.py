@@ -15,9 +15,13 @@ Phases, in order; any failure exits non-zero without the final line:
    tile its widths choose: the Hopper ``wgmma`` tile, ``wmma`` or
    ``simt``), K8a/K8b (the flash forward, triangle and rectangle, at the
    attention path's shapes and at the serving path's prefill and admission
-   shapes; the triangle in bf16/fp16 on the ``wgmma`` kernel, ragged and
-   GQA cases included), K9 (the
-   carried-chunk fold), K11 and K12 (single-token decode attention,
+   shapes; the triangle in bf16/fp16 on the ``wgmma`` kernel, the
+   rectangle on the ``band`` kernel, ragged, GQA, not causal and empty-band
+   cases included), K9 (the carried-chunk fold on the ``band`` kernel, its
+   three modes, a windowed diagonal and an empty band, timed beside SDPA
+   with ``is_causal`` on the same attention; the ``band`` instantiations'
+   ``ptxas`` registers, no spill and no C7512 warning), K11 and K12
+   (single-token decode attention,
    contiguous and paged), K7 (the int8 GEMM, bit for bit at the GEMM
    path's 8192^3, the decode and prefill MLP's shapes and ragged ones,
    each output dtype, on a column-major and a row-major weight, each call
@@ -78,8 +82,10 @@ Phases, in order; any failure exits non-zero without the final line:
    row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
    be valid with a finite time, and the counts must be exactly what the
    rows launch, every K1, K2 and K3 launch of every path on the Hopper
-   tile, every K8a launch on the ``wgmma`` forward, every K10a/K10b pass
-   on the ``wgmma`` backward and every K10c/K10d pass on ``mma.sync``
+   tile, every K8a launch on the ``wgmma`` forward, every K8b and K9
+   launch on the ``band`` forward, every
+   K10a/K10b pass on the ``wgmma`` backward and every K10c/K10d pass on
+   ``mma.sync``
    (``check_tiles``), and every K7 launch on ``wgmma`` (8192^3, the
    prompt passes, training) or ``small_m`` (the decode steps), none on
    ``mma``;
@@ -384,7 +390,7 @@ def peaked_inputs(sq, skv, h, h_kv, dh, dtype, gen, shift):
 
 
 def check_flash_forward(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
-                        window):
+                        window, causal=True):
     """K8a/K8b against ``flash_forward_plain`` on the card: bit for bit on
     band inputs; on uniform [-1, 1] inputs and on peaked ones (q aligned
     with the key at the query's own position) the output within
@@ -397,10 +403,10 @@ def check_flash_forward(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kw = {"scale": dh ** -0.5, "row_offset": row_offset, "window": window}
-    kernel = fa.forward_kernel(fa.forward_case(sq, skv, row_offset, True, window)[0], dtype)
+    kw = {"scale": dh ** -0.5, "row_offset": row_offset, "window": window, "causal": causal}
+    kernel = fa.forward_kernel(fa.forward_case(sq, skv, row_offset, causal, window)[0], dtype)
     what = (f"flash forward {sq}x{skv} h={h}/{h_kv} dh={dh} off={row_offset} w={window} "
-            f"{dtype_name} ({kernel})")
+            f"{'causal' if causal else 'not causal'} {dtype_name} ({kernel})")
     tiles_want = dict(fa.FORWARD_TILES)
     tiles_want[kernel] += 3  # band, uniform and peaked inputs
     q, k, v = band_inputs(sq, skv, h, h_kv, dh, dtype, gen)
@@ -452,10 +458,12 @@ def check_flash_chunk(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
                       col_offset, mode, window):
     """K9 against ``flash_chunk_plain`` on the card: two folds into one
     carry (the second reads what the first wrote in place), bit for bit
-    on band inputs; on uniform inputs, one fold, the normalised output
-    within ``fa.plain_gap_bound``, m within the score gap Δs and l within
-    a relative ``4*Δs + 2*skv*2**-23 + 2**-20``. Returns (max |err| of the
-    output, inputs, keyword arguments)."""
+    on band inputs; on uniform and on peaked inputs, one fold, the
+    normalised output within ``fa.plain_gap_bound``, m within the score
+    gap Δs and l within a relative ``4*Δs + 2*skv*2**-23 + 2**-20``; each
+    of the four launches on the kernel ``fa.forward_kernel`` names
+    (``FORWARD_TILES``). Returns (max |err| of the output, inputs, keyword
+    arguments)."""
     import torch
 
     dtype = getattr(torch, dtype_name)
@@ -463,8 +471,11 @@ def check_flash_chunk(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
     scale = dh ** -0.5
     kw = {"scale": scale, "row_offset": row_offset, "col_offset": col_offset,
           "causal": mode, "window": window}
+    kernel = fa.forward_kernel("chunk", dtype)
     what = (f"flash chunk {mode} {sq}x{skv} h={h}/{h_kv} dh={dh} "
-            f"off={row_offset}/{col_offset} w={window} {dtype_name}")
+            f"off={row_offset}/{col_offset} w={window} {dtype_name} ({kernel})")
+    tiles_want = dict(fa.FORWARD_TILES)
+    tiles_want[kernel] += 4  # two folds of band inputs, uniform and peaked
     q, k, v = band_inputs(sq, skv, h, h_kv, dh, dtype, gen)
     carry = fa.init_flash_carry(sq, h, dh, "cuda")
     want = fa.flash_chunk_plain(q, k, v, carry, **kw)
@@ -504,6 +515,8 @@ def check_flash_chunk(fa, sq, skv, h, h_kv, dh, dtype_name, row_offset,
               f"{float(o_p.abs().median())!r}), m and l within their "
               f"bounds: ok")
         errs.append(max_err)
+    if fa.FORWARD_TILES != tiles_want:
+        fail(f"{what}: chunk launches by kernel {fa.FORWARD_TILES}, expected {tiles_want}")
     return max(errs), uniform, kw
 
 
@@ -1079,6 +1092,11 @@ def kernel_phase_flash(fa, smi):
         (777, 1500, 4, 2, dh, "bfloat16", 723, 300),
         (777, 1500, 4, 2, dh, "float16", 723, 300),
         (1000, 1000, 4, 2, dh, "float16", 0, 300),
+        # the band kernel's edges: query tile 3 reaches no key under the
+        # window; not causal, ragged both ways, both 16-bit types
+        (512, 256, 4, 2, dh, "bfloat16", 0, 100),
+        (1000, 700, 4, 2, dh, "bfloat16", 0, 0, False),
+        (1000, 700, 4, 2, dh, "float16", 0, 0, False),
     ):
         check_flash_forward(fa, *args)
     chunk_err, chunk_in, chunk_kw = check_flash_chunk(
@@ -1088,7 +1106,12 @@ def kernel_phase_flash(fa, smi):
         (4096, 4096, h, h_kv, dh, "bfloat16", 12288, 8192, "past", 0),
         (4096, 4096, h, h, dh, "bfloat16", 12288, 8192, "offset", 6000),
         (1000, 700, 4, 2, dh, "float16", 900, 500, "offset", 0),
+        (1000, 700, 4, 2, dh, "bfloat16", 900, 500, "offset", 0),
         (1024, 1024, 4, 4, dh, "float32", 0, 0, "diagonal", 300),
+        # the band kernel's edges: a diagonal chunk with a window, ragged,
+        # GQA 4; query tile 3 reaching no key of its chunk
+        (1000, 1000, 8, 2, dh, "bfloat16", 5000, 5000, "diagonal", 300),
+        (512, 768, 4, 2, dh, "bfloat16", 1000, 0, "offset", 600),
     ):
         check_flash_chunk(fa, *args)
     check_ring_chain(fa, 4096, h, dh, "bfloat16")
@@ -1138,13 +1161,19 @@ def kernel_phase_flash(fa, smi):
                              True, window, carry=False)
     del qt, kt, vt, band
     # K9: the diagonal chunk at the path's shape, folded again and again
-    # into one carry in place (the time does not depend on its values)
+    # into one carry in place (the time does not depend on its values);
+    # beside it SDPA with is_causal on the same q, k, v, the same attention
+    # normalised (no PyTorch call folds into an unnormalised carry)
     q, k, v = chunk_in
+    qt, kt, vt = (x.transpose(0, 1).contiguous()[None] for x in (q, k, v))
     carry = fa.init_flash_carry(m, h, dh, "cuda")
     chunk_times, chunk_turns = time_turns({
         "ms": lambda: fa.flash_attention_chunk(q, k, v, carry, **chunk_kw),
+        "sdpa_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=chunk_kw["scale"]),
         "plain_ms": lambda: fa.flash_chunk_plain(q, k, v, carry, **chunk_kw),
-    }, {"ms": 10, "plain_ms": 1})
+    }, {"ms": 10, "sdpa_ms": 10, "plain_ms": 1})
+    del qt, kt, vt
     chunk_bound = flash_bound(fa, m, m, h, h, dh, 2, 0, 0, True, 0, carry=True)
     for what, times, turns, bound in (
         ("K8a triangle", tri_times, tri_turns, tri_bound),
@@ -1152,7 +1181,7 @@ def kernel_phase_flash(fa, smi):
         ("K9 diagonal chunk", chunk_times, chunk_turns, chunk_bound),
     ):
         print(f"{what}: kernel {times['ms']!r} ms, library "
-              f"{times.get('library_ms')!r} ms, plain {times['plain_ms']!r} "
+              f"{times.get('library_ms', times.get('sdpa_ms'))!r} ms, plain {times['plain_ms']!r} "
               f"ms, bound {bound[0]!r} ms ({bound[1]}; {smi}); turns {turns}")
 
     def entry(name, replaces, err, times, bound):
@@ -1173,21 +1202,49 @@ def kernel_phase_flash(fa, smi):
     forward = entry("flash_forward", "ddlb_tpu/ops/flash_attention.py:373",
                     tri_err, tri_times, tri_bound)
     forward["tile"] = "wgmma"
-    forward["registers"] = ptxas_registers("flash_attention", "flash_fwd_wgmma")
-    # the same entry point is also K8b's counterpart; its case at the
-    # windowed row's shape, with its own numbers
+    forward["registers"] = ptxas_registers("flash_attention", "3tri15flash_fwd_wgmma")
+    # flash_forward is also K8b's counterpart; its case at the windowed
+    # row's shape, with its own numbers
     forward["also_replaces"] = "ddlb_tpu/ops/flash_attention.py:96"
     forward["rect"] = entry("flash_forward (rect)",
                             "ddlb_tpu/ops/flash_attention.py:96", rect_err,
                             rect_times, rect_bound)
-    forward["rect"]["tile"] = "mma"
+    forward["rect"]["tile"] = "band"
+    forward["rect"]["registers"] = band_ptxas(carry=False)
     chunk = entry("flash_chunk", "ddlb_tpu/ops/flash_attention.py:146",
                   chunk_err, chunk_times, chunk_bound)
+    chunk["tile"] = "band"
+    chunk["registers"] = band_ptxas(carry=True)
+    chunk["sdpa_ms"] = chunk_times["sdpa_ms"]
     chunk["library_ms_note"] = (
         "null: no single PyTorch call folds a KV chunk into a carried "
-        "(acc, m, l) without normalising it"
+        "(acc, m, l) without normalising it; sdpa_ms is SDPA with is_causal "
+        "on the same q, k, v (the same attention, normalised)"
     )
     return forward, chunk
+
+
+def band_ptxas(carry):
+    """``band::flash_fwd_wgmma``'s registers and spill stores by dtype for
+    one value of CARRY, each with whether ``ptxas`` warned that it
+    serialised the wgmma pipeline (C7512); fails on a spill or that
+    warning, or if the build log has no such instantiation."""
+    from ddlb_tpu_torch.ops import _build
+
+    log = _build.build_log("flash_attention")
+    usage = _build.ptxas_usage(log)
+    warned = [line for line in log.splitlines() if "C7512" in line]
+    found = {}
+    for name, used in usage.items():
+        if "4band15flash_fwd_wgmma" in name and f"Lb{int(carry)}E" in name:
+            dtype = "bfloat16" if "bfloat16" in name else "float16"
+            found[dtype] = dict(used, c7512=any(name in line for line in warned))
+    bad = {d: u for d, u in found.items() if u.get("spill_stores") or u["c7512"]}
+    # a warning that names no kernel of the log cannot be cleared
+    unnamed = [line for line in warned if not any(name in line for name in usage)]
+    if sorted(found) != ["bfloat16", "float16"] or bad or unnamed:
+        fail(f"band::flash_fwd_wgmma CARRY={carry}: ptxas {found}, C7512 lines {warned}")
+    return found
 
 
 #: K8a as the serving path calls it (sequence, query heads, kv heads), bf16:
@@ -2384,17 +2441,18 @@ def head_phase(run_benchmark, smi):
 
 def check_tiles(what, k1, cm, fa):
     """Every K1, K2 and K3 launch of a path ran the Hopper tile, every K8a
-    launch the wgmma forward, every K8b and K9 launch ``flash_mma``, every
-    K10a/K10b pass (``bwd_*_tri``) the wgmma backward and every K10c/K10d
-    pass (``bwd_*_rect``) ``flash_bwd_*_mma`` (the main paths are bf16, at
-    16-byte widths). Returns the path's launches by tile."""
+    launch the tri wgmma forward, every K8b and K9 launch the band wgmma
+    forward, every K10a/K10b pass (``bwd_*_tri``) the
+    wgmma backward and every K10c/K10d pass (``bwd_*_rect``)
+    ``flash_bwd_*_mma`` (the main paths are bf16, at 16-byte widths).
+    Returns the path's launches by tile."""
     for name, tiles, launched in (("K1", k1.TILES, k1.LAUNCHES),
                                   ("K2", cm.TILES, cm.LAUNCHES["ag"]),
                                   ("K3", cm.RS_TILES, cm.LAUNCHES["rs"])):
         want = {"wgmma": launched, "wmma": 0, "simt": 0}
         if tiles != want:
             fail(f"{name}'s launches by tile on {what}: {tiles}, expected {want}")
-    want_fa = {"wgmma": fa.LAUNCHES["tri"], "mma": fa.LAUNCHES["rect"] + fa.LAUNCHES["chunk"],
+    want_fa = {"wgmma": fa.LAUNCHES["tri"], "band": fa.LAUNCHES["rect"] + fa.LAUNCHES["chunk"],
                "simt": 0}
     if fa.FORWARD_TILES != want_fa:
         fail(f"the flash forward's launches by kernel on {what}: {fa.FORWARD_TILES}, "
@@ -2610,6 +2668,11 @@ def main():
     rect_entry["launches"] = total("rect")
     forward_entry["serving_prefill"]["launches"] = serving_launches["tri"]
     chunk_entry["launches"] = total("chunk")
+    # K8b and K9 by path; every launch ran band::flash_fwd_wgmma (check_tiles)
+    rect_entry["launches_by_path"] = {path: n["rect"] for path, n in launches.items()
+                                      if n.get("rect")}
+    chunk_entry["launches_by_path"] = {path: n["chunk"] for path, n in launches.items()
+                                       if n.get("chunk")}
     decode_entry["launches"] = total("decode")
     paged_entry["launches"] = total("paged")
     int8_entry["launches"] = total("int8")

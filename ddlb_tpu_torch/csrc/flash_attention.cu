@@ -1,18 +1,21 @@
 // K8a / K8b / K9: flash attention forward and the carried-chunk fold.
 //
 // Replaces, in ddlb_tpu/ops/flash_attention.py:
-//  - ddlb_flash_forward_tri and ddlb_flash_forward: _flash_forward (:433)
-//    with both of its Pallas kernels, the triangular-grid _flash_kernel_tri
-//    (:373, K8a: causal, offset 0, sq == skv; in bf16/fp16 the Hopper
-//    kernel of namespace tri below, ddlb_flash_forward_tri) and the
-//    rectangular _flash_kernel (:96, K8b: runtime row_offset, sliding
-//    window, causal=False, GQA). Writes o in the operand dtype and lse =
-//    m + log(l) in f32 (NEG_INF for empty rows).
-//  - ddlb_flash_chunk: flash_attention_chunk (:211) with _flash_chunk_kernel
-//    (:146, K9): the same walk, but the (acc, m, l) carry is read at the
-//    start and written back at the end, in place, instead of being created
-//    and normalised. causal = offset (global offsets), diagonal (relative
-//    mask) or past (no mask).
+//  - _flash_forward (:433) with both of its Pallas kernels, the
+//    triangular-grid _flash_kernel_tri (:373, K8a: causal, offset 0, sq ==
+//    skv; in bf16/fp16 the Hopper kernel of namespace tri below,
+//    ddlb_flash_forward_tri) and the rectangular _flash_kernel (:96, K8b:
+//    runtime row_offset, sliding window, causal=False, GQA; in bf16/fp16
+//    the Hopper kernel of namespace band below, ddlb_flash_forward_band).
+//    Writes o in the operand dtype and lse = m + log(l) in f32 (NEG_INF for
+//    empty rows).
+//  - flash_attention_chunk (:211) with _flash_chunk_kernel (:146, K9; in
+//    bf16/fp16 namespace band's kernel too, ddlb_flash_chunk_band): the same
+//    walk, but the (acc, m, l) carry is read at the start and written back
+//    at the end, in place, instead of being created and normalised. causal
+//    = offset (global offsets), diagonal (relative mask) or past (no mask).
+//  - ddlb_flash_forward and ddlb_flash_chunk take every case in float32,
+//    on flash_f32 below.
 //
 // What bounds it on an H100: at the shipped shape (sq = skv = 16384, 8 heads
 // of 128, bf16, causal) the live work is 4 * h * dh * m(m+1)/2 = 5.5e11 FLOP
@@ -21,10 +24,10 @@
 // it (989 TFLOP/s dense: 0.556 ms), not memory (0.040 ms at 3.35 TB/s), and
 // the exp of every live score is the next cost after the products.
 //
-// What the design does about it. K8a in bf16/fp16 runs flash_fwd_wgmma
-// (namespace tri, with its own design note): TMA loads, a producer
-// warpgroup and two consumer warpgroups on wgmma, 128-row query tiles. The
-// rest below is flash_mma and flash_f32, which K8b, K9 and float32 run:
+// What the design does about it. In bf16/fp16 K8a runs tri::flash_fwd_wgmma
+// and K8b and K9 band::flash_fwd_wgmma (each namespace with its own design
+// note): TMA loads, a producer warpgroup and two consumer warpgroups on
+// wgmma, 128-row query tiles. float32 runs flash_f32, below:
 //  - One block per (query tile, head); blocks run in no order on 132 SMs, so
 //    the TPU's sequential kv grid axis becomes a loop inside the block. The
 //    loop walks only the key tiles that the tile's live band reaches (from
@@ -33,15 +36,6 @@
 //    maps buy (K8a). Only tiles that straddle a band edge or the ragged end
 //    of the keys apply the mask. The heaviest query tiles (the last, under
 //    a causal mask) are scheduled first.
-//  - bf16/fp16: 64-row query tiles, four warps of 16 rows each, 64-key
-//    tiles. QK^T and PV run on mma.sync m16n8k16 with f32 accumulators. Q
-//    stays in registers as A fragments for the whole walk; K and V tiles
-//    are staged through shared memory by cp.async, two stages deep, so the
-//    next tile's copy overlaps this tile's products. The softmax state
-//    (m, l and the O accumulator) lives in registers; P goes from the S
-//    accumulator registers straight into the A fragments of the PV product
-//    (rounded to the operand type there, as any tensor-core flash kernel
-//    does; l sums the unrounded f32 p), never through shared memory.
 //  - float32: a SIMT kernel in true f32 (no TF32), 64-row query tiles and
 //    32-key tiles in shared memory, two threads per query row.
 //  - Rows whose live band is empty give o = 0 and lse = NEG_INF: the mask
@@ -130,7 +124,8 @@ struct Params {
 
 // The backward's own operands, a second kernel argument beside Params: a
 // larger Params changes how ptxas allocates the forward kernels' registers
-// (224 -> 200 for flash_mma on sm_90a) and slows them by about 40%.
+// (224 -> 200 for the former mma.sync forward on sm_90a) and slows them by
+// about 40%.
 struct Grads {
   const void* dout;    // [sq, h, dh]
   const float* delta;  // [h, sq]: rowsum(dout * o)
@@ -245,225 +240,6 @@ __device__ __forceinline__ uint32_t ld32(const void* p) {
 template <int D>
 constexpr int mma_smem_bytes() {
   return STAGES * 2 * BKV * (D + 8) * 2;  // K and V, rows padded by 16 bytes
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2) flash_mma(Params p) {
-  constexpr int LDS = D + 8;  // shared row in elements (16 bytes of padding)
-  constexpr int KSTEPS = D / 16, NT_S = BKV / 8, NT_O = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // STAGES x [BKV][LDS]
-  T* Vs = Ks + STAGES * BKV * LDS;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
-  const int qhi = min(q0 + BQ, p.sq);
-  const int hh = blockIdx.y, kvh = hh / p.group;
-  const size_t q_stride = static_cast<size_t>(p.h) * D;
-  const size_t kv_stride = static_cast<size_t>(p.h_kv) * D;
-  const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(hh) * D;
-  const T* K = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * D;
-  const T* V = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * D;
-
-  // this thread's two query rows (local), and their A fragments of Q
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const bool in0 = r0 < p.sq, in1 = r1 < p.sq;
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qf[kk][0] = in0 ? ld32(Q + r0 * q_stride + c) : 0u;
-    qf[kk][1] = in1 ? ld32(Q + r1 * q_stride + c) : 0u;
-    qf[kk][2] = in0 ? ld32(Q + r0 * q_stride + c + 8) : 0u;
-    qf[kk][3] = in1 ? ld32(Q + r1 * q_stride + c + 8) : 0u;
-  }
-
-  // the softmax state: O accumulator (C fragments), running max and sum
-  float o[NT_O][4];
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.0f, 0.0f};
-  const size_t row0 = static_cast<size_t>(hh) * p.sq + r0;  // [h, sq] index
-  const size_t row1 = row0 + 8;
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  if (p.carry) {
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      const int c = j * 8 + t4 * 2;
-      if (in0) {
-        const float2 a = *reinterpret_cast<const float2*>(p.acc + row0 * D + c);
-        o[j][0] = a.x;
-        o[j][1] = a.y;
-      }
-      if (in1) {
-        const float2 a = *reinterpret_cast<const float2*>(p.acc + row1 * D + c);
-        o[j][2] = a.x;
-        o[j][3] = a.y;
-      }
-    }
-    if (in0) m_r[0] = p.m[row0], l_r[0] = p.l[row0];
-    if (in1) m_r[1] = p.m[row1], l_r[1] = p.l[row1];
-  }
-
-  auto load_tile = [&](int stage, int tile) {
-    T* ks = Ks + stage * BKV * LDS;
-    T* vs = Vs + stage * BKV * LDS;
-    const int k0 = tile * BKV;
-    for (int i = tid; i < BKV * (D / 8); i += THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      if (k0 + r < p.skv) {
-        const size_t off = static_cast<size_t>(k0 + r) * kv_stride + c;
-        cp_async16(ks + r * LDS + c, K + off);
-        cp_async16(vs + r * LDS + c, V + off);
-      } else {  // past the ragged end: zeros (and the mask drops them)
-        *reinterpret_cast<uint4*>(ks + r * LDS + c) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vs + r * LDS + c) = make_uint4(0, 0, 0, 0);
-      }
-    }
-  };
-
-  int first, last;
-  tile_range<BKV>(p, q0, qhi, first, last);
-  if (first < last) load_tile(0, first);
-  cp_async_commit();
-  const int qpos0 = p.q_base + r0, qpos1 = p.q_base + r1;
-
-  for (int t = first; t < last; ++t) {
-    const int stage = (t - first) & 1;
-    if (t + 1 < last) {
-      load_tile(stage ^ 1, t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();  // this tile's group has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const T* ks = Ks + stage * BKV * LDS;
-    const uint16_t* vs =
-        reinterpret_cast<const uint16_t*>(Vs + stage * BKV * LDS);
-    const int k0 = t * BKV;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        const T* kp = ks + (j * 8 + g) * LDS + kk * 16 + t4 * 2;
-        const uint32_t b[2] = {ld32(kp), ld32(kp + 8)};
-        Half<T>::mma(s[j], qf[kk], b);
-      }
-    }
-
-    // scale, mask the straddling tiles, online softmax
-    const bool need_mask = tile_needs_mask<BKV>(p, q0, qhi, k0);
-    float mx0 = m_r[0], mx1 = m_r[1];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
-      if (need_mask) {
-        const int c = k0 + j * 8 + t4 * 2;
-        if (!live(p, qpos0, c)) s[j][0] = NEG_INF;
-        if (!live(p, qpos0, c + 1)) s[j][1] = NEG_INF;
-        if (!live(p, qpos1, c)) s[j][2] = NEG_INF;
-        if (!live(p, qpos1, c + 1)) s[j][3] = NEG_INF;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float alpha0 = expf(m_r[0] - mx0), alpha1 = expf(m_r[1] - mx1);
-    m_r[0] = mx0;
-    m_r[1] = mx1;
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // a masked entry holds exactly NEG_INF (no live score can): zero
-        // its p, so a row with nothing live keeps l == 0
-        const float pe = (need_mask && s[j][e] == NEG_INF)
-                             ? 0.0f
-                             : expf(s[j][e] - (e < 2 ? mx0 : mx1));
-        s[j][e] = pe;
-      }
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l_r[0] = l_r[0] * alpha0 + quad_sum(sum0);
-    l_r[1] = l_r[1] * alpha1 + quad_sum(sum1);
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      o[j][0] *= alpha0;
-      o[j][1] *= alpha0;
-      o[j][2] *= alpha1;
-      o[j][3] *= alpha1;
-    }
-
-    // O += P V: the C fragments of S (two n-tiles) are the A fragment of P
-#pragma unroll
-    for (int kt = 0; kt < BKV / 16; ++kt) {
-      const uint32_t a[4] = {
-          Half<T>::pack(s[2 * kt][0], s[2 * kt][1]),
-          Half<T>::pack(s[2 * kt][2], s[2 * kt][3]),
-          Half<T>::pack(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-          Half<T>::pack(s[2 * kt + 1][2], s[2 * kt + 1][3]),
-      };
-      const uint16_t* vrow = vs + (kt * 16 + t4 * 2) * LDS + g;
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        const uint16_t* vp = vrow + j * 8;
-        const uint32_t b[2] = {
-            static_cast<uint32_t>(vp[0]) |
-                (static_cast<uint32_t>(vp[LDS]) << 16),
-            static_cast<uint32_t>(vp[8 * LDS]) |
-                (static_cast<uint32_t>(vp[9 * LDS]) << 16),
-        };
-        Half<T>::mma(o[j], a, b);
-      }
-    }
-    __syncthreads();  // the stage is free for the copy two tiles ahead
-  }
-
-  if (p.carry) {
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      const int c = j * 8 + t4 * 2;
-      if (in0)
-        *reinterpret_cast<float2*>(p.acc + row0 * D + c) =
-            make_float2(o[j][0], o[j][1]);
-      if (in1)
-        *reinterpret_cast<float2*>(p.acc + row1 * D + c) =
-            make_float2(o[j][2], o[j][3]);
-    }
-    if (t4 == 0) {
-      if (in0) p.m[row0] = m_r[0], p.l[row0] = l_r[0];
-      if (in1) p.m[row1] = m_r[1], p.l[row1] = l_r[1];
-    }
-    return;
-  }
-  const float d0 = l_r[0] == 0.0f ? 1.0f : l_r[0];
-  const float d1 = l_r[1] == 0.0f ? 1.0f : l_r[1];
-  T* O = static_cast<T*>(p.o) + static_cast<size_t>(hh) * D;
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    const int c = j * 8 + t4 * 2;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(O + r0 * q_stride + c) =
-          Half<T>::pack(o[j][0] / d0, o[j][1] / d0);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(O + r1 * q_stride + c) =
-          Half<T>::pack(o[j][2] / d1, o[j][3] / d1);
-  }
-  if (t4 == 0) {
-    if (in0) p.lse[row0] = l_r[0] == 0.0f ? NEG_INF : m_r[0] + logf(l_r[0]);
-    if (in1) p.lse[row1] = l_r[1] == 0.0f ? NEG_INF : m_r[1] + logf(l_r[1]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1244,7 +1020,7 @@ cudaError_t launch_with(Kernel kernel, dim3 grid, int threads, int smem, cudaStr
 //  - Warpgroups 1 and 2 are the consumers (up to 232 registers), 64 query
 //    rows each. S = Q K^T is wgmma m64n128k16 from shared memory (Q and K
 //    both K-major); O += P V is wgmma m64n128k16 with P in registers (the S
-//    accumulators rounded to T are the A fragments, as in flash_mma) and V
+//    accumulators rounded to T are the A fragments) and V
 //    read MN-major through the transpose bit. A warpgroup runs QK^T, the
 //    softmax and PV of a tile one after the other, and the two consumer
 //    warpgroups overlap each other. (Issuing the QK^T of tile t + 1 beside
@@ -1462,21 +1238,36 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64])
   for (int i = 0; i < 32; ++i) pa[i] = Half<T>::pack(s[2 * i], s[2 * i + 1]);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_constant__ Args p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t aligned = (raw + 1023u) & ~1023u;
-  const Smem sm{aligned, smem_raw + (aligned - raw)};
-  // heads in groups of p.head_group, whose K and V fit in L2 together;
-  // inside a group the heaviest query tiles first, head by head
-  const int first = static_cast<int>(blockIdx.x) / (p.head_group * p.q_tiles) * p.head_group;
-  const int heads = min(p.head_group, p.h - first);
-  const int local = static_cast<int>(blockIdx.x) - first * p.q_tiles;
-  const int qt = p.q_tiles - 1 - local / heads;
-  const int hh = first + local % heads, kvh = hh / p.group;
-  const int q0 = qt * BQ, n_tiles = qt + 1;
+// The running O and l after a tile's softmax: scaled by alpha, plus the
+// tile's sums.
+__device__ __forceinline__ void rescale(float (&o)[64], float (&l)[2], const float (&alpha)[2],
+                                        const float (&sum)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
 
+// This block's query tile qt and heads: heads in groups of head_group,
+// whose K and V fit in L2 together; inside a group the last (heaviest)
+// query tiles first, head by head.
+__device__ __forceinline__ void block_tile(int head_group, int q_tiles, int h, int group,
+                                           int& qt, int& hh, int& kvh) {
+  const int first = static_cast<int>(blockIdx.x) / (head_group * q_tiles) * head_group;
+  const int heads = min(head_group, h - first);
+  const int local = static_cast<int>(blockIdx.x) - first * q_tiles;
+  qt = q_tiles - 1 - local / heads;
+  hh = first + local % heads;
+  kvh = hh / group;
+}
+
+// Thread 0 sets up the block's mbarriers; every thread waits for it.
+__device__ __forceinline__ void init_barriers(const Smem& sm) {
   if (threadIdx.x == 0) {
     hopper::mbar_init(sm.q_full(), 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -1488,27 +1279,97 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// The producer (one thread): the Q tile of rows q0 of head hh once, then
+// the K and V tiles of kv head kvh from key tile last - 1 down, n_tiles of
+// them, through the two rings.
+__device__ __forceinline__ void load_tiles(const Smem& sm, const CUtensorMap* q,
+                                           const CUtensorMap* k, const CUtensorMap* v, int hh,
+                                           int kvh, int q0, int last, int n_tiles) {
+  hopper::mbar_expect_tx(sm.q_full(), TILE_BYTES);
+  for (int half = 0; half < 2; ++half)
+    hopper::tma_load(sm.q(half), q, sm.q_full(), half * BOX, hh, q0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    const int k0 = (last - 1 - i) * BKV;
+    hopper::mbar_wait(sm.k_empty(st), phase ^ 1u);
+    hopper::mbar_expect_tx(sm.k_full(st), TILE_BYTES);
+    for (int half = 0; half < 2; ++half)
+      hopper::tma_load(sm.k(st, half), k, sm.k_full(st), half * BOX, kvh, k0);
+    hopper::mbar_wait(sm.v_empty(st), phase ^ 1u);
+    hopper::mbar_expect_tx(sm.v_full(st), TILE_BYTES);
+    for (int half = 0; half < 2; ++half)
+      hopper::tma_load(sm.v(st, half), v, sm.v_full(st), half * BOX, kvh, k0);
+  }
+}
+
+// The epilogue of consumer warpgroup c: lse [h, sq] of its rows, then O /
+// l rounded once to T, staged through its rows of the Q tile (its last
+// QK^T has run) and stored to out [sq, h, 128]; rows past sq are not
+// stored. l is reduced over the quad here.
+template <typename T>
+__device__ __forceinline__ void store_output(const Smem& sm, const float (&o)[64],
+                                             const float (&m)[2], float (&l)[2], T* out,
+                                             float* lse, int sq, int h, int hh, int q0, int c,
+                                             float scale) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r0 = 64 * c + 16 * warp + lane / 4;
+  const int t4 = lane % 4, g = lane / 4;
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    den[r] = l[r] == 0.0f ? 1.0f : l[r];
+    const int row = q0 + r0 + 8 * r;
+    if (t4 == 0 && row < sq)
+      lse[static_cast<size_t>(hh) * sq + row] =
+          l[r] == 0.0f ? NEG_INF : m[r] * scale + logf(l[r]);
+  }
+  // a 16-byte chunk (8 dh) of row rw sits at chunk ^ (rw % 8) of its
+  // 128-byte row: conflict-free for the pairs written and the chunks read
+  unsigned char* stage = sm.ptr + c * WG_ROWS_BYTES;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int half = j / 8, chunk = j % 8;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rw = 16 * warp + g + 8 * r;
+      *reinterpret_cast<uint32_t*>(stage + half * HALF_BYTES + rw * 128 +
+                                   ((chunk ^ (rw % 8)) * 16) + t4 * 4) =
+          Half<T>::pack(o[4 * j + 2 * r] / den[r], o[4 * j + 2 * r + 1] / den[r]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int pass = 0; pass < 8; ++pass) {
+    const int rw = 16 * warp + 2 * pass + lane / 16;
+    const int half = (lane % 16) / 8, chunk = lane % 8;
+    const int row = q0 + 64 * c + rw;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        stage + half * HALF_BYTES + rw * 128 + ((chunk ^ (rw % 8)) * 16));
+    if (row < sq)
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(row) * h + hh) * D + half * BOX +
+                                chunk * 8) = val;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_constant__ Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t aligned = (raw + 1023u) & ~1023u;
+  const Smem sm{aligned, smem_raw + (aligned - raw)};
+  int qt, hh, kvh;
+  block_tile(p.head_group, p.q_tiles, p.h, p.group, qt, hh, kvh);
+  const int q0 = qt * BQ, n_tiles = qt + 1;
+
+  init_barriers(sm);
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     hopper::producer_registers();
-    if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(sm.q_full(), TILE_BYTES);
-      for (int half = 0; half < 2; ++half)
-        hopper::tma_load(sm.q(half), &p.q, sm.q_full(), half * BOX, hh, q0);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % STAGES;
-        const uint32_t phase = (i / STAGES) & 1;
-        const int k0 = (qt - i) * BKV;
-        hopper::mbar_wait(sm.k_empty(st), phase ^ 1u);
-        hopper::mbar_expect_tx(sm.k_full(st), TILE_BYTES);
-        for (int half = 0; half < 2; ++half)
-          hopper::tma_load(sm.k(st, half), &p.k, sm.k_full(st), half * BOX, kvh, k0);
-        hopper::mbar_wait(sm.v_empty(st), phase ^ 1u);
-        hopper::mbar_expect_tx(sm.v_full(st), TILE_BYTES);
-        for (int half = 0; half < 2; ++half)
-          hopper::tma_load(sm.v(st, half), &p.v, sm.v_full(st), half * BOX, kvh, k0);
-      }
-    }
+    if (threadIdx.x == 0) load_tiles(sm, &p.q, &p.k, &p.v, hh, kvh, q0, n_tiles, n_tiles);
   } else {
     hopper::consumer_registers();
     const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -1550,15 +1411,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
       fence_regs(s);
       if (arrives) hopper::mbar_arrive(sm.k_empty(st));
       softmax_tile(s, m, alpha, sum, p.scale_log2, false, r0);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
-      l[0] = l[0] * alpha[0] + sum[0];
-      l[1] = l[1] * alpha[1] + sum[1];
+      rescale(o, l, alpha, sum);
       pack_p<T>(pa, s);
       hopper::mbar_wait(sm.v_full(st), ph);
       issue_pv<T>(sm, o, pa, st);
@@ -1566,46 +1419,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
       fence_regs(o);
       if (arrives) hopper::mbar_arrive(sm.v_empty(st));
     }
-
-    // epilogue: lse, then O / l through this warpgroup's rows of Q
-    const int t4 = lane % 4, g = lane / 4;
-    float den[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = quad_sum(l[r]);
-      den[r] = l[r] == 0.0f ? 1.0f : l[r];
-      const int row = q0 + r0 + 8 * r;
-      if (t4 == 0 && row < p.sq)
-        p.lse[static_cast<size_t>(hh) * p.sq + row] =
-            l[r] == 0.0f ? NEG_INF : m[r] * p.scale + logf(l[r]);
-    }
-    // a 16-byte chunk (8 dh) of row rw sits at chunk ^ (rw % 8) of its
-    // 128-byte row: conflict-free for the pairs written and the chunks read
-    unsigned char* stage = sm.ptr + c * WG_ROWS_BYTES;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int half = j / 8, chunk = j % 8;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int rw = 16 * warp + g + 8 * r;
-        *reinterpret_cast<uint32_t*>(stage + half * HALF_BYTES + rw * 128 +
-                                     ((chunk ^ (rw % 8)) * 16) + t4 * 4) =
-            Half<T>::pack(o[4 * j + 2 * r] / den[r], o[4 * j + 2 * r + 1] / den[r]);
-      }
-    }
-    __syncwarp();
-    T* out = static_cast<T*>(p.o);
-#pragma unroll
-    for (int pass = 0; pass < 8; ++pass) {
-      const int rw = 16 * warp + 2 * pass + lane / 16;
-      const int half = (lane % 16) / 8, chunk = lane % 8;
-      const int row = q0 + 64 * c + rw;
-      const uint4 val = *reinterpret_cast<const uint4*>(
-          stage + half * HALF_BYTES + rw * 128 + ((chunk ^ (rw % 8)) * 16));
-      if (row < p.sq)
-        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(row) * p.h + hh) * D +
-                                  half * BOX + chunk * 8) = val;
-    }
+    store_output<T>(sm, o, m, l, static_cast<T*>(p.o), p.lse, p.sq, p.h, hh, q0, c, p.scale);
   }
 }
 
@@ -2216,18 +2030,292 @@ int encode_maps(int dtype, const void* q, const void* k, const void* v, const vo
 }  // namespace tri_bwd
 
 // ---------------------------------------------------------------------------
+// K8b and K9 on Hopper: the band with TMA, wgmma and warp specialisation
+// ---------------------------------------------------------------------------
+//
+// The rectangle (K8b: a runtime row offset, a sliding window, causal or
+// not, GQA, ragged sq and skv) and the carried chunk fold (K9: offset,
+// diagonal and past, the same band with the (acc, m, l) carry read before
+// the first product and written back unnormalised, in place), bf16/fp16,
+// head_dim 128. One kernel, flash_fwd_wgmma<T, CARRY>, with its own
+// argument struct; the shape is tri's, and so are its products, its
+// shared-memory layout, its tensor maps, its block order, its producer,
+// its softmax and its epilogue (namespace tri's helpers, forced inline).
+// It takes tri's case too (a causal band at offset 0), but 3-4% slower than
+// tri there on an H100 (scripts/time_flash_triangle.py): K8a stays on tri.
+//  - Bound: 4 h dh (live pairs) operations against q, k, v read once and o
+//    written once (or the float32 carry read and written once). At the
+//    attention path's diagonal chunk (16384², 8 heads) that is 0.556 ms of
+//    bf16 tensor-core work beside 0.04 ms of the carry's 128 MB; at K8b's
+//    row (4096 rows at offset 12288 of 16384 keys, window 4096, GQA 8/2)
+//    0.069 ms. The tensor cores bound both.
+//  - The band: a block of 384 threads per (128-row query tile, query
+//    head), tri's head groups and heaviest-first order (the last query
+//    tiles reach the most keys under a causal band; under a window every
+//    tile does about the same work and the order costs nothing). From
+//    q_base, k_base, causal and window a block computes the 128-key tiles
+//    its rows reach (tile_range at 128/128); the producer walks only
+//    those, from the last down. q_base - k_base need not be a multiple of
+//    128, so the causal edge can straddle two key tiles and the window
+//    edge two more: only tiles that tile_needs_mask flags (a band edge or
+//    the ragged end of skv) run the mask, a pass of its own before the
+//    softmax; the others carry no mask arithmetic. The mask of a fragment
+//    comes from one per-thread base, q_base + row - k_base, less the
+//    tile's first key: each row keeps keys [lo, hi], two integers a row.
+//  - Masked scores are -inf, not NEG_INF: p = ex2(-inf) is exactly 0 and a
+//    masked score never raises the running max, so a row with nothing live
+//    keeps l == 0 and its m unchanged. The running max starts finite
+//    (NEG_INF, or the carry's), so exp2 never sees inf - inf.
+//  - Empty bands (a window behind the chunk, rows past the band, skv = 0):
+//    the producer issues and waits on nothing; without CARRY the consumers
+//    write o = 0 and lse = NEG_INF, with CARRY they leave the carry as it
+//    was.
+//  - Carry units. tri keeps m as the max of the raw scores and p =
+//    ex2(s c - m c), c = scale log2(e). The carry holds the JAX package's
+//    units: m the max of scale s (natural log), l = sum exp(scale s - m),
+//    acc = sum p v. So l and acc need no conversion, and m is divided by
+//    scale on load (scale > 0, checked at the entry point). On store a row
+//    whose running max did not rise above the loaded one writes the
+//    carry's own m back bit for bit; one whose max rose writes m scale.
+//    Rows past sq are neither loaded nor stored.
+//  - Registers: tri's consumer (o[64], s[64], pa[32]) plus a base, the
+//    tile bounds and, in the masked pass only, lo and hi of two rows; the
+//    carry's m is read again from global memory at the store rather than
+//    kept. ptxas gives a 384-thread kernel 168 registers a thread and
+//    serialises every wgmma past that (C7512): chip_smoke.py reports each
+//    instantiation's registers, spills and that warning.
+namespace band {
+
+using tri::BKV;
+using tri::BQ;
+using tri::D;
+using tri::SMEM_BYTES;
+using tri::Smem;
+using tri::STAGES;
+using tri::THREADS;
+
+struct Args {
+  CUtensorMap q;  // [sq, h, dh]
+  CUtensorMap k;  // [skv, h_kv, dh]
+  CUtensorMap v;
+  void* o;        // [sq, h, dh], forward only
+  float* lse;     // [h, sq], forward only
+  float* acc;     // [h, sq, dh], carry only, updated in place
+  float* m;       // [h, sq]
+  float* l;       // [h, sq]
+  int sq, skv, h, group, q_tiles;
+  int head_group;      // query heads a group of blocks walks together
+  int q_base, k_base;  // global positions of query row 0 and key 0
+  int causal, window;
+  float scale, scale_log2;  // scale, scale * log2(e)
+};
+
+// Key tiles [first, last) that the live band of query rows [q0, q0 + BQ)
+// reaches (tile_range at 128 / 128).
+__device__ __forceinline__ void key_tiles(const Args& p, int q0, int& first, int& last) {
+  const int qhi = min(q0 + BQ, p.sq);
+  int lo = 0, hi = p.skv;
+  if (p.causal) hi = min(hi, p.q_base + qhi - p.k_base);
+  if (p.window) lo = max(lo, p.q_base + q0 - p.window + 1 - p.k_base);
+  first = lo / BKV;
+  last = hi > lo ? (hi + BKV - 1) / BKV : first;
+}
+
+// Does key tile k0 hold a masked entry for some row of [q0, q0 + BQ)?
+// (tile_needs_mask at 128 / 128)
+__device__ __forceinline__ bool needs_mask(const Args& p, int q0, int k0) {
+  const int qhi = min(q0 + BQ, p.sq);
+  if (k0 + BKV > p.skv) return true;  // ragged end of the keys
+  if (p.causal && p.k_base + k0 + BKV - 1 > p.q_base + q0) return true;
+  if (p.window && p.k_base + k0 <= p.q_base + qhi - 1 - p.window) return true;
+  return false;
+}
+
+// -inf on the scores outside this thread's rows' live keys: row r (r0, r0
+// + 8) sits dk + 8 r keys after the tile's first key (dk = q_base + q0 +
+// r0 - k_base - k0) and keeps keys [lo, hi] of the tile.
+__device__ __forceinline__ void mask_band(const Args& p, float (&s)[64], int dk, int k0) {
+  const int t2 = 2 * (threadIdx.x % 4);
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int d = dk + 8 * r;
+    hi[r] = (p.causal ? min(d, p.skv - k0 - 1) : p.skv - k0 - 1) - t2;
+    lo[r] = (p.window ? d - p.window + 1 : 0) - t2;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + (e & 1), r = e >> 1;
+      if (col < lo[r] || col > hi[r]) s[4 * j + e] = __uint_as_float(0xff800000u);  // -inf
+    }
+}
+
+// This thread's rows (r = 0, 1: row + 8 r, [h, sq] index idx + 8 r) of the
+// carry into the O accumulator, m in raw-score units, and l (on one thread
+// of the quad; the quad's partial sums meet at the store).
+__device__ __forceinline__ void load_carry(const Args& p, size_t idx, int row, float (&o)[64],
+                                           float (&m)[2], float (&l)[2]) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < p.sq;
+    const size_t i = idx + 8 * r;
+    m[r] = in ? p.m[i] / p.scale : NEG_INF;
+    l[r] = in && t4 == 0 ? p.l[i] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 a = in ? *reinterpret_cast<const float2*>(p.acc + i * D + 8 * j + 2 * t4)
+                          : make_float2(0.0f, 0.0f);
+      o[4 * j + 2 * r] = a.x;
+      o[4 * j + 2 * r + 1] = a.y;
+    }
+  }
+}
+
+// The carry back in place, unnormalised: acc, l, and m in natural-log
+// units (the loaded m bit for bit where the row's max did not rise).
+__device__ __forceinline__ void store_carry(const Args& p, size_t idx, int row,
+                                            const float (&o)[64], const float (&m)[2],
+                                            float (&l)[2]) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= p.sq) continue;
+    const size_t i = idx + 8 * r;
+    if (t4 == 0) {
+      const float m_in = p.m[i];
+      p.m[i] = m[r] > m_in / p.scale ? m[r] * p.scale : m_in;
+      p.l[i] = l[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(p.acc + i * D + 8 * j + 2 * t4) =
+          make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+  }
+}
+
+template <typename T, bool CARRY>
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_constant__ Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t aligned = (raw + 1023u) & ~1023u;
+  const Smem sm{aligned, smem_raw + (aligned - raw)};
+  int qt, hh, kvh;
+  tri::block_tile(p.head_group, p.q_tiles, p.h, p.group, qt, hh, kvh);
+  const int q0 = qt * BQ;
+  int first, last;
+  key_tiles(p, q0, first, last);
+  const int n_tiles = last - first;
+
+  tri::init_barriers(sm);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x == 0 && n_tiles > 0)
+      tri::load_tiles(sm, &p.q, &p.k, &p.v, hh, kvh, q0, last, n_tiles);
+  } else {
+    hopper::consumer_registers();
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool arrives = lane == 0;
+    // this thread's rows within the tile: r0 and r0 + 8
+    const int r0 = 64 * c + 16 * warp + lane / 4;
+    const size_t idx = static_cast<size_t>(hh) * p.sq + q0 + r0;  // [h, sq] index of r0
+    float o[64], s[64];
+    uint32_t pa[32];
+    float m[2], l[2], alpha[2], sum[2];
+    if (CARRY) {
+      if (n_tiles == 0) return;  // the carry stays as it was
+      load_carry(p, idx, q0 + r0, o, m, l);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+      m[0] = m[1] = NEG_INF;
+      l[0] = l[1] = 0.0f;
+    }
+    if (n_tiles > 0) hopper::mbar_wait(sm.q_full(), 0);
+    // the keys of row r0 sit dk0 - k0 keys before it in key tile k0
+    const int dk0 = p.q_base + q0 + r0 - p.k_base;
+    // the two consumer warpgroups drift apart, so one's softmax runs under
+    // the other's products
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int k0 = (last - 1 - i) * BKV;
+      hopper::mbar_wait(sm.k_full(st), ph);
+      tri::issue_qk<T>(sm, s, st, c);
+      hopper::wgmma_wait<0>();
+      tri::fence_regs(s);
+      if (arrives) hopper::mbar_arrive(sm.k_empty(st));
+      if (needs_mask(p, q0, k0)) mask_band(p, s, dk0 - k0, k0);
+      // masked scores are already -inf: no diagonal
+      tri::softmax_tile(s, m, alpha, sum, p.scale_log2, false, r0);
+      tri::rescale(o, l, alpha, sum);
+      tri::pack_p<T>(pa, s);
+      hopper::mbar_wait(sm.v_full(st), ph);
+      tri::issue_pv<T>(sm, o, pa, st);
+      hopper::wgmma_wait<0>();
+      tri::fence_regs(o);
+      if (arrives) hopper::mbar_arrive(sm.v_empty(st));
+    }
+
+    if (CARRY)
+      store_carry(p, idx, q0 + r0, o, m, l);
+    else
+      tri::store_output<T>(sm, o, m, l, static_cast<T*>(p.o), p.lse, p.sq, p.h, hh, q0, c,
+                           p.scale);
+  }
+}
+
+// The shared fields of a launch: checks, tensor maps, the grid's order.
+// With skv = 0 no key is read, and k, v's maps are q's (a tensor map
+// needs at least one row).
+int prepare(Args* a, int dtype, const void* q, const void* k, const void* v, const void* out,
+            int sq, int skv, int h, int h_kv, int dh, float scale, int window) {
+  if (sq < 1 || skv < 0 || h < 1 || h_kv < 1 || h % h_kv || dh != D || window < 0 ||
+      !(scale > 0.0f) || (dtype != 1 && dtype != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (bases % 16) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = tri::encode_heads(&a->q, dtype, q, sq, h);
+  if (rc == 0) rc = tri::encode_heads(&a->k, dtype, skv ? k : q, skv ? skv : sq, skv ? h_kv : h);
+  if (rc == 0) rc = tri::encode_heads(&a->v, dtype, skv ? v : q, skv ? skv : sq, skv ? h_kv : h);
+  if (rc != 0) return rc;
+  a->o = nullptr;
+  a->lse = a->acc = a->m = a->l = nullptr;
+  a->sq = sq;
+  a->skv = skv;
+  a->h = h;
+  a->group = h / h_kv;
+  a->q_tiles = (sq + BQ - 1) / BQ;
+  // a query head reads at most 2 * skv * 128 * 2 bytes of K and V, shared by its group
+  a->head_group = tri::head_group(512ll * skv / a->group, h);
+  a->q_base = a->k_base = a->causal = 0;
+  a->window = window;
+  a->scale = scale;
+  a->scale_log2 = scale * 1.4426950408889634f;
+  return 0;
+}
+
+template <bool CARRY>
+cudaError_t launch(int dtype, const Args& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = a.q_tiles * a.h;
+  return dtype == 1
+             ? launch_with(flash_fwd_wgmma<__half, CARRY>, blocks, THREADS, SMEM_BYTES, s, a)
+             : launch_with(flash_fwd_wgmma<__nv_bfloat16, CARRY>, blocks, THREADS, SMEM_BYTES,
+                           s, a);
+}
+
+}  // namespace band
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-template <typename T, int D>
-cudaError_t launch_mma(const Params& p, cudaStream_t s) {
-  constexpr int smem = mma_smem_bytes<D>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  flash_mma<T, D><<<dim3((p.sq + BQ - 1) / BQ, p.h), THREADS, smem, s>>>(p);
-  return cudaGetLastError();
-}
 
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t s) {
@@ -2239,16 +2327,12 @@ cudaError_t launch_f32(const Params& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16; dh: 128
+// the forward and the chunk fold in float32 (dtype 0); dh: 128
 cudaError_t launch(int dtype, int dh, const Params& p, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.sq < 1 || p.skv < 0 || p.h < 1 || p.h_kv < 1 || p.h % p.h_kv ||
-      dh != 128)
+      dh != 128 || dtype != 0)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_f32<128>(p, s);
-  if (dtype == 1) return launch_mma<__half, 128>(p, s);
-  if (dtype == 2) return launch_mma<__nv_bfloat16, 128>(p, s);
-  return cudaErrorInvalidValue;
+  return launch_f32<128>(p, static_cast<cudaStream_t>(stream));
 }
 
 // the backward: dkv = 0 launches the dQ pass, 1 the dK/dV pass
@@ -2302,8 +2386,9 @@ Params make_params(const void* q, const void* k, const void* v, int sq,
 
 extern "C" {
 
-// K8a / K8b: o [sq, h, dh] in the operand dtype, lse [h, sq] f32. Query row
-// i sits at global position row_offset + i, key j at j.
+// K8a / K8b in float32 (dtype 0; bf16/fp16 take ddlb_flash_forward_tri and
+// ddlb_flash_forward_band): o [sq, h, dh], lse [h, sq] f32. Query row i
+// sits at global position row_offset + i, key j at j.
 int ddlb_flash_forward(int dtype, const void* q, const void* k, const void* v,
                        void* o, void* lse, int sq, int skv, int h, int h_kv,
                        int dh, float scale, int row_offset, int causal,
@@ -2317,8 +2402,9 @@ int ddlb_flash_forward(int dtype, const void* q, const void* k, const void* v,
   return static_cast<int>(launch(dtype, dh, p, stream));
 }
 
-// K9: folds the chunk into acc [h, sq, dh], m, l [h, sq] (f32) in place.
-// mode: 0 = offset, 1 = diagonal, 2 = past (no window).
+// K9 in float32 (dtype 0; bf16/fp16 take ddlb_flash_chunk_band): folds the
+// chunk into acc [h, sq, dh], m, l [h, sq] (f32) in place. mode: 0 =
+// offset, 1 = diagonal, 2 = past (no window).
 int ddlb_flash_chunk(int dtype, const void* q, const void* k, const void* v,
                      void* acc, void* m, void* l, int sq, int skv, int h,
                      int h_kv, int dh, float scale, int row_offset,
@@ -2411,6 +2497,47 @@ int ddlb_flash_forward_tri(int dtype, const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dtype == 1 ? tri::launch<__half>(a, s)
                                      : tri::launch<__nv_bfloat16>(a, s));
+}
+
+// K8b on Hopper (namespace band): ddlb_flash_forward's arguments and
+// results, dtype 1 = float16 or 2 = bfloat16, dh 128, scale > 0; q, k, v and
+// o 16-byte aligned (TMA's rule; the wrapper checks).
+int ddlb_flash_forward_band(int dtype, const void* q, const void* k, const void* v, void* o,
+                            void* lse, int sq, int skv, int h, int h_kv, int dh, float scale,
+                            int row_offset, int causal, int window, void* stream) {
+  if (window && !causal) return static_cast<int>(cudaErrorInvalidValue);
+  band::Args a;
+  const int rc = band::prepare(&a, dtype, q, k, v, o, sq, skv, h, h_kv, dh, scale, window);
+  if (rc != 0) return rc;
+  a.o = o;
+  a.lse = static_cast<float*>(lse);
+  a.q_base = row_offset;
+  a.causal = causal ? 1 : 0;
+  return static_cast<int>(band::launch<false>(dtype, a, stream));
+}
+
+// K9 on Hopper (namespace band): ddlb_flash_chunk's arguments and results
+// (the carry acc [h, sq, dh], m, l [h, sq] f32 folded in place), dtype 1 =
+// float16 or 2 = bfloat16, dh 128, scale > 0; q, k, v and acc 16-byte
+// aligned. mode: 0 = offset, 1 = diagonal, 2 = past (no window).
+int ddlb_flash_chunk_band(int dtype, const void* q, const void* k, const void* v, void* acc,
+                          void* m, void* l, int sq, int skv, int h, int h_kv, int dh,
+                          float scale, int row_offset, int col_offset, int mode, int window,
+                          void* stream) {
+  if (mode < 0 || mode > 2 || (mode == 2 && window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  band::Args a;
+  const int rc = band::prepare(&a, dtype, q, k, v, acc, sq, skv, h, h_kv, dh, scale, window);
+  if (rc != 0) return rc;
+  a.acc = static_cast<float*>(acc);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  if (mode == 0) {  // global offsets
+    a.q_base = row_offset;
+    a.k_base = col_offset;
+  }
+  a.causal = mode != 2;  // diagonal: relative positions, offsets 0
+  return static_cast<int>(band::launch<true>(dtype, a, stream));
 }
 
 // K10a / K10b on Hopper (namespace tri_bwd): the causal triangle at offset

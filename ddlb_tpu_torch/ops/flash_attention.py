@@ -5,10 +5,12 @@ Hopper.
 Replaces, in ``ddlb_tpu/ops/flash_attention.py``:
 - the forward ``_flash_forward`` (:433) with its two Pallas kernels, the
   triangular ``_flash_kernel_tri`` (:373, K8a) and the rectangular
-  ``_flash_kernel`` (:96, K8b): here ``flash_forward``, one CUDA entry
-  point (``ddlb_flash_forward``);
+  ``_flash_kernel`` (:96, K8b): here ``flash_forward``, the triangle in
+  bf16/fp16 on ``ddlb_flash_forward_tri``, the rectangle on
+  ``ddlb_flash_forward_band`` and float32 on ``ddlb_flash_forward``;
 - ``flash_attention_chunk`` (:211, ``_flash_chunk_kernel`` :146, K9): here
-  ``flash_attention_chunk`` (``ddlb_flash_chunk``);
+  ``flash_attention_chunk``, bf16/fp16 on ``ddlb_flash_chunk_band`` and
+  float32 on ``ddlb_flash_chunk``;
 - the backward ``flash_attention_bwd`` (:781) with its four Pallas kernels,
   the triangular dQ and dK/dV kernels (:706 K10a, :741 K10b) and the
   rectangular ones (:624 K10c, :664 K10d): here ``flash_backward``, the
@@ -32,21 +34,26 @@ kernels read the ``[s, h, dh]`` operands through their strides, without a
 transposed copy. Unlike Pallas (``sq % block_q == 0``), ``sq`` and ``skv``
 may be ragged: the kernels mask their edges.
 
-The kernels (``csrc/flash_attention.cu``, whose design note gives the
+The kernels (``csrc/flash_attention.cu``, whose design notes give the
 bound and what the design does about it): one block per (query tile,
 head) walks only the key tiles that its live band reaches, so the causal
 triangle costs half the square, as the TPU's triangular grid (K8a) does.
-K8a in bf16/fp16 runs ``flash_fwd_wgmma`` (entry point
-``ddlb_flash_forward_tri``), the Hopper kernel: a TMA producer warpgroup
-and two consumer warpgroups running ``wgmma`` over 128-row query tiles and
-128-key tiles, the softmax in base 2; K10a and K10b in bf16/fp16 run
-``flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma`` on the same design
-(128-row query tiles against streamed 128-key tiles for dQ; 128-key tiles
-against streamed 64-row query tiles for dK/dV). K8b, K9 and K10c/K10d in
-bf16/fp16 run ``mma.sync`` kernels (``flash_mma``, ``flash_bwd_dq_mma``,
-``flash_bwd_dkv_mma``) with float32 sums; float32 runs SIMT kernels in
-true float32. Built by ``nvcc`` for ``sm_90a`` at first use
-(``_build.py``) and called through ``ctypes`` on PyTorch's current stream.
+In bf16/fp16 three Hopper forwards and two Hopper backward passes run
+them, each a TMA producer warpgroup and two consumer warpgroups on
+``wgmma`` over 128-row query tiles, the softmax in base 2: K8a runs
+``tri::flash_fwd_wgmma`` (entry point ``ddlb_flash_forward_tri``); K8b and
+K9 run ``band::flash_fwd_wgmma`` (``ddlb_flash_forward_band``,
+``ddlb_flash_chunk_band``), the same kernel over a runtime band of key
+tiles (offsets, a window, causal or not, ragged lengths), with the carry
+read and written in place for K9; K10a and K10b run
+``flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma`` (128-row query tiles
+against streamed 128-key tiles for dQ; 128-key tiles against streamed
+64-row query tiles for dK/dV). K10c/K10d in bf16/fp16 run ``mma.sync``
+kernels (``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) with float32 sums;
+float32 runs SIMT kernels in true float32 (the forward and the chunk fold
+through ``ddlb_flash_forward`` and ``ddlb_flash_chunk``). Built by ``nvcc`` for ``sm_90a`` at
+first use (``_build.py``) and called through ``ctypes`` on PyTorch's
+current stream.
 
 Dispatch, as ``flash_attention`` (:1147-1167) states it: a window that
 covers every key at offset 0 collapses to ``window = 0``; a literal 0
@@ -58,7 +65,8 @@ literal offset 0 with square shapes, a mask and no window is the triangle
 counts kernel launches by case (``tri``, ``rect``, ``chunk``,
 ``bwd_dq_tri``, ``bwd_dkv_tri``, ``bwd_dq_rect``, ``bwd_dkv_rect``), and
 ``FORWARD_TILES`` the forward and chunk launches by kernel (``wgmma``:
-``flash_fwd_wgmma``; ``mma``: ``flash_mma``; ``simt``: ``flash_f32``),
+``tri::flash_fwd_wgmma``; ``band``: ``band::flash_fwd_wgmma``; ``simt``:
+``flash_f32``),
 ``BACKWARD_TILES`` the backward's pass launches by kernel. A CPU
 tensor takes the plain PyTorch version beside each kernel
 (``flash_forward_plain``, ``flash_chunk_plain``, ``flash_backward_plain``),
@@ -91,9 +99,9 @@ LAUNCHES = {"tri": 0, "rect": 0, "chunk": 0, "bwd_dq_tri": 0, "bwd_dkv_tri": 0,
             "bwd_dq_rect": 0, "bwd_dkv_rect": 0}
 #: the forward's and the chunk fold's launches by kernel since the counts
 #: were last zeroed: ``wgmma`` = the Hopper K8a kernel (the triangle in
-#: bf16/fp16), ``mma`` = ``flash_mma`` (K8b and K9 in bf16/fp16), ``simt``
-#: = ``flash_f32`` (float32)
-FORWARD_TILES = {"wgmma": 0, "mma": 0, "simt": 0}
+#: bf16/fp16), ``band`` = the Hopper K8b/K9 kernel (the rectangle and the
+#: chunk fold in bf16/fp16), ``simt`` = ``flash_f32`` (float32)
+FORWARD_TILES = {"wgmma": 0, "band": 0, "simt": 0}
 #: the backward's pass launches by kernel since the counts were last
 #: zeroed: ``wgmma`` = the Hopper K10a/K10b kernels (the triangle in
 #: bf16/fp16), ``mma`` = ``flash_bwd_*_mma`` (K10c/K10d in bf16/fp16),
@@ -399,6 +407,9 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32,            # sq, skv, h, h_kv, dh
         f32, i32, i32, i32, i32, ptr,       # scale, row/col offset, mode, window, stream
     ]
+    # the Hopper band kernel's entry points take the same arguments
+    lib.ddlb_flash_forward_band.argtypes = lib.ddlb_flash_forward.argtypes
+    lib.ddlb_flash_chunk_band.argtypes = lib.ddlb_flash_chunk.argtypes
     lib.ddlb_flash_bwd_dq.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # dtype, q, k, v, dout, lse, delta, dq
         i32, i32, i32, i32, i32,                 # sq, skv, h, h_kv, dh
@@ -418,6 +429,7 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, f32, ptr,
     ]
     for fn in (lib.ddlb_flash_forward, lib.ddlb_flash_forward_tri, lib.ddlb_flash_chunk,
+               lib.ddlb_flash_forward_band, lib.ddlb_flash_chunk_band,
                lib.ddlb_flash_bwd_dq, lib.ddlb_flash_bwd_dkv, lib.ddlb_flash_bwd_dq_tri,
                lib.ddlb_flash_bwd_dkv_tri):
         fn.restype = ctypes.c_int
@@ -446,12 +458,13 @@ def forward_case(sq: int, skv: int, row_offset: int, causal: bool,
 
 def forward_kernel(case: str, dtype: torch.dtype) -> str:
     """The kernel a forward or chunk launch of ``case`` (``tri``, ``rect``
-    or ``chunk``) runs in ``dtype``: ``wgmma`` for the triangle in
-    bf16/fp16, ``simt`` for float32, ``mma`` otherwise."""
+    or ``chunk``) runs in ``dtype``: ``simt`` for float32; in bf16/fp16
+    ``wgmma`` for the triangle and ``band`` for the rectangle and the
+    chunk fold."""
     check_kernel_dtype(dtype)
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if case == "tri" else "mma"
+    return "wgmma" if case == "tri" else "band"
 
 
 def flash_forward(
@@ -464,9 +477,8 @@ def flash_forward(
     _check_operands(q, k, v)
     _check_window(causal, window)
     row_offset = int(row_offset)
-    sq, h, dh = q.shape
-    skv, h_kv = k.shape[0], k.shape[1]
-    case, window = forward_case(sq, skv, row_offset, causal, window)
+    sq, h, _ = q.shape
+    _, window = forward_case(sq, k.shape[0], row_offset, causal, window)
     if q.device.type == "cpu":
         return flash_forward_plain(
             q, k, v, scale=scale, row_offset=row_offset, causal=causal,
@@ -475,27 +487,36 @@ def flash_forward(
     _check_kernel_operands(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((h, sq, 1), dtype=torch.float32, device=q.device)
-    if sq == 0:
-        return o, lse
+    if sq:
+        forward_pass(q, k, v, o, lse, scale=scale, row_offset=row_offset,
+                     causal=causal, window=window)
+    return o, lse
+
+
+def forward_pass(q, k, v, o, lse, *, scale: float, row_offset: int, causal: bool,
+                 window: int) -> None:
+    """Launch one forward into ``o`` and ``lse`` on the kernel
+    ``forward_kernel`` names; counted in ``LAUNCHES`` by case and in
+    ``FORWARD_TILES`` by kernel. ``flash_forward`` runs it after checking
+    the operands."""
+    sq, h, dh = q.shape
+    skv, h_kv = k.shape[0], k.shape[1]
+    case, window = forward_case(sq, skv, row_offset, causal, window)
     kernel = forward_kernel(case, q.dtype)
     lib = _lib()
+    head = (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kernel == "wgmma":
-            rc = lib.ddlb_flash_forward_tri(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), sq, h, h_kv, dh, float(scale), stream,
-            )
+            rc = lib.ddlb_flash_forward_tri(*head, sq, h, h_kv, dh, float(scale), stream)
         else:
-            rc = lib.ddlb_flash_forward(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), sq, skv, h, h_kv, dh, float(scale),
-                row_offset, int(bool(causal)), int(window), stream,
-            )
+            entry = lib.ddlb_flash_forward_band if kernel == "band" else lib.ddlb_flash_forward
+            rc = entry(*head, sq, skv, h, h_kv, dh, float(scale), int(row_offset),
+                       int(bool(causal)), int(window), stream)
     LAUNCHES[case] += 1
     FORWARD_TILES[kernel] += 1
     _raise_on(rc, f"flash forward ({case}, {kernel})")
-    return o, lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -560,24 +581,35 @@ def flash_attention_chunk(
             col_offset=col_offset, causal=causal, window=window,
         )
     _check_kernel_operands(q, k, v, *carry)
+    if q.shape[0]:
+        chunk_pass(q, k, v, carry, scale=scale, row_offset=row_offset,
+                   col_offset=col_offset, causal=causal, window=window)
+    return carry
+
+
+def chunk_pass(q, k, v, carry: Carry, *, scale: float, row_offset: int,
+               col_offset: int, causal: str, window: int) -> None:
+    """Launch one chunk fold into ``carry``, in place, on the kernel
+    ``forward_kernel`` names; counted in ``LAUNCHES["chunk"]`` and in
+    ``FORWARD_TILES`` by kernel. ``flash_attention_chunk`` runs it after
+    checking the operands and the carry."""
     sq, h, dh = q.shape
     skv, h_kv = k.shape[0], k.shape[1]
-    if sq == 0:
-        return carry
     acc, m, l = carry
+    kernel = forward_kernel("chunk", q.dtype)
     lib = _lib()
+    entry = lib.ddlb_flash_chunk_band if kernel == "band" else lib.ddlb_flash_chunk
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ddlb_flash_chunk(
+        rc = entry(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), sq, skv, h, h_kv, dh,
             float(scale), int(row_offset), int(col_offset),
             CHUNK_MODES.index(causal), int(window), stream,
         )
     LAUNCHES["chunk"] += 1
-    FORWARD_TILES[forward_kernel("chunk", q.dtype)] += 1
-    _raise_on(rc, "flash chunk")
-    return carry
+    FORWARD_TILES[kernel] += 1
+    _raise_on(rc, f"flash chunk ({causal}, {kernel})")
 
 
 # -- the backward (K10a-K10d) ------------------------------------------------------
@@ -610,9 +642,12 @@ def backward_case(sq: int, skv: int, row_offset: int, col_offset: int,
 
 def backward_kernel(case: str, dtype: torch.dtype) -> str:
     """The kernel a backward pass of ``case`` (``tri`` or ``rect``) runs in
-    ``dtype``, by the forward's rule: ``wgmma`` for the triangle in
-    bf16/fp16, ``simt`` for float32, ``mma`` otherwise."""
-    return forward_kernel(case, dtype)
+    ``dtype``: ``wgmma`` for the triangle in bf16/fp16, ``simt`` for
+    float32, ``mma`` otherwise."""
+    check_kernel_dtype(dtype)
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if case == "tri" else "mma"
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

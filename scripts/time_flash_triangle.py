@@ -1,27 +1,28 @@
-"""Time the causal triangle's old and new flash kernels side by side on one card.
+"""Time the causal triangle's flash kernels side by side on one card.
 
     python scripts/time_flash_triangle.py
 
-The flash library still compiles the ``mma.sync`` kernels that ran the
-triangle before the Hopper ones took it over: ``ddlb_flash_forward``,
-``ddlb_flash_bwd_dq`` and ``ddlb_flash_bwd_dkv`` with a causal mask at
-offset 0 and ``sq == skv`` reach ``flash_mma``, ``flash_bwd_dq_mma`` and
-``flash_bwd_dkv_mma``, while the port's wrappers send that case to
-``ddlb_flash_forward_tri`` (K8a, ``flash_fwd_wgmma``) and
-``ddlb_flash_bwd_dq_tri`` / ``ddlb_flash_bwd_dkv_tri`` (K10a
-``flash_bwd_dq_wgmma``, K10b ``flash_bwd_dkv_wgmma``). This script calls
-both generations on the same bf16 inputs at the main paths' shapes: the
-forward at the training step's merged heads, the attention path's 16384²
-with 8 heads and the serving prefill's 8192² with 128; the backward's two
-passes at the training step's shapes, beside ``attention_delta`` (the
-``rowsum(dO o)`` the wrapper computes before them) and SDPA's backward
+The port's wrappers send the triangle (causal, offset 0, ``sq == skv``) in
+bf16/fp16 to ``ddlb_flash_forward_tri`` (K8a, ``tri::flash_fwd_wgmma``)
+and ``ddlb_flash_bwd_dq_tri`` / ``ddlb_flash_bwd_dkv_tri`` (K10a
+``flash_bwd_dq_wgmma``, K10b ``flash_bwd_dkv_wgmma``). Two other kernels
+of the library take the same work: ``ddlb_flash_forward_band`` (the
+rectangle's ``band::flash_fwd_wgmma``, at offset 0 with a causal band) and
+``ddlb_flash_bwd_dq`` / ``ddlb_flash_bwd_dkv`` with a causal mask at offset
+0 (``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, which the rectangle's
+backward runs). This script calls them on the same bf16 inputs at the main
+paths' shapes: the forward at the training step's merged heads, the
+attention path's 16384² with 8 heads and the serving prefill's 8192² with
+128 query heads (and 32 kv heads); the backward's two passes at the
+training step's shapes, beside ``attention_delta`` (the ``rowsum(dO o)``
+the wrapper computes before them) and SDPA's backward
 (``scaled_dot_product_attention`` with ``is_causal``, forward and backward
 through autograd less the forward, all three gradients, per turn). Each
-pair runs in four
-turns that alternate which goes first; it prints CUDA-event milliseconds
-per launch with the card's name and power limit, one JSON line a shape. It
-checks nothing; ``chip_smoke.py`` and the card tests hold the kernels
-against their plain versions.
+set runs in four turns that alternate which goes first; it prints
+CUDA-event milliseconds per launch with the card's name and power limit,
+one JSON line a shape. It checks nothing; ``chip_smoke.py`` and the card
+tests hold the kernels against their plain versions. To time an older
+generation of a kernel, run ``scripts/time_kernels.py`` on both trees.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ import os
 import subprocess
 import sys
 
-#: (sequence, heads) of bf16 [s, h, 128] q, k, v for the forward
-FORWARD_SHAPES = ((2048, 16), (2048, 32), (2048, 64), (4096, 64), (16384, 8), (8192, 128))
+#: (sequence, query heads, kv heads) of bf16 [s, h, 128] q, k, v for the forward
+FORWARD_SHAPES = ((2048, 16, 16), (2048, 32, 32), (2048, 64, 64), (4096, 64, 64),
+                  (16384, 8, 8), (8192, 128, 128), (8192, 128, 32))
 #: (sequence, heads) for the backward: the training step's triangles
 #: (``chip_smoke.TRAIN_BWD_SHAPES``)
 BACKWARD_SHAPES = ((2048, 16), (2048, 32), (4096, 64))
@@ -80,18 +82,18 @@ def main() -> None:
     def draw(s, h):
         return (torch.rand((s, h, 128), generator=gen, device="cuda") * 2 - 1).bfloat16()
 
-    for s, h in FORWARD_SHAPES:
-        q, k, v = draw(s, h), draw(s, h), draw(s, h)
+    for s, h, h_kv in FORWARD_SHAPES:
+        q, k, v = draw(s, h), draw(s, h_kv), draw(s, h_kv)
         o = torch.empty_like(q)
         lse = torch.empty((h, s, 1), device="cuda")
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
         times = time_turns({
-            "flash_mma": lambda: lib.ddlb_flash_forward(2, *ptrs, s, s, h, h, 128, scale, 0, 1,
-                                                        0, stream),
-            "flash_fwd_wgmma": lambda: lib.ddlb_flash_forward_tri(2, *ptrs, s, h, h, 128, scale,
-                                                                  stream),
+            "tri": lambda: lib.ddlb_flash_forward_tri(2, *ptrs, s, h, h_kv, 128, scale, stream),
+            "band": lambda: lib.ddlb_flash_forward_band(2, *ptrs, s, s, h, h_kv, 128, scale, 0,
+                                                        1, 0, stream),
         })
-        print(json.dumps({"pass": "forward", "s": s, "heads": h, "card": card, "ms": times}))
+        print(json.dumps({"pass": "forward", "s": s, "heads": [h, h_kv], "card": card,
+                          "ms": times}))
         del q, k, v, o, lse
     for s, h in BACKWARD_SHAPES:
         q, k, v, do = draw(s, h), draw(s, h), draw(s, h), draw(s, h)

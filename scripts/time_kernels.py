@@ -1,7 +1,7 @@
 """Time K1, K8a, K8b, K9 and K10a-K10d, or K7, on one card, for one checkout.
 
-    python scripts/time_kernels.py --tree DIR [--phase flash|int8|quantized_path] \
-        [--label NAME]
+    python scripts/time_kernels.py --tree DIR \
+        [--phase flash|int8|quantized_path|flash_paths] [--label NAME]
 
 Runs ``chip_smoke.py``'s kernel phases of the checkout at ``DIR``: with
 ``--phase flash`` (the default) ``kernel_phase_matmul`` (K1),
@@ -12,7 +12,10 @@ GEMM path's, the decode MLP's and the prefill MLP's shapes, with its
 timed variants); with ``--phase quantized_path`` the rows of
 ``chip_smoke.py``'s quantized path (``QUANT_SWEEPS`` at 8192^3 bf16
 through the sweep runner, validated; each row's median host-clock ms
-under ``rows``). It uses that checkout's own
+under ``rows``); with ``--phase flash_paths`` the rows that run the flash
+kernels: ``chip_smoke.py``'s attention path (``ATTN_SWEEPS`` at m =
+16384, n = 1024, k = 128 bf16) and its training rows (``training_rows``),
+each row's median host-clock ms under ``rows``. It uses that checkout's own
 package and kernels (built into ``DIR/build/ddlb_tpu_torch``), and prints
 one JSON line: the card's name and power limit, each kernel's entry (ms,
 plain ms, library ms, bound, max |err|), the build logs' ``ptxas``
@@ -41,7 +44,9 @@ from time_loopback import ptxas_usage, sample_clocks  # noqa: E402
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 #: the libraries each phase builds and reads the build logs of
 LIBRARIES = {"flash": ("matmul", "flash_attention"), "int8": ("quantized_matmul",),
-             "quantized_path": ("quantized_matmul",)}
+             "quantized_path": ("quantized_matmul",),
+             "flash_paths": ("matmul", "flash_attention", "decode_attention",
+                             "quantized_matmul")}
 
 
 def main(argv=None) -> None:
@@ -77,16 +82,26 @@ def main(argv=None) -> None:
     sampler.start()
     rows = {}
     try:
-        if args.phase == "quantized_path":
+        if args.phase in ("quantized_path", "flash_paths"):
             from ddlb_tpu_torch.cli.benchmark import run_benchmark
 
             entries = []
-            for primitive, implementations in chip_smoke.QUANT_SWEEPS.items():
-                for row in chip_smoke.drive_path(run_benchmark, "cuda", primitive,
-                                                 (chip_smoke.PATH_MNK,) * 3,
-                                                 implementations):
-                    rows[f"{primitive} {row['implementation']} {row['option']}"] = (
-                        row["median time (ms)"])
+            if args.phase == "quantized_path":
+                runs = [(primitive, (chip_smoke.PATH_MNK,) * 3, implementations, {})
+                        for primitive, implementations in chip_smoke.QUANT_SWEEPS.items()]
+            else:
+                attn = (chip_smoke.ATTN_M, chip_smoke.ATTN_N, chip_smoke.ATTN_K)
+                train = {"warmups": chip_smoke.TRAIN_WARMUPS,
+                         "iterations": chip_smoke.TRAIN_ITERATIONS}
+                runs = [("cp_ring_attention", attn, impls, {})
+                        for impls in chip_smoke.ATTN_SWEEPS]
+                runs += [("transformer_step", shape, impls, train)
+                         for shape, impls in chip_smoke.training_rows()]
+            for primitive, shape, implementations, kw in runs:
+                for row in chip_smoke.drive_path(run_benchmark, "cuda", primitive, shape,
+                                                 implementations, **kw):
+                    rows[f"{primitive} {list(shape)} {row['implementation']} "
+                         f"{row['option']}"] = row["median time (ms)"]
                 torch.cuda.empty_cache()
         elif args.phase == "int8":
             entries = [chip_smoke.kernel_phase_int8(qm, smi)]
@@ -106,7 +121,7 @@ def main(argv=None) -> None:
         if samples else None,
         "power_w_max": max(w for _, w in samples) if samples else None,
         "ptxas": {name: ptxas_usage(_build.build_log(name)) for name in libraries},
-        "kernels": {e["name"]: {key: e.get(key) for key in (*KEYS, "mma_ms", "variants")
+        "kernels": {e["name"]: {key: e.get(key) for key in (*KEYS, "mma_ms", "sdpa_ms", "variants")
                                 if key in e or key in KEYS}
                     for e in entries},
         "rows": rows,

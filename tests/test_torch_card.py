@@ -171,6 +171,12 @@ FLASH_CASES = [
     (130, 70, 2, 1, 128, 0, False, 0),       # not causal, ragged
     (64, 64, 2, 2, 128, 100, True, 60),      # rows with an empty band
     (16, 16, 16, 4, 128, 0, True, 0),        # a serve bucket below one tile, GQA
+    # the band kernel's edges (K8b in bf16/fp16)
+    (512, 256, 4, 2, 128, 0, True, 100),     # query tile 3 reaches no key
+    (129, 1000, 8, 2, 128, 723, True, 300),  # offset off the tile grid, ragged
+    (127, 129, 4, 4, 128, 0, False, 0),      # not causal, ragged both ways
+    (1000, 1000, 8, 2, 128, 0, True, 300),   # window at offset 0, ragged
+    (300, 1000, 4, 2, 128, 700, True, 0),    # causal edge across two key tiles
 ]
 FLASH_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
@@ -266,6 +272,11 @@ CHUNK_CASES = [
     (256, 256, 4, 4, 128, 512, 256, "past", 0),
     (128, 192, 4, 2, 128, 300, 200, "offset", 90),
     (100, 60, 2, 2, 128, 40, 70, "offset", 0),  # ragged, partly in the future
+    # the band kernel's edges (K9 in bf16/fp16)
+    (512, 768, 4, 2, 128, 1000, 0, "offset", 600),       # query tile 3 reaches no key
+    (1000, 1000, 8, 2, 128, 5000, 5000, "diagonal", 300),  # diagonal with a window
+    (127, 129, 4, 2, 128, 900, 500, "offset", 0),        # offsets off the tile grid
+    (129, 127, 8, 2, 128, 0, 0, "past", 0),              # past, ragged, GQA 4
 ]
 
 
@@ -283,14 +294,79 @@ def test_flash_chunk_exact_on_band_inputs(cuda_device, case, dtype):
     want = fa.flash_chunk_plain(q, k, v, start, **kw)
     want = fa.flash_chunk_plain(q, k, v, want, **kw)
     carry = tuple(t.clone() for t in start)
-    before = fa.LAUNCHES["chunk"]
+    before, tiles = fa.LAUNCHES["chunk"], dict(fa.FORWARD_TILES)
     got = fa.flash_attention_chunk(q, k, v, carry, **kw)
     got = fa.flash_attention_chunk(q, k, v, got, **kw)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["chunk"] == before + 2
+    kernel = fa.forward_kernel("chunk", dtype)
+    assert kernel == ("simt" if dtype == torch.float32 else "band")
+    assert fa.FORWARD_TILES == dict(tiles, **{kernel: tiles[kernel] + 2})
     assert all(g is c for g, c in zip(got, carry))  # updated in place
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_flash_chunk_within_bound(cuda_device, case, dtype, peaked):
+    """One fold into a fresh carry on uniform (or peaked: q at the key of
+    its own position) inputs: the normalised output within
+    ``plain_gap_bound``, m within the score gap and l within a relative
+    ``4 Δs + 2 skv 2**-23 + 2**-20`` (two summation orders and exp), rows
+    with nothing live exactly as the plain version leaves them."""
+    sq, skv, h, h_kv, dh, row_off, col_off, mode, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    if peaked:
+        shift = row_off - col_off if mode == "offset" else 0
+        q, k, v = _peaked_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device, shift)
+    else:
+        q, k, v = _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+    scale = dh**-0.5
+    kw = dict(scale=scale, row_offset=row_off, col_offset=col_off, causal=mode,
+              window=window)
+    want = fa.flash_chunk_plain(q, k, v, fa.init_flash_carry(sq, h, dh, cuda_device), **kw)
+    got = fa.flash_attention_chunk(q, k, v, fa.init_flash_carry(sq, h, dh, cuda_device), **kw)
+    torch.cuda.synchronize()
+    o = fa.finalize_flash_carry(got, torch.float32)
+    o_plain = fa.finalize_flash_carry(want, torch.float32)
+    bound = fa.plain_gap_bound(q, k, v, o, o_plain, scale=scale, n_terms=skv)
+    assert bool(((o - o_plain).abs() <= bound).all()), float(((o - o_plain).abs() - bound).max())
+    ds = fa.score_gap(q, k, scale)
+    empty = want[2] == 0.0
+    assert torch.equal(got[2] == 0.0, empty)
+    assert torch.equal(got[1][empty], want[1][empty])
+    assert bool(((got[1] - want[1]).abs() <= ds + 1e-6).all())
+    rel = 4 * ds + 2 * skv * 2.0**-23 + 2.0**-20
+    assert bool(((got[2] - want[2]).abs() <= rel * want[2]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_band_kernel_leaves_an_unreached_carry_as_it_was(cuda_device, dtype):
+    """A fold whose whole band is empty (a window behind the chunk, or no
+    keys at all) leaves every bit of a carry that holds earlier folds;
+    the forward on the same band gives o = 0 and lse = NEG_INF."""
+    sq, h, h_kv, dh = 300, 4, 2, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    acc = _uniform((h, sq, dh), torch.float32, gen, cuda_device)
+    m = _uniform((h, sq, 1), torch.float32, gen, cuda_device) * 3
+    l = torch.rand((h, sq, 1), generator=gen, device=cuda_device) + 1
+    for skv, row_off, window in ((256, 5000, 100), (0, 0, 0)):
+        q, k, v = _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+        carry = (acc.clone(), m.clone(), l.clone())
+        tiles = dict(fa.FORWARD_TILES)
+        got = fa.flash_attention_chunk(q, k, v, carry, scale=dh**-0.5, row_offset=row_off,
+                                       col_offset=0, causal="offset", window=window)
+        o, lse = fa.flash_forward(q, k, v, scale=dh**-0.5, row_offset=row_off,
+                                  window=window)
+        torch.cuda.synchronize()
+        assert fa.FORWARD_TILES == dict(tiles, band=tiles["band"] + 2)
+        for g, w in zip(got, (acc, m, l)):
+            assert torch.equal(g, w)
+        assert not bool(o.any()) and bool((lse == fa.NEG_INF).all())
 
 
 @pytest.mark.cuda
@@ -304,6 +380,7 @@ def test_flash_chunk_chain_matches_full_attention(cuda_device, dtype):
     q, k, v = _uniform_qkv(4 * s, 4 * s, h, h, dh, dtype, gen, cuda_device)
     q = q[3 * s:].contiguous()
     carry = fa.init_flash_carry(s, h, dh, cuda_device)
+    tiles = dict(fa.FORWARD_TILES)
     for src in (3, 2, 1, 0):
         carry = fa.flash_attention_chunk(
             q, k[src * s:(src + 1) * s].contiguous(),
@@ -311,6 +388,8 @@ def test_flash_chunk_chain_matches_full_attention(cuda_device, dtype):
             row_offset=3 * s, col_offset=src * s,
             causal="diagonal" if src == 3 else "past",
         )
+    kernel = fa.forward_kernel("chunk", dtype)
+    assert fa.FORWARD_TILES == dict(tiles, **{kernel: tiles[kernel] + 4})
     got = fa.finalize_flash_carry(carry, torch.float32)
     want = fa.flash_forward_plain(
         q, k, v, scale=dh**-0.5, row_offset=3 * s

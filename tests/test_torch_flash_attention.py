@@ -15,6 +15,9 @@ the wrapper's dispatch, the live-band arithmetic and the rule that only a
 CPU tensor takes the plain version are checked too.
 """
 
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -250,17 +253,17 @@ def test_chunk_rejections():
         ("tri", torch.bfloat16, "wgmma"),
         ("tri", torch.float16, "wgmma"),
         ("tri", torch.float32, "simt"),
-        ("rect", torch.bfloat16, "mma"),
-        ("rect", torch.float16, "mma"),
+        ("rect", torch.bfloat16, "band"),
+        ("rect", torch.float16, "band"),
         ("rect", torch.float32, "simt"),
-        ("chunk", torch.bfloat16, "mma"),
-        ("chunk", torch.float16, "mma"),
+        ("chunk", torch.bfloat16, "band"),
+        ("chunk", torch.float16, "band"),
         ("chunk", torch.float32, "simt"),
     ],
 )
 def test_forward_kernel_choice(case, dtype, kernel):
-    """The triangle in bf16/fp16 takes the Hopper wgmma kernel; the
-    rectangle and the chunk fold stay on flash_mma; float32 on the SIMT
+    """The triangle in bf16/fp16 takes the Hopper tri kernel, the
+    rectangle and the chunk fold the Hopper band kernel; float32 the SIMT
     kernel."""
     assert fa.forward_kernel(case, dtype) == kernel
 
@@ -291,3 +294,137 @@ def test_reset_launches_zeroes_the_counts_by_kernel():
     fa.LAUNCHES["tri"] += 3
     fa.reset_launches()
     assert not any(fa.FORWARD_TILES.values()) and not any(fa.LAUNCHES.values())
+
+
+# -- the host side of a launch, through a stand-in library ---------------------
+
+
+class _FakeLib:
+    """The built library's stand-in on the CPU: records each entry point's
+    name and arguments and returns ``rc``."""
+
+    ENTRIES = ("ddlb_flash_forward", "ddlb_flash_forward_tri", "ddlb_flash_forward_band",
+               "ddlb_flash_chunk", "ddlb_flash_chunk_band")
+
+    def __init__(self):
+        self.rc, self.calls = 0, []
+
+    def __getattr__(self, name):
+        if name not in self.ENTRIES:
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+
+        return entry
+
+    def ddlb_flash_error_string(self, rc):
+        return b"refused"
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """``forward_pass`` and ``chunk_pass`` on CPU tensors: the library and
+    the CUDA stream lookup replaced, every count zeroed before and after."""
+    lib = _FakeLib()
+    monkeypatch.setattr(fa, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    fa.reset_launches()
+    yield lib
+    fa.reset_launches()
+
+
+def _operands(sq, skv, h, h_kv, dtype):
+    q = torch.zeros((sq, h, 128), dtype=dtype)
+    k, v = torch.zeros((skv, h_kv, 128), dtype=dtype), torch.ones((skv, h_kv, 128), dtype=dtype)
+    return q, k, v
+
+
+#: (sq, skv, h, h_kv, row_offset, causal, window, dtype, entry, case, kernel,
+#: the window passed)
+FORWARD_LAUNCHES = [
+    (256, 256, 8, 2, 0, True, 0, torch.bfloat16, "ddlb_flash_forward_tri", "tri", "wgmma", None),
+    (200, 512, 8, 2, 312, True, 100, torch.bfloat16, "ddlb_flash_forward_band", "rect", "band",
+     100),
+    (130, 70, 4, 1, 0, False, 0, torch.float16, "ddlb_flash_forward_band", "rect", "band", 0),
+    (256, 256, 4, 4, 0, True, 300, torch.float16, "ddlb_flash_forward_tri", "tri", "wgmma",
+     None),  # a window that covers the triangle is dropped
+    (300, 300, 4, 4, 0, True, 100, torch.bfloat16, "ddlb_flash_forward_band", "rect", "band",
+     100),
+    (64, 64, 2, 2, 100, True, 60, torch.float32, "ddlb_flash_forward", "rect", "simt", 60),
+]
+
+
+@pytest.mark.parametrize("case", FORWARD_LAUNCHES)
+def test_forward_launch_passes_the_band(fake_lib, case):
+    """One forward launch: the entry point of the kernel ``forward_kernel``
+    names, with the operands' and the outputs' own pointers, the shapes,
+    the scale, the row offset, causal and the (collapsed) window; counted
+    once by case and once by kernel."""
+    sq, skv, h, h_kv, off, causal, window, dtype, entry, case_name, kernel, passed = case
+    q, k, v = _operands(sq, skv, h, h_kv, dtype)
+    o, lse = torch.empty_like(q), torch.empty((h, sq, 1))
+    fa.forward_pass(q, k, v, o, lse, scale=0.5, row_offset=off, causal=causal, window=window)
+    head = (fa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
+    if kernel == "wgmma":
+        want = head + (sq, h, h_kv, 128, 0.5, 7)
+    else:
+        want = head + (sq, skv, h, h_kv, 128, 0.5, off, int(causal), passed, 7)
+    assert fake_lib.calls == [(entry, want)]
+    assert fa.LAUNCHES == dict(dict.fromkeys(fa.LAUNCHES, 0), **{case_name: 1})
+    assert fa.FORWARD_TILES == dict(dict.fromkeys(fa.FORWARD_TILES, 0), **{kernel: 1})
+
+
+#: (sq, skv, h, h_kv, row_offset, col_offset, mode, window, dtype)
+CHUNK_LAUNCHES = [
+    (256, 256, 8, 8, 0, 0, "diagonal", 0, torch.bfloat16),
+    (4096, 4096, 8, 2, 12288, 8192, "past", 0, torch.bfloat16),
+    (1000, 700, 4, 2, 900, 500, "offset", 0, torch.float16),
+    (512, 768, 4, 2, 1000, 0, "offset", 600, torch.bfloat16),
+    (1000, 1000, 8, 2, 5000, 5000, "diagonal", 300, torch.bfloat16),
+    (64, 64, 2, 2, 0, 0, "diagonal", 30, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", CHUNK_LAUNCHES)
+def test_chunk_launch_passes_the_carry_in_place(fake_lib, case):
+    """One chunk fold: the band entry point in bf16/fp16 (the old one in
+    float32) with the mode's code, both offsets, the window and the
+    carry's own pointers (the fold is in place), and the same carry
+    tensors back; counted once under ``chunk`` and once by kernel."""
+    sq, skv, h, h_kv, row, col, mode, window, dtype = case
+    q, k, v = _operands(sq, skv, h, h_kv, dtype)
+    carry = fa.init_flash_carry(sq, h, 128)
+    got = fa.chunk_pass(q, k, v, carry, scale=0.25, row_offset=row, col_offset=col,
+                        causal=mode, window=window)
+    assert got is None
+    kernel = fa.forward_kernel("chunk", dtype)
+    entry = "ddlb_flash_chunk_band" if dtype != torch.float32 else "ddlb_flash_chunk"
+    acc, m, l = carry
+    want = (fa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), sq, skv, h, h_kv, 128, 0.25, row, col,
+            fa.CHUNK_MODES.index(mode), window, 7)
+    assert fake_lib.calls == [(entry, want)]
+    assert fa.LAUNCHES == dict(dict.fromkeys(fa.LAUNCHES, 0), chunk=1)
+    assert fa.FORWARD_TILES == dict(dict.fromkeys(fa.FORWARD_TILES, 0), **{kernel: 1})
+
+
+@pytest.mark.parametrize("what", ["forward", "chunk"])
+def test_a_refused_band_launch_raises(fake_lib, what):
+    """A launch the library refuses raises, naming the kernel, after one
+    call: nothing retries it on another kernel or on the plain version."""
+    fake_lib.rc = 1
+    q, k, v = _operands(200, 300, 4, 2, torch.bfloat16)
+    with pytest.raises(RuntimeError, match=r"\(.*band\) launch failed: refused"):
+        if what == "forward":
+            fa.forward_pass(q, k, v, torch.empty_like(q), torch.empty((4, 200, 1)), scale=0.5,
+                            row_offset=100, causal=True, window=50)
+        else:
+            fa.chunk_pass(q, k, v, fa.init_flash_carry(200, 4, 128), scale=0.5,
+                          row_offset=100, col_offset=0, causal="offset", window=0)
+    assert len(fake_lib.calls) == 1
+    assert fa.FORWARD_TILES == dict(dict.fromkeys(fa.FORWARD_TILES, 0), band=1)

@@ -136,7 +136,8 @@ def test_backward_case_follows_the_dispatch_rule(sq, skv, ro, co, mode, window):
 )
 def test_backward_kernel_choice(case, dtype, kernel):
     """The triangle in bf16/fp16 takes the Hopper wgmma passes; the
-    rectangle stays on flash_bwd_*_mma; float32 on the SIMT kernels."""
+    rectangle stays on flash_bwd_*_mma (the forward's band kernel has no
+    backward); float32 on the SIMT kernels."""
     assert fa.backward_kernel(case, dtype) == kernel
 
 
