@@ -1447,14 +1447,34 @@ def decode_bound(da, q, k, int8, pos, S, window, table=None, num_pages=0,
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
+def decode_ptxas():
+    """``ptxas -v``'s registers and spill stores of the decode kernels, by
+    design, query dtype, cache (int8 or not) and G."""
+    import re
+
+    from ddlb_tpu_torch.ops import _build
+
+    found = {}
+    for name, usage in _build.ptxas_usage(_build.build_log("decode_attention")).items():
+        design = "mma" if "decode_mma" in name else "simt" if "decode_simt" in name else None
+        if design is None:
+            continue
+        dtype = ("bfloat16" if "bfloat16" in name else "float16" if "__half" in name
+                 else "float32")
+        cache = "int8" if "aLi" in name else dtype  # KV = signed char
+        found[f"{design} {dtype} {cache} G={re.findall(r'Li(\d+)E', name)[-1]}"] = usage
+    return found
+
+
 def kernel_phase_decode(da, smi):
     """K11 and K12 against their plain versions at the serving path's shapes
     (b = 8, 16 heads of 128; a decode cache of m + 1 = 8193 positions, the
     serve pool of 17 pages of 128), MHA and GQA-4, bf16 and int8, a window,
     ragged positions with 0 and a parked lane, sentinel pages; fp16 and f32
     at smaller shapes. Then each timed at the path's shape beside its
-    plain version, its library yardstick and its bound. Returns the two
-    entries of the ``kernels`` line."""
+    plain version, its library yardstick and its bound, back to back
+    through the wrapper and from a CUDA graph. Fails if a decode kernel
+    spills. Returns the two entries of the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
 
@@ -1492,8 +1512,13 @@ def kernel_phase_decode(da, smi):
                 live[:, None, None, :], group > 1)
 
     def timed(args, kw, paged, yardstick):
+        """Back to back through the wrapper (``ms``) and from a CUDA graph
+        (``graph_ms``), beside the plain version and the library call on
+        the same two timers."""
+        kernel = ((lambda: da.paged_decode_attention(*args, **kw)) if paged
+                  else (lambda: da.decode_attention(*args, **kw)))
         calls = {
-            "ms": lambda: (da.paged_decode_attention if paged else da.decode_attention)(*args, **kw),
+            "ms": kernel,
             "plain_ms": lambda: (da.paged_decode_attention_plain if paged
                                  else da.decode_attention_plain)(*args, **kw),
         }
@@ -1503,6 +1528,8 @@ def kernel_phase_decode(da, smi):
             iters["library_ms"] = 50
         times, turns = time_turns(calls, iters)
         times.setdefault("library_ms", None)
+        times["graph_ms"] = graph_ms(kernel)
+        times["library_graph_ms"] = graph_ms(yardstick) if yardstick is not None else None
         return times, turns
 
     def k11(args, kw, int8):
@@ -1520,11 +1547,9 @@ def kernel_phase_decode(da, smi):
     var_out = {}
     for key, (err, (args, kw)) in variants.items():
         times, turns, bound = k11(args, kw, key.startswith("int8"))
-        var_out[key] = {"max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
-                        "library_ms": times["library_ms"], "bound_ms": bound[0],
+        var_out[key] = {"max_abs_err": err, **times, "bound_ms": bound[0],
                         "bound_by": bound[1]}
-        print(f"K11 {key}: kernel {times['ms']!r} ms, library {times['library_ms']!r} ms, "
-              f"plain {times['plain_ms']!r} ms, bound {bound[0]!r} ms ({bound[1]}; {smi}); "
+        print(f"K11 {key}: {json.dumps(times)}, bound {bound[0]!r} ms ({bound[1]}; {smi}); "
               f"turns {turns}")
 
     # K12 beside the gather of every slot's pages plus the same SDPA
@@ -1546,9 +1571,11 @@ def kernel_phase_decode(da, smi):
         ("K11 MHA bf16, 8193 keys", dec_times, dec_turns, dec_bound),
         ("K12 MHA bf16, 17 pages of 128", paged_times, paged_turns, paged_bound),
     ):
-        print(f"{what}: kernel {times['ms']!r} ms, library {times['library_ms']!r} ms, "
-              f"plain {times['plain_ms']!r} ms, bound {bound[0]!r} ms ({bound[1]}; "
+        print(f"{what}: {json.dumps(times)}, bound {bound[0]!r} ms ({bound[1]}; "
               f"{smi}); turns {turns}")
+    # every launch of this phase, checks and timed calls, by design
+    phase_tiles = dict(da.DECODE_TILES)
+    ptxas = decode_ptxas()
 
     def entry(name, replaces, err, times, bound):
         return {
@@ -1563,6 +1590,11 @@ def kernel_phase_decode(da, smi):
             "bound_ms": bound[0],
             "bound_by": bound[1],
             "library_ms": times["library_ms"],
+            "graph_ms": times["graph_ms"],
+            "library_graph_ms": times["library_graph_ms"],
+            "design": "mma",
+            "phase_tiles": phase_tiles,
+            "ptxas": ptxas,
         }
 
     decode = entry("decode_attention", "ddlb_tpu/ops/decode_attention.py:116",
@@ -1570,11 +1602,15 @@ def kernel_phase_decode(da, smi):
     decode["variants"] = var_out
     decode["library_ms_note"] = (
         "SDPA, q [b, h, 1, dh], a boolean pos mask (enable_gqa for GQA); "
-        "null for int8: no PyTorch call dequantizes inside attention"
+        "null for int8: no PyTorch call dequantizes inside attention; "
+        "ms back to back through the wrapper, graph_ms from a CUDA graph"
     )
     paged = entry("paged_decode_attention", "ddlb_tpu/ops/decode_attention.py:236",
                   paged_err, paged_times, paged_bound)
     paged["library_ms_note"] = "the gather pool[table] plus SDPA with the live mask, timed together"
+    spilled = {name: u for name, u in ptxas.items() if u.get("spill_stores")}
+    if spilled:
+        fail(f"the decode kernels spill: {spilled}")
     return decode, paged
 
 
@@ -2631,6 +2667,12 @@ def main():
     if not (serving_launches["decode"] and serving_launches["paged"]
             and serving_launches["tri"] and serving_launches["int8"]):
         fail(f"the serving path did not launch K11, K12, K8a and K7: {serving_launches}")
+    # every decode row of the path is bf16: each K11/K12 launch on the
+    # tensor-core design
+    want_tiles = {"mma": serving_launches["decode"] + serving_launches["paged"], "simt": 0}
+    if da.DECODE_TILES != want_tiles:
+        fail(f"K11/K12 launches by design on the serving path: {da.DECODE_TILES}, "
+             f"expected {want_tiles}")
     if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
         fail(f"K2-K6 launched on the serving path: {cm.LAUNCHES} {trio_counts()}")
     tiles["serving"] = check_tiles("the serving path", k1, cm, fa)
@@ -2675,6 +2717,8 @@ def main():
                                        if n.get("chunk")}
     decode_entry["launches"] = total("decode")
     paged_entry["launches"] = total("paged")
+    # K11 and K12 together on the serving path, the only one that runs them
+    decode_entry["serving_tiles"] = paged_entry["serving_tiles"] = want_tiles
     int8_entry["launches"] = total("int8")
     int8_entry["launches_by_path"] = {
         "quantized": launches["quantized"]["int8"], "serving": serving_launches["int8"],

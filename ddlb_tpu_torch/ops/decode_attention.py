@@ -20,26 +20,35 @@ row with no live key is 0.
 
 One CUDA source (``csrc/decode_attention.cu``, whose note gives the bound
 and what the design does about it) and one entry point
-(``ddlb_decode_attention``) serve both: the cache is split across blocks
-(flash-decoding), each block streams its share of the live keys once
-with SIMT float32 dots, and a second small kernel merges the blocks'
-partials. ``num_splits`` picks the split count from S, ``b * h_kv`` and
-the SM count. Built by ``nvcc`` for ``sm_90a`` at first use
+(``ddlb_decode_attention``) serve both, in one launch: the cache is split
+across blocks (flash-decoding), a producer warp streams each block's rows
+through a ring of shared-memory stages with bulk copies, the scores run on
+the tensor cores (``mma.sync``) for bf16/fp16 queries and on SIMT float32
+dots for float32 ones, and the last block of each (sequence, kv head) to
+finish merges the blocks' partials in split order. ``num_splits`` picks the
+split count from S, ``b * h_kv`` and the SM count, in whole ``SPLIT_UNIT``
+keys (whole pages for K12). Built by ``nvcc`` for ``sm_90a`` at first use
 (``_build.py``) and called through ``ctypes`` on PyTorch's current stream.
+The checks that depend only on shapes, dtypes, strides and devices run
+once per signature (``_PLANS``); alignment is checked every call.
 
-``LAUNCHES`` counts wrapper calls that launch the kernels, by entry
-(``decode`` = K11, ``paged`` = K12). A CPU tensor takes the plain PyTorch
-version beside each kernel (``decode_attention_plain``,
-``paged_decode_attention_plain``), which follows ``_attn_tile_body`` tile
-by tile in float32; a CUDA tensor launches the kernel or raises. There is
-no fallback.
+``LAUNCHES`` counts wrapper calls that launch the kernel, by entry
+(``decode`` = K11, ``paged`` = K12), and ``DECODE_TILES`` by design
+(``mma``: the tensor-core kernel, ``simt``: float32 queries). A CPU tensor
+takes the plain PyTorch version beside each kernel
+(``decode_attention_plain``, ``paged_decode_attention_plain``), which
+follows ``_attn_tile_body`` tile by tile in float32; a CUDA tensor
+launches the kernel or raises. There is no fallback. The plain versions
+also take ``splits=``: each split folded on its own and the partials merged
+in split order (``merge_partials_plain``), the kernel's schedule; the main
+path does not use it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +61,9 @@ NEG_INF = -1e30
 #: kernel launches by entry since the counts were last zeroed (plain calls
 #: excluded): ``decode`` = K11, ``paged`` = K12
 LAUNCHES = {"decode": 0, "paged": 0}
+#: the same launches by design: ``mma`` (bf16/fp16 queries, scores on the
+#: tensor cores), ``simt`` (float32 queries)
+DECODE_TILES = {"mma": 0, "simt": 0}
 
 #: the head dim the kernels are compiled for, and the query heads per kv
 #: head they are instantiated for
@@ -60,19 +72,27 @@ GROUPS = (1, 2, 4, 8, 16)
 #: the plain contiguous version's key tiles (the JAX package's default
 #: ``block_s``; the last tile may be ragged)
 PLAIN_BLOCK = 512
-#: blocks the split aims at per SM, the fewest keys worth a split of its
-#: own, and the most splits
-BLOCKS_PER_SM = 4
+#: blocks the split aims at per SM in one wave, the most pages a split of a
+#: paged cache takes (its sequences are ragged), the fewest keys worth a
+#: split of their own, and the most splits; tuned on an H100 with ``python
+#: scripts/time_kernels.py --tree . --phase decode_splits`` (``num_splits``
+#: gives the rule)
+BLOCKS_PER_SM = 2
+PAGES_PER_SPLIT = 3
 MIN_SPLIT_KEYS = 256
 MAX_SPLITS = 64
+#: a contiguous cache splits in whole runs of this many keys (a paged one
+#: in whole pages)
+SPLIT_UNIT = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _INT_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, DECODE_TILES):
+        for key in counts:
+            counts[key] = 0
 
 
 # -- checks --------------------------------------------------------------------
@@ -164,23 +184,58 @@ def _flush(q, state):
     return out.reshape(q.shape).to(q.dtype)
 
 
-def _live(cols, pos, window):
-    """``[b, t]``: ``cols <= pos`` and (window) ``cols > pos - window``."""
+def merge_partials_plain(q, states) -> torch.Tensor:
+    """The kernel's merge: the splits' partial states ``(m, l, acc)``
+    folded in split order, ``M = max m``, ``L = sum l e``, ``A = sum acc
+    e`` with ``e = exp(m - M)``, then ``A / L`` (0 where L is 0), ``[b, h,
+    dh]`` in q's dtype. A split with no live key (m = -1e30, l = 0) adds
+    nothing."""
+    M = states[0][0]
+    for m, _, _ in states[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(states[0][1])
+    A = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        e = torch.exp(m - M)
+        L = L + l * e
+        A = A + acc * e
+    return _flush(q, (M, L, A))
+
+
+def split_ranges(pos, S: int, window: int, splits: int, unit: int):
+    """``[b, splits]`` first and past-last live key of each split, as the
+    kernel cuts them: the live range ``[max(0, pos - window + 1), min(pos,
+    S - 1)]`` in whole units of ``unit`` keys spread evenly, split ``s``
+    taking units ``[s U / splits, (s + 1) U / splits)`` of the range's
+    ``U``; with more splits than units some are empty (begin >= end)."""
+    pos = pos.long()
+    hi = torch.clamp(pos, max=S - 1)
+    lo = torch.clamp(pos - window + 1, min=0) if window else torch.zeros_like(pos)
+    live = hi >= lo
+    u_lo = lo // unit
+    units = (hi // unit - u_lo + 1)[:, None]
+    s = torch.arange(splits, device=pos.device)[None, :]
+    u0 = u_lo[:, None] + s * units // splits
+    u1 = u_lo[:, None] + (s + 1) * units // splits
+    begin = torch.maximum(lo[:, None], u0 * unit)
+    end = torch.minimum(hi[:, None] + 1, u1 * unit)
+    return torch.where(live[:, None], begin, 0), torch.where(live[:, None], end, 0)
+
+
+def _live(cols, pos, window, keys=None):
+    """``[b, t]``: ``cols <= pos``, (window) ``cols > pos - window`` and
+    (``keys``, a split's ``[b]`` begin and end) ``begin <= cols < end``."""
     live = cols[None, :] <= pos[:, None]
     if window:
         live &= cols[None, :] > pos[:, None] - window
+    if keys is not None:
+        live &= (cols[None, :] >= keys[0][:, None]) & (cols[None, :] < keys[1][:, None])
     return live
 
 
-def decode_attention_plain(q, k_cache, v_cache, pos, *, k_scale=None,
-                           v_scale=None, window: int = 0) -> torch.Tensor:
-    """The plain version of K11: the tile body over key tiles of
-    ``PLAIN_BLOCK`` (the last one ragged), in float32, for the whole batch
-    at once."""
-    _check(q, k_cache, v_cache, k_scale, v_scale, window)
-    b, S, h_kv = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
-    pos = _positions(pos, b, q.device)
-    qs, state = _init_state(q, h_kv)
+def _fold_contiguous(q, k_cache, v_cache, k_scale, v_scale, pos, window, keys):
+    qs, state = _init_state(q, k_cache.shape[2])
+    S = k_cache.shape[1]
     for s0 in range(0, S, PLAIN_BLOCK):
         s1 = min(s0 + PLAIN_BLOCK, S)
         cols = torch.arange(s0, s1, device=q.device)
@@ -189,35 +244,65 @@ def decode_attention_plain(q, k_cache, v_cache, pos, *, k_scale=None,
             qs,
             _dequant(k_cache[:, sl], None if k_scale is None else k_scale[:, sl], q.dtype),
             _dequant(v_cache[:, sl], None if v_scale is None else v_scale[:, sl], q.dtype),
-            _live(cols, pos, window), state,
+            _live(cols, pos, window, keys), state,
         )
-    return _flush(q, state)
+    return state
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, table, pos, *,
-                                 k_scale=None, v_scale=None,
-                                 window: int = 0) -> torch.Tensor:
-    """The plain version of K12: the tile body once per table column (one
-    page per sequence at a time), an unmapped entry's page dead."""
-    _check(q, k_pool, v_pool, k_scale, v_scale, window)
-    P, ps, h_kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
-    b = q.shape[0]
-    table = _check_table(table, b, q.device)
+def decode_attention_plain(q, k_cache, v_cache, pos, *, k_scale=None,
+                           v_scale=None, window: int = 0, splits: int = 0,
+                           split_unit: int = SPLIT_UNIT) -> torch.Tensor:
+    """The plain version of K11: the tile body over key tiles of
+    ``PLAIN_BLOCK`` (the last one ragged), in float32, for the whole batch
+    at once. With ``splits``, the kernel's schedule: each of ``splits``
+    runs of whole ``split_unit`` keys folded on its own, then
+    ``merge_partials_plain``."""
+    _check(q, k_cache, v_cache, k_scale, v_scale, window)
+    b, S = k_cache.shape[0], k_cache.shape[1]
     pos = _positions(pos, b, q.device)
+    args = (q, k_cache, v_cache, k_scale, v_scale, pos, window)
+    if not splits:
+        return _flush(q, _fold_contiguous(*args, None))
+    begin, end = split_ranges(pos, S, window, splits, split_unit)
+    return merge_partials_plain(
+        q, [_fold_contiguous(*args, (begin[:, s], end[:, s])) for s in range(splits)])
+
+
+def _fold_paged(q, k_pool, v_pool, table, k_scale, v_scale, pos, window, keys):
+    P, ps, h_kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     qs, state = _init_state(q, h_kv)
     for sj in range(table.shape[1]):
         pages = table[:, sj].long()
         mapped = (pages >= 0) & (pages < P)
         safe = pages.clamp(0, P - 1)
         cols = sj * ps + torch.arange(ps, device=q.device)
-        live = _live(cols, pos, window) & mapped[:, None]
+        live = _live(cols, pos, window, keys) & mapped[:, None]
         state = _tile_update(
             qs,
             _dequant(k_pool[safe], None if k_scale is None else k_scale[safe], q.dtype),
             _dequant(v_pool[safe], None if v_scale is None else v_scale[safe], q.dtype),
             live, state,
         )
-    return _flush(q, state)
+    return state
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, table, pos, *,
+                                 k_scale=None, v_scale=None,
+                                 window: int = 0, splits: int = 0) -> torch.Tensor:
+    """The plain version of K12: the tile body once per table column (one
+    page per sequence at a time), an unmapped entry's page dead. With
+    ``splits``, the kernel's schedule in whole pages (see
+    ``decode_attention_plain``)."""
+    _check(q, k_pool, v_pool, k_scale, v_scale, window)
+    b, ps = q.shape[0], k_pool.shape[1]
+    table = _check_table(table, b, q.device)
+    pos = _positions(pos, b, q.device)
+    args = (q, k_pool, v_pool, table, k_scale, v_scale, pos, window)
+    if not splits:
+        return _flush(q, _fold_paged(*args, None))
+    begin, end = split_ranges(pos, table.shape[1] * ps, window, splits, ps)
+    return merge_partials_plain(
+        q, [_fold_paged(*args, (begin[:, s], end[:, s])) for s in range(splits)])
 
 
 def _check_table(table, b, device) -> torch.Tensor:
@@ -234,15 +319,14 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signature declared (pointers and the
     stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = _build.load("decode_attention")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ddlb_decode_attention.argtypes = [
-        i32, i32, ptr, ptr, ptr, ptr, ptr,  # dtype, int8, q, k, v, ks, vs
-        ptr, ptr, ptr, ptr, ptr,            # pos, table, o, part_acc, part_ml
-        i32, i32, i32, i32, i32,            # b, h, h_kv, dh, S
-        i32, i32, i32, i32,                 # page_size, num_pages, max_pages, paged
-        i32, i32, f32, ptr,                 # window, splits, scale, stream
-    ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # the plan's 14 ints, the call's 10 pointers, the scale, the stream
+    lib.ddlb_decode_attention.argtypes = [ptr, ptr, ctypes.c_float, ptr]
     lib.ddlb_decode_attention.restype = ctypes.c_int
+    lib.ddlb_decode_partial_floats.argtypes = [i32, i32, i32, i32]
+    lib.ddlb_decode_partial_floats.restype = ctypes.c_longlong
+    lib.ddlb_decode_design.argtypes = [i32]
+    lib.ddlb_decode_design.restype = ctypes.c_int
     lib.ddlb_decode_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -253,59 +337,163 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def num_splits(S: int, b: int, h_kv: int, sm_count: int) -> int:
-    """Blocks each (sequence, kv head) splits its keys over: enough for
-    ``BLOCKS_PER_SM`` blocks an SM, no split under ``MIN_SPLIT_KEYS`` of
-    the cache's ``S`` positions, at most ``MAX_SPLITS``."""
-    want = -(-BLOCKS_PER_SM * sm_count // max(1, b * h_kv))
-    return max(1, min(want, -(-S // MIN_SPLIT_KEYS), MAX_SPLITS))
+def num_splits(S: int, b: int, h_kv: int, sm_count: int, unit: int = SPLIT_UNIT, *,
+               int8: bool = False, paged: bool = False) -> int:
+    """Blocks each (sequence, kv head) splits its keys over: as many as fit
+    ``BLOCKS_PER_SM`` blocks an SM in one wave, but one for a bf16/fp16
+    cache whose pairs alone give nearly every SM a block (such a cache
+    streams at the card's rate with one block an SM, so a split only adds
+    the merge; an int8 cache's dequantization wants the second block's
+    warps); for a paged cache at least enough that a split takes at most
+    ``PAGES_PER_SPLIT`` pages; no split under ``MIN_SPLIT_KEYS`` of the
+    cache's ``S`` positions, at most ``MAX_SPLITS``, and no more than the
+    cache has runs of ``unit`` keys."""
+    want = BLOCKS_PER_SM * sm_count // max(1, b * h_kv)
+    if want <= BLOCKS_PER_SM and not int8:
+        want = 1
+    if paged:
+        want = max(want, -(-S // (PAGES_PER_SPLIT * unit)))
+    return max(1, min(want, -(-S // MIN_SPLIT_KEYS), MAX_SPLITS, -(-S // unit)))
 
 
-def _check_kernel(q, G, *tensors) -> None:
+#: the pointers a launch passes: q, k, v, ks, vs, pos, table, o, counters,
+#: partials
+_Pointers = ctypes.c_void_p * 10
+
+
+class _Plan(NamedTuple):
+    """What a launch takes from its signature, checked once."""
+
+    design: str
+    counters: int  # ints of arrival counters (0 with one split)
+    partials: int  # floats of partials
+    index: int
+    consts: ctypes.Array  # the C entry's 14 ints
+    scale: float
+    fn: object  # the C entry
+    scratch: dict  # stream -> (counters, partials) pointers
+
+
+#: launch plans by signature (shapes, dtypes, devices and contiguity of
+#: every operand but pos, the window, the entry); ``reset_plans`` empties it
+_PLANS: dict = {}
+#: the merge's scratch, by (device, stream, kind): ``counters``, int32
+#: arrival counters that every launch leaves zero, and ``partials``,
+#: float32; each grown when a launch needs more
+_SCRATCH: dict = {}
+
+
+def reset_plans() -> None:
+    """Forget the launch plans (after changing the split constants)."""
+    _PLANS.clear()
+
+
+def _sig(t):
+    return None if t is None else (t.shape, t.dtype, t.device, t.is_contiguous())
+
+
+def _make_plan(key, q, k, v, k_scale, v_scale, table, window) -> _Plan:
+    """Every check of a signature; raises on what the kernel does not take
+    (``pos`` is checked every call, by ``_kernel_positions``)."""
+    G, int8 = _check(q, k, v, k_scale, v_scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"decode kernels take {[str(d) for d in _DTYPE_CODES]}, got {q.dtype}")
-    if q.shape[2] != HEAD_DIM:
-        raise ValueError(
-            f"the decode kernels are built for head_dim {HEAD_DIM}, got {q.shape[2]}"
-        )
+    b, h, dh = q.shape
+    if dh != HEAD_DIM:
+        raise ValueError(f"the decode kernels are built for head_dim {HEAD_DIM}, got {dh}")
     if G not in GROUPS:
         raise ValueError(f"the decode kernels take {GROUPS} query heads per kv head, got {G}")
-    for t in (q, *tensors):
+    if key == "decode" and k.shape[0] != b:
+        raise ValueError(f"cache batch {k.shape[0]} != q batch {b}")
+    if table is not None:
+        _check_table(table, b, q.device)
+    for t in (q, k, v, k_scale, v_scale, table):
         if t is None:
             continue
         if t.device != q.device:
             raise ValueError(f"operands on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError("decode kernels take contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("decode kernels take 16-byte aligned tensors")
         if t.numel() > _INT_MAX:
             raise ValueError("operand too large for the kernels' 32-bit indices")
-
-
-def _launch(q, k, v, k_scale, v_scale, pos, table, window, *, G, int8,
-            S, page_size, num_pages, max_pages, key):
-    b, h, dh = q.shape
     h_kv = k.shape[2]
-    splits = num_splits(S, b, h_kv, _sm_count(q.device.index or 0))
-    o = torch.empty_like(q)
-    part_acc = torch.empty((b * h_kv * splits * G * dh,), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * h_kv * splits * G * 2,), dtype=torch.float32, device=q.device)
+    if table is None:
+        S, ps, P, mp, unit = k.shape[1], 1, 0, 0, SPLIT_UNIT
+    else:
+        P, ps, mp = k.shape[0], k.shape[1], table.shape[1]
+        S, unit = mp * ps, ps
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    splits = num_splits(S, b, h_kv, _sm_count(index), unit, int8=int8,
+                        paged=table is not None)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ddlb_decode_attention(
-            _DTYPE_CODES[q.dtype], int(int8), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), k_scale.data_ptr() if int8 else None,
-            v_scale.data_ptr() if int8 else None, pos.data_ptr(),
-            table.data_ptr() if table is not None else None, o.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), b, h, h_kv, dh, S,
-            page_size, num_pages, max_pages, int(table is not None),
-            int(window), splits, 1.0 / float(np.sqrt(dh)), stream,
-        )
+    code = _DTYPE_CODES[q.dtype]
+    consts = (ctypes.c_int * 14)(code, int(int8), b, h, h_kv, dh, S, ps, P, mp,
+                                 int(table is not None), int(window), splits, unit)
+    return _Plan(
+        design="mma" if lib.ddlb_decode_design(code) == 1 else "simt",
+        counters=b * h_kv if splits > 1 else 0,
+        partials=lib.ddlb_decode_partial_floats(b, h_kv, splits, G) if splits > 1 else 0,
+        index=index, consts=consts, scale=1.0 / float(np.sqrt(dh)),
+        fn=lib.ddlb_decode_attention, scratch={},
+    )
+
+
+def _scratch(plan: _Plan, stream: int, kind: str):
+    """The scratch of launches on ``stream`` (zeros, then whatever the
+    launches leave), grown when a launch needs more. Counters first made
+    while a CUDA graph is captured are zeroed by the graph's first
+    replay."""
+    need = getattr(plan, kind)
+    if not need:
+        return None
+    key = (plan.index, stream, kind)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.int32 if kind == "counters" else torch.float32,
+                          device=torch.device("cuda", plan.index))
+        _SCRATCH[key] = buf
+        for other in _PLANS.values():  # a plan may hold the old buffer's pointer
+            other.scratch.pop(stream, None)
+    return buf.data_ptr()
+
+
+def _current_stream(index: int) -> int:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(key, q, k, v, k_scale, v_scale, pos, table, window):
+    sig = (key, window, _sig(q), _sig(k), _sig(v), _sig(k_scale), _sig(v_scale), _sig(table))
+    plan = _PLANS.get(sig)
+    if plan is None:
+        plan = _make_plan(key, q, k, v, k_scale, v_scale, table, window)
+        _PLANS[sig] = plan
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (q, k, v, k_scale, v_scale, pos, table)]
+    bits = 0
+    for ptr in ptrs:
+        bits |= ptr or 0
+    if bits % 16:
+        raise ValueError("decode kernels take 16-byte aligned tensors")
+    o = torch.empty_like(q)
+    stream = _current_stream(plan.index)
+    scratch = plan.scratch.get(stream)
+    if scratch is None:
+        scratch = plan.scratch[stream] = (_scratch(plan, stream, "counters"),
+                                          _scratch(plan, stream, "partials"))
+    ptrs += [o.data_ptr(), *scratch]
+    args = (plan.consts, _Pointers(*ptrs), plan.scale, stream)
+    if torch.cuda.current_device() == plan.index:
+        rc = plan.fn(*args)
+    else:
+        with torch.cuda.device(plan.index):
+            rc = plan.fn(*args)
     LAUNCHES[key] += 1
+    DECODE_TILES[plan.design] += 1
     if rc != 0:
         raise RuntimeError(
             f"decode attention ({key}) launch failed: "
@@ -314,25 +502,28 @@ def _launch(q, k, v, k_scale, v_scale, pos, table, window, *, G, int8,
     return o
 
 
+def _kernel_positions(pos, b, device) -> torch.Tensor:
+    """``pos`` as the kernel reads it, ``[b]`` int32 contiguous on the
+    device; such a tensor as it is."""
+    if not (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32 and pos.dim() == 1
+            and pos.device == device and pos.is_contiguous()):
+        pos = _positions(pos, b, device)
+    if pos.shape != (b,):
+        raise ValueError(f"pos must be an int or [b={b}], got {tuple(pos.shape)}")
+    return pos
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
                      window: int = 0) -> torch.Tensor:
     """Fused single-token cache attention (K11): ``q [b, h, dh]`` against
     ``k_cache``/``v_cache [b, S, h_kv, dh]``; returns ``[b, h, dh]``."""
-    G, int8 = _check(q, k_cache, v_cache, k_scale, v_scale, window)
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k_cache, v_cache, pos, k_scale=k_scale, v_scale=v_scale,
             window=window,
         )
-    b, S = k_cache.shape[0], k_cache.shape[1]
-    if k_cache.shape[0] != q.shape[0]:
-        raise ValueError(f"cache batch {k_cache.shape[0]} != q batch {q.shape[0]}")
-    pos = _positions(pos, b, q.device)
-    _check_kernel(q, G, k_cache, v_cache, k_scale, v_scale, pos)
-    return _launch(
-        q, k_cache, v_cache, k_scale, v_scale, pos, None, window, G=G,
-        int8=int8, S=S, page_size=1, num_pages=0, max_pages=0, key="decode",
-    )
+    pos = _kernel_positions(pos, q.shape[0], q.device)
+    return _launch("decode", q, k_cache, v_cache, k_scale, v_scale, pos, None, window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, pos, *, k_scale=None,
@@ -340,22 +531,17 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, k_scale=None,
     """Fused single-token attention over a paged cache (K12): ``q [b, h,
     dh]``, pools ``[P, page_size, h_kv, dh]``, ``table [b, max_pages]``
     int32 page ids (``>= P`` unmapped); returns ``[b, h, dh]``."""
-    G, int8 = _check(q, k_pool, v_pool, k_scale, v_scale, window)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, table, pos, k_scale=k_scale, v_scale=v_scale,
             window=window,
         )
     b = q.shape[0]
-    P, ps = k_pool.shape[0], k_pool.shape[1]
-    table = _check_table(table, b, q.device)
-    pos = _positions(pos, b, q.device)
-    _check_kernel(q, G, k_pool, v_pool, k_scale, v_scale, pos, table)
-    return _launch(
-        q, k_pool, v_pool, k_scale, v_scale, pos, table, window, G=G,
-        int8=int8, S=table.shape[1] * ps, page_size=ps, num_pages=P,
-        max_pages=table.shape[1], key="paged",
-    )
+    if not (isinstance(table, torch.Tensor) and table.dtype == torch.int32
+            and table.device == q.device and table.is_contiguous()):
+        table = _check_table(table, b, q.device)
+    pos = _kernel_positions(pos, b, q.device)
+    return _launch("paged", q, k_pool, v_pool, k_scale, v_scale, pos, table, window)
 
 
 # -- what the kernel must move, and its distance from the plain version ----------

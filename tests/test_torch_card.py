@@ -424,14 +424,19 @@ def test_flash_rejects_what_the_kernel_does_not_take(cuda_device):
 
 from ddlb_tpu_torch.ops import decode_attention as da  # noqa: E402
 
-#: (b, S, h, h_kv, window, int8)
+#: (b, S, h, h_kv, window, int8); every case runs in bf16 and fp16 (the
+#: tensor-core kernel) and float32 (the SIMT one), contiguous and paged
+#: (64-key pages, sequence 1's first page shared with sequence 0's: two
+#: slots on one page)
 DECODE_CASES = [
     (4, 1000, 4, 4, 0, False),      # MHA, ragged positions
     (3, 777, 8, 2, 0, False),       # GQA 4
     (4, 1000, 16, 1, 0, False),     # MQA, G = 16
-    (4, 1000, 8, 4, 100, False),    # window
+    (4, 1000, 8, 4, 100, False),    # window (across pages when paged)
     (4, 1000, 4, 4, 0, True),       # int8
     (2, 513, 8, 1, 50, True),       # int8, G = 8, window
+    (3, 700, 16, 1, 0, True),       # int8, G = 16
+    (4, 1000, 16, 2, 150, True),    # int8, G = 8, a window across pages
 ]
 
 
@@ -476,10 +481,12 @@ def test_decode_kernel_within_bound(cuda_device, case, dtype, peaked):
     pos = _positions(b, S, gen, cuda_device)
     q, k, v, ks, vs, kmax, vmax = _decode_inputs(
         b, S, h, h_kv, 128, dtype, int8, gen, cuda_device, peaked, pos)
-    before = da.LAUNCHES["decode"]
+    before, tiles = da.LAUNCHES["decode"], dict(da.DECODE_TILES)
     got = da.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs, window=window)
     torch.cuda.synchronize()
     assert da.LAUNCHES["decode"] == before + 1
+    design = "simt" if dtype == torch.float32 else "mma"
+    assert da.DECODE_TILES == dict(tiles, **{design: tiles[design] + 1})
     want = da.decode_attention_plain(q, k, v, pos, k_scale=ks, v_scale=vs, window=window)
     assert got.shape == (b, h, 128) and got.dtype == dtype
     bound = da.plain_gap_bound(q, kmax, vmax, got, want, n_terms=S)
@@ -539,6 +546,83 @@ def test_paged_decode_kernel_within_bound(cuda_device, case, dtype, peaked):
     assert bool((gap <= bound).all()), float((gap - bound).max())
     if b > 2:
         assert bool((got[2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False)])
+def test_decode_kernel_is_deterministic_and_replays(cuda_device, paged, dtype, int8):
+    """Two calls, and two replays of a CUDA graph that captured a third,
+    give the same output bit for bit: the last block of each (sequence, kv
+    head) merges the splits in split order, and every launch leaves the
+    arrival counters zero. The shape splits each sequence many ways."""
+    b, S, h, h_kv, ps = 2, 4096, 16, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    pos = torch.tensor([S - 1, 2000], dtype=torch.int32, device=cuda_device)
+    q, k, v, ks, vs, _, _ = _decode_inputs(b, S, h, h_kv, 128, dtype, int8, gen,
+                                           cuda_device, False, pos)
+    if paged:
+        (k, v, ks, vs), table = _paged(k, v, ks, vs, pos, ps, gen, cuda_device)
+        assert da.num_splits(S, b, h_kv, da._sm_count(0), ps) > 1
+
+        def call():
+            return da.paged_decode_attention(q, k, v, table, pos, k_scale=ks, v_scale=vs)
+    else:
+        assert da.num_splits(S, b, h_kv, da._sm_count(0)) > 1
+
+        def call():
+            return da.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    assert torch.equal(call(), first)
+
+
+@pytest.mark.cuda
+def test_decode_two_slots_on_one_page(cuda_device):
+    """Two sequences with the same query mapped to the same pages at the
+    same position read the same keys: their outputs are equal bit for bit."""
+    h, ps, P = 16, 64, 6
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    pool = _uniform((P, ps, h, 128), torch.bfloat16, gen, cuda_device)
+    pool_v = _uniform((P, ps, h, 128), torch.bfloat16, gen, cuda_device)
+    q = _uniform((1, h, 128), torch.bfloat16, gen, cuda_device).expand(2, h, 128).contiguous()
+    table = torch.tensor([[4, 1, 3], [4, 1, 3]], dtype=torch.int32, device=cuda_device)
+    pos = torch.tensor([150, 150], dtype=torch.int32, device=cuda_device)
+    got = da.paged_decode_attention(q, pool, pool_v, table, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    want = da.paged_decode_attention_plain(q, pool, pool_v, table, pos)
+    bound = da.plain_gap_bound(q, 1.0, 1.0, got, want, n_terms=3 * ps)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_decode_tiles_show_the_design(cuda_device):
+    """bf16 and fp16 queries run the tensor-core kernel, float32 ones the
+    SIMT kernel, one launch a call whatever the split."""
+    b, S, h = 8, 8193, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    pos = torch.full((b,), S - 1, dtype=torch.int32, device=cuda_device)
+    for dtype, design in ((torch.bfloat16, "mma"), (torch.float16, "mma"),
+                          (torch.float32, "simt")):
+        q, k, v, _, _, _, _ = _decode_inputs(b, S, h, 4, 128, dtype, False, gen,
+                                             cuda_device, False, pos)
+        da.reset_launches()
+        da.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert da.LAUNCHES == {"decode": 1, "paged": 0}
+        assert da.DECODE_TILES == {"mma": int(design == "mma"), "simt": int(design == "simt")}
 
 
 @pytest.mark.cuda

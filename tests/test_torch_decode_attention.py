@@ -8,12 +8,19 @@ all of them at once, at ragged positions that include 0 and S_max (a
 parked lane, every key live), then the paged forms with shuffled pages,
 sentinel tails, an all-sentinel row and two slots sharing a page.
 
+The plain versions' ``splits=`` schedule (each split folded on its own,
+the partials merged in split order, as the kernel does) is held against
+the same JAX ops at 1, 2, 3 and 7 splits: splits with no live key, a
+window across page boundaries, an all-sentinel row and a parked lane.
+
 Tolerances: float32 at rtol 0, atol 1e-5 (the same float32 math in other
 summation orders, as the JAX package's own kernel-vs-einsum test);
 bfloat16 within 1 bf16 ulp of the larger magnitude, since both sides
 compute in float32 from the same bf16 (or dequantized) operands and round
 the output once.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -151,6 +158,111 @@ def test_plain_paged_decode_matches_jax(case, dtype):
     assert bool((got[2] == 0).all())  # the all-sentinel row
 
 
+#: the split schedule's cases and split counts (7 leaves splits with no
+#: live key at these sizes)
+SPLIT_CASES = {
+    "mha": dict(),
+    "gqa-int8-window": dict(h_kv=2, int8=True, window=6),
+    "wide-window": dict(h_kv=2, window=10),
+}
+SPLIT_COUNTS = (1, 2, 3, 7)
+#: the contiguous plain version's split unit here: 6 units of 4 keys
+SPLIT_UNIT = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(case, dtype, paged):
+    """The JAX op on the case's inputs (seeded), once per case: (q, the
+    cache or pools, table, pos, window, the JAX output)."""
+    jdtype, _ = DTYPES[dtype]
+    opts = SPLIT_CASES[case]
+    rng = np.random.default_rng(9)
+    q, cache, pos = _inputs(rng, opts, jdtype)
+    window = opts.get("window", 0)
+    table = None
+    if paged:
+        cache, table = _page_scatter(cache, rng, pos)
+        want = jax_paged(
+            jnp.asarray(q), jnp.asarray(cache["k"]), jnp.asarray(cache["v"]),
+            jnp.asarray(table), jnp.asarray(pos), k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"), window=window, interpret=True,
+        )
+    else:
+        want = jax_decode(
+            jnp.asarray(q), jnp.asarray(cache["k"]), jnp.asarray(cache["v"]),
+            jnp.asarray(pos), k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"), window=window, block_s=8, interpret=True,
+        )
+    return q, cache, table, pos, window, np.asarray(want)
+
+
+def _scales(cache):
+    return {"k_scale": _t(cache["k_scale"]) if "k_scale" in cache else None,
+            "v_scale": _t(cache["v_scale"]) if "v_scale" in cache else None}
+
+
+@pytest.mark.parametrize("splits", SPLIT_COUNTS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(SPLIT_CASES), ids=str)
+def test_plain_split_decode_matches_jax(case, dtype, splits):
+    q, cache, _, pos, window, want = _jax_reference(case, dtype, False)
+    got = da.decode_attention_plain(
+        _t(q), _t(cache["k"]), _t(cache["v"]), torch.from_numpy(pos),
+        window=window, splits=splits, split_unit=SPLIT_UNIT, **_scales(cache),
+    )
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("splits", SPLIT_COUNTS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(SPLIT_CASES), ids=str)
+def test_plain_split_paged_decode_matches_jax(case, dtype, splits):
+    q, pools, table, pos, window, want = _jax_reference(case, dtype, True)
+    got = da.paged_decode_attention_plain(
+        _t(q), _t(pools["k"]), _t(pools["v"]), torch.from_numpy(table),
+        torch.from_numpy(pos), window=window, splits=splits, **_scales(pools),
+    )
+    _assert_close(got, want, dtype)
+    assert bool((got[2] == 0).all())  # the all-sentinel row
+
+
+@pytest.mark.parametrize("window", [0, 5, 10])
+@pytest.mark.parametrize("splits", SPLIT_COUNTS)
+def test_split_ranges_cut_the_live_keys_in_whole_units(splits, window):
+    """The splits cover each sequence's live keys once, in order, each a
+    run of whole units (but for the live range's own ends); a split past
+    the range is empty; a row with pos = 0 or past S is cut too."""
+    pos = torch.tensor([0, S, 5, 13, 23], dtype=torch.int32)
+    begin, end = da.split_ranges(pos, S, window, splits, SPLIT_UNIT)
+    for b, p in enumerate(pos.tolist()):
+        hi = min(p, S - 1)
+        lo = max(0, p - window + 1) if window else 0
+        keys = [j for s in range(splits) for j in range(begin[b, s], end[b, s])]
+        assert keys == list(range(lo, hi + 1))
+        for s in range(splits):
+            if begin[b, s] >= end[b, s]:
+                continue
+            assert begin[b, s] == lo or begin[b, s] % SPLIT_UNIT == 0
+            assert end[b, s] == hi + 1 or end[b, s] % SPLIT_UNIT == 0
+
+
+def test_merge_partials_plain_matches_one_fold():
+    """States folded over disjoint key sets and merged equal the one fold
+    over all keys within float32 summation order; an empty state adds
+    nothing."""
+    rng = np.random.default_rng(10)
+    q, cache, pos = _inputs(rng, {"h_kv": 2}, jnp.float32)
+    args = (_t(q), _t(cache["k"]), _t(cache["v"]), None, None, torch.from_numpy(pos), 0)
+    whole = da._flush(args[0], da._fold_contiguous(*args, None))
+    b = q.shape[0]
+    cuts = [(0, 5), (5, 6), (6, 6), (6, S + 1)]  # (6, 6) holds no key
+    states = [da._fold_contiguous(*args, (torch.full((b,), lo), torch.full((b,), hi)))
+              for lo, hi in cuts]
+    np.testing.assert_allclose(da.merge_partials_plain(args[0], states).numpy(),
+                               whole.numpy(), rtol=0, atol=1e-5)
+    assert bool((states[2][1] == 0).all()) and bool((states[2][0] == da.NEG_INF).all())
+
+
 def test_scalar_pos_broadcasts():
     rng = np.random.default_rng(4)
     q, cache, _ = _inputs(rng, {}, jnp.float32)
@@ -218,11 +330,17 @@ def test_bad_args():
 
 
 def test_num_splits_and_live_keys():
-    # the serving path's shapes on a 132-SM card
-    assert da.num_splits(8193, 8, 16, 132) == 5
-    assert da.num_splits(8193, 8, 4, 132) == 17
+    # the serving path's shapes on a 132-SM card: a bf16 MHA cache unsplit
+    # (its 128 pairs give nearly every SM a block), else two blocks an SM;
+    # the serve pool's 17 pages at most 3 a split
+    assert da.num_splits(8193, 8, 16, 132) == 1
+    assert da.num_splits(8193, 8, 4, 132) == 8
+    assert da.num_splits(8193, 8, 16, 132, int8=True) == 2
+    assert da.num_splits(8193, 8, 4, 132, int8=True) == 8
+    assert da.num_splits(17 * 128, 8, 16, 132, 128, paged=True) == 6
     assert da.num_splits(100, 8, 16, 132) == 1
     assert da.num_splits(10**6, 1, 1, 132) == da.MAX_SPLITS
+    assert da.num_splits(2048, 1, 1, 132, 512) == 4  # whole units: 4 pages of 512
     assert da.live_keys(np.array([0, 5, 30]), 24) == 1 + 6 + 24
     assert da.live_keys(np.array([10]), 24, window=4) == 4
     table = np.array([[0, 3, 1]])  # page 1 (id 3) unmapped of 3 pages
