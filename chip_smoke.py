@@ -30,10 +30,14 @@ Phases, in order; any failure exits non-zero without the final line:
    CUDA graph and beside ``torch._int_mm`` on A padded to 32 rows),
    K10a-K10d (the flash backward's dQ and dK/dV
    passes, triangle and rectangle, within ``backward_gap_bound`` at the
-   training path's shapes and ragged, GQA, offset, past, diagonal and
-   windowed cases, the triangle in bf16/fp16 on the Hopper ``wgmma``
-   passes, each call counted by kernel; each pass timed beside SDPA's
-   backward), K2 and K3 (the
+   training path's shapes and ragged, GQA, offset, past, none, diagonal
+   and windowed cases, edges across key tiles and empty bands; in
+   bf16/fp16 the triangle on the Hopper ``wgmma`` passes (``tri_bwd``) and
+   the rectangle on the Hopper ``band`` passes (``band_bwd``), each call
+   counted by kernel, the ``ptxas`` registers of both, no spill and no
+   C7512 warning; each pass timed beside SDPA's backward, the rectangle at
+   the windowed training row and at a ``past`` ring chunk, where SDPA's
+   unmasked backward computes the same three gradients), K2 and K3 (the
    ring collective matmuls) in loopback, d virtual ranks in one launch on
    the card, at d = 2, 3 and 4 (the GEMM path's per-rank shapes at d = 4,
    ragged cases, fp16 and f32, each on the tile its widths choose and
@@ -85,7 +89,7 @@ Phases, in order; any failure exits non-zero without the final line:
    tile, every K8a launch on the ``wgmma`` forward, every K8b and K9
    launch on the ``band`` forward, every
    K10a/K10b pass on the ``wgmma`` backward and every K10c/K10d pass on
-   ``mma.sync``
+   the ``band`` backward
    (``check_tiles``), and every K7 launch on ``wgmma`` (8192^3, the
    prompt passes, training) or ``small_m`` (the decode steps), none on
    ``mma``;
@@ -1224,11 +1228,12 @@ def kernel_phase_flash(fa, smi):
     return forward, chunk
 
 
-def band_ptxas(carry):
-    """``band::flash_fwd_wgmma``'s registers and spill stores by dtype for
-    one value of CARRY, each with whether ``ptxas`` warned that it
-    serialised the wgmma pipeline (C7512); fails on a spill or that
-    warning, or if the build log has no such instantiation."""
+def wgmma_ptxas(namespace, kernel, tag=""):
+    """``namespace::kernel``'s registers and spill stores by dtype (the
+    instantiations whose mangled name also holds ``tag``), each with
+    whether ``ptxas`` warned that it serialised the wgmma pipeline
+    (C7512); fails on a spill or that warning, or if the build log lacks
+    the bf16 or the fp16 instantiation."""
     from ddlb_tpu_torch.ops import _build
 
     log = _build.build_log("flash_attention")
@@ -1236,15 +1241,20 @@ def band_ptxas(carry):
     warned = [line for line in log.splitlines() if "C7512" in line]
     found = {}
     for name, used in usage.items():
-        if "4band15flash_fwd_wgmma" in name and f"Lb{int(carry)}E" in name:
+        if f"{len(namespace)}{namespace}{len(kernel)}{kernel}" in name and tag in name:
             dtype = "bfloat16" if "bfloat16" in name else "float16"
             found[dtype] = dict(used, c7512=any(name in line for line in warned))
     bad = {d: u for d, u in found.items() if u.get("spill_stores") or u["c7512"]}
     # a warning that names no kernel of the log cannot be cleared
     unnamed = [line for line in warned if not any(name in line for name in usage)]
     if sorted(found) != ["bfloat16", "float16"] or bad or unnamed:
-        fail(f"band::flash_fwd_wgmma CARRY={carry}: ptxas {found}, C7512 lines {warned}")
+        fail(f"{namespace}::{kernel} {tag}: ptxas {found}, C7512 lines {warned}")
     return found
+
+
+def band_ptxas(carry):
+    """``band::flash_fwd_wgmma``'s ``wgmma_ptxas`` for one value of CARRY."""
+    return wgmma_ptxas("band", "flash_fwd_wgmma", f"Lb{int(carry)}E")
 
 
 #: K8a as the serving path calls it (sequence, query heads, kv heads), bf16:
@@ -2009,7 +2019,20 @@ BWD_EXTRA = (
     (1000, 1000, 8, 2, 0, 0, "offset", 256, "float16"),
     (1024, 1024, 4, 4, 0, 0, "offset", 0, "float32"),
     (700, 900, 4, 2, 650, 100, "offset", 200, "float32"),
+    # the band passes' edges: q_base - k_base = 64 mod 128, so the causal
+    # edge straddles two key tiles; a window edge straddling two, GQA 4,
+    # ragged skv; blocks with an empty band (a window wholly behind their
+    # keys, rows past every key); none with sq != skv; the training ring
+    # rows' past chunk, which the rectangle is also timed at (PAST_BWD)
+    (384, 512, 8, 8, 192, 0, "offset", 0, "bfloat16"),
+    (512, 1100, 8, 2, 576, 0, "offset", 200, "float16"),
+    (256, 1024, 4, 4, 1000, 0, "offset", 100, "bfloat16"),
+    (700, 1000, 8, 8, 0, 0, "none", 0, "bfloat16"),
+    (2048, 2048, 32, 32, 2048, 0, "past", 0, "bfloat16"),
 )
+#: the rectangle's second timed shape: a past ring chunk of the training
+#: ring rows (2048 rows and keys, 32 merged heads, no mask)
+PAST_BWD = (2048, 2048, 32, 32, 2048, 0, "past", 0, "bfloat16")
 
 
 def backward_forward(fa, q, k, v, row_offset, col_offset, mode, window):
@@ -2103,8 +2126,9 @@ def backward_bound(fa, sq, skv, h, h_kv, dh, itemsize, row_offset, col_offset,
 def time_backward(fa, inputs, kw, smi, what):
     """Each pass timed with CUDA events beside the plain backward (both
     passes) and SDPA's backward, taken as SDPA forward plus backward through
-    autograd less SDPA forward, causal (``is_causal``) or with the band as
-    a boolean mask. Returns ({pass: ms}, plain ms, library ms or None, note)."""
+    autograd less SDPA forward: ``is_causal`` for the triangle, no mask for
+    the past and none modes, the band as a boolean mask otherwise. Returns
+    ({pass: ms}, plain ms, library ms or None, note)."""
     import torch
     import torch.nn.functional as F
 
@@ -2121,14 +2145,22 @@ def time_backward(fa, inputs, kw, smi, what):
               .requires_grad_(True) for x in (k, v))
     dot = do.transpose(0, 1).contiguous()[None]
     sdpa_kw = {"scale": kw["scale"]}
-    if kw["window"]:
-        pos_q = kw["row_offset"] + torch.arange(sq, device="cuda")[:, None]
-        pos_k = kw["col_offset"] + torch.arange(skv, device="cuda")[None, :]
-        sdpa_kw["attn_mask"] = (pos_k <= pos_q) & (pos_k > pos_q - kw["window"])
-        note = "SDPA with the band as a boolean mask"
-    else:
+    case = fa.backward_case(sq, skv, kw["row_offset"], kw["col_offset"], kw["causal"],
+                            kw["window"])[0]
+    if case == "tri":
         sdpa_kw["is_causal"] = True
         note = "SDPA with is_causal"
+    elif kw["causal"] in ("past", "none"):
+        note = "SDPA with no mask (the same three gradients)"
+    else:
+        rel = 0 if kw["causal"] == "diagonal" else kw["row_offset"] - kw["col_offset"]
+        pos_q = rel + torch.arange(sq, device="cuda")[:, None]
+        pos_k = torch.arange(skv, device="cuda")[None, :]
+        band = pos_k <= pos_q
+        if kw["window"]:
+            band &= pos_k > pos_q - kw["window"]
+        sdpa_kw["attn_mask"] = band
+        note = "SDPA with the band as a boolean mask"
     note += ("; forward plus backward through autograd less the forward; it "
              "computes dq, dk and dv together, so it stands beside the dQ "
              "pass and compares with the sum of both passes")
@@ -2166,11 +2198,12 @@ def time_backward(fa, inputs, kw, smi, what):
 def kernel_phase_flash_backward(fa, smi):
     """K10a-K10d against ``flash_backward_plain`` at the training path's
     shapes and at the cases of ``BWD_EXTRA`` (ragged shapes, GQA 8/2, an
-    offset, a past and a diagonal chunk, windows, fp16 and f32), each on
-    uniform and peaked inputs; then each pass timed at the full-width
-    shape (the triangle) and at the windowed row's (the rectangle) beside
-    its bound, the plain version and SDPA's backward. Returns the four
-    entries of the ``kernels`` line."""
+    offset, a past and a diagonal chunk, windows, the band's edges and
+    empty bands, fp16 and f32), each on uniform and peaked inputs; then
+    each pass timed at the full-width shape (the triangle) and at the
+    windowed row's and ``PAST_BWD``'s (the rectangle) beside its bound, the
+    plain version and SDPA's backward. Returns the four entries of the
+    ``kernels`` line."""
     import torch
 
     dh = DECODE_DH
@@ -2184,45 +2217,58 @@ def kernel_phase_flash_backward(fa, smi):
             timed_inputs[case] = (inputs, kw)
         del inputs
         torch.cuda.empty_cache()
-    for sq, skv, h, h_kv, ro, co, mode, window, dtype_name in BWD_EXTRA:
+    for extra in BWD_EXTRA:
+        sq, skv, h, h_kv, ro, co, mode, window, dtype_name = extra
         case, _, _ = fa.backward_case(sq, skv, ro, co, mode, window)
-        err, _, _ = check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, ro, co,
-                                         mode, window)
+        err, inputs, kw = check_flash_backward(fa, sq, skv, h, h_kv, dtype_name, ro, co,
+                                               mode, window)
         errs[case].append(err)
+        if extra == PAST_BWD:
+            timed_inputs["past"] = (inputs, kw)
+        del inputs
+    kernels = {"tri": ("tri_bwd", "wgmma"), "rect": ("band_bwd", "band")}
     entries = []
     for case, (dq_line, dkv_line) in (("tri", (706, 741)), ("rect", (624, 664))):
-        inputs, kw = timed_inputs[case]
-        q, k = inputs[0], inputs[1]
-        what = (f"K10{'a/b' if case == 'tri' else 'c/d'} {case} at {q.shape[0]} x "
-                f"{q.shape[1]} heads of {dh}, window {kw['window']}")
-        times, plain_ms, library_ms, note = time_backward(fa, inputs, kw, smi, what)
+        timed = {}
+        for shape in (case, "past") if case == "rect" else (case,):
+            inputs, kw = timed_inputs.pop(shape)
+            q, k = inputs[0], inputs[1]
+            what = (f"K10{'a/b' if case == 'tri' else 'c/d'} {kw['causal']} at {q.shape[0]} x "
+                    f"{q.shape[1]} heads of {dh}, window {kw['window']}")
+            times, plain_ms, library_ms, note = time_backward(fa, inputs, kw, smi, what)
+            for pass_ in ("dq", "dkv"):
+                bound = backward_bound(fa, q.shape[0], k.shape[0], q.shape[1], k.shape[1], dh,
+                                       2, kw["row_offset"], kw["col_offset"], kw["causal"],
+                                       kw["window"], pass_)
+                print(f"{what} {pass_}: bound {bound[0]!r} ms ({bound[1]}; {smi})")
+                timed[shape, pass_] = {
+                    "ms": times[pass_],
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound[0],
+                    "bound_by": bound[1],
+                    "library_ms": library_ms if pass_ == "dq" else None,
+                    "plain_ms_note": "flash_backward_plain, both passes",
+                    "library_ms_note": note if pass_ == "dq" else (
+                        "null: SDPA's backward stands beside the dQ pass of the same case"),
+                }
+            del inputs
+            torch.cuda.empty_cache()
+        namespace, kernel = kernels[case]
         for pass_, line in (("dq", dq_line), ("dkv", dkv_line)):
-            bound = backward_bound(fa, q.shape[0], k.shape[0], q.shape[1], k.shape[1],
-                                   dh, 2, 0, 0, "offset", kw["window"], pass_)
-            print(f"{what} {pass_}: bound {bound[0]!r} ms ({bound[1]}; {smi})")
-            kernel = {"tri": "wgmma", "rect": "mma"}[case]
             entry = {
                 "name": f"flash_backward_{pass_}" + (" (rect)" if case == "rect" else ""),
                 "kernel": kernel,
-                "ptxas": ptxas_registers("flash_attention", f"flash_bwd_{pass_}_{kernel}"),
+                "ptxas": wgmma_ptxas(namespace, f"flash_bwd_{pass_}_wgmma"),
                 "route": "cuda",
                 "source": "ddlb_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"ddlb_tpu/ops/flash_attention.py:{line}",
                 "launches": None,
                 "max_abs_err": max(errs[case]),
-                "ms": times[pass_],
-                "plain_ms": plain_ms,
-                "bound_ms": bound[0],
-                "bound_by": bound[1],
-                "library_ms": library_ms if pass_ == "dq" else None,
-                "plain_ms_note": "flash_backward_plain, both passes",
-                "library_ms_note": note if pass_ == "dq" else (
-                    "null: SDPA's backward stands beside the dQ pass of the same case"),
+                **timed[case, pass_],
             }
+            if case == "rect":
+                entry["past"] = dict(timed["past", pass_], shape=list(PAST_BWD))
             entries.append(entry)
-        del inputs
-        timed_inputs[case] = None
-        torch.cuda.empty_cache()
     return entries
 
 
@@ -2478,10 +2524,10 @@ def head_phase(run_benchmark, smi):
 def check_tiles(what, k1, cm, fa):
     """Every K1, K2 and K3 launch of a path ran the Hopper tile, every K8a
     launch the tri wgmma forward, every K8b and K9 launch the band wgmma
-    forward, every K10a/K10b pass (``bwd_*_tri``) the
-    wgmma backward and every K10c/K10d pass (``bwd_*_rect``)
-    ``flash_bwd_*_mma`` (the main paths are bf16, at 16-byte widths).
-    Returns the path's launches by tile."""
+    forward, every K10a/K10b pass (``bwd_*_tri``) the tri_bwd wgmma
+    backward and every K10c/K10d pass (``bwd_*_rect``) the band_bwd
+    backward (the main paths are bf16, at 16-byte widths). Returns the
+    path's launches by tile."""
     for name, tiles, launched in (("K1", k1.TILES, k1.LAUNCHES),
                                   ("K2", cm.TILES, cm.LAUNCHES["ag"]),
                                   ("K3", cm.RS_TILES, cm.LAUNCHES["rs"])):
@@ -2494,7 +2540,7 @@ def check_tiles(what, k1, cm, fa):
         fail(f"the flash forward's launches by kernel on {what}: {fa.FORWARD_TILES}, "
              f"expected {want_fa}")
     want_bwd = {"wgmma": fa.LAUNCHES["bwd_dq_tri"] + fa.LAUNCHES["bwd_dkv_tri"],
-                "mma": fa.LAUNCHES["bwd_dq_rect"] + fa.LAUNCHES["bwd_dkv_rect"], "simt": 0}
+                "band": fa.LAUNCHES["bwd_dq_rect"] + fa.LAUNCHES["bwd_dkv_rect"], "simt": 0}
     if fa.BACKWARD_TILES != want_bwd:
         fail(f"the flash backward's passes by kernel on {what}: {fa.BACKWARD_TILES}, "
              f"expected {want_bwd}")

@@ -53,17 +53,17 @@
 // _flash_bwd_dkv_kernel (:664, K10d) for runtime offsets, the window, the
 // past and none modes and GQA. In bf16/fp16 the triangle runs the Hopper
 // kernels of namespace tri_bwd (entry points ddlb_flash_bwd_dq_tri and
-// ddlb_flash_bwd_dkv_tri, with their own design note); everything else runs
-// ddlb_flash_bwd_dq and ddlb_flash_bwd_dkv, which also still take a masked
-// offset-0 square. As in the forward, there the triangle and the rectangle
-// are the same walk with other band parameters, and the wrapper counts the
-// four cases apart. Each tile recomputes S = scale q k^T and P = exp(S - lse)
+// ddlb_flash_bwd_dkv_tri) and everything else those of namespace band_bwd
+// (ddlb_flash_bwd_dq_band and ddlb_flash_bwd_dkv_band: tri_bwd's shape over
+// a runtime band), each namespace with its own design note; float32 runs
+// ddlb_flash_bwd_dq and ddlb_flash_bwd_dkv. The wrapper counts the four
+// cases apart. Each tile recomputes S = scale q k^T and P = exp(S - lse)
 // (masked), then dP = dO v^T and dS = P (dP - delta), with delta =
 // rowsum(dO o) computed by the wrapper:
-//  - ddlb_flash_bwd_dq: one block per (query tile, head) walks the key tiles
-//    of its live band and accumulates dQ = scale dS K in registers;
-//  - ddlb_flash_bwd_dkv: one block per (key tile, kv head) walks, for each
-//    of the group's G query heads in turn, the query tiles of its live band
+//  - the dQ pass: one block per (query tile, head) walks the key tiles of
+//    its live band and accumulates dQ = scale dS K in registers;
+//  - the dK/dV pass: one block per (key tile, kv head) walks, for each of
+//    the group's G query heads in turn, the query tiles of its live band
 //    and accumulates dV = P^T dO and dK = scale dS^T Q. GQA is summed over
 //    the group inside the block, so dK/dV come out with h_kv heads directly.
 // Two accumulation directions and no atomics: the result is deterministic.
@@ -75,21 +75,9 @@
 // the training path's full width (S = 4096, 64 merged heads of 128) that is
 // 1.0e12 operations over 5.4e8 live pairs against about 0.67 GB of bf16
 // operands and float32 gradients: the bf16 tensor cores bound it (about
-// 1 ms), not memory (0.2 ms). The kernels below are the first version,
-// simple: in bf16/fp16 mma.sync m16n8k16 with f32 sums, cp.async double
-// buffering, no wgmma or TMA.
-//  - bf16/fp16 dQ: 64-row query tiles, four warps of 16 rows; Q and dO stay
-//    in registers as A fragments; K and V tiles are staged through shared
-//    memory, two stages deep. dS goes from the C registers of dP straight
-//    into the A fragments of the dS K product, rounded to the operand type
-//    there (P and dS themselves are computed in f32).
-//  - bf16/fp16 dK/dV: 64-key tiles, four warps of 16 keys; the block's K and
-//    V tiles sit in shared memory for the whole walk and feed S^T = K Q^T
-//    and dP^T = V dO^T as A fragments; Q, dO, lse and delta of each query
-//    tile are staged two deep. P^T and dS^T become the A fragments of the
-//    P^T dO and dS^T Q products, rounded to the operand type there.
-//  - float32: SIMT kernels in true f32, two threads per row (a query row
-//    for dQ, a key row for dK/dV), each owning half of the head dim.
+// 1 ms), not memory (0.2 ms). float32 runs SIMT kernels in true f32, two
+// threads per row (a query row for dQ, a key row for dK/dV), each owning
+// half of the head dim.
 
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // after its launch (0 = success). Launches on the caller's stream, never
@@ -178,27 +166,19 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 on the tensor cores (mma.sync m16n8k16, f32 accumulators)
+// bf16 / fp16 operands of the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64, BKV = 64, WARPS = 4, THREADS = 32 * WARPS, STAGES = 2;
-
+// Two float32 values rounded to T and packed into 32 bits, lo in the low 16
+// bits (the element of the smaller column index): a register operand of
+// wgmma.
 template <typename T>
 struct Half;
 template <>
 struct Half<__nv_bfloat16> {
-  // lo in the low 16 bits: the element of the smaller column index
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
 template <>
@@ -207,40 +187,7 @@ struct Half<__half> {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int D>
-constexpr int mma_smem_bytes() {
-  return STAGES * 2 * BKV * (D + 8) * 2;  // K and V, rows padded by 16 bytes
-}
 
 // ---------------------------------------------------------------------------
 // float32 on the SIMT cores (true f32, no TF32)
@@ -401,368 +348,6 @@ __device__ __forceinline__ bool pair_tile_needs_mask(const Params& p, int qlo,
   if (p.causal && p.k_base + khi - 1 > p.q_base + qlo) return true;
   if (p.window && p.k_base + klo <= p.q_base + qhi - 1 - p.window) return true;
   return false;
-}
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // this block's K and V, then two stages of Q, dO, lse and delta
-  return 2 * BKV * (D + 8) * 2 + STAGES * (2 * BQ * (D + 8) * 2 + 2 * BQ * 4);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma(Params p,
-                                                               Grads gr) {
-  constexpr int LDS = D + 8;
-  constexpr int KSTEPS = D / 16, NT_S = BKV / 8, NT_O = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // STAGES x [BKV][LDS]
-  T* Vs = Ks + STAGES * BKV * LDS;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
-  const int qhi = min(q0 + BQ, p.sq);
-  const int hh = blockIdx.y, kvh = hh / p.group;
-  const size_t q_stride = static_cast<size_t>(p.h) * D;
-  const size_t kv_stride = static_cast<size_t>(p.h_kv) * D;
-  const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(hh) * D;
-  const T* DO = static_cast<const T*>(gr.dout) + static_cast<size_t>(hh) * D;
-  const T* K = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * D;
-  const T* V = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * D;
-
-  // this thread's two query rows and their A fragments of Q and dO
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const bool in0 = r0 < p.sq, in1 = r1 < p.sq;
-  uint32_t qf[KSTEPS][4], df[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qf[kk][0] = in0 ? ld32(Q + r0 * q_stride + c) : 0u;
-    qf[kk][1] = in1 ? ld32(Q + r1 * q_stride + c) : 0u;
-    qf[kk][2] = in0 ? ld32(Q + r0 * q_stride + c + 8) : 0u;
-    qf[kk][3] = in1 ? ld32(Q + r1 * q_stride + c + 8) : 0u;
-    df[kk][0] = in0 ? ld32(DO + r0 * q_stride + c) : 0u;
-    df[kk][1] = in1 ? ld32(DO + r1 * q_stride + c) : 0u;
-    df[kk][2] = in0 ? ld32(DO + r0 * q_stride + c + 8) : 0u;
-    df[kk][3] = in1 ? ld32(DO + r1 * q_stride + c + 8) : 0u;
-  }
-  const size_t row0 = static_cast<size_t>(hh) * p.sq + r0;  // [h, sq] index
-  const size_t row1 = row0 + 8;
-  const float lse0 = in0 ? p.lse[row0] : 0.0f, lse1 = in1 ? p.lse[row1] : 0.0f;
-  const float dl0 = in0 ? gr.delta[row0] : 0.0f;
-  const float dl1 = in1 ? gr.delta[row1] : 0.0f;
-
-  float dq[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
-
-  auto load_tile = [&](int stage, int tile) {
-    T* ks = Ks + stage * BKV * LDS;
-    T* vs = Vs + stage * BKV * LDS;
-    const int k0 = tile * BKV;
-    for (int i = tid; i < BKV * (D / 8); i += THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      if (k0 + r < p.skv) {
-        const size_t off = static_cast<size_t>(k0 + r) * kv_stride + c;
-        cp_async16(ks + r * LDS + c, K + off);
-        cp_async16(vs + r * LDS + c, V + off);
-      } else {
-        *reinterpret_cast<uint4*>(ks + r * LDS + c) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vs + r * LDS + c) = make_uint4(0, 0, 0, 0);
-      }
-    }
-  };
-
-  int first, last;
-  tile_range<BKV>(p, q0, qhi, first, last);
-  if (first < last) load_tile(0, first);
-  cp_async_commit();
-
-  for (int t = first; t < last; ++t) {
-    const int stage = (t - first) & 1;
-    if (t + 1 < last) {
-      load_tile(stage ^ 1, t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const T* ks = Ks + stage * BKV * LDS;
-    const T* vs = Vs + stage * BKV * LDS;
-    const int k0 = t * BKV;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[NT_S][4], dp[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        const int off = (j * 8 + g) * LDS + kk * 16 + t4 * 2;
-        const uint32_t bk[2] = {ld32(ks + off), ld32(ks + off + 8)};
-        const uint32_t bv[2] = {ld32(vs + off), ld32(vs + off + 8)};
-        Half<T>::mma(s[j], qf[kk], bk);
-        Half<T>::mma(dp[j], df[kk], bv);
-      }
-    }
-
-    // P = exp(scale S - lse), masked; dS = P (dP - delta), kept in s
-    const bool need_mask = tile_needs_mask<BKV>(p, q0, qhi, k0);
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      const int c = k0 + j * 8 + t4 * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        float pe = expf(s[j][e] * p.scale - (lo ? lse0 : lse1));
-        if (need_mask && !live(p, p.q_base + (lo ? r0 : r1), c + (e & 1)))
-          pe = 0.0f;
-        s[j][e] = pe * (dp[j][e] - (lo ? dl0 : dl1));
-      }
-    }
-
-    // dQ += dS K: the C fragments of dS are the A fragment, K the B operand
-    const uint16_t* ku = reinterpret_cast<const uint16_t*>(ks);
-#pragma unroll
-    for (int kt = 0; kt < BKV / 16; ++kt) {
-      const uint32_t a[4] = {
-          Half<T>::pack(s[2 * kt][0], s[2 * kt][1]),
-          Half<T>::pack(s[2 * kt][2], s[2 * kt][3]),
-          Half<T>::pack(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-          Half<T>::pack(s[2 * kt + 1][2], s[2 * kt + 1][3]),
-      };
-      const uint16_t* krow = ku + (kt * 16 + t4 * 2) * LDS + g;
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        const uint16_t* kp = krow + j * 8;
-        const uint32_t b[2] = {
-            static_cast<uint32_t>(kp[0]) | (static_cast<uint32_t>(kp[LDS]) << 16),
-            static_cast<uint32_t>(kp[8 * LDS]) |
-                (static_cast<uint32_t>(kp[9 * LDS]) << 16),
-        };
-        Half<T>::mma(dq[j], a, b);
-      }
-    }
-    __syncthreads();  // the stage is free for the copy two tiles ahead
-  }
-
-  float* DQ = gr.dq + static_cast<size_t>(hh) * D;
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    const int c = j * 8 + t4 * 2;
-    if (in0)
-      *reinterpret_cast<float2*>(DQ + r0 * q_stride + c) =
-          make_float2(dq[j][0] * p.scale, dq[j][1] * p.scale);
-    if (in1)
-      *reinterpret_cast<float2*>(DQ + r1 * q_stride + c) =
-          make_float2(dq[j][2] * p.scale, dq[j][3] * p.scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_mma(Params p,
-                                                                Grads gr) {
-  constexpr int LDS = D + 8;
-  constexpr int KSTEPS = D / 16, NT_Q = BQ / 8, NT_O = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [BKV][LDS], this block's keys
-  T* Vs = Ks + BKV * LDS;
-  T* Qs = Vs + BKV * LDS;                  // STAGES x [BQ][LDS]
-  T* Ds = Qs + STAGES * BQ * LDS;          // STAGES x [BQ][LDS] (dO)
-  float* Ls = reinterpret_cast<float*>(Ds + STAGES * BQ * LDS);  // STAGES x [BQ]
-  float* Es = Ls + STAGES * BQ;                                  // delta
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * BKV;
-  const int khi = min(k0 + BKV, p.skv);
-  const int kvh = blockIdx.y;
-  const size_t q_stride = static_cast<size_t>(p.h) * D;
-  const size_t kv_stride = static_cast<size_t>(p.h_kv) * D;
-  const T* K = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * D;
-  const T* V = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * D;
-
-  for (int i = tid; i < BKV * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    if (k0 + r < p.skv) {
-      const size_t off = static_cast<size_t>(k0 + r) * kv_stride + c;
-      cp_async16(Ks + r * LDS + c, K + off);
-      cp_async16(Vs + r * LDS + c, V + off);
-    } else {
-      *reinterpret_cast<uint4*>(Ks + r * LDS + c) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(Vs + r * LDS + c) = make_uint4(0, 0, 0, 0);
-    }
-  }
-  cp_async_commit();
-
-  // this thread's two keys (local), the rows of the warp's A fragments
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-  float dk[NT_O][4], dv[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.0f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.0f;
-  }
-
-  int first, last;
-  q_tile_range<BQ>(p, k0, khi, first, last);
-  const int per_head = last - first, steps = p.group * per_head;
-
-  // step it: query head kvh * group + it / per_head, query tile
-  // first + it % per_head
-  auto load_tile = [&](int stage, int it) {
-    const int hh = kvh * p.group + it / per_head;
-    const int q0 = (first + it % per_head) * BQ;
-    T* qs = Qs + stage * BQ * LDS;
-    T* ds = Ds + stage * BQ * LDS;
-    const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(hh) * D;
-    const T* DO = static_cast<const T*>(gr.dout) + static_cast<size_t>(hh) * D;
-    for (int i = tid; i < BQ * (D / 8); i += THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      if (q0 + r < p.sq) {
-        const size_t off = static_cast<size_t>(q0 + r) * q_stride + c;
-        cp_async16(qs + r * LDS + c, Q + off);
-        cp_async16(ds + r * LDS + c, DO + off);
-      } else {
-        *reinterpret_cast<uint4*>(qs + r * LDS + c) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(ds + r * LDS + c) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    if (tid < BQ) {
-      const bool ok = q0 + tid < p.sq;
-      const size_t row = static_cast<size_t>(hh) * p.sq + q0 + tid;
-      Ls[stage * BQ + tid] = ok ? p.lse[row] : 0.0f;
-      Es[stage * BQ + tid] = ok ? gr.delta[row] : 0.0f;
-    }
-  };
-
-  if (steps > 0) load_tile(0, 0);
-  cp_async_commit();
-
-  for (int it = 0; it < steps; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < steps) {
-      load_tile(stage ^ 1, it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const int q0 = (first + it % per_head) * BQ;
-    const int qhi = min(q0 + BQ, p.sq);
-    const T* qs = Qs + stage * BQ * LDS;
-    const T* ds = Ds + stage * BQ * LDS;
-    const float* ls = Ls + stage * BQ;
-    const float* es = Es + stage * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
-    float s[NT_Q][4], dp[NT_Q][4];
-#pragma unroll
-    for (int j = 0; j < NT_Q; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const int a0 = (warp * 16 + g) * LDS + kk * 16 + t4 * 2;
-      const uint32_t ak[4] = {ld32(Ks + a0), ld32(Ks + a0 + 8 * LDS),
-                              ld32(Ks + a0 + 8), ld32(Ks + a0 + 8 * LDS + 8)};
-      const uint32_t av[4] = {ld32(Vs + a0), ld32(Vs + a0 + 8 * LDS),
-                              ld32(Vs + a0 + 8), ld32(Vs + a0 + 8 * LDS + 8)};
-#pragma unroll
-      for (int j = 0; j < NT_Q; ++j) {
-        const int off = (j * 8 + g) * LDS + kk * 16 + t4 * 2;
-        const uint32_t bq[2] = {ld32(qs + off), ld32(qs + off + 8)};
-        const uint32_t bd[2] = {ld32(ds + off), ld32(ds + off + 8)};
-        Half<T>::mma(s[j], ak, bq);
-        Half<T>::mma(dp[j], av, bd);
-      }
-    }
-
-    // P^T = exp(scale S^T - lse) (masked) into s, dS^T = P^T (dP^T - delta)
-    // into dp; entry e holds key (e < 2 ? kr0 : kr1), query j*8 + 2*t4 + e%2
-    const bool need_mask =
-        pair_tile_needs_mask(p, q0, qhi, k0, khi, BQ, BKV);
-#pragma unroll
-    for (int j = 0; j < NT_Q; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        float pe = expf(s[j][e] * p.scale - ls[qc]);
-        if (need_mask && !live_pair(p, q0 + qc, e < 2 ? kr0 : kr1)) pe = 0.0f;
-        s[j][e] = pe;
-        dp[j][e] = pe * (dp[j][e] - es[qc]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q: A fragments from the C registers,
-    // dO and Q rows as the B operands
-    const uint16_t* du = reinterpret_cast<const uint16_t*>(ds);
-    const uint16_t* qu = reinterpret_cast<const uint16_t*>(qs);
-#pragma unroll
-    for (int kt = 0; kt < BQ / 16; ++kt) {
-      const uint32_t ap[4] = {
-          Half<T>::pack(s[2 * kt][0], s[2 * kt][1]),
-          Half<T>::pack(s[2 * kt][2], s[2 * kt][3]),
-          Half<T>::pack(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-          Half<T>::pack(s[2 * kt + 1][2], s[2 * kt + 1][3]),
-      };
-      const uint32_t as[4] = {
-          Half<T>::pack(dp[2 * kt][0], dp[2 * kt][1]),
-          Half<T>::pack(dp[2 * kt][2], dp[2 * kt][3]),
-          Half<T>::pack(dp[2 * kt + 1][0], dp[2 * kt + 1][1]),
-          Half<T>::pack(dp[2 * kt + 1][2], dp[2 * kt + 1][3]),
-      };
-      const int rowoff = (kt * 16 + t4 * 2) * LDS + g;
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        const uint16_t* dpp = du + rowoff + j * 8;
-        const uint16_t* qpp = qu + rowoff + j * 8;
-        const uint32_t bd[2] = {
-            static_cast<uint32_t>(dpp[0]) | (static_cast<uint32_t>(dpp[LDS]) << 16),
-            static_cast<uint32_t>(dpp[8 * LDS]) |
-                (static_cast<uint32_t>(dpp[9 * LDS]) << 16),
-        };
-        const uint32_t bq[2] = {
-            static_cast<uint32_t>(qpp[0]) | (static_cast<uint32_t>(qpp[LDS]) << 16),
-            static_cast<uint32_t>(qpp[8 * LDS]) |
-                (static_cast<uint32_t>(qpp[9 * LDS]) << 16),
-        };
-        Half<T>::mma(dv[j], ap, bd);
-        Half<T>::mma(dk[j], as, bq);
-      }
-    }
-    __syncthreads();  // the stage is free for the copy two steps ahead
-  }
-  cp_async_wait<0>();  // the K/V copies, when no step ran
-
-  float* DK = gr.dk + static_cast<size_t>(kvh) * D;
-  float* DV = gr.dv + static_cast<size_t>(kvh) * D;
-  const bool in0 = kr0 < p.skv, in1 = kr1 < p.skv;
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    const int c = j * 8 + t4 * 2;
-    if (in0) {
-      *reinterpret_cast<float2*>(DK + kr0 * kv_stride + c) =
-          make_float2(dk[j][0] * p.scale, dk[j][1] * p.scale);
-      *reinterpret_cast<float2*>(DV + kr0 * kv_stride + c) =
-          make_float2(dv[j][0], dv[j][1]);
-    }
-    if (in1) {
-      *reinterpret_cast<float2*>(DK + kr1 * kv_stride + c) =
-          make_float2(dk[j][2] * p.scale, dk[j][3] * p.scale);
-      *reinterpret_cast<float2*>(DV + kr1 * kv_stride + c) =
-          make_float2(dv[j][2], dv[j][3]);
-    }
-  }
 }
 
 // float32 on the SIMT cores: two threads per row, each owning the head-dim
@@ -1469,8 +1054,7 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 // The triangle only (causal, offset 0, sq == skv, no window), bf16/fp16,
 // head_dim 128, as flash_fwd_wgmma; each kernel has its own argument
 // struct with __grid_constant__ tensor maps (Params and Grads stay as they
-// are). The arithmetic is flash_bwd_*_mma's: P = exp(scale S - lse) with
-// the causal mask, dS = P (dP - delta) in float32, P and dS rounded once
+// are). The arithmetic: P = exp(scale S - lse) with the causal mask, dS = P (dP - delta) in float32, P and dS rounded once
 // to T as the A operands of their products, float32 sums; in base 2, p =
 // ex2(s c - lse log2(e)) with c = scale log2(e), one FMA a score.
 //  - Shape: one block of 384 threads; warpgroup 0 is the producer
@@ -1514,6 +1098,10 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 //    keys.
 //  - Epilogues: scale dQ, dV, scale dK in float32, stored 8 bytes a lane
 //    for rows below sq.
+// The products, the dS and P passes (their masks as [lo, hi] bounds a row),
+// the producers, the block orders, the dQ step, the dK/dV walk (over a walk
+// policy: which steps to skip and to mask) and the epilogue are inline
+// helpers that band_bwd's kernels share.
 namespace tri_bwd {
 
 using tri::BOX;
@@ -1715,41 +1303,30 @@ __device__ __forceinline__ void store_rows(float* out, size_t stride, const floa
   }
 }
 
-// dS = P (dP - delta) into s for this thread's rows r0, r0 + 8 (local to the
-// tile) and keys key0 + 8 j + 2 t4 + (e & 1); MASKED (the diagonal tile
-// only) zeroes p of the keys after the query. Its own instantiation, so the
-// other tiles carry no mask arithmetic.
+// dS = P (dP - delta) into s for this thread's rows (r = 0, 1: r0 and r0 + 8)
+// and the keys 8 j + 2 t4 + (e & 1) of a 64-key step. MASKED zeroes p
+// outside keys [lo[r], hi[r]] + 2 t4 of row r (the caller takes 2 t4 off,
+// so each fragment compares its own column, a constant): by a select,
+// whatever the exp gave (an empty row's lse is NEG_INF). Its own
+// instantiation, so the other steps carry no mask arithmetic.
 template <bool MASKED>
 __device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
                                         const float (&lse2)[2], const float (&dl)[2], float c,
-                                        int r0, int key0) {
-  const int t4 = threadIdx.x % 4;
+                                        const int (&lo)[2], const int (&hi)[2]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
+      const int r = e >> 1, col = 8 * j + (e & 1);
       float pe = tri::ex2(fmaf(s[4 * j + e], c, -lse2[r]));
-      if (MASKED && key0 + 8 * j + 2 * t4 + (e & 1) > r0 + 8 * r) pe = 0.0f;
+      if (MASKED && (col < lo[r] || col > hi[r])) pe = 0.0f;
       s[4 * j + e] = pe * (dp[4 * j + e] - dl[r]);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ DqArgs p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const DqSmem sm{(raw + 1023u) & ~1023u};
-  // tri's order: heads in groups whose K and V fit in L2 together, the
-  // heaviest query tiles first inside a group
-  const int first = static_cast<int>(blockIdx.x) / (p.head_group * p.q_tiles) * p.head_group;
-  const int heads = min(p.head_group, p.h - first);
-  const int local = static_cast<int>(blockIdx.x) - first * p.q_tiles;
-  const int qt = p.q_tiles - 1 - local / heads;
-  const int hh = first + local % heads, kvh = hh / p.group;
-  const int q0 = qt * ROWS, n_tiles = qt + 1;
-
+// Thread 0 sets up a dQ block's mbarriers; every thread waits for it.
+__device__ __forceinline__ void init_dq_barriers(const DqSmem& sm) {
   if (threadIdx.x == 0) {
     hopper::mbar_init(sm.q_full(), 1);
     for (int s = 0; s < DQ_STAGES; ++s) {
@@ -1761,33 +1338,88 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_co
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// The dQ producer (one thread): Q and dO of query rows q0 of head hh once,
+// then K and V of kv head kvh from key tile last - 1 down, n_tiles of
+// them, through the two rings.
+__device__ __forceinline__ void load_dq(const DqSmem& sm, const CUtensorMap* q,
+                                        const CUtensorMap* dout, const CUtensorMap* k,
+                                        const CUtensorMap* v, int hh, int kvh, int q0, int last,
+                                        int n_tiles) {
+  hopper::mbar_expect_tx(sm.q_full(), 2 * TILE_BYTES);
+  for (int half = 0; half < 2; ++half) {
+    hopper::tma_load(sm.q() + half * HALF_BYTES, q, sm.q_full(), half * BOX, hh, q0);
+    hopper::tma_load(sm.dout() + half * HALF_BYTES, dout, sm.q_full(), half * BOX, hh, q0);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % DQ_STAGES;
+    const uint32_t phase = (i / DQ_STAGES) & 1;
+    const int k0 = (last - 1 - i) * ROWS;
+    hopper::mbar_wait(sm.k_empty(st), phase ^ 1u);
+    hopper::mbar_expect_tx(sm.k_full(st), TILE_BYTES);
+    for (int half = 0; half < 2; ++half)
+      hopper::tma_load(sm.k(st) + half * HALF_BYTES, k, sm.k_full(st), half * BOX, kvh, k0);
+    hopper::mbar_wait(sm.v_empty(st), phase ^ 1u);
+    hopper::mbar_expect_tx(sm.v_full(st), TILE_BYTES);
+    for (int half = 0; half < 2; ++half)
+      hopper::tma_load(sm.v(st) + half * HALF_BYTES, v, sm.v_full(st), half * BOX, kvh, k0);
+  }
+}
+
+// One 64-key step of a dQ consumer warpgroup, keys koff bytes into K and V
+// stage st: S = Q K^T and dP = dO V^T (SS m64n64k16; dQ, S and dP of a
+// whole 128-key tile, 192 registers, serialise ptxas's wgmma pipeline),
+// then dS = P (dP - delta) into s, masked (bounds() gives each row's keys)
+// or not, then dQ += dS K (RS m64n128k16, K read MN-major through the
+// transpose bit, as issue_pv reads V). release_v arrives on the V stage's
+// empty barrier as soon as dP has run.
+template <typename T, typename Bounds>
+__device__ __forceinline__ void dq_step(const DqSmem& sm, int st, uint32_t koff, uint32_t qa,
+                                        uint32_t da, bool release_v, bool masked,
+                                        const Bounds& bounds, const float (&lse2)[2],
+                                        const float (&dl)[2], float c, float (&s)[32],
+                                        float (&dp)[32], uint32_t (&pa)[16], float (&dq)[64]) {
+  hopper::wgmma_fence();
+  ss_dh<T>(s, opaque(qa), HALF_BYTES, sm.k(st) + koff, HALF_BYTES);
+  ss_dh<T>(dp, opaque(da), HALF_BYTES, sm.v(st) + koff, HALF_BYTES);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  if (release_v) hopper::mbar_arrive(sm.v_empty(st));
+  int lo[2] = {0, 0}, hi[2] = {0, 0};
+  if (masked) {
+    bounds(lo, hi);
+    ds_rows<true>(s, dp, lse2, dl, c, lo, hi);
+  } else {
+    ds_rows<false>(s, dp, lse2, dl, c, lo, hi);
+  }
+  pack<T, 32>(pa, s);
+  hopper::wgmma_fence();
+  rs_rows<T, 4>(dq, pa, sm.k(st) + koff, HALF_BYTES);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(dq);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ DqArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const DqSmem sm{(raw + 1023u) & ~1023u};
+  // tri's order: heads in groups whose K and V fit in L2 together, the
+  // heaviest query tiles first inside a group
+  int qt, hh, kvh;
+  tri::block_tile(p.head_group, p.q_tiles, p.h, p.group, qt, hh, kvh);
+  const int q0 = qt * ROWS, n_tiles = qt + 1;
+
+  init_dq_barriers(sm);
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     hopper::producer_registers();
-    if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(sm.q_full(), 2 * TILE_BYTES);
-      for (int half = 0; half < 2; ++half) {
-        hopper::tma_load(sm.q() + half * HALF_BYTES, &p.q, sm.q_full(), half * BOX, hh, q0);
-        hopper::tma_load(sm.dout() + half * HALF_BYTES, &p.dout, sm.q_full(), half * BOX, hh,
-                         q0);
-      }
-      // key tiles from the diagonal (qt) down to 0
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % DQ_STAGES;
-        const uint32_t phase = (i / DQ_STAGES) & 1;
-        const int k0 = (qt - i) * ROWS;
-        hopper::mbar_wait(sm.k_empty(st), phase ^ 1u);
-        hopper::mbar_expect_tx(sm.k_full(st), TILE_BYTES);
-        for (int half = 0; half < 2; ++half)
-          hopper::tma_load(sm.k(st) + half * HALF_BYTES, &p.k, sm.k_full(st), half * BOX, kvh,
-                           k0);
-        hopper::mbar_wait(sm.v_empty(st), phase ^ 1u);
-        hopper::mbar_expect_tx(sm.v_full(st), TILE_BYTES);
-        for (int half = 0; half < 2; ++half)
-          hopper::tma_load(sm.v(st) + half * HALF_BYTES, &p.v, sm.v_full(st), half * BOX, kvh,
-                           k0);
-      }
-    }
+    // key tiles from the diagonal (qt) down to 0
+    if (threadIdx.x == 0) load_dq(sm, &p.q, &p.dout, &p.k, &p.v, hh, kvh, q0, n_tiles, n_tiles);
   } else {
     hopper::consumer_registers();
     const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -1808,34 +1440,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_co
       const uint32_t ph = (i / DQ_STAGES) & 1;
       hopper::mbar_wait(sm.k_full(st), ph);
       hopper::mbar_wait(sm.v_full(st), ph);
-      // the tile's keys in halves of 64 (dQ, S and dP of a whole 128-key
-      // tile, 192 registers, serialise ptxas's wgmma pipeline); on the
-      // diagonal tile (i = 0) the second half lies after every row of
-      // warpgroup 0, which skips it
+      // the tile's keys in steps of 64; on the diagonal tile (i = 0) the
+      // second step lies after every row of warpgroup 0, which skips it,
+      // and the keys after the query are masked (their p is exactly 0)
       const bool diag = i == 0;
       const int halves = diag && c == 0 ? 1 : 2;
       for (int h2 = 0; h2 < halves; ++h2) {
-        const uint32_t koff = h2 * WG_ROWS_BYTES;
-        hopper::wgmma_fence();
-        ss_dh<T>(s, opaque(qa), HALF_BYTES, sm.k(st) + koff, HALF_BYTES);
-        ss_dh<T>(dp, opaque(da), HALF_BYTES, sm.v(st) + koff, HALF_BYTES);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
-        if (arrives && h2 == halves - 1) hopper::mbar_arrive(sm.v_empty(st));
-        // dS = P (dP - delta) into s; on the diagonal tile the keys after
-        // the query are masked and their p is exactly 0
-        if (diag)
-          ds_rows<true>(s, dp, lse2, dl, p.scale_log2, r0, 64 * h2);
-        else
-          ds_rows<false>(s, dp, lse2, dl, p.scale_log2, r0, 64 * h2);
-        pack<T, 32>(pa, s);
-        hopper::wgmma_fence();
-        rs_rows<T, 4>(dq, pa, sm.k(st) + koff, HALF_BYTES);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        fence_regs(dq);
+        const auto bounds = [&](int (&lo)[2], int (&hi)[2]) {
+          const int t2 = 2 * (lane % 4);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            lo[r] = -t2;
+            hi[r] = r0 + 8 * r - 64 * h2 - t2;
+          }
+        };
+        dq_step<T>(sm, st, h2 * WG_ROWS_BYTES, qa, da, arrives && h2 == halves - 1, diag, bounds,
+                   lse2, dl, p.scale_log2, s, dp, pa, dq);
       }
       if (arrives) hopper::mbar_arrive(sm.k_empty(st));
     }
@@ -1845,14 +1465,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_co
   }
 }
 
-// P^T, or (DK) dS^T = P^T (dP^T - delta), into s for this thread's keys
-// kb + kr, + 8 and queries q0 + 8 j + 2 t4 + (e & 1), from the stage's lse
-// log2(e) and delta at vec. MASKED (the diagonal and ragged query tiles)
-// zeroes p of queries before the key or past sq; its own instantiation, so
-// the other tiles carry no mask arithmetic.
+// P^T, or (DK) dS^T = P^T (dP^T - delta), into s for this thread's keys (r
+// = 0, 1: its two rows of the warpgroup's 64) and the queries 8 j + 2 t4 +
+// (e & 1) of a step, from the stage's lse log2(e) and delta at vec. MASKED
+// zeroes p outside queries [lo[r], hi[r]] + 2 t4 of key r (2 t4 taken off by
+// the caller), by a select; its own instantiation, so the other steps carry
+// no mask arithmetic.
 template <bool DK, bool MASKED>
 __device__ __forceinline__ void p_cols(float (&s)[32], const float (&dp)[32], const float* vec,
-                                       float c, int q0, int kpos0, int sq) {
+                                       float c, const int (&lo)[2], const int (&hi)[2]) {
   const int t4 = threadIdx.x % 4;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -1863,8 +1484,8 @@ __device__ __forceinline__ void p_cols(float (&s)[32], const float (&dp)[32], co
     for (int e = 0; e < 4; ++e) {
       float pe = tri::ex2(fmaf(s[4 * j + e], c, -((e & 1) ? l2.y : l2.x)));
       if (MASKED) {
-        const int qpos = q0 + col + (e & 1), kpos = kpos0 + 8 * (e >> 1);
-        if (qpos < kpos || qpos >= sq) pe = 0.0f;
+        const int x = 8 * j + (e & 1), r = e >> 1;
+        if (x < lo[r] || x > hi[r]) pe = 0.0f;
       }
       s[4 * j + e] = DK ? pe * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) : pe;
     }
@@ -1872,22 +1493,24 @@ __device__ __forceinline__ void p_cols(float (&s)[32], const float (&dp)[32], co
 }
 
 // One walk of a consumer warpgroup over its block's query steps (ring
-// positions it0 ...): dV += P^T dO, or (DK) dK += dS^T Q, into acc.
-template <typename T, bool DK>
-__device__ __forceinline__ void dkv_walk(const DkvArgs& p, const DkvSmem& sm, int it0, int steps,
-                                         int per_head, int k0, int kb, uint32_t ka, uint32_t va,
-                                         float (&acc)[64]) {
+// positions it0 ...; step i is query step first + i % per_head of the
+// group's query head i / per_head): dV += P^T dO, or (DK) dK += dS^T Q,
+// into acc. The walk policy w says which steps the warpgroup's keys skip
+// (no live pair), which it masks, and each key's live queries there.
+template <typename T, bool DK, typename Walk>
+__device__ __forceinline__ void dkv_walk(const Walk& w, const DkvSmem& sm, int it0, int steps,
+                                         int per_head, int first, uint32_t ka, uint32_t va,
+                                         float c, float (&acc)[64]) {
   const bool arrives = threadIdx.x % 32 == 0;
-  const int kpos0 = kb + 16 * ((threadIdx.x / 32) % 4) + (threadIdx.x % 32) / 4;
   float s[32], dp[32];
   uint32_t pa[16];
   for (int i = 0; i < steps; ++i) {
     const int it = it0 + i;
     const int st = it % DKV_STAGES;
     const uint32_t ph = (it / DKV_STAGES) & 1;
-    const int q0 = k0 + (i % per_head) * Q_STEP;
+    const int q0 = (first + i % per_head) * Q_STEP;
     hopper::mbar_wait(sm.full(st), ph);
-    if (q0 + Q_STEP <= kb) {  // every query before this warpgroup's keys
+    if (w.skip(q0)) {
       if (arrives) hopper::mbar_arrive(sm.empty(st));
       continue;
     }
@@ -1898,11 +1521,13 @@ __device__ __forceinline__ void dkv_walk(const DkvArgs& p, const DkvSmem& sm, in
     hopper::wgmma_wait<0>();
     fence_regs(s);
     if (DK) fence_regs(dp);
-    // masked on the diagonal tile (queries before the key) and past sq
-    if (q0 < kb + 64 || q0 + Q_STEP > p.sq)
-      p_cols<DK, true>(s, dp, sm.vec(st), p.scale_log2, q0, kpos0, p.sq);
-    else
-      p_cols<DK, false>(s, dp, sm.vec(st), p.scale_log2, q0, kpos0, p.sq);
+    int lo[2] = {0, 0}, hi[2] = {0, 0};
+    if (w.masked(q0)) {
+      w.bounds(q0, lo, hi);
+      p_cols<DK, true>(s, dp, sm.vec(st), c, lo, hi);
+    } else {
+      p_cols<DK, false>(s, dp, sm.vec(st), c, lo, hi);
+    }
     pack<T, 32>(pa, s);
     // dV += P^T dO, or dK += dS^T Q: dO and Q read MN-major
     hopper::wgmma_fence();
@@ -1914,23 +1539,27 @@ __device__ __forceinline__ void dkv_walk(const DkvArgs& p, const DkvSmem& sm, in
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkv_wgmma(const __grid_constant__ DkvArgs p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t aligned = (raw + 1023u) & ~1023u;
-  const DkvSmem sm{aligned, smem_raw + (aligned - raw)};
-  // kv heads in groups whose Q and dO fit in L2 together; inside a group
-  // key tile 0 (the most live query tiles) first, head by head
-  const int first = static_cast<int>(blockIdx.x) / (p.head_group * p.k_tiles) * p.head_group;
-  const int heads = min(p.head_group, p.h_kv - first);
-  const int local = static_cast<int>(blockIdx.x) - first * p.k_tiles;
-  const int kt = local / heads, kvh = first + local % heads;
-  const int k0 = kt * ROWS;
-  // the live query steps of each query head: from the diagonal (k0) to the end
-  const int per_head = p.q_steps - 2 * kt, steps = p.group * per_head;
+// The triangle's walk for a consumer warpgroup whose keys start at kb: a
+// query step wholly before its keys is skipped; the steps that reach its
+// first 64 queries (the diagonal) or pass sq are masked (queries before
+// the key or past sq).
+struct TriWalk {
+  int kb, sq;
+  __device__ bool skip(int q0) const { return q0 + Q_STEP <= kb; }
+  __device__ bool masked(int q0) const { return q0 < kb + 64 || q0 + Q_STEP > sq; }
+  __device__ void bounds(int q0, int (&lo)[2], int (&hi)[2]) const {
+    const int t2 = 2 * (threadIdx.x % 4);
+    const int kpos = kb + 16 * ((threadIdx.x / 32) % 4) + (threadIdx.x % 32) / 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lo[r] = kpos + 8 * r - q0 - t2;
+      hi[r] = sq - 1 - q0 - t2;
+    }
+  }
+};
 
+// Thread 0 sets up a dK/dV block's mbarriers; every thread waits for it.
+__device__ __forceinline__ void init_dkv_barriers(const DkvSmem& sm) {
   if (threadIdx.x == 0) {
     hopper::mbar_init(sm.kv_full(), 1);
     for (int s = 0; s < DKV_STAGES; ++s) {
@@ -1940,59 +1569,99 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// A dK/dV block's key tile and kv head: kv heads in groups of head_group,
+// whose Q and dO fit in L2 together; inside a group key tile 0 (under a
+// causal band, the most live query steps) first, head by head.
+__device__ __forceinline__ void key_tile_order(int head_group, int k_tiles, int h_kv, int& kt,
+                                               int& kvh) {
+  const int first = static_cast<int>(blockIdx.x) / (head_group * k_tiles) * head_group;
+  const int heads = min(head_group, h_kv - first);
+  const int local = static_cast<int>(blockIdx.x) - first * k_tiles;
+  kt = local / heads;
+  kvh = first + local % heads;
+}
+
+// The dK/dV producer warp (all 32 lanes): lane 0 loads K and V of keys k0
+// of kv head kvh once, then the query steps [first, first + per_head) of
+// each of the group's query heads in turn, twice (dV's walk, then dK's),
+// through the ring of DKV_STAGES; every lane loads its share of a step's
+// lse log2(e) and delta while the stage drains, stores it beside the stage
+// and arrives on its full barrier beside TMA's bytes.
+__device__ __forceinline__ void load_dkv(const DkvSmem& sm, const CUtensorMap* q,
+                                         const CUtensorMap* dout, const CUtensorMap* k,
+                                         const CUtensorMap* v, const float* lse,
+                                         const float* delta, int sq, int group, int kvh, int k0,
+                                         int first, int per_head) {
+  const int lane = threadIdx.x % 32, steps = group * per_head;
+  if (lane == 0) {
+    hopper::mbar_expect_tx(sm.kv_full(), 2 * TILE_BYTES);
+    for (int half = 0; half < 2; ++half) {
+      hopper::tma_load(sm.k() + half * HALF_BYTES, k, sm.kv_full(), half * BOX, kvh, k0);
+      hopper::tma_load(sm.v() + half * HALF_BYTES, v, sm.kv_full(), half * BOX, kvh, k0);
+    }
+  }
+  for (int it = 0; it < 2 * steps; ++it) {
+    const int st = it % DKV_STAGES;
+    const uint32_t phase = (it / DKV_STAGES) & 1;
+    const int i = it % steps;
+    const int hh = kvh * group + i / per_head;
+    const int q0 = (first + i % per_head) * Q_STEP;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = lane + 32 * u;
+      const bool in = q0 + r < sq;
+      const size_t idx = static_cast<size_t>(hh) * sq + q0 + r;
+      lse2[u] = in ? lse[idx] * LOG2E : 0.0f;
+      dl[u] = in ? delta[idx] : 0.0f;
+    }
+    hopper::mbar_wait(sm.empty(st), phase ^ 1u);
+    if (lane == 0) {
+      hopper::mbar_expect_tx(sm.full(st), 2 * STEP_BYTES);
+      for (int half = 0; half < 2; ++half) {
+        hopper::tma_load(sm.q(st) + half * STEP_HALF, q, sm.full(st), half * BOX, hh, q0);
+        hopper::tma_load(sm.dout(st) + half * STEP_HALF, dout, sm.full(st), half * BOX, hh, q0);
+      }
+    }
+    float* vec = sm.vec(st);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      vec[lane + 32 * u] = lse2[u];
+      vec[Q_STEP + lane + 32 * u] = dl[u];
+    }
+    hopper::mbar_arrive(sm.full(st));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ DkvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t aligned = (raw + 1023u) & ~1023u;
+  const DkvSmem sm{aligned, smem_raw + (aligned - raw)};
+  int kt, kvh;
+  key_tile_order(p.head_group, p.k_tiles, p.h_kv, kt, kvh);
+  const int k0 = kt * ROWS;
+  // the live query steps of each query head: from the diagonal (k0) to the end
+  const int first = 2 * kt, per_head = p.q_steps - first, steps = p.group * per_head;
+
+  init_dkv_barriers(sm);
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     hopper::producer_registers();
-    if (threadIdx.x < 32) {  // the producer warp; lane 0 issues the loads
-      const int lane = threadIdx.x;
-      if (lane == 0) {
-        hopper::mbar_expect_tx(sm.kv_full(), 2 * TILE_BYTES);
-        for (int half = 0; half < 2; ++half) {
-          hopper::tma_load(sm.k() + half * HALF_BYTES, &p.k, sm.kv_full(), half * BOX, kvh, k0);
-          hopper::tma_load(sm.v() + half * HALF_BYTES, &p.v, sm.kv_full(), half * BOX, kvh, k0);
-        }
-      }
-      // the query steps twice: for dV's walk, then for dK's
-      for (int it = 0; it < 2 * steps; ++it) {
-        const int st = it % DKV_STAGES;
-        const uint32_t phase = (it / DKV_STAGES) & 1;
-        const int i = it % steps;
-        const int hh = kvh * p.group + i / per_head;
-        const int q0 = k0 + (i % per_head) * Q_STEP;
-        // this lane's share of lse and delta, loaded while the stage drains
-        float lse2[2], dl[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int r = lane + 32 * u;
-          const bool in = q0 + r < p.sq;
-          const size_t idx = static_cast<size_t>(hh) * p.sq + q0 + r;
-          lse2[u] = in ? p.lse[idx] * LOG2E : 0.0f;
-          dl[u] = in ? p.delta[idx] : 0.0f;
-        }
-        hopper::mbar_wait(sm.empty(st), phase ^ 1u);
-        if (lane == 0) {
-          hopper::mbar_expect_tx(sm.full(st), 2 * STEP_BYTES);
-          for (int half = 0; half < 2; ++half) {
-            hopper::tma_load(sm.q(st) + half * STEP_HALF, &p.q, sm.full(st), half * BOX, hh, q0);
-            hopper::tma_load(sm.dout(st) + half * STEP_HALF, &p.dout, sm.full(st), half * BOX,
-                             hh, q0);
-          }
-        }
-        float* vec = sm.vec(st);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          vec[lane + 32 * u] = lse2[u];
-          vec[Q_STEP + lane + 32 * u] = dl[u];
-        }
-        hopper::mbar_arrive(sm.full(st));
-      }
-    }
+    if (threadIdx.x < 32)
+      load_dkv(sm, &p.q, &p.dout, &p.k, &p.v, p.lse, p.delta, p.sq, p.group, kvh, k0, first,
+               per_head);
   } else {
     hopper::consumer_registers();
     const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     // this warpgroup's keys start at kb; this thread's are kb + kr, + 8
     const int kb = k0 + 64 * c, kr = 16 * warp + lane / 4;
     const size_t stride = static_cast<size_t>(p.h_kv) * D;
+    const TriWalk w{kb, p.sq};
     float acc[64];
     const uint32_t ka = sm.k() + c * WG_ROWS_BYTES, va = sm.v() + c * WG_ROWS_BYTES;
     hopper::mbar_wait(sm.kv_full(), 0);
@@ -2000,21 +1669,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     // two walks of the same query steps: dV, then dK
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    dkv_walk<T, false>(p, sm, 0, steps, per_head, k0, kb, ka, va, acc);
+    dkv_walk<T, false>(w, sm, 0, steps, per_head, first, ka, va, p.scale_log2, acc);
     store_rows(p.dv + static_cast<size_t>(kvh) * D, stride, acc, 1.0f, kb + kr, p.sq);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    dkv_walk<T, true>(p, sm, steps, steps, per_head, k0, kb, ka, va, acc);
+    dkv_walk<T, true>(w, sm, steps, steps, per_head, first, ka, va, p.scale_log2, acc);
     store_rows(p.dk + static_cast<size_t>(kvh) * D, stride, acc, p.scale, kb + kr, p.sq);
   }
 }
 
-// Check the operands and encode the four maps (Q and dO in boxes of q_rows
-// rows, K and V of ROWS); 0 or a cudaError.
+// Check the operands and encode the four maps (Q and dO [sq, h, 128] in
+// boxes of q_rows rows, K and V [skv, h_kv, 128] of ROWS); 0 or a cudaError.
 int encode_maps(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                const void* out0, const void* out1, int sq, int h, int h_kv, int dh, int q_rows,
-                CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk, CUtensorMap* mv) {
-  if (sq < 1 || h < 1 || h_kv < 1 || h % h_kv || dh != tri::D || (dtype != 1 && dtype != 2))
+                const void* out0, const void* out1, int sq, int skv, int h, int h_kv, int dh,
+                int q_rows, CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk,
+                CUtensorMap* mv) {
+  if (sq < 1 || skv < 1 || h < 1 || h_kv < 1 || h % h_kv || dh != tri::D ||
+      (dtype != 1 && dtype != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
@@ -2022,12 +1693,332 @@ int encode_maps(int dtype, const void* q, const void* k, const void* v, const vo
   if (bases % 16) return static_cast<int>(cudaErrorInvalidValue);
   int rc = tri::encode_heads(mq, dtype, q, sq, h, q_rows);
   if (rc == 0) rc = tri::encode_heads(mdo, dtype, dout, sq, h, q_rows);
-  if (rc == 0) rc = tri::encode_heads(mk, dtype, k, sq, h_kv, ROWS);
-  if (rc == 0) rc = tri::encode_heads(mv, dtype, v, sq, h_kv, ROWS);
+  if (rc == 0) rc = tri::encode_heads(mk, dtype, k, skv, h_kv, ROWS);
+  if (rc == 0) rc = tri::encode_heads(mv, dtype, v, skv, h_kv, ROWS);
   return rc;
 }
 
 }  // namespace tri_bwd
+
+// ---------------------------------------------------------------------------
+// K10c / K10d on Hopper: the rectangle's backward over a runtime band
+// ---------------------------------------------------------------------------
+//
+// The rectangle (runtime row and column offsets, a sliding window, the
+// masked modes and the unmasked past and none, GQA, ragged sq and skv),
+// bf16/fp16, head_dim 128. Two kernels, flash_bwd_dq_wgmma (K10c) and
+// flash_bwd_dkv_wgmma (K10d), each with its own argument struct; they take
+// tri_bwd's shape as band takes tri's: the 384-thread block, the TMA
+// producer, the two wgmma consumer warpgroups, the 3-D {dh, heads, s}
+// maps with GQA by the kv-head coordinate, the base-2 p = ex2(s c - lse
+// log2(e)), one persistent 64-register accumulator, and tri_bwd's products,
+// dS and P passes, producers, block orders and epilogue as shared inline
+// helpers. The arithmetic is _dq_tile_update / _dkv_tile_update's (:568,
+// :593) and deterministic: two accumulation directions, no atomics.
+//  - Bound: 6 dh (dQ) and 8 dh (dK/dV) operations a live pair and query
+//    head against q, k, v, dO, lse and delta read once and the float32
+//    gradients written once. At the windowed training row (4096², 64
+//    heads, window 1024) 0.182 and 0.243 ms of bf16 tensor-core work; at
+//    a past ring chunk (2048², 32 heads) 0.104 and 0.139. The tensor cores
+//    bound both; the dK/dV pass's two walks do 10 dh a pair.
+//  - The band: query row i sits at q_base + i, key j at k_base + j; a row
+//    keeps the keys at or before it (causal) and after its position less
+//    the window. From one function (key_range, query_range) the producer
+//    and the consumers compute the same, possibly empty, range of tiles.
+//    q_base - k_base need not be a multiple of 128, so the causal edge can
+//    straddle two tiles and the window edge two more.
+//  - dQ: a block per (128-row query tile, query head), tri's head groups
+//    and heaviest-first order; the producer streams the 128-key tiles of
+//    the block's band, from the last down. A consumer warpgroup runs each
+//    64-key half that one of its 64 rows reaches (tri_bwd's diagonal skip,
+//    generalised) and masks only a half that holds a dead pair or keys past
+//    skv; the mask comes from one base a thread, q_base + row - k_base less
+//    the half's first key: each row keeps keys [lo, hi].
+//  - dK/dV: a block per (128-key tile, kv head), key tile 0 first (under a
+//    causal band it reaches the most queries; under past, none or a window
+//    the order costs nothing); for each of the group's query heads the
+//    producer streams the 64-row query steps of the block's band, twice (dV,
+//    then dK). A warpgroup skips a step none of its keys reaches and masks
+//    only one that holds a dead pair or rows past sq.
+//  - Empty bands (a window wholly behind the keys, keys wholly after the
+//    queries): the producer issues and waits on nothing, the consumers wait
+//    on nothing and store zeros. A row whose lse is NEG_INF has no live
+//    key, so every step that holds it is masked, and its p is 0 by a
+//    select, not by inf * 0. Rows past sq (dQ) or skv (dK/dV) are not
+//    stored.
+//  - Registers: tri_bwd's consumers plus the band's base, the tile bounds
+//    and, in the masked pass only, the lo and hi of two rows; ptxas gives a
+//    384-thread kernel 168 registers a thread and serialises every wgmma
+//    past that (C7512): chip_smoke.py reports each instantiation's
+//    registers, spills and that warning.
+namespace band_bwd {
+
+using tri::D;
+using tri_bwd::CONSUMER_WARPS;
+using tri_bwd::DkvSmem;
+using tri_bwd::DqSmem;
+using tri_bwd::Q_STEP;
+using tri_bwd::ROWS;
+using tri_bwd::THREADS;
+using tri_bwd::WG_ROWS_BYTES;
+
+// The band of a rectangle: query row i at q_base + i (i < sq), key j at
+// k_base + j (j < skv); causal keeps the keys at or before the query,
+// window (causal only) the last `window` of them.
+struct Band {
+  int sq, skv;
+  int q_base, k_base;
+  int causal, window;
+};
+
+struct DqArgs {
+  CUtensorMap q, dout;  // [sq, h, dh], boxes of 128 rows
+  CUtensorMap k, v;     // [skv, h_kv, dh], boxes of 128 rows
+  const float* lse;     // [h, sq]
+  const float* delta;   // [h, sq]
+  float* dq;            // [sq, h, dh]
+  Band b;
+  int h, group, q_tiles;
+  int head_group;           // query heads a group of blocks walks together
+  float scale, scale_log2;  // scale, scale * log2(e)
+};
+
+struct DkvArgs {
+  CUtensorMap q, dout;  // [sq, h, dh], boxes of 64 rows
+  CUtensorMap k, v;     // [skv, h_kv, dh], boxes of 128 rows
+  const float* lse;     // [h, sq]
+  const float* delta;   // [h, sq]
+  float* dk;            // [skv, h_kv, dh]
+  float* dv;
+  Band b;
+  int h_kv, group, k_tiles;
+  int head_group;  // kv heads a group of blocks walks together
+  float scale, scale_log2;
+};
+
+// The live keys [lo, hi) of query rows [qa, qb) (qb <= sq): the first
+// row's window edge to the last row's causal edge; [0, 0) if none, so an
+// empty range meets no step.
+__device__ __forceinline__ void key_range(const Band& b, int qa, int qb, int& lo, int& hi) {
+  lo = b.window ? max(0, b.q_base + qa - b.window + 1 - b.k_base) : 0;
+  hi = b.causal ? min(b.skv, b.q_base + qb - b.k_base) : b.skv;
+  if (qb <= qa || hi <= lo) lo = hi = 0;
+}
+
+// The live queries [lo, hi) of keys [ka, kb) (kb <= skv), [0, 0) if none:
+// a key at position y is live for the queries y <= x < y + window.
+__device__ __forceinline__ void query_range(const Band& b, int ka, int kb, int& lo, int& hi) {
+  lo = b.causal ? max(0, b.k_base + ka - b.q_base) : 0;
+  hi = b.window ? min(b.sq, b.k_base + kb - 1 + b.window - b.q_base) : b.sq;
+  if (kb <= ka || hi <= lo) lo = hi = 0;
+}
+
+// The steps of N [first, last) that meet [lo, hi) (none if it is empty).
+template <int N>
+__device__ __forceinline__ void steps_of(int lo, int hi, int& first, int& last) {
+  first = lo / N;
+  last = hi > lo ? (hi + N - 1) / N : first;
+}
+
+// Does the tile of query rows [qa, qb) x keys [ka, kb) (within sq and skv)
+// hold a dead pair? The first row against the last key (causal), the last
+// row against the first key (window).
+__device__ __forceinline__ bool has_dead(const Band& b, int qa, int qb, int ka, int kb) {
+  return (b.causal && b.k_base + kb - 1 > b.q_base + qa) ||
+         (b.window && b.k_base + ka <= b.q_base + qb - 1 - b.window);
+}
+
+// The 128-key tiles [first, last) of the query tile at q0: what the dQ
+// producer loads and its consumers walk.
+__device__ __forceinline__ void dq_tiles(const Band& b, int q0, int& first, int& last) {
+  int lo, hi;
+  key_range(b, q0, min(q0 + ROWS, b.sq), lo, hi);
+  steps_of<ROWS>(lo, hi, first, last);
+}
+
+// The 64-row query steps [first, last) of the key tile at k0: what the
+// dK/dV producer loads (for each query head of the group) and its
+// consumers walk.
+__device__ __forceinline__ void dkv_steps(const Band& b, int k0, int& first, int& last) {
+  int lo, hi;
+  query_range(b, k0, min(k0 + ROWS, b.skv), lo, hi);
+  steps_of<Q_STEP>(lo, hi, first, last);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ DqArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const DqSmem sm{(raw + 1023u) & ~1023u};
+  int qt, hh, kvh;
+  tri::block_tile(p.head_group, p.q_tiles, p.h, p.group, qt, hh, kvh);
+  const int q0 = qt * ROWS;
+  int first, last;
+  dq_tiles(p.b, q0, first, last);
+  const int n_tiles = last - first;
+
+  tri_bwd::init_dq_barriers(sm);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x == 0 && n_tiles > 0)
+      tri_bwd::load_dq(sm, &p.q, &p.dout, &p.k, &p.v, hh, kvh, q0, last, n_tiles);
+  } else {
+    hopper::consumer_registers();
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool arrives = lane == 0;
+    // this thread's rows within the tile: r0 and r0 + 8; its warpgroup's
+    // rows start at ra
+    const int r0 = 64 * c + 16 * warp + lane / 4, ra = q0 + 64 * c;
+    float lse2[2], dl[2];
+    tri_bwd::row_terms(p.lse, p.delta, p.b.sq, static_cast<size_t>(hh) * p.b.sq + q0 + r0,
+                       q0 + r0, lse2, dl);
+    float dq[64], s[32], dp[32];
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.0f;
+    // the 64-key steps [wf, wl) that this warpgroup's rows reach
+    int wf, wl;
+    {
+      int lo, hi;
+      key_range(p.b, ra, min(ra + 64, p.b.sq), lo, hi);
+      steps_of<64>(lo, hi, wf, wl);
+    }
+    const uint32_t qa = sm.q() + c * WG_ROWS_BYTES, da = sm.dout() + c * WG_ROWS_BYTES;
+    if (n_tiles > 0) hopper::mbar_wait(sm.q_full(), 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % tri_bwd::DQ_STAGES;
+      const uint32_t ph = (i / tri_bwd::DQ_STAGES) & 1;
+      const int kt = last - 1 - i;
+      hopper::mbar_wait(sm.k_full(st), ph);
+      hopper::mbar_wait(sm.v_full(st), ph);
+      // the tile's 64-key steps that some row of this warpgroup reaches
+      const int h_lo = max(wf - 2 * kt, 0), h_hi = min(wl - 2 * kt, 2);
+      for (int h2 = h_lo; h2 < h_hi; ++h2) {
+        const int ka = kt * ROWS + 64 * h2;
+        const bool masked =
+            ka + 64 > p.b.skv || has_dead(p.b, ra, min(ra + 64, p.b.sq), ka, ka + 64);
+        // row r0 + 8 r sits d + 8 r keys after key ka: it keeps keys
+        // [d + 8 r - window + 1, d + 8 r] below skv
+        const auto bounds = [&](int (&lo)[2], int (&hi)[2]) {
+          const int t2 = 2 * (lane % 4), d = p.b.q_base + q0 + r0 - p.b.k_base - ka;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int top = p.b.skv - ka - 1;
+            hi[r] = (p.b.causal ? min(d + 8 * r, top) : top) - t2;
+            lo[r] = (p.b.window ? d + 8 * r - p.b.window + 1 : 0) - t2;
+          }
+        };
+        tri_bwd::dq_step<T>(sm, st, h2 * WG_ROWS_BYTES, qa, da, arrives && h2 == h_hi - 1, masked,
+                            bounds, lse2, dl, p.scale_log2, s, dp, pa, dq);
+      }
+      if (arrives) {
+        if (h_hi <= h_lo) hopper::mbar_arrive(sm.v_empty(st));
+        hopper::mbar_arrive(sm.k_empty(st));
+      }
+    }
+
+    tri_bwd::store_rows(p.dq + static_cast<size_t>(hh) * D, static_cast<size_t>(p.h) * D, dq,
+                        p.scale, q0 + r0, p.b.sq);
+  }
+}
+
+// The band's walk for a dK/dV consumer warpgroup whose keys are [kb, ke):
+// a query step that none of its keys reaches is skipped; one that holds a
+// dead pair or rows past sq is masked, each key keeping the queries of
+// its own band.
+struct KeyWalk {
+  const Band& b;
+  int kb, ke, q_lo, q_hi;  // keys [kb, ke) reach queries [q_lo, q_hi)
+  __device__ KeyWalk(const Band& band, int k) : b(band), kb(k), ke(min(k + 64, band.skv)) {
+    query_range(b, kb, ke, q_lo, q_hi);
+  }
+  __device__ bool skip(int q0) const { return q0 + Q_STEP <= q_lo || q0 >= q_hi; }
+  __device__ bool masked(int q0) const {
+    return q0 + Q_STEP > b.sq || has_dead(b, q0, q0 + Q_STEP, kb, ke);
+  }
+  // key kpos + 8 r sits d + 8 r queries after query q0: it keeps queries
+  // [d + 8 r, d + 8 r + window - 1] below sq
+  __device__ void bounds(int q0, int (&lo)[2], int (&hi)[2]) const {
+    const int t2 = 2 * (threadIdx.x % 4);
+    const int kpos = kb + 16 * ((threadIdx.x / 32) % 4) + (threadIdx.x % 32) / 4;
+    const int d = b.k_base + kpos - b.q_base - q0, top = b.sq - 1 - q0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lo[r] = (b.causal ? d + 8 * r : 0) - t2;
+      hi[r] = (b.window ? min(d + 8 * r + b.window - 1, top) : top) - t2;
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ DkvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t aligned = (raw + 1023u) & ~1023u;
+  const DkvSmem sm{aligned, smem_raw + (aligned - raw)};
+  int kt, kvh;
+  tri_bwd::key_tile_order(p.head_group, p.k_tiles, p.h_kv, kt, kvh);
+  const int k0 = kt * ROWS;
+  int first, last;
+  dkv_steps(p.b, k0, first, last);
+  const int per_head = last - first, steps = p.group * per_head;
+
+  tri_bwd::init_dkv_barriers(sm);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_registers();
+    if (threadIdx.x < 32 && steps > 0)
+      tri_bwd::load_dkv(sm, &p.q, &p.dout, &p.k, &p.v, p.lse, p.delta, p.b.sq, p.group, kvh, k0,
+                        first, per_head);
+  } else {
+    hopper::consumer_registers();
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    // this warpgroup's keys start at kb; this thread's are kb + kr, + 8
+    const int kb = k0 + 64 * c, kr = 16 * warp + lane / 4;
+    const size_t stride = static_cast<size_t>(p.h_kv) * D;
+    const KeyWalk w(p.b, kb);
+    float acc[64];
+    const uint32_t ka = sm.k() + c * WG_ROWS_BYTES, va = sm.v() + c * WG_ROWS_BYTES;
+    if (steps > 0) hopper::mbar_wait(sm.kv_full(), 0);
+
+    // two walks of the same query steps: dV, then dK (none: zeros)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    tri_bwd::dkv_walk<T, false>(w, sm, 0, steps, per_head, first, ka, va, p.scale_log2, acc);
+    tri_bwd::store_rows(p.dv + static_cast<size_t>(kvh) * D, stride, acc, 1.0f, kb + kr, p.b.skv);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    tri_bwd::dkv_walk<T, true>(w, sm, steps, steps, per_head, first, ka, va, p.scale_log2, acc);
+    tri_bwd::store_rows(p.dk + static_cast<size_t>(kvh) * D, stride, acc, p.scale, kb + kr,
+                        p.b.skv);
+  }
+}
+
+// The fields both passes share: the checks, the four tensor maps (Q and dO
+// in boxes of q_rows rows), lse and delta, the band, the scale; 0 or a
+// cudaError.
+template <typename A>
+int prepare(A* a, int dtype, const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, const void* out0, const void* out1, int sq,
+            int skv, int h, int h_kv, int dh, float scale, int row_offset, int col_offset,
+            int masked, int window, int q_rows) {
+  if (window < 0 || (window && !masked)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, out0, out1, sq, skv, h, h_kv, dh,
+                                      q_rows, &a->q, &a->dout, &a->k, &a->v);
+  if (rc != 0) return rc;
+  a->lse = static_cast<const float*>(lse);
+  a->delta = static_cast<const float*>(delta);
+  a->b = Band{sq, skv, row_offset, col_offset, masked ? 1 : 0, window};
+  a->group = h / h_kv;
+  a->scale = scale;
+  a->scale_log2 = scale * tri_bwd::LOG2E;
+  return 0;
+}
+
+}  // namespace band_bwd
 
 // ---------------------------------------------------------------------------
 // K8b and K9 on Hopper: the band with TMA, wgmma and warp specialisation
@@ -2335,35 +2326,21 @@ cudaError_t launch(int dtype, int dh, const Params& p, void* stream) {
   return launch_f32<128>(p, static_cast<cudaStream_t>(stream));
 }
 
-// the backward: dkv = 0 launches the dQ pass, 1 the dK/dV pass
+// the backward in float32 (dtype 0; bf16/fp16 take ddlb_flash_bwd_*_tri and
+// ddlb_flash_bwd_*_band): dkv = 0 launches the dQ pass, 1 the dK/dV pass
 cudaError_t launch_bwd(int dtype, int dh, int dkv, const Params& p,
                        const Grads& gr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.sq < 1 || p.skv < 1 || p.h < 1 || p.h_kv < 1 || p.h % p.h_kv ||
-      dh != 128 || (p.window && !p.causal))
+      dh != 128 || (p.window && !p.causal) || dtype != 0)
     return cudaErrorInvalidValue;
   constexpr int D = 128;
-  if (dtype == 0) {
-    const int rows = dkv ? p.skv : p.sq;
-    const dim3 grid((rows + FB_ROWS - 1) / FB_ROWS, dkv ? p.h_kv : p.h);
-    return dkv ? launch_with(flash_bwd_dkv_f32<D>, grid, FB_THREADS,
-                             f32_bwd_smem_bytes<D>(), s, p, gr)
-               : launch_with(flash_bwd_dq_f32<D>, grid, FB_THREADS,
-                             f32_bwd_smem_bytes<D>(), s, p, gr);
-  }
-  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
-  if (dkv) {
-    const dim3 grid((p.skv + BKV - 1) / BKV, p.h_kv);
-    return dtype == 1 ? launch_with(flash_bwd_dkv_mma<__half, D>, grid, THREADS,
-                                    dkv_smem_bytes<D>(), s, p, gr)
-                      : launch_with(flash_bwd_dkv_mma<__nv_bfloat16, D>, grid,
-                                    THREADS, dkv_smem_bytes<D>(), s, p, gr);
-  }
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.h);
-  return dtype == 1 ? launch_with(flash_bwd_dq_mma<__half, D>, grid, THREADS,
-                                  mma_smem_bytes<D>(), s, p, gr)
-                    : launch_with(flash_bwd_dq_mma<__nv_bfloat16, D>, grid,
-                                  THREADS, mma_smem_bytes<D>(), s, p, gr);
+  const int rows = dkv ? p.skv : p.sq;
+  const dim3 grid((rows + FB_ROWS - 1) / FB_ROWS, dkv ? p.h_kv : p.h);
+  return dkv ? launch_with(flash_bwd_dkv_f32<D>, grid, FB_THREADS,
+                           f32_bwd_smem_bytes<D>(), s, p, gr)
+             : launch_with(flash_bwd_dq_f32<D>, grid, FB_THREADS,
+                           f32_bwd_smem_bytes<D>(), s, p, gr);
 }
 
 Params make_params(const void* q, const void* k, const void* v, int sq,
@@ -2426,8 +2403,9 @@ int ddlb_flash_chunk(int dtype, const void* q, const void* k, const void* v,
   return static_cast<int>(launch(dtype, dh, p, stream));
 }
 
-// K10a-K10d. q, dout [sq, h, dh] and k, v [skv, h_kv, dh] in the operand
-// dtype; lse, delta [h, sq] f32. Query row i sits at global position
+// K10a-K10d in float32 (dtype 0; bf16/fp16 take ddlb_flash_bwd_*_tri and
+// ddlb_flash_bwd_*_band). q, dout [sq, h, dh] and k, v [skv, h_kv, dh] in
+// the operand dtype; lse, delta [h, sq] f32. Query row i sits at global position
 // row_offset + i, key j at col_offset + j; masked = 1 applies the causal
 // mask (and the window) from those positions, masked = 0 takes every key
 // (the past and none modes). ddlb_flash_bwd_dq writes dq [sq, h, dh] f32,
@@ -2550,7 +2528,7 @@ int ddlb_flash_bwd_dq_tri(int dtype, const void* q, const void* k, const void* v
                           const void* dout, const void* lse, const void* delta, void* dq,
                           int sq, int h, int h_kv, int dh, float scale, void* stream) {
   tri_bwd::DqArgs a;
-  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, dq, dq, sq, h, h_kv, dh,
+  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, dq, dq, sq, sq, h, h_kv, dh,
                                       tri_bwd::ROWS, &a.q, &a.dout, &a.k, &a.v);
   if (rc != 0) return rc;
   a.lse = static_cast<const float*>(lse);
@@ -2578,7 +2556,7 @@ int ddlb_flash_bwd_dkv_tri(int dtype, const void* q, const void* k, const void* 
                            void* dv, int sq, int h, int h_kv, int dh, float scale,
                            void* stream) {
   tri_bwd::DkvArgs a;
-  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, dk, dv, sq, h, h_kv, dh,
+  const int rc = tri_bwd::encode_maps(dtype, q, k, v, dout, dk, dv, sq, sq, h, h_kv, dh,
                                       tri_bwd::Q_STEP, &a.q, &a.dout, &a.k, &a.v);
   if (rc != 0) return rc;
   a.lse = static_cast<const float*>(lse);
@@ -2600,6 +2578,58 @@ int ddlb_flash_bwd_dkv_tri(int dtype, const void* q, const void* k, const void* 
       dtype == 1 ? launch_with(tri_bwd::flash_bwd_dkv_wgmma<__half>, blocks, tri_bwd::THREADS,
                                tri_bwd::DKV_SMEM_BYTES, s, a)
                  : launch_with(tri_bwd::flash_bwd_dkv_wgmma<__nv_bfloat16>, blocks,
+                               tri_bwd::THREADS, tri_bwd::DKV_SMEM_BYTES, s, a));
+}
+
+// K10c / K10d on Hopper (namespace band_bwd): ddlb_flash_bwd_dq's and
+// ddlb_flash_bwd_dkv's arguments and results (offsets, masked, window),
+// dtype 1 = float16 or 2 = bfloat16, dh 128, sq and skv >= 1; q, k, v, dout
+// and the outputs 16-byte aligned (TMA's rule; the wrapper checks).
+int ddlb_flash_bwd_dq_band(int dtype, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta, void* dq, int sq,
+                           int skv, int h, int h_kv, int dh, float scale, int row_offset,
+                           int col_offset, int masked, int window, void* stream) {
+  band_bwd::DqArgs a;
+  const int rc = band_bwd::prepare(&a, dtype, q, k, v, dout, lse, delta, dq, dq, sq, skv, h, h_kv,
+                                   dh, scale, row_offset, col_offset, masked, window,
+                                   tri_bwd::ROWS);
+  if (rc != 0) return rc;
+  a.dq = static_cast<float*>(dq);
+  a.h = h;
+  a.q_tiles = (sq + tri_bwd::ROWS - 1) / tri_bwd::ROWS;
+  // a query head reads at most 2 * skv * 128 * 2 bytes of K and V, shared by its group
+  a.head_group = tri::head_group(512ll * skv / a.group, h);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = a.q_tiles * h;
+  return static_cast<int>(
+      dtype == 1 ? launch_with(band_bwd::flash_bwd_dq_wgmma<__half>, blocks, tri_bwd::THREADS,
+                               tri_bwd::DQ_SMEM_BYTES, s, a)
+                 : launch_with(band_bwd::flash_bwd_dq_wgmma<__nv_bfloat16>, blocks,
+                               tri_bwd::THREADS, tri_bwd::DQ_SMEM_BYTES, s, a));
+}
+
+int ddlb_flash_bwd_dkv_band(int dtype, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta, void* dk,
+                            void* dv, int sq, int skv, int h, int h_kv, int dh, float scale,
+                            int row_offset, int col_offset, int masked, int window,
+                            void* stream) {
+  band_bwd::DkvArgs a;
+  const int rc = band_bwd::prepare(&a, dtype, q, k, v, dout, lse, delta, dk, dv, sq, skv, h, h_kv,
+                                   dh, scale, row_offset, col_offset, masked, window,
+                                   tri_bwd::Q_STEP);
+  if (rc != 0) return rc;
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.h_kv = h_kv;
+  a.k_tiles = (skv + tri_bwd::ROWS - 1) / tri_bwd::ROWS;
+  // a kv head's blocks read Q and dO of its group: 2 * sq * 128 * 2 bytes a query head
+  a.head_group = tri::head_group(512ll * sq * a.group, h_kv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = a.k_tiles * h_kv;
+  return static_cast<int>(
+      dtype == 1 ? launch_with(band_bwd::flash_bwd_dkv_wgmma<__half>, blocks, tri_bwd::THREADS,
+                               tri_bwd::DKV_SMEM_BYTES, s, a)
+                 : launch_with(band_bwd::flash_bwd_dkv_wgmma<__nv_bfloat16>, blocks,
                                tri_bwd::THREADS, tri_bwd::DKV_SMEM_BYTES, s, a));
 }
 

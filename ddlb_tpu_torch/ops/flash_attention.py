@@ -15,11 +15,11 @@ Replaces, in ``ddlb_tpu/ops/flash_attention.py``:
   the triangular dQ and dK/dV kernels (:706 K10a, :741 K10b) and the
   rectangular ones (:624 K10c, :664 K10d): here ``flash_backward``, the
   triangle in bf16/fp16 on two Hopper entry points
-  (``ddlb_flash_bwd_dq_tri``, ``ddlb_flash_bwd_dkv_tri``) and everything
-  else on two more (``ddlb_flash_bwd_dq``, ``ddlb_flash_bwd_dkv``), each
-  case counted apart; ``delta = rowsum(do * o)`` is taken outside, as
-  :826 does, and GQA's dK/dV are summed over the group inside the dK/dV
-  pass;
+  (``ddlb_flash_bwd_dq_tri``, ``ddlb_flash_bwd_dkv_tri``), the rectangle
+  on two more (``ddlb_flash_bwd_dq_band``, ``ddlb_flash_bwd_dkv_band``) and
+  float32 on ``ddlb_flash_bwd_dq`` / ``ddlb_flash_bwd_dkv``, each case
+  counted apart; ``delta = rowsum(do * o)`` is taken outside, as :826
+  does, and GQA's dK/dV are summed over the group inside the dK/dV pass;
 - the differentiable ``flash_attention`` (:1106, the custom_vjp of
   :1008-1076) and ``ring_flash_attention`` (:1170, :1229-1354), here
   ``torch.autograd.Function``s over the kernels: the ring's forward folds
@@ -38,22 +38,25 @@ The kernels (``csrc/flash_attention.cu``, whose design notes give the
 bound and what the design does about it): one block per (query tile,
 head) walks only the key tiles that its live band reaches, so the causal
 triangle costs half the square, as the TPU's triangular grid (K8a) does.
-In bf16/fp16 three Hopper forwards and two Hopper backward passes run
-them, each a TMA producer warpgroup and two consumer warpgroups on
+In bf16/fp16 two Hopper forwards and two pairs of Hopper backward passes
+run them, each a TMA producer warpgroup and two consumer warpgroups on
 ``wgmma`` over 128-row query tiles, the softmax in base 2: K8a runs
 ``tri::flash_fwd_wgmma`` (entry point ``ddlb_flash_forward_tri``); K8b and
 K9 run ``band::flash_fwd_wgmma`` (``ddlb_flash_forward_band``,
 ``ddlb_flash_chunk_band``), the same kernel over a runtime band of key
 tiles (offsets, a window, causal or not, ragged lengths), with the carry
 read and written in place for K9; K10a and K10b run
-``flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma`` (128-row query tiles
-against streamed 128-key tiles for dQ; 128-key tiles against streamed
-64-row query tiles for dK/dV). K10c/K10d in bf16/fp16 run ``mma.sync``
-kernels (``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) with float32 sums;
-float32 runs SIMT kernels in true float32 (the forward and the chunk fold
-through ``ddlb_flash_forward`` and ``ddlb_flash_chunk``). Built by ``nvcc`` for ``sm_90a`` at
-first use (``_build.py``) and called through ``ctypes`` on PyTorch's
-current stream.
+``tri_bwd::flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma`` (128-row query
+tiles against streamed 128-key tiles for dQ; 128-key tiles against
+streamed 64-row query tiles for dK/dV, walked twice, dV then dK); K10c and
+K10d run ``band_bwd::flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma``, the
+same passes over a runtime band (offsets, a window, the masked or the
+unmasked modes, ragged lengths), masked only on edge tiles; float32 runs
+SIMT kernels in true float32 (the forward and the chunk fold through
+``ddlb_flash_forward`` and ``ddlb_flash_chunk``, the backward through
+``ddlb_flash_bwd_dq`` and ``ddlb_flash_bwd_dkv``). Built by ``nvcc`` for
+``sm_90a`` at first use (``_build.py``) and called through ``ctypes`` on
+PyTorch's current stream.
 
 Dispatch, as ``flash_attention`` (:1147-1167) states it: a window that
 covers every key at offset 0 collapses to ``window = 0``; a literal 0
@@ -66,8 +69,9 @@ counts kernel launches by case (``tri``, ``rect``, ``chunk``,
 ``bwd_dq_tri``, ``bwd_dkv_tri``, ``bwd_dq_rect``, ``bwd_dkv_rect``), and
 ``FORWARD_TILES`` the forward and chunk launches by kernel (``wgmma``:
 ``tri::flash_fwd_wgmma``; ``band``: ``band::flash_fwd_wgmma``; ``simt``:
-``flash_f32``),
-``BACKWARD_TILES`` the backward's pass launches by kernel. A CPU
+``flash_f32``), and ``BACKWARD_TILES`` the backward's pass launches by
+kernel (``wgmma``: ``tri_bwd``; ``band``: ``band_bwd``; ``simt``:
+``flash_bwd_*_f32``). A CPU
 tensor takes the plain PyTorch version beside each kernel
 (``flash_forward_plain``, ``flash_chunk_plain``, ``flash_backward_plain``),
 which follows the Pallas kernels' tile updates (``_online_softmax_update``,
@@ -103,10 +107,11 @@ LAUNCHES = {"tri": 0, "rect": 0, "chunk": 0, "bwd_dq_tri": 0, "bwd_dkv_tri": 0,
 #: chunk fold in bf16/fp16), ``simt`` = ``flash_f32`` (float32)
 FORWARD_TILES = {"wgmma": 0, "band": 0, "simt": 0}
 #: the backward's pass launches by kernel since the counts were last
-#: zeroed: ``wgmma`` = the Hopper K10a/K10b kernels (the triangle in
-#: bf16/fp16), ``mma`` = ``flash_bwd_*_mma`` (K10c/K10d in bf16/fp16),
-#: ``simt`` = ``flash_bwd_*_f32`` (float32)
-BACKWARD_TILES = {"wgmma": 0, "mma": 0, "simt": 0}
+#: zeroed: ``wgmma`` = the Hopper K10a/K10b kernels (``tri_bwd``, the
+#: triangle in bf16/fp16), ``band`` = the Hopper K10c/K10d kernels
+#: (``band_bwd``, the rectangle in bf16/fp16), ``simt`` =
+#: ``flash_bwd_*_f32`` (float32)
+BACKWARD_TILES = {"wgmma": 0, "band": 0, "simt": 0}
 
 #: how a chunk's keys relate to the queries (``flash_attention_chunk``)
 CHUNK_MODES = ("offset", "diagonal", "past")
@@ -428,10 +433,14 @@ def _lib() -> ctypes.CDLL:
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # ..., delta, dk, dv
         i32, i32, i32, i32, f32, ptr,
     ]
+    # the Hopper band backward's entry points take the float32 ones' arguments
+    lib.ddlb_flash_bwd_dq_band.argtypes = lib.ddlb_flash_bwd_dq.argtypes
+    lib.ddlb_flash_bwd_dkv_band.argtypes = lib.ddlb_flash_bwd_dkv.argtypes
     for fn in (lib.ddlb_flash_forward, lib.ddlb_flash_forward_tri, lib.ddlb_flash_chunk,
                lib.ddlb_flash_forward_band, lib.ddlb_flash_chunk_band,
                lib.ddlb_flash_bwd_dq, lib.ddlb_flash_bwd_dkv, lib.ddlb_flash_bwd_dq_tri,
-               lib.ddlb_flash_bwd_dkv_tri):
+               lib.ddlb_flash_bwd_dkv_tri, lib.ddlb_flash_bwd_dq_band,
+               lib.ddlb_flash_bwd_dkv_band):
         fn.restype = ctypes.c_int
     lib.ddlb_flash_error_string.argtypes = [ctypes.c_int]
     lib.ddlb_flash_error_string.restype = ctypes.c_char_p
@@ -642,12 +651,12 @@ def backward_case(sq: int, skv: int, row_offset: int, col_offset: int,
 
 def backward_kernel(case: str, dtype: torch.dtype) -> str:
     """The kernel a backward pass of ``case`` (``tri`` or ``rect``) runs in
-    ``dtype``: ``wgmma`` for the triangle in bf16/fp16, ``simt`` for
-    float32, ``mma`` otherwise."""
+    ``dtype``: ``simt`` for float32; in bf16/fp16 ``wgmma`` for the
+    triangle and ``band`` for the rectangle."""
     check_kernel_dtype(dtype)
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if case == "tri" else "mma"
+    return "wgmma" if case == "tri" else "band"
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -794,7 +803,7 @@ def backward_pass(name: str, q, k, v, do, lse, delta, out, *, scale: float,
             entry = {"dq": lib.ddlb_flash_bwd_dq_tri, "dkv": lib.ddlb_flash_bwd_dkv_tri}[name]
             rc = entry(*head, sq, h, h_kv, dh, float(scale), stream)
         else:
-            entry = {"dq": lib.ddlb_flash_bwd_dq, "dkv": lib.ddlb_flash_bwd_dkv}[name]
+            entry = getattr(lib, f"ddlb_flash_bwd_{name}" + ("_band" if kernel == "band" else ""))
             rc = entry(
                 *head, sq, skv, h, h_kv, dh, float(scale), row_offset, col_offset,
                 int(causal not in ("past", "none")), int(window), stream,

@@ -5,12 +5,13 @@
 The port's wrappers send the triangle (causal, offset 0, ``sq == skv``) in
 bf16/fp16 to ``ddlb_flash_forward_tri`` (K8a, ``tri::flash_fwd_wgmma``)
 and ``ddlb_flash_bwd_dq_tri`` / ``ddlb_flash_bwd_dkv_tri`` (K10a
-``flash_bwd_dq_wgmma``, K10b ``flash_bwd_dkv_wgmma``). Two other kernels
-of the library take the same work: ``ddlb_flash_forward_band`` (the
-rectangle's ``band::flash_fwd_wgmma``, at offset 0 with a causal band) and
-``ddlb_flash_bwd_dq`` / ``ddlb_flash_bwd_dkv`` with a causal mask at offset
-0 (``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, which the rectangle's
-backward runs). This script calls them on the same bf16 inputs at the main
+``tri_bwd::flash_bwd_dq_wgmma``, K10b ``tri_bwd::flash_bwd_dkv_wgmma``).
+Other kernels of the library take the same work at offset 0 with a causal
+band: ``ddlb_flash_forward_band`` (the rectangle's ``band::flash_fwd_wgmma``)
+and ``ddlb_flash_bwd_dq_band`` / ``ddlb_flash_bwd_dkv_band`` (the
+rectangle's backward, ``band_bwd::flash_bwd_dq_wgmma`` and
+``band_bwd::flash_bwd_dkv_wgmma``). This script calls them on the same bf16
+inputs at the main
 paths' shapes: the forward at the training step's merged heads, the
 attention path's 16384² with 8 heads and the serving prefill's 8192² with
 128 query heads (and 32 kv heads); the backward's two passes at the
@@ -105,15 +106,15 @@ def main() -> None:
                delta.data_ptr())
         dq_out, dkv_out = (dq.data_ptr(),), (dk.data_ptr(), dv.data_ptr())
         times = time_turns({
-            "flash_bwd_dq_mma": lambda: lib.ddlb_flash_bwd_dq(
+            "band_bwd_dq": lambda: lib.ddlb_flash_bwd_dq_band(
                 2, *ins, *dq_out, s, s, h, h, 128, scale, 0, 0, 1, 0, stream),
-            "flash_bwd_dq_wgmma": lambda: lib.ddlb_flash_bwd_dq_tri(
+            "tri_bwd_dq": lambda: lib.ddlb_flash_bwd_dq_tri(
                 2, *ins, *dq_out, s, h, h, 128, scale, stream),
         })
         times.update(time_turns({
-            "flash_bwd_dkv_mma": lambda: lib.ddlb_flash_bwd_dkv(
+            "band_bwd_dkv": lambda: lib.ddlb_flash_bwd_dkv_band(
                 2, *ins, *dkv_out, s, s, h, h, 128, scale, 0, 0, 1, 0, stream),
-            "flash_bwd_dkv_wgmma": lambda: lib.ddlb_flash_bwd_dkv_tri(
+            "tri_bwd_dkv": lambda: lib.ddlb_flash_bwd_dkv_tri(
                 2, *ins, *dkv_out, s, h, h, 128, scale, stream),
         }))
         times.update(time_turns({"attention_delta": lambda: fa.attention_delta(o, do)}))

@@ -1,14 +1,19 @@
 """Time K1, K8a, K8b, K9 and K10a-K10d, K7, or K11/K12, on one card, for one checkout.
 
     python scripts/time_kernels.py --tree DIR \
-        [--phase flash|int8|quantized_path|flash_paths|decode|decode_splits]
+        [--phase flash|backward|int8|quantized_path|flash_paths|decode|decode_splits]
         [--label NAME]
 
 Runs ``chip_smoke.py``'s kernel phases of the checkout at ``DIR``: with
 ``--phase flash`` (the default) ``kernel_phase_matmul`` (K1),
 ``kernel_phase_flash`` (K8a, K8b and K9), ``kernel_phase_flash_serving``
 (K8a at the serving prefill's shape) and ``kernel_phase_flash_backward``
-(K10a-K10d); with ``--phase int8`` ``kernel_phase_int8`` alone (K7 at the
+(K10a-K10d); with ``--phase backward`` ``backward_turns`` (this script's
+own timing, the same for every checkout: the flash backward's two passes
+through ``backward_pass`` at ``BACKWARD_SHAPES``, the rectangle's windowed
+training row and a ``past`` ring chunk, and the triangle, beside SDPA's
+backward on the same inputs and each pass's bound); with ``--phase
+int8`` ``kernel_phase_int8`` alone (K7 at the
 GEMM path's, the decode MLP's and the prefill MLP's shapes, with its
 timed variants); with ``--phase quantized_path`` the rows of
 ``chip_smoke.py``'s quantized path (``QUANT_SWEEPS`` at 8192^3 bf16
@@ -57,7 +62,8 @@ from time_loopback import ptxas_usage, sample_clocks  # noqa: E402
 
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 #: the libraries each phase builds and reads the build logs of
-LIBRARIES = {"flash": ("matmul", "flash_attention"), "int8": ("quantized_matmul",),
+LIBRARIES = {"flash": ("matmul", "flash_attention"), "backward": ("flash_attention",),
+             "int8": ("quantized_matmul",),
              "quantized_path": ("quantized_matmul",),
              "flash_paths": ("matmul", "flash_attention", "decode_attention",
                              "quantized_matmul"),
@@ -70,6 +76,81 @@ SPLIT_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 DECODE_SHAPES = (("mha", 16, False, False), ("gqa4", 4, False, False),
                  ("int8", 16, True, False), ("int8_gqa4", 4, True, False),
                  ("paged", 16, False, True))
+
+
+#: the flash backward's shapes ``backward_turns`` times, bf16, 128-wide
+#: heads: (key, sequence of q and of k, heads, row offset, col offset, mode,
+#: window). ``window``: the world-1 training row with ``attn_window=1024``
+#: (K10c/K10d); ``past``: a ring chunk wholly in the past at the training
+#: ring rows' 2048 x 32 heads (K10c/K10d, no mask); ``tri``: the full-width
+#: training row's triangle (K10a/K10b)
+BACKWARD_SHAPES = (("window", 4096, 64, 0, 0, "offset", 1024),
+                   ("past", 2048, 32, 2048, 0, "past", 0),
+                   ("tri", 4096, 64, 0, 0, "offset", 0))
+
+
+def backward_turns(cs, fa):
+    """Each of ``BACKWARD_SHAPES``: the dQ and the dK/dV pass through
+    ``fa.backward_pass`` (``cs.cuda_ms``, 10 calls a window) beside SDPA's
+    backward (forward plus backward through autograd less the forward; all
+    three gradients; no mask for ``past``, the band as a boolean mask for a
+    window, ``is_causal`` for the triangle), two turns each, and each
+    pass's bound (``cs.backward_bound``). Inputs as ``chip_smoke.py``'s
+    check draws them (uniform, a generator seeded afresh; o and lse from
+    the plain forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    for key, s, h, ro, co, mode, window in BACKWARD_SHAPES:
+        dh, dtype = cs.DECODE_DH, torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+        q, k, v = cs.uniform_inputs(s, s, h, h, dh, dtype, gen)
+        do = (torch.rand((s, h, dh), generator=gen, device="cuda") * 2 - 1).to(dtype)
+        o, lse = cs.backward_forward(fa, q, k, v, ro, co, mode, window)
+        delta = fa.attention_delta(o, do)
+        kw = {"scale": dh ** -0.5, "row_offset": ro, "col_offset": co, "causal": mode,
+              "window": window}
+        dq = torch.empty((s, h, dh), dtype=torch.float32, device="cuda")
+        dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+        qt, kt, vt = (x.transpose(0, 1)[None].contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(0, 1)[None].contiguous()
+        sdpa_kw = {"scale": kw["scale"]}
+        if mode == "offset" and window:
+            pos_q = ro + torch.arange(s, device="cuda")[:, None]
+            pos_k = co + torch.arange(s, device="cuda")[None, :]
+            sdpa_kw["attn_mask"] = (pos_k <= pos_q) & (pos_k > pos_q - window)
+        elif mode == "offset":
+            sdpa_kw["is_causal"] = True
+
+        def sdpa_forward():
+            return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+        calls = {
+            "dq": lambda: fa.backward_pass("dq", q, k, v, do, lse, delta, (dq,), **kw),
+            "dkv": lambda: fa.backward_pass("dkv", q, k, v, do, lse, delta, (dk, dv), **kw),
+            "sdpa_forward": sdpa_forward,
+            "sdpa_forward_backward": lambda: torch.autograd.grad(sdpa_forward(), (qt, kt, vt),
+                                                                 dot),
+        }
+        times = {name: [] for name in calls}
+        for _ in range(2):
+            for name, call in calls.items():
+                times[name].append(cs.cuda_ms(call, 10))
+        case = fa.backward_case(s, s, ro, co, mode, window)[0]
+        out[key] = {
+            "kernel": fa.backward_kernel(case, dtype),
+            "dq_ms": min(times["dq"]), "dkv_ms": min(times["dkv"]),
+            "sdpa_backward_ms": min(times["sdpa_forward_backward"]) - min(times["sdpa_forward"]),
+            "bound_ms": {p: cs.backward_bound(fa, s, s, h, h, dh, 2, ro, co, mode, window, p)[0]
+                         for p in ("dq", "dkv")},
+            "turns": times,
+        }
+        print(f"backward {key}: {json.dumps(out[key])}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv, qt, kt, vt, dot, sdpa_kw, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def decode_shapes(cs, da, key, h_kv, int8, paged):
@@ -261,6 +342,9 @@ def main(argv=None) -> None:
         if args.phase == "decode_splits":
             entries = []
             turns = decode_splits(chip_smoke, da)
+        elif args.phase == "backward":
+            entries = []
+            turns = backward_turns(chip_smoke, fa)
         elif args.phase == "decode":
             from ddlb_tpu_torch.cli.benchmark import run_benchmark
 
@@ -307,11 +391,11 @@ def main(argv=None) -> None:
         if samples else None,
         "power_w_max": max(w for _, w in samples) if samples else None,
         "ptxas": {name: ptxas_usage(_build.build_log(name)) for name in libraries},
-        "kernels": {e["name"]: {key: e.get(key) for key in (*KEYS, "mma_ms", "sdpa_ms", "variants",
+        "kernels": {e["name"]: {key: e.get(key) for key in (*KEYS, "mma_ms", "sdpa_ms", "variants", "past",
                                                              "graph_ms", "library_graph_ms")
                                 if key in e or key in KEYS}
                     for e in entries},
-        "decode_turns": turns,
+        "turns": turns,
         "rows": rows,
     }))
 

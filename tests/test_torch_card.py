@@ -792,8 +792,9 @@ def test_quantized_member_runs_k7_and_validates(cuda_device, family):
 # the dP products and of the float32 sums, and the rounding of P and dS to
 # the operand type before the tensor-core products, each scaled by the
 # magnitudes the plain tile loop sums (|dS||K|, |dS||Q|, P|dO|). Each pass
-# is counted by kernel (``BACKWARD_TILES``): the triangle in bf16/fp16 on
-# the Hopper wgmma passes, the rectangle on mma.sync, float32 on SIMT.
+# is counted by kernel (``BACKWARD_TILES``): in bf16/fp16 the triangle on
+# the Hopper wgmma passes (tri_bwd), the rectangle on the Hopper band
+# passes (band_bwd, the same shape over a runtime band); float32 on SIMT.
 
 #: K8a's Hopper kernel at ragged lengths (below one tile, one short of
 #: it, one past it, ragged past several) and GQA 8/2: (sq, h, h_kv)
@@ -842,6 +843,14 @@ BACKWARD_CASES = [
     (129, 129, 2, 2, 0, 0, "offset", 0),        # one past a tile
     (1000, 1000, 8, 2, 0, 0, "offset", 0),      # ragged, GQA 4
     (2048, 2048, 16, 16, 0, 0, "offset", 0),    # the rings wrap many times
+    # the band's edges (128-row dQ tiles, 128-key tiles in 64-key halves,
+    # 64-query dK/dV steps)
+    (384, 512, 4, 4, 192, 0, "offset", 0),      # a causal edge across two key tiles
+    (512, 1100, 8, 2, 576, 0, "offset", 200),   # a window edge across two, GQA 4, ragged
+    (256, 1024, 4, 4, 1000, 0, "offset", 100),  # blocks with an empty band
+    (64, 256, 2, 2, 2048, 0, "offset", 300),    # every block empty: the window behind the keys
+    (300, 500, 4, 4, 0, 0, "none", 0),          # bidirectional, sq != skv
+    (1000, 1000, 4, 2, 0, 0, "offset", 256),    # a window at offset 0, ragged
 ]
 
 
@@ -873,7 +882,7 @@ def test_flash_backward_within_bound(cuda_device, case, dtype, peaked):
     case_name, _, _ = fa.backward_case(sq, skv, ro, co, mode, window)
     kernel = fa.backward_kernel(case_name, dtype)
     assert kernel == ("simt" if dtype == torch.float32
-                      else "wgmma" if case_name == "tri" else "mma")
+                      else "wgmma" if case_name == "tri" else "band")
     before, tiles = dict(fa.LAUNCHES), dict(fa.BACKWARD_TILES)
     got = fa.flash_backward(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
@@ -888,6 +897,39 @@ def test_flash_backward_within_bound(cuda_device, case, dtype, peaked):
         gap = (g - w).abs()
         assert bool(torch.isfinite(g).all()), name
         assert bool((gap <= b).all()), (name, float((gap - b).max()))
+
+
+#: rectangles on the band passes: (sq, skv, h, h_kv, row_offset, col_offset,
+#: mode, window)
+BAND_DETERMINISM_CASES = [
+    (777, 1500, 4, 2, 723, 0, "offset", 300),
+    (512, 512, 8, 2, 1536, 512, "past", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", BAND_DETERMINISM_CASES)
+def test_band_backward_is_deterministic(cuda_device, case, dtype):
+    """Two calls of the band passes on the same inputs give bit-identical
+    dq, dk and dv: each gradient is summed in one direction, in a fixed
+    order, without atomics."""
+    sq, skv, h, h_kv, ro, co, mode, window = case
+    dh = 128
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v = _uniform_qkv(sq, skv, h, h_kv, dh, dtype, gen, cuda_device)
+    do = _uniform((sq, h, dh), dtype, gen, cuda_device)
+    o, lse = _backward_forward(q, k, v, ro, co, mode, window)
+    kw = dict(scale=dh**-0.5, row_offset=ro, col_offset=co, causal=mode, window=window)
+    assert fa.backward_kernel(fa.backward_case(sq, skv, ro, co, mode, window)[0], dtype) == "band"
+    tiles = dict(fa.BACKWARD_TILES)
+    first = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    second = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.BACKWARD_TILES == dict(tiles, band=tiles["band"] + 4)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -15,9 +15,6 @@ the wrapper's dispatch, the live-band arithmetic and the rule that only a
 CPU tensor takes the plain version are checked too.
 """
 
-import contextlib
-import types
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +22,7 @@ import torch
 
 from ddlb_tpu.ops import flash_attention as jfa
 from ddlb_tpu_torch.ops import flash_attention as fa
+from torch_parity import install_fake_flash_lib
 
 BLOCK = 16
 DH = 16
@@ -299,41 +297,14 @@ def test_reset_launches_zeroes_the_counts_by_kernel():
 # -- the host side of a launch, through a stand-in library ---------------------
 
 
-class _FakeLib:
-    """The built library's stand-in on the CPU: records each entry point's
-    name and arguments and returns ``rc``."""
-
-    ENTRIES = ("ddlb_flash_forward", "ddlb_flash_forward_tri", "ddlb_flash_forward_band",
-               "ddlb_flash_chunk", "ddlb_flash_chunk_band")
-
-    def __init__(self):
-        self.rc, self.calls = 0, []
-
-    def __getattr__(self, name):
-        if name not in self.ENTRIES:
-            raise AttributeError(name)
-
-        def entry(*args):
-            self.calls.append((name, args))
-            return self.rc
-
-        return entry
-
-    def ddlb_flash_error_string(self, rc):
-        return b"refused"
-
-
 @pytest.fixture
 def fake_lib(monkeypatch):
-    """``forward_pass`` and ``chunk_pass`` on CPU tensors: the library and
-    the CUDA stream lookup replaced, every count zeroed before and after."""
-    lib = _FakeLib()
-    monkeypatch.setattr(fa, "_lib", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=7))
-    fa.reset_launches()
-    yield lib
+    """``forward_pass`` and ``chunk_pass`` on CPU tensors through a stand-in
+    library, every count zeroed before and after."""
+    yield install_fake_flash_lib(
+        monkeypatch, fa, ("ddlb_flash_forward", "ddlb_flash_forward_tri",
+                          "ddlb_flash_forward_band", "ddlb_flash_chunk",
+                          "ddlb_flash_chunk_band"))
     fa.reset_launches()
 
 

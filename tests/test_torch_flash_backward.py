@@ -15,7 +15,10 @@ autograd Function behind ``flash_attention`` and ``ring_flash_attention``
 is held against autograd of plain float32 einsum attention (atol 1e-5),
 and per-chunk backward calls against the whole-span call, as
 ``tests/test_flash_grad.py`` does for the JAX package. The kernels
-themselves run only on the card (``test_torch_card.py``).
+themselves run only on the card (``test_torch_card.py``); here the host
+side of a launch runs against a stand-in library, and a line-for-line
+Python transcription of the Hopper passes' walk over the band is held
+against the brute-force mask.
 """
 
 import jax.numpy as jnp
@@ -25,6 +28,7 @@ import torch
 
 from ddlb_tpu.ops import flash_attention as jfa
 from ddlb_tpu_torch.ops import flash_attention as fa
+from torch_parity import install_fake_flash_lib
 
 BLOCK = 16
 DH = 16
@@ -129,15 +133,15 @@ def test_backward_case_follows_the_dispatch_rule(sq, skv, ro, co, mode, window):
         ("tri", torch.bfloat16, "wgmma"),
         ("tri", torch.float16, "wgmma"),
         ("tri", torch.float32, "simt"),
-        ("rect", torch.bfloat16, "mma"),
-        ("rect", torch.float16, "mma"),
+        ("rect", torch.bfloat16, "band"),
+        ("rect", torch.float16, "band"),
         ("rect", torch.float32, "simt"),
     ],
 )
 def test_backward_kernel_choice(case, dtype, kernel):
-    """The triangle in bf16/fp16 takes the Hopper wgmma passes; the
-    rectangle stays on flash_bwd_*_mma (the forward's band kernel has no
-    backward); float32 on the SIMT kernels."""
+    """In bf16/fp16 the triangle takes the Hopper wgmma passes (tri_bwd)
+    and the rectangle the Hopper band passes (band_bwd); float32 the SIMT
+    kernels."""
     assert fa.backward_kernel(case, dtype) == kernel
 
 
@@ -259,3 +263,208 @@ def test_backward_rejects_what_it_does_not_take():
         fa.flash_backward(q, k, v, o, lse, do, scale=1.0, causal="past", window=4)
     with pytest.raises(ValueError, match="lse must be"):
         fa.flash_backward(q, k, v, o, lse[:, :8], do, scale=1.0)
+
+
+# -- the host side of a launch, through a stand-in library ---------------------
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """``backward_pass`` on CPU tensors through a stand-in library, every
+    count zeroed before and after."""
+    yield install_fake_flash_lib(
+        monkeypatch, fa, ("ddlb_flash_bwd_dq", "ddlb_flash_bwd_dkv", "ddlb_flash_bwd_dq_tri",
+                          "ddlb_flash_bwd_dkv_tri", "ddlb_flash_bwd_dq_band",
+                          "ddlb_flash_bwd_dkv_band"))
+    fa.reset_launches()
+
+
+def _pass_operands(sq, skv, h, h_kv, dtype):
+    q, do = torch.zeros((sq, h, 128), dtype=dtype), torch.ones((sq, h, 128), dtype=dtype)
+    k, v = torch.zeros((skv, h_kv, 128), dtype=dtype), torch.ones((skv, h_kv, 128), dtype=dtype)
+    lse, delta = torch.zeros((h, sq, 1)), torch.zeros((h, sq, 1))
+    return q, k, v, do, lse, delta
+
+
+#: (sq, skv, h, h_kv, row_offset, col_offset, mode, window, dtype, entry
+#: suffix, case, kernel, the offsets and masked flag passed)
+BACKWARD_LAUNCHES = [
+    (256, 256, 8, 2, 0, 0, "offset", 0, torch.bfloat16, "_tri", "tri", "wgmma", None),
+    (256, 256, 4, 4, 512, 512, "diagonal", 0, torch.float16, "_tri", "tri", "wgmma", None),
+    (512, 512, 4, 4, 0, 0, "offset", 100, torch.bfloat16, "_band", "rect", "band", (0, 0, 1)),
+    (777, 1500, 4, 2, 723, 0, "offset", 300, torch.float16, "_band", "rect", "band",
+     (723, 0, 1)),
+    (256, 256, 8, 8, 512, 0, "past", 0, torch.bfloat16, "_band", "rect", "band", (512, 0, 0)),
+    (300, 500, 4, 4, 0, 0, "none", 0, torch.bfloat16, "_band", "rect", "band", (0, 0, 0)),
+    (384, 512, 4, 4, 192, 0, "offset", 0, torch.bfloat16, "_band", "rect", "band",
+     (192, 0, 1)),
+    (200, 300, 4, 2, 900, 500, "diagonal", 0, torch.bfloat16, "_band", "rect", "band",
+     (900, 500, 1)),
+    (700, 900, 4, 2, 650, 100, "offset", 200, torch.float32, "", "rect", "simt",
+     (650, 100, 1)),
+    (128, 128, 2, 2, 256, 128, "past", 0, torch.float32, "", "rect", "simt", (256, 128, 0)),
+]
+
+
+@pytest.mark.parametrize("case", BACKWARD_LAUNCHES)
+@pytest.mark.parametrize("name", ["dq", "dkv"])
+def test_backward_launch_passes_the_band(fake_lib, case, name):
+    """One backward pass: the entry point of the kernel ``backward_kernel``
+    names (``_tri`` for the triangle and ``_band`` for the rectangle in
+    bf16/fp16, the float32 one otherwise) with the operands' and the
+    outputs' own pointers, the shapes, the scale, the offsets (a square
+    diagonal chunk at 0), the masked flag (0 for past and none) and the
+    window; counted once by case and once by kernel."""
+    sq, skv, h, h_kv, ro, co, mode, window, dtype, suffix, case_name, kernel, passed = case
+    q, k, v, do, lse, delta = _pass_operands(sq, skv, h, h_kv, dtype)
+    out = ((torch.empty((sq, h, 128)),) if name == "dq"
+           else (torch.empty((skv, h_kv, 128)), torch.empty((skv, h_kv, 128))))
+    fa.backward_pass(name, q, k, v, do, lse, delta, out, scale=0.5, row_offset=ro,
+                     col_offset=co, causal=mode, window=window)
+    head = (fa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in out))
+    if kernel == "wgmma":
+        want = head + (sq, h, h_kv, 128, 0.5, 7)
+    else:
+        want = head + (sq, skv, h, h_kv, 128, 0.5, *passed, window, 7)
+    assert fake_lib.calls == [(f"ddlb_flash_bwd_{name}{suffix}", want)]
+    assert fa.LAUNCHES == dict(dict.fromkeys(fa.LAUNCHES, 0), **{f"bwd_{name}_{case_name}": 1})
+    assert fa.BACKWARD_TILES == dict(dict.fromkeys(fa.BACKWARD_TILES, 0), **{kernel: 1})
+
+
+@pytest.mark.parametrize("name", ["dq", "dkv"])
+def test_a_refused_band_backward_raises(fake_lib, name):
+    """A pass the library refuses raises, naming the kernel, after one
+    call: nothing retries it on another kernel or on the plain version."""
+    fake_lib.rc = 1
+    q, k, v, do, lse, delta = _pass_operands(200, 300, 4, 2, torch.bfloat16)
+    out = ((torch.empty((200, 4, 128)),) if name == "dq"
+           else (torch.empty((300, 2, 128)), torch.empty((300, 2, 128))))
+    with pytest.raises(RuntimeError, match=r"\(rect, band\) launch failed: refused"):
+        fa.backward_pass(name, q, k, v, do, lse, delta, out, scale=0.5, row_offset=100,
+                         col_offset=0, causal="offset", window=50)
+    assert len(fake_lib.calls) == 1
+    assert fa.BACKWARD_TILES == dict(dict.fromkeys(fa.BACKWARD_TILES, 0), band=1)
+
+
+# -- the band passes' walk, transcribed ------------------------------------------
+#
+# band_bwd in csrc/flash_attention.cu line for line: a dQ block (128 query
+# rows) streams the 128-key tiles of key_range and each consumer warpgroup
+# (64 rows) runs the 64-key halves its rows reach; a dK/dV block (128 keys)
+# streams the 64-row query steps of query_range and each warpgroup (64
+# keys) skips the steps its keys do not reach. A step is masked when it
+# holds a dead pair, keys past skv (dQ) or rows past sq (dK/dV).
+
+ROWS, HALF, Q_STEP = 128, 64, 64
+
+
+def _key_range(b, qa, qb):
+    sq, skv, q_base, k_base, causal, window = b
+    lo = max(0, q_base + qa - window + 1 - k_base) if window else 0
+    hi = min(skv, q_base + qb - k_base) if causal else skv
+    return (0, 0) if qb <= qa or hi <= lo else (lo, hi)
+
+
+def _query_range(b, ka, kb):
+    sq, skv, q_base, k_base, causal, window = b
+    lo = max(0, k_base + ka - q_base) if causal else 0
+    hi = min(sq, k_base + kb - 1 + window - q_base) if window else sq
+    return (0, 0) if kb <= ka or hi <= lo else (lo, hi)
+
+
+def _steps_of(n, lo, hi):
+    first = lo // n
+    return first, ((hi + n - 1) // n if hi > lo else first)
+
+
+def _has_dead(b, qa, qb, ka, kb):
+    sq, skv, q_base, k_base, causal, window = b
+    return bool((causal and k_base + kb - 1 > q_base + qa)
+                or (window and k_base + ka <= q_base + qb - 1 - window))
+
+
+def _dq_walk(b):
+    """For each block: its rows, the key tiles [first, last) it issues, and
+    the (rows, keys, masked) steps its consumers run."""
+    sq, skv = b[:2]
+    for qt in range(-(-sq // ROWS)):
+        q0 = qt * ROWS
+        first, last = _steps_of(ROWS, *_key_range(b, q0, min(q0 + ROWS, sq)))
+        steps = []
+        for c in range(2):
+            ra = q0 + HALF * c
+            wf, wl = _steps_of(HALF, *_key_range(b, ra, min(ra + HALF, sq)))
+            for kt in range(last - 1, first - 1, -1):
+                for h2 in range(max(wf - 2 * kt, 0), min(wl - 2 * kt, 2)):
+                    ka = kt * ROWS + HALF * h2
+                    masked = ka + HALF > skv or _has_dead(b, ra, min(ra + HALF, sq), ka,
+                                                         ka + HALF)
+                    steps.append(((ra, min(ra + HALF, sq)), (ka, min(ka + HALF, skv)), masked))
+        yield (q0, min(q0 + ROWS, sq)), (first, last), steps
+
+
+def _dkv_walk(b):
+    """For each block: its keys, the query steps [first, last) it issues
+    (for each query head of the group), and the (rows, keys, masked) steps
+    its consumers run."""
+    sq, skv = b[:2]
+    for kt in range(-(-skv // ROWS)):
+        k0 = kt * ROWS
+        first, last = _steps_of(Q_STEP, *_query_range(b, k0, min(k0 + ROWS, skv)))
+        steps = []
+        for c in range(2):
+            kb = k0 + HALF * c
+            ke = min(kb + HALF, skv)
+            q_lo, q_hi = _query_range(b, kb, ke)
+            for step in range(first, last):
+                q0 = step * Q_STEP
+                if q0 + Q_STEP <= q_lo or q0 >= q_hi:
+                    continue
+                masked = q0 + Q_STEP > sq or _has_dead(b, q0, q0 + Q_STEP, kb, ke)
+                steps.append(((q0, min(q0 + Q_STEP, sq)), (kb, ke), masked))
+        yield (k0, min(k0 + ROWS, skv)), (first, last), steps
+
+
+#: (sq, skv, row_offset, col_offset, mode, window): offsets that put the
+#: causal and window edges at every phase of the tiles, ragged lengths,
+#: rows and keys with an empty band, the unmasked modes
+WALK_CASES = [
+    (256, 256, 0, 0, "offset", 0), (300, 300, 0, 0, "offset", 0),
+    (384, 512, 192, 0, "offset", 0), (200, 700, 450, 0, "offset", 0),
+    (512, 1100, 576, 0, "offset", 200), (777, 1500, 723, 0, "offset", 300),
+    (256, 1024, 1000, 0, "offset", 100), (64, 256, 2048, 0, "offset", 300),
+    (320, 320, 0, 0, "offset", 100), (1000, 1000, 0, 0, "offset", 256),
+    (300, 1000, 128, 700, "offset", 0), (100, 300, 150, 20, "offset", 0),
+    (64, 64, 100, 0, "offset", 60), (200, 300, 900, 500, "diagonal", 0),
+    (500, 300, 0, 600, "offset", 0), (129, 77, 40, 0, "offset", 1),
+    (2048, 2048, 2048, 0, "past", 0), (130, 70, 0, 0, "none", 0),
+    (300, 500, 0, 0, "none", 0), (257, 383, 300, 44, "offset", 37),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_band_walk_visits_the_live_pairs_once(case):
+    """The dQ walk and the dK/dV walk each visit every live pair of the
+    brute-force mask (``_mask`` over the rectangle) exactly once; every
+    step that holds a dead pair runs the masked pass; a block whose band
+    is empty issues no tile; and every tile issued and every step run
+    holds a live pair (the walk covers the band, not the rectangle)."""
+    sq, skv, ro, co, mode, window = case
+    _, ro, co = fa.backward_case(sq, skv, ro, co, mode, window)
+    masked = mode not in ("past", "none")
+    b = (sq, skv, ro, co, int(masked), window)
+    live = fa._mask(ro, co, sq, skv, masked, window, "cpu").numpy()
+    for walk, unit in ((_dq_walk, ROWS), (_dkv_walk, Q_STEP)):
+        name = walk.__name__
+        visits = np.zeros((sq, skv), np.int64)
+        for (lo, hi), (first, last), steps in walk(b):
+            band = live[lo:hi] if walk is _dq_walk else live[:, lo:hi].T
+            assert (last == first) == (not band.any()), (name, lo)
+            for t in range(first, last):
+                assert band[:, t * unit:(t + 1) * unit].any(), (name, lo, t)
+            for (r0, r1), (k0, k1), is_masked in steps:
+                assert live[r0:r1, k0:k1].any(), (name, r0, k0)
+                assert is_masked or live[r0:r1, k0:k1].all(), (name, r0, k0)
+                visits[r0:r1, k0:k1] += 1
+        np.testing.assert_array_equal(visits[live], 1, err_msg=name)

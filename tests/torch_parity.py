@@ -1,6 +1,9 @@
 """Helpers shared by the ``test_torch_*`` files: move results between the
-JAX package and its PyTorch port as numpy arrays, and the tolerances the
-parity tests state."""
+JAX package and its PyTorch port as numpy arrays, the tolerances the
+parity tests state, and a stand-in for the built flash library."""
+
+import contextlib
+import types
 
 import numpy as np
 import torch
@@ -45,3 +48,38 @@ def assert_within_bf16_ulps(got, want, ulps: float = 1.0, scale=None):
         f"{int(np.sum(err > bound))} elements beyond {ulps} bf16 ulp; "
         f"worst at {worst}: {got[worst]} vs {want[worst]}"
     )
+
+
+class FakeFlashLib:
+    """The built flash library's stand-in on the CPU: records each call of
+    an entry point named in ``entries`` (its name and arguments) and
+    returns ``rc``; any other name raises ``AttributeError``."""
+
+    def __init__(self, entries):
+        self.entries, self.rc, self.calls = tuple(entries), 0, []
+
+    def __getattr__(self, name):
+        if name not in self.entries:
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+
+        return entry
+
+    def ddlb_flash_error_string(self, rc):
+        return b"refused"
+
+
+def install_fake_flash_lib(monkeypatch, fa, entries) -> FakeFlashLib:
+    """Launch the flash module ``fa``'s passes on CPU tensors: its library
+    and the CUDA stream lookup replaced (the stream is 7), every count
+    zeroed. The caller zeroes the counts again after the test."""
+    lib = FakeFlashLib(entries)
+    monkeypatch.setattr(fa, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    fa.reset_launches()
+    return lib
