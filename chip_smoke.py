@@ -95,8 +95,18 @@ Phases, in order; any failure exits non-zero without the final line:
    ``mma``;
    then the LM head's product before and after it moved to the tensor
    cores (``head_phase``: the full-width train row and a pallas
-   decode row, each with the old float32 head and the new one);
-4. one ``kernels`` JSON line, then the last line
+   decode row, each with the old float32 head and the new one).
+   The ``compiled`` member (the JAX package's ``xla_gspmd``: DTensor
+   placements under ``torch.compile``) rides those paths with its knobs at
+   their defaults: both tp families and ``dp_allreduce``/``ep_alltoall`` at
+   8192^3, the collectives config's ``xla_gspmd`` entry at both shapes,
+   decode and prefill at m = 2048 on the serving path, and on the
+   training path ``config_transformer_step.json``'s ``xla_gspmd`` entry as
+   shipped and a full-width train row (einsum attention). Its rows
+   launch no hand kernel; each must be valid;
+4. a ``compiled_rows`` JSON line (each compiled row's median, its first
+   call's seconds and Dynamo graph count), one ``kernels`` JSON line, then
+   the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -238,20 +248,23 @@ def overlap_entries(config):
 
 
 #: every member of both families, each option of the sweep: the cuda
-#: member's two algorithms (K1; K2 or K3) and every overlap entry of
-#: scripts/config.json and scripts/config_tp_rowwise.json
+#: member's two algorithms (K1; K2 or K3), every overlap entry of
+#: scripts/config.json and scripts/config_tp_rowwise.json, and the
+#: compiled member (their xla_gspmd) with its knobs at their defaults
 GEMM_SWEEPS = {
     "tp_columnwise": {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{"order": ["AG_before", "AG_after"]}],
         "cuda": [{"order": ["AG_before", "AG_after"]}, {"algorithm": ["ring_rdma"]}],
         "overlap": overlap_entries("config.json"),
+        "compiled": [{}],
     },
     "tp_rowwise": {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{}],
         "cuda": [{}, {"algorithm": ["ring_rdma"]}],
         "overlap": overlap_entries("config_tp_rowwise.json"),
+        "compiled": [{}],
     },
 }
 
@@ -266,13 +279,22 @@ QUANT_SWEEPS = {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{"strategy": ["all_reduce", "rs_ag"]}],
         "quantized": [QUANT_GRID],
+        "compiled": [{}],
     },
     "ep_alltoall": {
         "compute_only": [{"size": ["sharded", "unsharded"]}],
         "pytorch": [{}],
         "quantized": [QUANT_GRID],
+        "compiled": [{}],
     },
 }
+
+#: the compiled rows the paths drove: (primitive, shape, option, median ms,
+#: first call's seconds, Dynamo graphs), printed before the kernels line
+COMPILED_ROWS = []
+#: the columns a compiled row adds: its first call (trace, compile, one
+#: run) and the graphs Dynamo captured in it
+COMPILE_KEYS = ("compile_s", "dynamo_graphs")
 
 #: the members and options of scripts/config_cp_ring_attention.json, plus
 #: ring_flash (both skip settings); then, in a run of its own (another
@@ -320,8 +342,13 @@ def drive_path(run_benchmark, device, primitive, shape, implementations,
         print(json.dumps({key: row[key] for key in (
             "primitive", "implementation", "option", "median time (ms)",
             "Throughput (TFLOPS)", "platform", "device_kind", "valid", "error",
-            *extra_keys,
+            *COMPILE_KEYS, *extra_keys,
         ) if key in row}))
+        if row["base_implementation"] == "compiled":
+            COMPILED_ROWS.append({
+                "primitive": primitive, "shape": [m, n, k], "option": row["option"],
+                "median_ms": row["median time (ms)"], "valid": row["valid"],
+                **{key: row.get(key) for key in COMPILE_KEYS}})
     bad = [
         r["implementation"] for r in rows
         if not (r["valid"] and not r["error"] and r["platform"] == device
@@ -1883,6 +1910,13 @@ SERVE_ROWS = [
                       **SERVE_COMMON}]}, 2, 8),
     (8192, {"spmd": [{"phase": "prefill", "mlp_kernel": "int8_weights",
                       **SERVE_COMMON}]}, 1, 3),
+    # the compiled member (the JAX package's xla_gspmd): decode and prefill
+    # at m = 2048, beside the einsum prefill above and an einsum spmd decode
+    # (its set-up prefill is einsum, as in the JAX package: 34 GB of scores
+    # at m = 8192)
+    (2048, {"compiled": [{"phase": "decode", **SERVE_COMMON}],
+            "spmd": [{"phase": "decode", "attn_kernel": "einsum", **SERVE_COMMON}]}, 2, 8),
+    (2048, {"compiled": [{"phase": "prefill", **SERVE_COMMON}]}, 1, 3),
 ]
 
 
@@ -2292,6 +2326,7 @@ def training_rows():
     shape = (cfg["m"][0], cfg["n"][0], cfg["k"][0])
     impls = {name: blocks for name, blocks in cfg["implementations"].items()
              if name in ("spmd", "compute_only")}
+    compiled = {"xla_gspmd": cfg["implementations"]["xla_gspmd"]}
     spmd = impls["spmd"][0]
     with open(ROUTER_CONFIG) as f:
         router = json.load(f)["benchmark"]
@@ -2302,11 +2337,16 @@ def training_rows():
     windowed = dict(wide, mode=["train"], attn_window=[1024])
     int8 = {key: value for key, value in spmd.items()}
     int8.update(microbatches=[2], attention=["gathered"], mlp_kernel=["int8"])
+    wide_compiled = dict(wide, mode=["train"], attn_kernel=["einsum"])
     return [
         (shape, impls),
         (wide_shape, {"spmd": [wide]}),
         (wide_shape, {"spmd": [windowed]}),
         (shape, {"spmd": [int8]}),
+        # the compiled member: the config's xla_gspmd entry as shipped
+        # (latency_hiding_scheduler true and false), and the full width
+        (shape, compiled),
+        (wide_shape, {"compiled": [wide_compiled]}),
     ]
 
 
@@ -2319,12 +2359,12 @@ def expected_training_launches(row, calls):
     (``torch.utils.checkpoint``), and each backward pass once (K10a/K10b,
     or K10c/K10d under a window); an int8 MLP runs K7 twice a layer and
     tick in each of the two forwards, and twice a layer and microbatch in
-    the row's one oracle loss, each on K7's wgmma tile. compute_only rows
-    launch nothing."""
+    the row's one oracle loss, each on K7's wgmma tile. compute_only and
+    compiled rows (einsum attention, the bf16 MLP) launch nothing."""
     o = row_options(row)
     want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
             "int8": 0, **dict.fromkeys(BWD_KEYS, 0), **int8_tile_counts(None)}
-    if row["base_implementation"] == "compute_only":
+    if row["base_implementation"] in ("compute_only", "compiled"):
         if o["mlp_kernel"] != "bf16":
             fail("no launch rule for a compute_only row with an int8 MLP")
         return want
@@ -2396,7 +2436,8 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
 # -- the collective trio's path: collectives, dp/ep cuda and overlap ----------
 
 #: the members of scripts/config_collectives.json the port carries
-#: (compute_only, jax_spmd as pytorch, pallas as cuda) at both its shapes;
+#: (compute_only, jax_spmd as pytorch, pallas as cuda, xla_gspmd as
+#: compiled) at both its shapes;
 #: then dp_allreduce and ep_alltoall at their configs' 8192^3 bf16: the
 #: cuda member's two algorithms and every overlap entry of
 #: scripts/config_dp_allreduce.json and config_ep_alltoall.json
@@ -2416,7 +2457,8 @@ def trio_rows():
         for block in cfg["implementations"]:
             block = dict(block)
             name = block.pop("name")
-            if primitive == "collectives" and name in ("compute_only", "jax_spmd", "pallas"):
+            if primitive == "collectives" and name in ("compute_only", "jax_spmd", "pallas",
+                                                       "xla_gspmd"):
                 impls.setdefault(name, []).append(block)
             elif name == "overlap":
                 impls.setdefault(name, []).append(block)
@@ -2786,6 +2828,7 @@ def main():
         entry["ptxas"] = ptxas_registers(library, kernel)
     trio_entries[0]["ptxas"] = ptxas_registers("ring_collectives", "ring_all_gather_kernel")
     trio_entries[1]["ptxas"] = ptxas_registers("ring_collectives", "ring_reduce_scatter_kernel")
+    print(json.dumps({"compiled_rows": COMPILED_ROWS, "card": smi}))
     print(json.dumps({"kernels": [matmul_entry, *ring_entries, *trio_entries, int8_entry,
                                   forward_entry, rect_entry, chunk_entry,
                                   *backward_entries, decode_entry, paged_entry]}))

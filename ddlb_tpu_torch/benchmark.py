@@ -96,6 +96,12 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
         impl_class = load_impl_class(primitive, config["base_implementation"])
         impl = impl_class(m, n, k, dtype=dtype, device=device, **options)
         option_repr = _format_options(impl.options)
+        if getattr(impl, "compiles_on_first_call", False) and num_warmups < 1:
+            raise ValueError(
+                f"'{config['base_implementation']}' compiles on its first call: "
+                "num_warmups must be >= 1 to keep the compile out of the timed "
+                "window"
+            )
         for _ in range(num_warmups):
             result = impl.run()
         runtime.synchronize()
@@ -279,20 +285,25 @@ class PrimitiveBenchmarkRunner:
 
 
 def append_csv(path: str, row: Dict[str, Any]) -> None:
-    """Append one row; a new file gets the row's keys as its header, an
-    existing one keeps its header (missing columns empty, extras dropped)."""
+    """Append one row; a new file gets the row's keys as its header. A row
+    with columns the header lacks (a member's own, such as the compiled
+    member's ``compile_s``) widens it: the file is rewritten with those
+    columns added at the end, empty in the earlier rows."""
     directory = os.path.dirname(path)
     if directory:
         os.makedirs(directory, exist_ok=True)
+    rows: List[Dict[str, Any]] = []
     header = list(row)
     if os.path.exists(path) and os.path.getsize(path) > 0:
         with open(path, newline="") as f:
-            header = next(csv.reader(f))
-        write_header = False
-    else:
-        write_header = True
-    with open(path, "a", newline="") as f:
+            reader = csv.DictReader(f)
+            header = list(reader.fieldnames)
+            new = [key for key in row if key not in header]
+            if new:
+                rows, header = list(reader), header + new
+    write_header = rows or not os.path.exists(path) or os.path.getsize(path) == 0
+    with open(path, "w" if rows else "a", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=header, extrasaction="ignore")
         if write_header:
             writer.writeheader()
-        writer.writerow(row)
+        writer.writerows(rows + [row])

@@ -4,8 +4,9 @@ The port of the JAX package's ``cli/benchmark.py``: a JSON config (the
 shape of ``scripts/config.json``), ``name;k=v,v`` impl-spec flags, and a
 programmatic dict all normalise into one config that is expanded over
 per-implementation option lists and over (m, n, k) shape lists. The JAX
-package's member names (``jax_spmd``, ``pallas``) run as the port's
-(``pytorch``, ``cuda``), so the repo's sweep configs run as they are. Runs on
+package's member names (``jax_spmd``, ``pallas``, ``xla_gspmd``) run as
+the port's (``pytorch``, ``cuda``, ``compiled``), so the repo's sweep
+configs run as they are. Runs on
 the card unless the config says ``"device": "cpu"`` (CLI ``--device
 cpu``). Under ``torchrun`` every rank runs the same sweep; rank 0 writes
 the CSV and prints the table.
@@ -23,11 +24,10 @@ import json
 import time
 from typing import Any, Dict, List, Tuple
 
-import torch.distributed as dist
 
 from ddlb_tpu_torch.benchmark import PrimitiveBenchmarkRunner
 from ddlb_tpu_torch.primitives.registry import ALLOWED_PRIMITIVES, port_member_name
-from ddlb_tpu_torch.runtime import DEVICES, env_rank
+from ddlb_tpu_torch.runtime import DEVICES, env_rank, shutdown
 
 #: config keys the port reads; any other key raises rather than being
 #: silently ignored (the JAX runner's isolation, pool, retry and
@@ -167,7 +167,8 @@ def _normalize(config: Dict[str, Any]) -> Dict[str, Any]:
         impls = as_dict
     if impls is not None:
         # the repo's sweep configs name members as the JAX package does
-        # (jax_spmd, pallas): run them as the port's (pytorch, cuda)
+        # (jax_spmd, pallas, xla_gspmd): run them as the port's (pytorch,
+        # cuda, compiled)
         renamed: Dict[str, List[Dict[str, Any]]] = {}
         for name, blocks in impls.items():
             renamed.setdefault(port_member_name(name), []).extend(blocks)
@@ -312,8 +313,7 @@ def main(argv=None) -> None:
     try:
         run_benchmark(config)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()
 
 
 def load_config(path: str) -> Dict[str, Any]:

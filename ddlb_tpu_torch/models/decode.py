@@ -22,6 +22,10 @@ and its one expert (over tp), with the ``psum`` over 'tp' as
 - ``make_generate_fn``: prefill, then greedy decode steps.
 - ``reference_logits``: the single-device oracle, a teacher-forced full
   forward that shares no attention code with the cache path.
+- ``make_full_width_fns``: the single-program decode and prefill (every
+  head and expert, no collective), functional; the ``compiled`` member
+  runs them on DTensors (``dtensor_cache``), and they double as oracle
+  building blocks.
 
 In place, not functional. The JAX functions return a new cache; these
 write the given one in place and return it. A decode step writes the row
@@ -34,8 +38,7 @@ whose page is the sentinel, leaves the cache as it was (the JAX
 (``mode='fill'``).
 
 Not ported: the speculative-verify chunk (``make_chunk_decode_fn``, t > 1
-cached steps), ``make_speculate_fn``, sampling at ``temperature > 0``,
-and the full-width ``make_full_width_fns`` of the GSPMD member.
+cached steps), ``make_speculate_fn`` and sampling at ``temperature > 0``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ddlb_tpu_torch.models.transformer import (
     NEG_INF,
@@ -58,6 +62,7 @@ from ddlb_tpu_torch.models.transformer import (
 from ddlb_tpu_torch.ops import decode_attention as da
 from ddlb_tpu_torch.ops.accum import float32_product
 from ddlb_tpu_torch.primitives.base import _tensor_from_numpy
+from ddlb_tpu_torch.runtime import mesh_size, placements
 
 Cache = Dict[str, torch.Tensor]
 
@@ -310,9 +315,11 @@ def _live_mask(S_max, pos, window, device):
         if window:
             live &= iota[None, :] > pos[:, None] - window
         return live[:, None, None, None, :]
-    live = iota <= int(pos)
+    # pos an int, or a 0-d tensor (a compiled step's position, kept a
+    # tensor so a new position is not a new program)
+    live = iota <= pos
     if window:
-        live &= iota > int(pos) - window
+        live &= iota > pos - window
     return live[None, None, None, None]
 
 
@@ -364,15 +371,16 @@ def routed_moe(h2d, params, cfg: TransformerConfig, l, B, dp, tp):
     per_seq = rows // B
     b_dp = B // dp
     g = b_dp // tp
-    u = torch.zeros_like(h2d)
-    for i0 in range(0, B, b_dp):
-        for e in range(tp):
-            sl = slice((i0 + e * g) * per_seq, (i0 + (e + 1) * g) * per_seq)
-            u[sl] = moe_ffn(
-                h2d[sl], params["moe_w1"][0, l, e], params["moe_w2"][0, l, e],
-                cfg.mlp_kernel, h2d.dtype, scales=ffn_scales(params, l, e, cfg),
-            )
-    return u
+    # the blocks tile the rows in order: concatenated, not written in place,
+    # so the compiled member can trace it
+    return torch.cat([
+        moe_ffn(
+            h2d[(i0 + e * g) * per_seq:(i0 + (e + 1) * g) * per_seq],
+            params["moe_w1"][0, l, e], params["moe_w2"][0, l, e],
+            cfg.mlp_kernel, h2d.dtype, scales=ffn_scales(params, l, e, cfg),
+        )
+        for i0 in range(0, B, b_dp) for e in range(tp)
+    ])
 
 
 def block_moe(h2d, params, l, cfg: TransformerConfig, mesh):
@@ -550,6 +558,112 @@ def make_generate_fn(mesh, cfg: TransformerConfig, n_new: int):
         return tokens
 
     return generate
+
+
+def dtensor_cache(cfg: TransformerConfig, batch: int, max_len: int, mesh,
+                  device) -> Cache:
+    """``init_cache``'s zeroed contiguous cache as DTensors on ``mesh`` (a
+    ``Runtime.device_mesh`` over 'dp' and 'tp'), ``cache_specs`` (:125):
+    the batch (dim 1) over dp and the kv heads (dim 3) over tp, int8
+    scales alike; each rank's zeros wrapped by ``from_local``."""
+    dp, tp = mesh_size(mesh, "dp"), mesh_size(mesh, "tp")
+    if batch % dp or cfg.kv_heads % tp:
+        raise ValueError(
+            f"batch {batch} / kv heads {cfg.kv_heads} do not split over "
+            f"dp={dp}, tp={tp}"
+        )
+    shape = (cfg.layers_per_stage, batch // dp, max_len, cfg.kv_heads // tp,
+             cfg.head_dim)
+    where = placements(mesh, {"dp": 1, "tp": 3})
+    return {name: DTensor.from_local(x, mesh, where, run_check=False)
+            for name, x in _zeros(cfg, shape, device).items()}
+
+
+def _put_rows(layer: torch.Tensor, pos, val: torch.Tensor) -> torch.Tensor:
+    """``layer [B, S_max, ...]`` with rows ``[pos, pos + t)`` replaced by
+    ``val [B, t, ...]``, as a new tensor (the JAX package's
+    ``dynamic_update_slice``): ``pos`` an int, or a 0-d tensor with t = 1
+    (a decode step's position, selected by a mask, so that it stays a
+    tensor)."""
+    val = val.to(layer.dtype)
+    if isinstance(pos, torch.Tensor):
+        rows = torch.arange(layer.shape[1], device=layer.device)
+        rows = rows.reshape((1, -1) + (1,) * (layer.dim() - 2))
+        return torch.where(rows == pos, val, layer)
+    t = val.shape[1]
+    return torch.cat([layer[:, :pos], val, layer[:, pos + t:]], dim=1)
+
+
+def make_full_width_fns(cfg: TransformerConfig, batch: int, dp: int, tp: int):
+    """The single-program decode and prefill (:862): full-head attention,
+    ``routed_moe``'s expert blocks, the cache threaded through, no
+    collective. Functional: the cache given is not written; its layers
+    are rebuilt where a step writes them.
+
+    ``decode_fwd(params, cache, tokens [B], pos) -> logits [B, vocab]``
+    (float32) writes row ``pos`` (an int or a 0-d tensor) and attends rows
+    up to it; ``prefill_fwd(params, cache, tokens [B, S]) -> (logits,
+    cache)`` fills rows ``[0, S)`` and returns the logits at S - 1 and the
+    new cache. Run on DTensors (the ``compiled`` member) DTensor inserts
+    the collectives; on plain tensors they are oracle building blocks."""
+    B = batch
+    L, H, dh = cfg.layers_per_stage, cfg.n_heads, cfg.head_dim
+    H_kv = cfg.kv_heads
+    int8_cache = cfg.kv_cache == "int8"
+
+    def write(layers, l, pos, k, v):
+        """Layer l of each cache entry with this step's k/v at ``pos``."""
+        if int8_cache:
+            (k, k_scale), (v, v_scale) = quantize_kv(k), quantize_kv(v)
+            new = {"k": k, "v": v, "k_scale": k_scale, "v_scale": v_scale}
+        else:
+            new = {"k": k, "v": v}
+        for name, val in new.items():
+            layers[name][l] = _put_rows(layers[name][l], pos, val)
+
+    def decode_fwd(params, cache, tokens, pos):
+        layers = {name: list(arr.unbind(0)) for name, arr in cache.items()}
+        x = params["embed"][tokens.long()][:, None, :]  # [B, 1, D]
+        if cfg.rope:
+            posb = torch.zeros((B, 1), dtype=torch.long, device=x.device) + pos
+        for l in range(L):
+            h = rms_norm(x, params["ln1"][0, l])
+            q, k, v = project_qkv(h, params, l, B, 1, H, H_kv, dh, x.dtype)
+            if cfg.rope:
+                q = apply_rope(q, posb, cfg.rope_theta)
+                k = apply_rope(k, posb, cfg.rope_theta)
+            write(layers, l, pos, k, v)
+            view = {name: layers[name][l][None] for name in layers}
+            attn = cache_attend(q, view, 0, dh, pos, x.dtype, window=cfg.attn_window)
+            x = x + torch.matmul(attn, params["w_o"][0, l]).to(x.dtype)
+            h2 = rms_norm(x, params["ln2"][0, l])
+            u = routed_moe(h2.reshape(B, -1), params, cfg, l, B, dp, tp)
+            x = x + u[:, None, :]
+        return _logits(rms_norm(x, params["ln_f"])[:, 0], params)
+
+    def prefill_fwd(params, cache, tokens):
+        layers = {name: list(arr.unbind(0)) for name, arr in cache.items()}
+        B_, S = tokens.shape
+        x = params["embed"][tokens.long()]
+        for l in range(L):
+            h = rms_norm(x, params["ln1"][0, l])
+            q, k, v = project_qkv(h, params, l, B_, S, H, H_kv, dh, x.dtype)
+            if cfg.rope:
+                pos = torch.arange(S, device=x.device)[None]
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+            write(layers, l, 0, k, v)
+            if int8_cache:
+                k, v = kv_roundtrip(k), kv_roundtrip(v)
+            attn = causal_attention(q, k, v, window=cfg.attn_window)
+            x = x + torch.matmul(attn.reshape(B_, S, H * dh), params["w_o"][0, l]).to(x.dtype)
+            h2 = rms_norm(x, params["ln2"][0, l])
+            u = routed_moe(h2.reshape(B_ * S, -1), params, cfg, l, B, dp, tp)
+            x = x + u.reshape(B_, S, -1)
+        logits = _logits(rms_norm(x[:, -1], params["ln_f"]), params)
+        return logits, {name: torch.stack(ls) for name, ls in layers.items()}
+
+    return decode_fwd, prefill_fwd
 
 
 #: the oracle's score blocks stay near this many bytes (query chunking)

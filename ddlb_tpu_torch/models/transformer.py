@@ -48,6 +48,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ddlb_tpu_torch.ops.accum import float32_product
@@ -65,6 +66,7 @@ from ddlb_tpu_torch.ops.quantized_matmul import (
     quantize_weight_stack,
 )
 from ddlb_tpu_torch.primitives.base import _tensor_from_numpy
+from ddlb_tpu_torch.runtime import mesh_coordinate, mesh_size, placements
 
 LN_EPS = 1e-6
 
@@ -265,6 +267,39 @@ def shard_params(params: Params, cfg: TransformerConfig, tp: int,
                 x = x.narrow(dim, ranks[axis] * width, width)
         out[name] = x
     return out
+
+
+def param_names(cfg: TransformerConfig) -> Tuple[str, ...]:
+    """The names of ``init_params``' leaves for ``cfg``."""
+    names = ("embed", "w_o", "moe_w1", "moe_w2", "ln1", "ln2", "ln_f", "head")
+    names += ("w_qkv",) if cfg.kv_heads == cfg.n_heads else ("w_q", "w_kv")
+    if cfg.mlp_kernel == "int8_weights":
+        names += ("moe_w1_scale", "moe_w2_scale")
+    return names
+
+
+def param_placements(cfg: TransformerConfig, mesh) -> Dict[str, list]:
+    """``param_specs`` (:235) as DTensor placements on ``mesh`` (a
+    ``Runtime.device_mesh`` over some of 'dp', 'tp', 'pp'), from
+    ``param_axes``; an axis the mesh lacks is dropped, as the JAX serving
+    member drops 'pp'."""
+    return {name: placements(mesh, axes)
+            for name, axes in param_axes(cfg, param_names(cfg)).items()}
+
+
+def dtensor_params(params: Params, cfg: TransformerConfig, mesh, device) -> Params:
+    """The full host parameters as DTensors on ``mesh`` placed by
+    ``param_placements``: ``from_local`` (no communication) of this rank's
+    ``shard_params`` slice on ``device``."""
+    tp, pp = mesh_size(mesh, "tp"), mesh_size(mesh, "pp")
+    mine = place_params(
+        shard_params(params, cfg, tp, mesh_coordinate(mesh, "tp"), pp,
+                     mesh_coordinate(mesh, "pp")),
+        device,
+    )
+    where = param_placements(cfg, mesh)
+    return {name: DTensor.from_local(x, mesh, where[name], run_check=False)
+            for name, x in mine.items()}
 
 
 def place_params(params: Params, device) -> Params:

@@ -3,7 +3,9 @@
 Covers the families this port carries so far. The members follow the
 upstream project (samnordmann/ddlb): ``pytorch`` is the
 explicit-collective member (the JAX package's ``jax_spmd``), ``cuda`` the
-hand-kernel member (the JAX package's ``pallas``). ``overlap``,
+hand-kernel member (the JAX package's ``pallas``), ``compiled`` the
+compiler-partitioned member (the JAX package's ``xla_gspmd``: DTensor
+placements under ``torch.compile``). ``overlap``,
 ``quantized`` and the context-parallel attention members keep their JAX
 names. A family or member of the JAX package that has no
 counterpart here yet raises ``ValueError`` saying so.
@@ -41,6 +43,10 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.tp_columnwise.quantized",
             "QuantizedTPColumnwise",
         ),
+        "compiled": (
+            "ddlb_tpu_torch.primitives.tp_columnwise.compiled",
+            "CompiledTPColumnwise",
+        ),
     },
     "tp_rowwise": {
         "compute_only": (
@@ -63,6 +69,10 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.tp_rowwise.quantized",
             "QuantizedTPRowwise",
         ),
+        "compiled": (
+            "ddlb_tpu_torch.primitives.tp_rowwise.compiled",
+            "CompiledTPRowwise",
+        ),
     },
     "dp_allreduce": {
         name: (f"ddlb_tpu_torch.primitives.dp_allreduce.{module}", cls)
@@ -72,6 +82,7 @@ _REGISTRY = {
             ("quantized", "quantized", "QuantizedDPAllReduce"),
             ("cuda", "cuda_impl", "CudaDPAllReduce"),
             ("overlap", "overlap", "OverlapDPAllReduce"),
+            ("compiled", "compiled", "CompiledDPAllReduce"),
         )
     },
     "ep_alltoall": {
@@ -82,6 +93,7 @@ _REGISTRY = {
             ("quantized", "quantized", "QuantizedEPAllToAll"),
             ("cuda", "cuda_impl", "CudaEPAllToAll"),
             ("overlap", "overlap", "OverlapEPAllToAll"),
+            ("compiled", "compiled", "CompiledEPAllToAll"),
         )
     },
     "collectives": {
@@ -90,6 +102,7 @@ _REGISTRY = {
             ("compute_only", "compute_only", "ComputeOnlyCollectives"),
             ("pytorch", "pytorch", "PyTorchCollectives"),
             ("cuda", "cuda_impl", "CudaCollectives"),
+            ("compiled", "compiled", "CompiledCollectives"),
         )
     },
     "cp_ring_attention": {
@@ -112,6 +125,10 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.transformer_step.compute_only",
             "ComputeOnlyTransformerStep",
         ),
+        "compiled": (
+            "ddlb_tpu_torch.primitives.transformer_step.compiled",
+            "CompiledTransformerStep",
+        ),
     },
     "transformer_decode": {
         "spmd": (
@@ -122,6 +139,10 @@ _REGISTRY = {
             "ddlb_tpu_torch.primitives.transformer_decode.compute_only",
             "ComputeOnlyTransformerDecode",
         ),
+        "compiled": (
+            "ddlb_tpu_torch.primitives.transformer_decode.compiled",
+            "CompiledTransformerDecode",
+        ),
     },
 }
 
@@ -131,10 +152,10 @@ _NOT_PORTED_FAMILIES = (
     "serving_load",
 )
 #: members of the ported families that the port does not carry yet: the
-#: GSPMD members and the topology compositions
-_NOT_PORTED_MEMBERS = ("xla_gspmd", "jax_spmd_hier", "jax_spmd_striped")
+#: topology compositions
+_NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped")
 #: JAX package member name -> this package's name for the same member
-_RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda"}
+_RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda", "xla_gspmd": "compiled"}
 #: unit of the runner's Throughput column, by family: the collectives
 #: family's ``flops()`` is 1000 * wire bytes, so its column is GB/s
 _THROUGHPUT_UNITS = {"collectives": "GB/s"}
@@ -150,8 +171,8 @@ def throughput_unit(primitive: str) -> str:
 
 def port_member_name(name: str) -> str:
     """The port's name for a member named in a JAX package config
-    (``jax_spmd`` -> ``pytorch``, ``pallas`` -> ``cuda``); other names as
-    they are."""
+    (``jax_spmd`` -> ``pytorch``, ``pallas`` -> ``cuda``, ``xla_gspmd`` ->
+    ``compiled``); other names as they are."""
     return _RENAMED.get(name, name)
 
 

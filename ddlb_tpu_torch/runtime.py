@@ -18,7 +18,11 @@ NVLink), for the hand-written ring and all-to-all kernels.
 ``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
 (``Mesh``) whose per-axis groups carry the serving model's sum and
 all-gather and the training step's collectives, some of them
-differentiable.
+differentiable. ``Runtime.device_mesh(names, shape)`` is the same mesh
+as a ``torch.distributed`` ``DeviceMesh``, for the ``compiled`` members'
+DTensors; at world 1 it opens a one-rank default group for them.
+``shutdown()`` drops the compiled graphs and destroys the default group
+with every mesh built on it (not the one-rank group of world 1).
 """
 
 from __future__ import annotations
@@ -236,6 +240,44 @@ class Runtime:
         """This rank's place in a ``(dp, tp, pp)`` mesh (see ``Mesh``)."""
         return Mesh(self, dp, tp, pp)
 
+    def device_mesh(self, names, shape):
+        """The ranks as a ``DeviceMesh`` with the named axes, in ``Mesh``'s
+        order (the last axis fastest, as ``jax.make_mesh`` lays devices out),
+        for DTensor placements.
+
+        Axes of size 1 are left out (one axis is kept when every axis is
+        1): a placement over one rank is the identity, and DTensor's
+        sharding propagation enumerates placements per mesh dimension, so
+        each extra dimension multiplies its work. ``placements`` takes the
+        full axis names and skips the absent ones. At world 1 there is no
+        process group (``__init__``), so the first call opens a one-rank
+        default group from an in-memory store: NCCL on the card, gloo on
+        the CPU; it stays for the life of the process (``shutdown``).
+        Meshes are cached per (platform, names, shape).
+        """
+        from torch.distributed.device_mesh import DeviceMesh
+
+        names, shape = tuple(names), tuple(int(s) for s in shape)
+        if len(names) != len(shape) or int(np.prod(shape)) != self.world_size:
+            raise ValueError(
+                f"mesh {dict(zip(names, shape))} does not cover the world of "
+                f"{self.world_size} ranks"
+            )
+        key = (self.platform, names, shape)
+        if key not in _DEVICE_MESHES:
+            if not dist.is_initialized():
+                dist.init_process_group(
+                    backend="nccl" if self.platform == "cuda" else "gloo",
+                    store=dist.HashStore(), rank=0, world_size=1,
+                )
+                _LOCAL_GROUP.append(True)
+            kept = [i for i, s in enumerate(shape) if s > 1] or [0]
+            ranks = torch.arange(self.world_size).reshape([shape[i] for i in kept])
+            _DEVICE_MESHES[key] = DeviceMesh(
+                self.platform, ranks, mesh_dim_names=tuple(names[i] for i in kept)
+            )
+        return _DEVICE_MESHES[key]
+
     def max_over_ranks(self, values: np.ndarray) -> np.ndarray:
         """Elementwise maximum of a float vector over ranks."""
         if self.world_size == 1:
@@ -251,6 +293,58 @@ class Runtime:
         t = torch.tensor([1 if flag else 0], dtype=torch.int32).to(self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
         return bool(t.item())
+
+
+#: ``Runtime.device_mesh``'s meshes by (platform, names, shape)
+_DEVICE_MESHES: dict = {}
+#: True once ``Runtime.device_mesh`` opened a one-rank default group
+_LOCAL_GROUP: list = []
+
+
+def placements(mesh, axes: dict) -> list:
+    """DTensor placements on ``mesh`` (``Runtime.device_mesh``) from
+    ``{axis name: sharded dim}``: ``Shard(dim)`` on a named axis,
+    ``Replicate()`` on the others; axes the mesh left out are skipped. On
+    an axis of one rank (a world of 1) sharded and replicated are the same
+    layout, and ``Replicate()`` is given: some DTensor rules of torch 2.11
+    fail on a shard over one rank (the embedding's ``index_put``
+    backward)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(axes[name]) if name in axes and size > 1 else Replicate()
+            for name, size in zip(mesh.mesh_dim_names, mesh.shape)]
+
+
+def mesh_size(mesh, name: str) -> int:
+    """The size of axis ``name`` of a ``Runtime.device_mesh`` (1 where the
+    mesh left it out)."""
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index(name)) if name in names else 1
+
+
+def mesh_coordinate(mesh, name: str) -> int:
+    """This rank's coordinate on axis ``name`` of a ``Runtime.device_mesh``
+    (0 where the mesh left it out)."""
+    return mesh.get_local_rank(name) if name in mesh.mesh_dim_names else 0
+
+
+def shutdown() -> None:
+    """End a run: drop Dynamo's compiled graphs (the ``compiled`` members'
+    graphs hold the group and its meshes), then destroy the default process
+    group with the meshes and groups built on it. A later run in the same
+    process opens them anew.
+
+    The one-rank group ``Runtime.device_mesh`` opens at world 1 stays, with
+    its meshes, for the life of the process: a second ``DeviceMesh`` equal
+    to one a compiled backward already used breaks the next compiled
+    backward (torch 2.13's AOTAutograd partitioner: "Node tangents_2 was
+    invalid, but is output")."""
+    torch._dynamo.reset()
+    if _LOCAL_GROUP or not dist.is_initialized():
+        return
+    _DEVICE_MESHES.clear()
+    _GROUPS.clear()
+    dist.destroy_process_group()
 
 
 class PeerBuffer:

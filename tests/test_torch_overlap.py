@@ -173,23 +173,23 @@ def test_cuda_member_rejects_dtypes_k2_k3_lack(family):
 @pytest.mark.parametrize("family", ["dp_allreduce", "ep_alltoall"])
 def test_overlap_of_dp_and_ep_not_yet_ported(family):
     """The dp and ep ``overlap`` members are ported now (their tests are in
-    ``test_torch_dp_ep_members.py``); those families' GSPMD member still
-    raises "not yet ported"."""
+    ``test_torch_dp_ep_members.py``); those families' GSPMD member is too,
+    as ``compiled`` (``test_torch_compiled.py``)."""
     assert load_port(family, "overlap").primitive_name == family
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="counterpart is 'compiled'"):
         load_port(family, "xla_gspmd")
+    assert load_port(family, "compiled").primitive_name == family
 
 
 #: the JAX package's member names in the sweep configs -> the port's
-_PORT_NAMES = {"jax_spmd": "pytorch", "pallas": "cuda"}
+_PORT_NAMES = {"jax_spmd": "pytorch", "pallas": "cuda", "xla_gspmd": "compiled"}
 
 
 @pytest.mark.parametrize("config", ["config.json", "config_tp_rowwise.json"])
 def test_sweep_config_members_run_on_the_cpu(config, tmp_path):
     """The config's member lists (with the port's names, plus
     ``cuda;algorithm=ring_rdma``) expand and run through the port's CLI at
-    a small shape: every row valid but ``xla_gspmd``'s, which stays a
-    'not yet ported' error row."""
+    a small shape: every row valid, ``xla_gspmd``'s as ``compiled``."""
     cfg = json.loads((REPO / "scripts" / config).read_text())["benchmark"]
     impls = {_PORT_NAMES.get(name, name): blocks
              for name, blocks in cfg["implementations"].items()}
@@ -206,9 +206,7 @@ def test_sweep_config_members_run_on_the_cpu(config, tmp_path):
     )
     assert len(rows) == expected
     for row in rows:
-        if row["base_implementation"] == "xla_gspmd":
-            assert "not yet ported" in row["error"] and not row["valid"]
-        else:
-            assert row["valid"] and not row["error"], row
+        assert row["valid"] and not row["error"], row
+    assert sum(r["base_implementation"] == "compiled" for r in rows) == 1
     overlap = [r["option"] for r in rows if r["base_implementation"] == "overlap"]
     assert len(overlap) == {"config.json": 8, "config_tp_rowwise.json": 6}[config]

@@ -139,15 +139,17 @@ def test_tpu_tile_options_not_ported(option):
     "member", ["jax_spmd_hier", "jax_spmd_striped", "xla_gspmd", "overlap", "pallas"]
 )
 def test_members_not_yet_ported(family, member):
-    """The topology compositions and the GSPMD member raise "not yet
-    ported"; ``overlap`` and ``pallas`` (the port's ``cuda``) are ported."""
+    """The topology compositions raise "not yet ported"; ``overlap``,
+    ``pallas`` (the port's ``cuda``) and ``xla_gspmd`` (the port's
+    ``compiled``) are ported."""
     load_jax(family, member)  # the JAX package has it
     if member == "overlap":
         assert load_port(family, member).__name__.startswith("Overlap")
-    elif member == "pallas":
-        with pytest.raises(ValueError, match="counterpart is 'cuda'"):
+    elif member in ("pallas", "xla_gspmd"):
+        ours = {"pallas": "cuda", "xla_gspmd": "compiled"}[member]
+        with pytest.raises(ValueError, match=f"counterpart is '{ours}'"):
             load_port(family, member)
-        assert load_port(family, "cuda").__name__.startswith("Cuda")
+        assert load_port(family, ours).__name__.startswith(ours.capitalize())
     else:
         with pytest.raises(ValueError, match="not yet ported"):
             load_port(family, member)

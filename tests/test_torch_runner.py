@@ -83,7 +83,7 @@ def test_run_benchmark_writes_rows_with_jax_column_names(tmp_path, capsys):
 
 def test_shipped_config_shape_is_read(tmp_path):
     """scripts/config.json's shape (a 'benchmark' block) with the port's
-    member names; members not ported yet become error rows, not a crash."""
+    member names; the JAX package's ``xla_gspmd`` runs as ``compiled``."""
     cfg = {"benchmark": _cpu_config(
         tmp_path,
         implementations={
@@ -99,8 +99,8 @@ def test_shipped_config_shape_is_read(tmp_path):
     by_impl = {r["implementation"]: r for r in rows}
     assert by_impl["pytorch_0"]["valid"]
     assert by_impl["overlap_0"]["valid"] and not by_impl["overlap_0"]["error"]
-    assert "not yet ported" in by_impl["xla_gspmd_0"]["error"]
-    assert not by_impl["xla_gspmd_0"]["valid"]
+    assert by_impl["compiled_0"]["valid"] and not by_impl["compiled_0"]["error"]
+    assert by_impl["compiled_0"]["base_implementation"] == "compiled"
 
 
 def test_unknown_config_key_rejected(tmp_path):
@@ -225,14 +225,14 @@ def test_runtime_on_cpu_world_of_one():
     "primitive,name,match",
     [
         ("dp_allreduce", "jax_spmd_hier", "not yet ported"),
-        ("tp_rowwise", "xla_gspmd", "not yet ported"),
+        ("tp_rowwise", "xla_gspmd", "counterpart is 'compiled'"),
         ("tp_columnwise", "jax_spmd", "counterpart is 'pytorch'"),
         ("tp_rowwise", "pallas", "counterpart is 'cuda'"),
         ("tp_columnwise", "nope", "Unknown implementation"),
         ("dp_allreduce", "jax_spmd", "counterpart is 'pytorch'"),
         ("dp_allreduce", "pallas", "counterpart is 'cuda'"),
         ("pp_pipeline", "jax_spmd", "not yet ported"),
-        ("transformer_step", "xla_gspmd", "not yet ported"),
+        ("transformer_step", "xla_gspmd", "counterpart is 'compiled'"),
         ("bogus", "pytorch", "Unknown primitive"),
     ],
 )
@@ -247,3 +247,20 @@ def test_registry_classes_are_primitives():
             cls = registry.load_impl_class(primitive, name)
             assert issubclass(cls, Primitive)
             assert cls.primitive_name == primitive
+
+
+def test_csv_widens_for_a_member_s_own_columns(tmp_path):
+    """A row with columns the file's header lacks (the compiled member's
+    ``compile_s`` after a ``pytorch`` row) widens the header; earlier rows
+    keep their values, with the new columns empty."""
+    path = str(tmp_path / "rows.csv")
+    port_benchmark.append_csv(path, {"implementation": "pytorch_0", "valid": True})
+    port_benchmark.append_csv(path, {"implementation": "compiled_0", "valid": True,
+                                     "compile_s": 1.5, "async_tp_fused": 1})
+    port_benchmark.append_csv(path, {"implementation": "cuda_0", "valid": False})
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert list(rows[0]) == ["implementation", "valid", "compile_s", "async_tp_fused"]
+    assert [r["implementation"] for r in rows] == ["pytorch_0", "compiled_0", "cuda_0"]
+    assert rows[0]["compile_s"] == "" and rows[1]["compile_s"] == "1.5"
+    assert rows[1]["async_tp_fused"] == "1" and rows[2]["valid"] == "False"
