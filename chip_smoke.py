@@ -81,9 +81,18 @@ Phases, in order; any failure exits non-zero without the final line:
    (``training_rows``: ``scripts/config_transformer_step.json``'s ``spmd``
    and ``compute_only`` entries, the full width of
    ``scripts/config_router.json``'s first entry with the block router,
-   train and forward, the same train with ``attn_window=1024``, and an
-   ``mlp_kernel=int8`` train row; K8a, K8b, K9, K10a-K10d, K7), with each
-   row's ms per step, tokens/s and model-FLOPs utilisation. Every row must
+   train and forward, the same train with ``attn_window=1024``, an
+   ``mlp_kernel=int8`` train row, and the pipeline schedules:
+   ``config_router.json``'s second entry as shipped (``schedule`` gpipe
+   and 1f1b) and the same at ``virtual=2`` (gpipe and interleaved, the
+   table executor); K8a, K8b, K9, K10a-K10d, K7), with each row's ms per
+   step, tokens/s, model-FLOPs utilisation and peak memory, and the
+   schedules' step memory beside their gpipe twins' (``schedule_memory``);
+   then the pipeline path, ``scripts/config_pp_pipeline.json`` and
+   ``config_schedules.json`` as shipped (every ``pp_pipeline`` member: the
+   chain of ``torch.matmul`` products launches no hand kernel, and the
+   path's counts must stay 0), with each ``schedules`` row's bubble
+   fraction and stash slots from its tables. Every row must
    be valid with a finite time, and the counts must be exactly what the
    rows launch, every K1, K2 and K3 launch of every path on the Hopper
    tile, every K8a launch on the ``wgmma`` forward, every K8b and K9
@@ -2338,6 +2347,13 @@ def training_rows():
     int8 = {key: value for key, value in spmd.items()}
     int8.update(microbatches=[2], attention=["gathered"], mlp_kernel=["int8"])
     wide_compiled = dict(wide, mode=["train"], attn_kernel=["einsum"])
+    # the pipeline schedules: config_router.json's second entry as shipped
+    # (gpipe and 1f1b), then the interleaved schedule at virtual=2 beside
+    # its equal-depth gpipe twin
+    pipelined = {key: value for key, value in router["implementations"][1].items()
+                 if key != "name"}
+    chunked = [dict(pipelined, schedule=[schedule], virtual=[2])
+               for schedule in ("gpipe", "interleaved")]
     return [
         (shape, impls),
         (wide_shape, {"spmd": [wide]}),
@@ -2347,20 +2363,24 @@ def training_rows():
         # (latency_hiding_scheduler true and false), and the full width
         (shape, compiled),
         (wide_shape, {"compiled": [wide_compiled]}),
+        (wide_shape, {"spmd": [pipelined]}),
+        (wide_shape, {"spmd": chunked}),
     ]
 
 
 def expected_training_launches(row, calls):
     """The kernel launches one training row makes in ``calls`` measured
-    calls at world 1 (one stage, so each of the ``microbatches`` ticks runs
-    every layer once): per layer and tick, the flash forward (K8a, or K8b
-    under a window that cuts the band, or K9 under ring attention) once in
-    the forward and once more when the backward recomputes the stage
-    (``torch.utils.checkpoint``), and each backward pass once (K10a/K10b,
-    or K10c/K10d under a window); an int8 MLP runs K7 twice a layer and
-    tick in each of the two forwards, and twice a layer and microbatch in
-    the row's one oracle loss, each on K7's wgmma tile. compute_only and
-    compiled rows (einsum attention, the bf16 MLP) launch nothing."""
+    calls at world 1 (one device, a chain of ``virtual`` chunks, so each
+    microbatch runs every layer of every chunk once): per layer, chunk and
+    microbatch, the flash forward (K8a, or K8b under a window that cuts the
+    band, or K9 under ring attention) once in the forward and once more
+    when the backward recomputes the stage (``torch.utils.checkpoint`` in
+    the GPipe loop, the backward tick's recompute in the table executor),
+    and each backward pass once (K10a/K10b, or K10c/K10d under a window);
+    an int8 MLP runs K7 twice a layer, chunk and microbatch in each of the
+    two forwards and in the row's one oracle loss, each on K7's wgmma
+    tile. compute_only and compiled rows (einsum attention, the bf16 MLP)
+    launch nothing."""
     o = row_options(row)
     want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
             "int8": 0, **dict.fromkeys(BWD_KEYS, 0), **int8_tile_counts(None)}
@@ -2368,10 +2388,10 @@ def expected_training_launches(row, calls):
         if o["mlp_kernel"] != "bf16":
             fail("no launch rule for a compute_only row with an int8 MLP")
         return want
-    L, mb = int(o["layers_per_stage"]), int(o["microbatches"])
+    L, mb, v = int(o["layers_per_stage"]), int(o["microbatches"]), int(o["virtual"])
     train = o["mode"] == "train"
     passes = 2 if train else 1
-    per_call = mb * L * calls
+    per_call = mb * L * v * calls
     window = int(o["attn_window"])
     if o["attention"] == "ring":
         windowed, forward = window > 0, "chunk"
@@ -2385,7 +2405,7 @@ def expected_training_launches(row, calls):
             want[f"bwd_dq_{case}"] = want[f"bwd_dkv_{case}"] = per_call
     if o["mlp_kernel"] == "int8":
         # every product runs a microbatch's rows: the wgmma tile
-        want["int8"] = want["int8_wgmma"] = 2 * passes * per_call + 2 * L * mb
+        want["int8"] = want["int8_wgmma"] = 2 * passes * per_call + 2 * L * mb * v
     return want
 
 
@@ -2407,9 +2427,11 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
         for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
             name = spec.pop("implementation")
             before = counts()
+            torch.cuda.reset_peak_memory_stats()
             (row,) = drive_path(run_benchmark, "cuda", "transformer_step", shape,
                                 {name: [spec]}, warmups=TRAIN_WARMUPS,
                                 iterations=TRAIN_ITERATIONS)
+            peak = torch.cuda.max_memory_allocated()
             after = counts()
             got = {key: after[key] - before[key] for key in after}
             want = expected_training_launches(
@@ -2426,11 +2448,100 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
                 "tokens_per_s": tokens / (ms / 1e3),
                 "tflops": row["Throughput (TFLOPS)"],
                 "mfu": row["Throughput (TFLOPS)"] * 1e12 / PEAK_BF16_FLOPS,
-                "launches": {key: n for key, n in got.items() if n}, "card": smi,
+                "launches": {key: n for key, n in got.items() if n},
+                "peak_row_bytes": peak, "card": smi,
             }))
             torch.cuda.empty_cache()
     end = counts()
     return {key: end[key] - total_start[key] for key in end}
+
+
+def schedule_memory(smi):
+    """The pipeline schedules' activation memory at the full width: for
+    each train row of ``config_router.json``'s second entry (gpipe, 1f1b)
+    and its virtual=2 pair (gpipe, interleaved), the step's peak
+    allocation above what its operands hold (one warm call, then the
+    peak counter reset and one more call), printed beside its gpipe
+    twin's with the schedule's stash slots and bubble from the tables.
+    The row's own peak (``peak_row_bytes`` of the training lines) also
+    holds the oracle's einsum attention, the same for every schedule."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import generate_config_combinations
+    from ddlb_tpu_torch.primitives.registry import load_impl_class
+    from ddlb_tpu_torch.utils.pipeline_schedule import build_schedule
+
+    out = []
+    for shape, impls in training_rows()[-2:]:
+        twin = None
+        for spec in generate_config_combinations(impls)["spmd"]:
+            impl = load_impl_class("transformer_step", "spmd")(
+                *shape, dtype="bfloat16", device="cuda", **spec)
+            impl.run()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            impl.run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - resident
+            v = spec.get("virtual", 1)
+            tables = build_schedule(spec["schedule"], 1, spec["microbatches"], v)
+            slot = spec["batch"] // spec["microbatches"] * shape[0] * shape[1] * 2
+            twin = peak if spec["schedule"] == "gpipe" else twin
+            out.append({"schedule": spec["schedule"], "virtual": v,
+                        "microbatches": spec["microbatches"], "peak_step_bytes": peak,
+                        "gpipe_twin_bytes": twin, "stash_slots": tables.peak_stash,
+                        "stash_slot_bytes": slot,
+                        "bubble_fraction": tables.bubble_fraction})
+            del impl
+            torch.cuda.empty_cache()
+    print(json.dumps({"schedule_memory": out, "card": smi}))
+    return out
+
+
+# -- the pipeline path: the pp_pipeline family ------------------------------
+
+#: the pipeline family's configs, driven as shipped (the JAX member names
+#: jax_spmd and xla_gspmd run as pytorch and compiled)
+PP_CONFIGS = ("config_pp_pipeline.json", "config_schedules.json")
+
+
+def pp_path(run_benchmark, counts, smi):
+    """Drive ``PP_CONFIGS`` as shipped, each through the sweep runner with
+    its own shape, warmups and iterations. The chain's products are
+    ``torch.matmul``, as the JAX members' are ``jnp.matmul`` outside any
+    Pallas kernel: the path launches no hand kernel, and this fails unless
+    every count stays 0. Prints each ``schedules`` row's bubble fraction
+    and stash slots from its tables on a line of its own. Returns the
+    rows."""
+    from ddlb_tpu_torch.utils.pipeline_schedule import build_schedule
+
+    start = counts()
+    rows = []
+    for config in PP_CONFIGS:
+        with open(os.path.join("scripts", config)) as f:
+            cfg = json.load(f)["benchmark"]
+        shape = (cfg["m"][0], cfg["n"][0], cfg["k"][0])
+        got = drive_path(run_benchmark, "cuda", "pp_pipeline", shape, cfg["implementations"],
+                         warmups=cfg["num_warmups"], iterations=cfg["num_iterations"])
+        for row in got:
+            if row["base_implementation"] != "schedules":
+                continue
+            o = row_options(row)
+            tables = build_schedule(o["schedule"], row["world_size"],
+                                    int(o["microbatches"]), int(o["virtual"]))
+            print(json.dumps({
+                "pp_schedule": o["schedule"], "virtual": tables.virtual,
+                "microbatches": tables.microbatches, "shape": list(shape),
+                "median_ms": row["median time (ms)"], "ticks": tables.ticks,
+                "bubble_fraction": tables.bubble_fraction,
+                "peak_stash": tables.peak_stash, "card": smi,
+            }))
+        rows += got
+    end = counts()
+    launched = {key: end[key] - start[key] for key in end if end[key] != start[key]}
+    if launched:
+        fail(f"hand kernels launched on the pipeline path: {launched}")
+    return rows
 
 
 # -- the collective trio's path: collectives, dp/ep cuda and overlap ----------
@@ -2777,7 +2888,13 @@ def main():
         fail(f"K2-K6 launched on the training path: {cm.LAUNCHES} {trio_counts()}")
     tiles["training"] = check_tiles("the training path", k1, cm, fa)
     launches["training"] = training_launches
+    schedule_memory(smi)
     print(f"training path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    pp_rows = pp_path(run_benchmark, counts, smi)
+    launches["pipeline"] = {}
+    print(f"pipeline path done ({len(pp_rows)} rows) at {time.perf_counter() - t_start:.1f} s")
 
     head_phase(run_benchmark, smi)
     print(f"head product phase done at {time.perf_counter() - t_start:.1f} s")

@@ -12,8 +12,8 @@ straight-through estimator), ``_ce_loss`` (:517), ``make_stage_fn``
 (:628), ``make_loss_fn`` (:866, the GPipe loop at any pp),
 ``make_train_step`` (:980, with an AdamW as ``optax.adamw``'s),
 ``reference_loss`` (:1033) and ``example_tokens`` (:1224). The learned
-routers (``router=topk|expert_choice``) and the 1F1B and interleaved
-pipeline schedules (``models/pipeline.py``) are not ported.
+routers (``router=topk|expert_choice``) are not ported; the 1F1B and
+interleaved schedules are ``models/pipeline.py``.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 stage-stacked on a leading ``pp`` axis, ``w_qkv [pp, L, 3, D, D]`` (MHA)
@@ -600,6 +600,13 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, targets[..., None].long()).mean()
 
 
+def tail_loss(y: torch.Tensor, ln_f: torch.Tensor, head: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
+    """The last stage's tail on a local slab: ``ln_f``, the LM head (a
+    float32 product) and the token cross-entropy."""
+    return ce_loss(float32_product(rms_norm(y, ln_f), head), targets)
+
+
 def _check_step_shapes(cfg: TransformerConfig, mesh, tokens: torch.Tensor) -> None:
     """The static-shape contract of the loss body (:889-905)."""
     B_loc, S = tokens.shape
@@ -676,9 +683,8 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
                     x_in = buf.detach().requires_grad_(with_grads)
                 y = run(x_in)
                 if last:
-                    h = rms_norm(y, leaves["ln_f"])
-                    logits = float32_product(h, leaves["head"])
-                    loss_t = ce_loss(logits, local(targets, t - (pp - 1)))
+                    loss_t = tail_loss(y, leaves["ln_f"], leaves["head"],
+                                       local(targets, t - (pp - 1)))
                     loss_acc = loss_acc + loss_t.detach()
             record.append((x_in, y, loss_t))
             if pp > 1 and t + 1 < ticks:

@@ -19,6 +19,7 @@ from typing import Tuple, Type
 ALLOWED_PRIMITIVES = (
     "tp_columnwise", "tp_rowwise", "dp_allreduce", "cp_ring_attention",
     "ep_alltoall", "transformer_decode", "transformer_step", "collectives",
+    "pp_pipeline",
 )
 
 _REGISTRY = {
@@ -116,6 +117,15 @@ _REGISTRY = {
             ("ring_flash", "RingFlashCPRingAttention"),
         )
     },
+    "pp_pipeline": {
+        name: (f"ddlb_tpu_torch.primitives.pp_pipeline.{name}", cls)
+        for name, cls in (
+            ("compute_only", "ComputeOnlyPPPipeline"),
+            ("pytorch", "PyTorchPPPipeline"),
+            ("schedules", "SchedulePPPipeline"),
+            ("compiled", "CompiledPPPipeline"),
+        )
+    },
     "transformer_step": {
         "spmd": (
             "ddlb_tpu_torch.primitives.transformer_step.spmd",
@@ -147,10 +157,7 @@ _REGISTRY = {
 }
 
 #: families of the JAX package that the port does not carry yet
-_NOT_PORTED_FAMILIES = (
-    "pp_pipeline",
-    "serving_load",
-)
+_NOT_PORTED_FAMILIES = ("serving_load",)
 #: members of the ported families that the port does not carry yet: the
 #: topology compositions
 _NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped")

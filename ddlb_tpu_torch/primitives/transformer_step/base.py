@@ -10,8 +10,10 @@ Shape mapping onto ``(m, n, k)``: ``m`` the sequence length, ``n``
 d_model, ``k`` d_ff (per expert). The option schema is the JAX package's
 (:53-92), value for value. Values whose path is not ported raise a
 ``ValueError`` that names ROADMAP.md and run nothing else: the learned
-routers (``router=topk|expert_choice``), ``mlp_kernel=int8_weights``, and
-on ``spmd`` the 1F1B and interleaved schedules and ``virtual > 1``.
+routers (``router=topk|expert_choice``) and ``mlp_kernel=int8_weights``.
+The chain is ``pp * virtual`` stages deep (``_total_stages``; ``virtual``
+is an option of ``spmd`` only): the parameters, ``flops()`` and the
+oracle count them all.
 
 Throughput uses the model-FLOPs census of ``flops()`` (three times the
 forward's matmul FLOPs for a train step), not 2mnk. Validation holds the
@@ -176,12 +178,17 @@ class TransformerStep(Primitive):
         counted)."""
         o = self.options
         D, Fd, S = self.n, self.k, self.m
-        layers = self._mesh_factors()[2] * o["layers_per_stage"]
+        layers = self._total_stages() * o["layers_per_stage"]
         kv_frac = (o["n_kv_heads"] or o["n_heads"]) / o["n_heads"]
         per_token = layers * ((4.0 + 4.0 * kv_frac) * D * D + 2.0 * S * D + 4.0 * D * Fd)
         per_token += 2.0 * D * o["vocab"]
         fwd = o["batch"] * S * per_token
         return 3.0 * fwd if o["mode"] == "train" else fwd
+
+    def _total_stages(self) -> int:
+        """The chain's depth: pp stages, ``virtual`` chunks each (JAX
+        :248; the spmd member's ``virtual``)."""
+        return self._mesh_factors()[2] * self.options.get("virtual", 1)
 
     # -- model, parameters, tokens --------------------------------------------
 
@@ -198,10 +205,12 @@ class TransformerStep(Primitive):
         )
 
     def _host_params(self) -> dict:
-        """The full parameters on the host (every stage, head and expert):
-        ``init_params`` with ``pp`` stages and ``tp`` experts."""
-        _, tp, pp = self._mesh_factors()
-        return init_params(self._model_config(), pp, n_experts=tp, seed=self.seed)
+        """The full parameters on the host (every stage, head and expert),
+        in stage order: ``init_params`` with ``_total_stages()`` stages and
+        ``tp`` experts."""
+        _, tp, _ = self._mesh_factors()
+        return init_params(self._model_config(), self._total_stages(), n_experts=tp,
+                           seed=self.seed)
 
     def _host_tokens(self) -> Tuple[np.ndarray, np.ndarray]:
         return example_tokens(self.options["batch"], self.m, self.options["vocab"],
@@ -213,8 +222,8 @@ class TransformerStep(Primitive):
         """``reference_loss`` on the same seeded parameters and tokens, on
         this rank's device under the dtype's precision scope; memoised."""
         dp, tp, pp = self._mesh_factors()
-        key = (self._model_config(), dp, tp, pp, self.m, self.options["batch"],
-               self.seed)
+        key = (self._model_config(), dp, tp, pp, self._total_stages(), self.m,
+               self.options["batch"], self.seed)
         if key not in _ORACLE_MEMO:
             _ORACLE_MEMO.clear()
             cfg = self._model_config()

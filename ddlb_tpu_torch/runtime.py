@@ -10,11 +10,12 @@ default process group is opened once per process: NCCL on the card, gloo
 on the CPU, rendezvous through ``MASTER_ADDR`` / ``MASTER_PORT``
 (``env://``). At world 1 no group exists and every collective below is
 the identity: the all-gather and reduce-scatter of rows, the sum
-all-reduce, the ring hop (``batch_isend_irecv``, by one rank or by
-``offset``), and the row and head/sequence all-to-alls
-(``all_to_all_single``). ``Runtime.peer_buffer`` allocates card memory
-that every rank can address (``PeerBuffer``, symmetric memory over
-NVLink), for the hand-written ring and all-to-all kernels.
+all-reduce, the broadcast, the ring hop (``batch_isend_irecv``, by one
+rank or by ``offset``; ``ring_exchange`` both ways at once), and the row
+and head/sequence all-to-alls (``all_to_all_single``).
+``Runtime.peer_buffer`` allocates card memory that every rank can
+address (``PeerBuffer``, symmetric memory over NVLink), for the
+hand-written ring and all-to-all kernels.
 ``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
 (``Mesh``) whose per-axis groups carry the serving model's sum and
 all-gather and the training step's collectives, some of them
@@ -155,6 +156,13 @@ class Runtime:
         work = dist.all_reduce(x, async_op=async_op)
         return (x, [work]) if async_op else x
 
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank, in place (``x`` must be
+        contiguous and of the same shape everywhere); returns it."""
+        if self.world_size > 1:
+            dist.broadcast(x, src)
+        return x
+
     def all_to_all_rows(self, x: torch.Tensor, async_op: bool = False):
         """Row block j of ``x`` (``d`` equal blocks along dim 0) goes to
         rank j; block i of the result came from rank i (the tiled
@@ -194,12 +202,18 @@ class Runtime:
         nxt, prv = (self.rank + offset) % d, (self.rank - offset) % d
         if reverse:
             nxt, prv = prv, nxt
-        received = tuple(torch.empty_like(t) for t in tensors)
-        ops = []
-        for i, (t, buf) in enumerate(zip(tensors, received)):
-            ops.append(dist.P2POp(dist.isend, t, nxt, tag=tag + i))
-            ops.append(dist.P2POp(dist.irecv, buf, prv, tag=tag + i))
-        return received, dist.batch_isend_irecv(ops)
+        return _post_hops([(t, nxt, prv) for t in tensors], tag=tag)
+
+    def ring_exchange(self, right=None, left=None):
+        """One ring hop each way, posted together in one
+        ``batch_isend_irecv`` and waited for: ``right`` goes to the next
+        rank, ``left`` to the previous one (either may be None: not sent).
+        Returns ``(from_previous, from_next)``, None where nothing was sent;
+        at world 1 each tensor comes back to this rank."""
+        d = self.world_size
+        if d == 1:
+            return right, left
+        return _exchange(right, left, (self.rank + 1) % d, (self.rank - 1) % d, None)
 
     def peer_buffer(self, nbytes: int) -> "PeerBuffer":
         """``nbytes`` of zeroed card memory that every rank can address
@@ -541,16 +555,21 @@ class Mesh:
         nxt, prv = self._neighbours(axis)
         if reverse:
             nxt, prv = prv, nxt
-        group = self.groups[axis]
-        tensors = tuple(t.contiguous() for t in tensors)
-        received = tuple(torch.empty_like(t) for t in tensors)
-        ops = []
-        for tag, (t, buf) in enumerate(zip(tensors, received)):
-            ops.append(dist.P2POp(dist.isend, t, nxt, group=group, tag=tag))
-            ops.append(dist.P2POp(dist.irecv, buf, prv, group=group, tag=tag))
-        for work in dist.batch_isend_irecv(ops):
+        received, works = _post_hops([(t.contiguous(), nxt, prv) for t in tensors],
+                                     self.groups[axis])
+        for work in works:
             work.wait()
         return received
+
+    def exchange(self, axis: str, right=None, left=None):
+        """``Runtime.ring_exchange`` along ``axis``: ``right`` to the next
+        rank, ``left`` to the previous one, in one ``batch_isend_irecv``,
+        waited for; returns ``(from_previous, from_next)``. On an axis of
+        size 1 each tensor comes back to this rank."""
+        if self.sizes[axis] == 1:
+            return right, left
+        nxt, prv = self._neighbours(axis)
+        return _exchange(right, left, nxt, prv, self.groups[axis])
 
     def pp_shift(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         """The pipeline hop (the ``ppermute`` to the next stage, :951), or
@@ -578,6 +597,34 @@ class Mesh:
         """One hop of the tp ring (the ``ppermute`` to the next tp rank);
         its gradient is the hop back."""
         return _RingShift.apply(self, *tensors)
+
+
+def _post_hops(hops, group=None, tag: int = 0):
+    """Post every ``(tensor, to, frm)`` hop (send ``tensor`` to global rank
+    ``to``, receive the same shape from ``frm``) in one
+    ``batch_isend_irecv``, a tag a hop counted from ``tag``. Returns
+    ``(received, works)``; the received tensors are valid once every work's
+    ``wait()`` has returned."""
+    received = tuple(torch.empty_like(t) for t, _, _ in hops)
+    ops = []
+    for i, ((t, to, frm), buf) in enumerate(zip(hops, received)):
+        ops.append(dist.P2POp(dist.isend, t, to, group=group, tag=tag + i))
+        ops.append(dist.P2POp(dist.irecv, buf, frm, group=group, tag=tag + i))
+    return received, dist.batch_isend_irecv(ops)
+
+
+def _exchange(right, left, nxt: int, prv: int, group):
+    """The hops of ``ring_exchange``/``Mesh.exchange`` between the global
+    ranks ``nxt`` and ``prv``, waited for."""
+    sent = [(t.contiguous(), to, frm) for t, to, frm in ((right, nxt, prv), (left, prv, nxt))
+            if t is not None]
+    if not sent:
+        return None, None
+    received, works = _post_hops(sent, group)
+    for work in works:
+        work.wait()
+    got = iter(received)
+    return tuple(None if t is None else next(got) for t in (right, left))
 
 
 def _along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:

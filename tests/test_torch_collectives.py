@@ -121,7 +121,7 @@ def test_rows_carry_the_family_unit(tmp_path):
     })
     assert tp[0]["unit"] == "TFLOPS"
     with pytest.raises(ValueError, match="not yet ported"):
-        registry.throughput_unit("pp_pipeline")
+        registry.throughput_unit("serving_load")
 
 
 @pytest.mark.parametrize("op", ["reduce_scatter", "all_to_all", "all_reduce"])

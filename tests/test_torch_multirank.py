@@ -514,8 +514,10 @@ def test_two_rank_transformer_decode():
 # -- transformer_step over (dp, tp, pp) meshes of two ranks --------------------
 #
 # d_model 32, 4 heads of 8, d_ff 64, vocab 64, one layer a stage, batch 4,
-# m = 16, float32. Each rank runs one spmd train step and returns its loss
-# and its slice of the parameters after the AdamW update; the parent holds
+# m = 16, float32. Each rank runs one spmd train step (or, under
+# mode='forward', the loss alone, its parameters left as they are) and
+# returns its loss and its slice of the parameters after the AdamW update;
+# the parent holds
 # them against the JAX package's train step on a CPU-simulation mesh of the
 # same shape (jax.make_mesh lays out its devices with pp fastest, as
 # runtime.Mesh places the ranks): the loss within 1e-5 and the slices of
@@ -540,6 +542,9 @@ STEP_CASES = [
     # the einsum ring: every hop in every rank's graph, live or not
     (1, 2, 1, {"attention": "ring", "attn_kernel": "einsum"}),
     (1, 2, 1, {"attention": "ring", "attn_kernel": "einsum", "attn_window": 5}),
+    (1, 1, 2, {}),
+    # the loss alone: parameters as they were, the loss the step's
+    (1, 1, 2, {"mode": "forward"}),
 ]
 RING_S, RING_H, RING_DH = 32, 2, 8
 
@@ -568,10 +573,14 @@ def _step_rank_main(rank, port, results):
                 STEP_M, STEP_N, STEP_K, dtype="float32", device="cpu",
                 dp=dp, tp=tp, pp=pp, **STEP_COMMON, **opts,
             )
-            params, _, loss = impl.run()
+            result = impl.run()
+            if opts.get("mode") == "forward":
+                params, loss = impl._args[0], result
+            else:
+                params, _, loss = result
             coords = (impl.mesh.dp_rank, impl.mesh.tp_rank, impl.mesh.pp_rank)
             out[i] = ({k: v.numpy() for k, v in params.items()}, float(loss),
-                      impl.validate((params, None, loss)), coords)
+                      impl.validate(result), coords)
         mesh = Runtime("cpu").mesh(1, WORLD, 1)
         s_loc = RING_S // WORLD
         q, k, v, w = (torch.from_numpy(x[rank * s_loc:(rank + 1) * s_loc].copy())
@@ -593,13 +602,17 @@ def _step_rank_main(rank, port, results):
 
 def _jax_step(dp, tp, pp, opts):
     """The JAX package's train step on a (dp, tp, pp) mesh of the CPU
-    simulation: (full parameters before and after one step, loss)."""
+    simulation: (full parameters before and after one step, loss). Under
+    ``mode='forward'`` the parameters after are those before (the step's
+    loss is taken before its update, so it is the forward's loss)."""
     import jax
 
     from ddlb_tpu.models.transformer import (
         TransformerConfig, example_tokens, init_params, make_train_step,
     )
 
+    forward = opts.get("mode") == "forward"
+    opts = {k: v for k, v in opts.items() if k != "mode"}
     cfg = TransformerConfig(vocab=64, d_model=STEP_N, n_heads=4, d_ff=STEP_K,
                             microbatches=2, **opts)
     mesh = jax.make_mesh((dp, tp, pp), ("dp", "tp", "pp"), devices=jax.devices()[:WORLD])
@@ -609,6 +622,8 @@ def _jax_step(dp, tp, pp, opts):
     tokens, targets = example_tokens(4, STEP_M, 64, seed=42)
     new, _, loss = step(params, init_opt(params), jax.device_put(tokens, shardings["data"]),
                         jax.device_put(targets, shardings["data"]))
+    if forward:
+        new = init
     return ({k: np.asarray(v) for k, v in init.items()},
             {k: np.asarray(v) for k, v in new.items()}, float(loss))
 
@@ -667,7 +682,8 @@ def test_two_rank_transformer_step():
 
     for i, (dp, tp, pp, opts) in enumerate(STEP_CASES):
         init, want_params, want_loss = _jax_step(dp, tp, pp, opts)
-        axes = param_axes(TransformerConfig(**opts), want_params)
+        axes = param_axes(TransformerConfig(
+            **{k: v for k, v in opts.items() if k != "mode"}), want_params)
         lr, wd = 1e-2, 1e-4
         # u as the JAX step applied it; 0 (an unused embedding row) is exact
         # on both sides

@@ -231,7 +231,7 @@ def test_runtime_on_cpu_world_of_one():
         ("tp_columnwise", "nope", "Unknown implementation"),
         ("dp_allreduce", "jax_spmd", "counterpart is 'pytorch'"),
         ("dp_allreduce", "pallas", "counterpart is 'cuda'"),
-        ("pp_pipeline", "jax_spmd", "not yet ported"),
+        ("pp_pipeline", "jax_spmd", "counterpart is 'pytorch'"),
         ("transformer_step", "xla_gspmd", "counterpart is 'compiled'"),
         ("bogus", "pytorch", "Unknown primitive"),
     ],

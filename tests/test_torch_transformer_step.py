@@ -270,9 +270,9 @@ def test_compute_only_matches_the_oracle(mode):
         ({"router": "expert_choice"}, "router='expert_choice'.*not yet ported"),
         ({"mlp_kernel": "int8_weights", "mode": "forward"}, "int8_weights.*not yet ported"),
         ({"mlp_kernel": "int8_weights"}, "requires mode='forward'"),
-        ({"schedule": "1f1b"}, "schedule='1f1b'.*not yet ported.*ROADMAP.md"),
-        ({"schedule": "interleaved", "virtual": 2}, "schedule='interleaved'.*not yet ported"),
-        ({"virtual": 2}, "virtual > 1.*not yet ported"),
+        ({"schedule": "1f1b", "virtual": 2}, "1f1b is the virtual=1 schedule; use 'interleaved'"),
+        ({"schedule": "interleaved"}, "schedule='interleaved' needs virtual >= 2"),
+        ({"virtual": 2, "mode": "forward"}, "virtual > 1 requires mode='train'"),
         ({"schedule": "1f1b", "mode": "forward"}, "is a training schedule"),
         ({"dp": 2, "tp": 1, "pp": 1}, "dp\\*tp\\*pp = 2 != 1"),
         ({"n_heads": 5}, "divisible by n_heads=5"),

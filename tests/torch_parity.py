@@ -83,3 +83,58 @@ def install_fake_flash_lib(monkeypatch, fa, entries) -> FakeFlashLib:
                         lambda device: types.SimpleNamespace(cuda_stream=7))
     fa.reset_launches()
     return lib
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_world(target, world: int, deadline_s: float, *args) -> dict:
+    """Run ``target(rank, port, results, *args)`` in ``world`` spawned
+    processes (never forked: the parent has JAX and torch threads) on a
+    gloo rendezvous at a free localhost port; each rank puts ``(rank,
+    "ok", payload)`` or ``(rank, "error", traceback)`` on ``results``.
+    Returns ``{rank: payload}``; fails when a rank fails or the world does
+    not finish within ``deadline_s``, so a mismatched collective fails the
+    test rather than hanging it."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(r, port, results, *args), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        # drain before joining: a child blocks on exit until its queue
+        # items are consumed
+        for _ in range(world):
+            rank, status, payload = results.get(timeout=deadline_s)
+            assert status == "ok", f"rank {rank} failed:\n{payload}"
+            got[rank] = payload
+    except queue.Empty:
+        raise AssertionError(f"the {world}-rank world did not finish within {deadline_s} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    assert [p.exitcode for p in procs] == [0] * world
+    return got
+
+
+def join_world(rank: int, world: int, port: int) -> None:
+    """The torchrun environment of one rank of a localhost world."""
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
