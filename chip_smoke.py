@@ -88,6 +88,15 @@ Phases, in order; any failure exits non-zero without the final line:
    table executor); K8a, K8b, K9, K10a-K10d, K7), with each row's ms per
    step, tokens/s, model-FLOPs utilisation and peak memory, and the
    schedules' step memory beside their gpipe twins' (``schedule_memory``);
+   then the router path (``router_rows``: at the same full width, one
+   expert on one card, ``spmd`` train with ``router=topk`` at capacity
+   factor 1.25 and 0.5, with ``expert_choice``, with ``topk`` under
+   ``schedule=1f1b``, and the ``mlp_kernel=int8_weights`` forward; the
+   ``compiled`` member's int8 rows: ``transformer_step`` ``int8`` train and
+   ``int8_weights`` forward, ``transformer_decode`` ``int8`` and
+   ``int8_weights`` decode, K7 launched and counted through its
+   ``torch.library`` operators; K8a, K10a/K10b, K7), one row at a time
+   with its launches checked exactly;
    then the pipeline path, ``scripts/config_pp_pipeline.json`` and
    ``config_schedules.json`` as shipped (every ``pp_pipeline`` member: the
    chain of ``torch.matmul`` products launches no hand kernel, and the
@@ -2377,16 +2386,24 @@ def expected_training_launches(row, calls):
     when the backward recomputes the stage (``torch.utils.checkpoint`` in
     the GPipe loop, the backward tick's recompute in the table executor),
     and each backward pass once (K10a/K10b, or K10c/K10d under a window);
-    an int8 MLP runs K7 twice a layer, chunk and microbatch in each of the
-    two forwards and in the row's one oracle loss, each on K7's wgmma
-    tile. compute_only and compiled rows (einsum attention, the bf16 MLP)
-    launch nothing."""
+    an int8 MLP (``int8``, or ``int8_weights`` forward) runs K7 twice a
+    layer, chunk and microbatch in each forward (two a train step, one a
+    forward row) and in the row's one oracle loss, each on K7's wgmma
+    tile. compute_only and compiled rows (einsum attention) launch no
+    flash kernel; a compiled row with an int8 MLP runs K7 through its
+    operators twice a layer and microbatch a call (the graph's forward:
+    the straight-through backward is float32 products) and in the
+    oracle."""
     o = row_options(row)
     want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
             "int8": 0, **dict.fromkeys(BWD_KEYS, 0), **int8_tile_counts(None)}
     if row["base_implementation"] in ("compute_only", "compiled"):
-        if o["mlp_kernel"] != "bf16":
+        if o["mlp_kernel"] == "bf16":
+            return want
+        if row["base_implementation"] == "compute_only":
             fail("no launch rule for a compute_only row with an int8 MLP")
+        L, mb = int(o["layers_per_stage"]), int(o["microbatches"])
+        want["int8"] = want["int8_wgmma"] = 2 * L * mb * (calls + 1)
         return want
     L, mb, v = int(o["layers_per_stage"]), int(o["microbatches"]), int(o["virtual"])
     train = o["mode"] == "train"
@@ -2403,18 +2420,22 @@ def expected_training_launches(row, calls):
         if train:
             case = "rect" if windowed else "tri"
             want[f"bwd_dq_{case}"] = want[f"bwd_dkv_{case}"] = per_call
-    if o["mlp_kernel"] == "int8":
+    if o["mlp_kernel"] != "bf16":
         # every product runs a microbatch's rows: the wgmma tile
         want["int8"] = want["int8_wgmma"] = 2 * passes * per_call + 2 * L * mb * v
     return want
 
 
-def training_path(run_benchmark, k1, fa, da, qm, smi):
-    """Drive every training row (one ``run_benchmark`` call per row, counts
-    read around each), check each row's launches exactly, and print each
-    row's ms per step, tokens/s and model-FLOPs utilisation (``flops()``
-    over the time at the bf16 peak). Returns the launch totals of the
-    path."""
+def training_path(run_benchmark, k1, fa, da, qm, smi, rows=None, key="training_row"):
+    """Drive every row of ``rows`` (each (family, shape, implementations);
+    by default the ``transformer_step`` rows of ``training_rows``), one
+    ``run_benchmark`` call per row with the counts read around it, check
+    each row's launches exactly (``expected_training_launches``, or
+    ``expected_serving_launches`` for a ``transformer_decode`` row), and
+    print a ``key`` line a row: ms per step, tokens/s, model-FLOPs
+    utilisation (``flops()`` over the time at the bf16 peak; training
+    rows), peak memory and, for a compiled row, its first call. Returns
+    the launch totals of the path."""
     import torch
     from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
 
@@ -2422,38 +2443,79 @@ def training_path(run_benchmark, k1, fa, da, qm, smi):
         return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES,
                 **int8_tile_counts(qm)}
 
+    if rows is None:
+        rows = [("transformer_step", shape, impls) for shape, impls in training_rows()]
+    calls = TRAIN_WARMUPS + TRAIN_ITERATIONS + 1
     total_start = counts()
-    for shape, impls in training_rows():
+    for family, shape, impls in rows:
         for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
             name = spec.pop("implementation")
             before = counts()
             torch.cuda.reset_peak_memory_stats()
-            (row,) = drive_path(run_benchmark, "cuda", "transformer_step", shape,
-                                {name: [spec]}, warmups=TRAIN_WARMUPS,
-                                iterations=TRAIN_ITERATIONS)
+            (row,) = drive_path(run_benchmark, "cuda", family, shape, {name: [spec]},
+                                warmups=TRAIN_WARMUPS, iterations=TRAIN_ITERATIONS)
             peak = torch.cuda.max_memory_allocated()
             after = counts()
-            got = {key: after[key] - before[key] for key in after}
-            want = expected_training_launches(
-                row, TRAIN_WARMUPS + TRAIN_ITERATIONS + 1)
-            if got != want:
-                fail(f"training row {name} {row['option']}: launches {got}, "
-                     f"expected {want}")
+            got = {k: after[k] - before[k] for k in after}
             o = row_options(row)
             ms = row["median time (ms)"]
-            tokens = int(o["batch"]) * row["m"]
-            print(json.dumps({
-                "training_row": o["mode"], "member": name, "shape": list(shape),
-                "option": row["option"], "ms_per_step": ms,
-                "tokens_per_s": tokens / (ms / 1e3),
-                "tflops": row["Throughput (TFLOPS)"],
-                "mfu": row["Throughput (TFLOPS)"] * 1e12 / PEAK_BF16_FLOPS,
-                "launches": {key: n for key, n in got.items() if n},
-                "peak_row_bytes": peak, "card": smi,
-            }))
+            line = {key: o.get("mode", o.get("phase")), "member": name,
+                    "shape": list(shape), "option": row["option"], "ms_per_step": ms}
+            if family == "transformer_step":
+                want = expected_training_launches(row, calls)
+                line.update(tokens_per_s=int(o["batch"]) * row["m"] / (ms / 1e3),
+                            tflops=row["Throughput (TFLOPS)"],
+                            mfu=row["Throughput (TFLOPS)"] * 1e12 / PEAK_BF16_FLOPS)
+            else:
+                want = expected_serving_launches(row, calls)
+                line.update(tokens_per_s=int(o["batch"]) / (ms / 1e3))
+            if got != want:
+                fail(f"{family} row {name} {row['option']}: launches {got}, expected {want}")
+            line.update(launches={k: n for k, n in got.items() if n}, peak_row_bytes=peak,
+                        card=smi, **{k: row[k] for k in COMPILE_KEYS if k in row})
+            print(json.dumps(line))
             torch.cuda.empty_cache()
     end = counts()
-    return {key: end[key] - total_start[key] for key in end}
+    return {k: end[k] - total_start[k] for k in end}
+
+
+# -- the router path: the learned routers, int8_weights, K7 compiled ---------
+
+
+def router_rows():
+    """This slice's rows, each (family, shape, implementations), at the full
+    width of ``config_router.json``'s first entry (one card: tp = 1, one
+    expert, so ``router_topk=1``): ``spmd`` train with ``router=topk`` at
+    capacity factor 1.25 and 0.5 (half the tokens dropped), with
+    ``expert_choice``, with ``topk`` under ``schedule=1f1b`` at microbatches
+    4 (the aux term through the table executor), and the
+    ``mlp_kernel=int8_weights`` forward; the ``compiled`` member's
+    ``transformer_step`` with ``mlp_kernel=int8`` (train) and
+    ``int8_weights`` (forward), and its ``transformer_decode`` int8 and
+    int8_weights decode at the serving path's m = 2048 (K7 through its
+    ``torch.library`` operators)."""
+    with open(ROUTER_CONFIG) as f:
+        router = json.load(f)["benchmark"]
+    shape = (router["m"][0], router["n"][0], router["k"][0])
+    wide = {key: value for key, value in router["implementations"][0].items()
+            if key != "name"}
+    topk = dict(wide, router=["topk"], router_topk=[1])
+    block = dict(wide, router=["block"])
+    compiled = dict(block, attn_kernel=["einsum"])
+    return [
+        ("transformer_step", shape, {"spmd": [dict(topk, capacity_factor=[1.25, 0.5])]}),
+        ("transformer_step", shape, {"spmd": [dict(wide, router=["expert_choice"])]}),
+        ("transformer_step", shape,
+         {"spmd": [dict(topk, schedule=["1f1b"], microbatches=[4])]}),
+        ("transformer_step", shape,
+         {"spmd": [dict(block, mode=["forward"], mlp_kernel=["int8_weights"])]}),
+        ("transformer_step", shape, {"compiled": [dict(compiled, mlp_kernel=["int8"])]}),
+        ("transformer_step", shape,
+         {"compiled": [dict(compiled, mode=["forward"], mlp_kernel=["int8_weights"])]}),
+        ("transformer_decode", (2048, SERVE_N, SERVE_K),
+         {"compiled": [{"phase": "decode", "mlp_kernel": ["int8", "int8_weights"],
+                        **SERVE_COMMON}]}),
+    ]
 
 
 def schedule_memory(smi):
@@ -2892,6 +2954,19 @@ def main():
     print(f"training path done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
+    router_launches = training_path(run_benchmark, k1, fa, da, qm, smi, router_rows(),
+                                    key="router_row")
+    missing = [key for key in ("tri", "int8", "bwd_dq_tri", "bwd_dkv_tri")
+               if not router_launches[key]]
+    if missing:
+        fail(f"the router path did not launch {missing}: {router_launches}")
+    if any(cm.LAUNCHES.values()) or any(trio_counts().values()):
+        fail(f"K2-K6 launched on the router path: {cm.LAUNCHES} {trio_counts()}")
+    tiles["router"] = check_tiles("the router path", k1, cm, fa)
+    launches["router"] = router_launches
+    print(f"router path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
     pp_rows = pp_path(run_benchmark, counts, smi)
     launches["pipeline"] = {}
     print(f"pipeline path done ({len(pp_rows)} rows) at {time.perf_counter() - t_start:.1f} s")
@@ -2927,7 +3002,7 @@ def main():
     int8_entry["launches"] = total("int8")
     int8_entry["launches_by_path"] = {
         "quantized": launches["quantized"]["int8"], "serving": serving_launches["int8"],
-        "training": training_launches["int8"],
+        "training": training_launches["int8"], "router": router_launches["int8"],
     }
     int8_entry["launches_by_tile"] = {
         t: total(f"int8_{t}") for t in ("wgmma", "small_m", "mma")}

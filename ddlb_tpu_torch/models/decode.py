@@ -445,6 +445,11 @@ def serving_body(params, cache, tokens, pos, cfg: TransformerConfig, mesh,
 
 
 def _check_serving(cfg: TransformerConfig, mesh) -> None:
+    if cfg.router != "block":
+        raise ValueError(
+            "serving paths use the per-sequence-stable block router; "
+            f"router='{cfg.router}' is a training-side construction"
+        )
     if cfg.n_heads % mesh.tp != 0:
         raise ValueError(f"n_heads={cfg.n_heads} not divisible by tp={mesh.tp}")
     if cfg.kv_heads % mesh.tp != 0:

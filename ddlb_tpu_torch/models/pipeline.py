@@ -33,9 +33,13 @@ leaf, as ``_gpipe`` does, and cast to the leaf's dtype.
 
 With ``virtual`` chunks a rank the chain is ``pp * virtual`` stages deep
 and rank ``p``'s chunk ``c`` is global stage ``c * pp + p``: the stage
-stack is laid out device-major first (``arrange_stage_stack``). The block
-router has no auxiliary loss; the learned routers that have one are not
-ported, so the JAX package's ``router_aux`` term has nothing to add here.
+stack is laid out device-major first (``arrange_stage_stack``).
+
+Under ``router='topk'`` each forward tick's stage aux loss is summed, and
+the loss adds ``router_aux`` times its mean over (microbatches, the
+``pp * virtual`` global stages, dp, tp); each backward tick seeds its
+recomputed aux with that mean's weight, ``router_aux / (microbatches *
+pp * virtual * dp * tp)`` (JAX :183-188, :298, :353-356).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def arrange_stage_stack(params, pp: int, virtual: int, cfg: TransformerConfig = 
     know raises: it would otherwise be left in place with no error.
     Without ``cfg`` every leaf of every configuration counts as known."""
     if cfg is None:
-        known = set(param_names(TransformerConfig(mlp_kernel="int8_weights")))
+        known = set(param_names(TransformerConfig(mlp_kernel="int8_weights", router="topk")))
         known |= set(param_names(TransformerConfig(n_heads=2, n_kv_heads=1)))
     else:
         known = set(param_names(cfg))
@@ -110,6 +114,7 @@ def make_loss_and_grads_1f1b(mesh, cfg: TransformerConfig, schedule: str = "1f1b
     p_pp, last = mesh.pp_rank, tables.n_stages - 1
     row = {name: getattr(tables, name)[:, p_pp].tolist() for name in TABLES}
     fwd_due, bwd_due = hops_due(tables.fwd_land), hops_due(tables.bwd_land)
+    topk = cfg.router == "topk"
 
     def fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor):
         _check_step_shapes(cfg, mesh, tokens)
@@ -131,8 +136,11 @@ def make_loss_and_grads_1f1b(mesh, cfg: TransformerConfig, schedule: str = "1f1b
         grads = {name: torch.zeros(x.shape, dtype=torch.float32, device=device)
                  for name, x in params.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=device)
+        aux_acc = torch.zeros((), dtype=torch.float32, device=device)
         # the global loss is the mean over (microbatches, dp ranks, tp shards)
         cot = torch.tensor(1.0 / (mb * dp * tp), dtype=torch.float32, device=device)
+        aux_cot = torch.tensor(cfg.router_aux / (mb * tables.n_stages * dp * tp),
+                               dtype=torch.float32, device=device)
         fwd_arr = bwd_arr = zeros
         for t in range(tables.ticks):
             if row["fwd_land"][t] >= 0:
@@ -151,7 +159,8 @@ def make_loss_and_grads_1f1b(mesh, cfg: TransformerConfig, schedule: str = "1f1b
                     else:
                         x_in = fland[islot]
                     act[aslot] = x_in
-                    y = stage_fn(x_in, chunk)
+                    y, aux = stage_fn(x_in, chunk)
+                    aux_acc += aux
                     if s == last:
                         loss_acc += tail_loss(y, params["ln_f"], params["head"],
                                               local(targets, i))
@@ -162,16 +171,20 @@ def make_loss_and_grads_1f1b(mesh, cfg: TransformerConfig, schedule: str = "1f1b
                     x = act[aslot].detach().requires_grad_(True)
                     leaves = {name: p.detach().requires_grad_(True) for name, p in chunk.items()}
                     wrt = [x, *leaves.values()]
-                    y = stage_fn(x, leaves)
+                    y, aux = stage_fn(x, leaves)
+                    # the aux term's seed, under the top-k router only
+                    extra, extra_seed = ([aux], [aux_cot]) if topk else ([], [])
                     if s == last:
                         tail = [params[name].detach().requires_grad_(True)
                                 for name in ("ln_f", "head")]
                         loss = tail_loss(y, *tail, local(targets, i))
-                        got = torch.autograd.grad(loss, wrt + tail, cot, allow_unused=True)
+                        got = torch.autograd.grad([loss, *extra], wrt + tail,
+                                                  [cot, *extra_seed], allow_unused=True)
                         for name, g in zip(("ln_f", "head"), got[-2:]):
                             grads[name] += g.float()
                     else:
-                        got = torch.autograd.grad(y, wrt, bland[islot], allow_unused=True)
+                        got = torch.autograd.grad([y, *extra], wrt, [bland[islot], *extra_seed],
+                                                  allow_unused=True)
                 for name, g in zip(leaves, got[1:len(wrt)]):
                     if g is not None:
                         grads[name][c] += g[0].float()
@@ -186,6 +199,8 @@ def make_loss_and_grads_1f1b(mesh, cfg: TransformerConfig, schedule: str = "1f1b
             fwd_arr = fwd_arr if got_f is None else got_f
             bwd_arr = bwd_arr if got_b is None else got_b
         loss = mesh.axis_sum(loss_acc / mb, "pp")
+        if topk:
+            loss = loss + cfg.router_aux * mesh.axis_sum(aux_acc / mb, "pp") / tables.n_stages
         loss = mesh.axis_sum(loss, "dp") / dp
         loss = mesh.axis_sum(loss, "tp") / tp
         out = {}

@@ -11,21 +11,26 @@ every ``mlp_kernel``; the int8 GEMMs on K7, differentiable through the
 straight-through estimator), ``_ce_loss`` (:517), ``make_stage_fn``
 (:628), ``make_loss_fn`` (:866, the GPipe loop at any pp),
 ``make_train_step`` (:980, with an AdamW as ``optax.adamw``'s),
-``reference_loss`` (:1033) and ``example_tokens`` (:1224). The learned
-routers (``router=topk|expert_choice``) are not ported; the 1F1B and
-interleaved schedules are ``models/pipeline.py``.
+``reference_loss`` (:1033) and ``example_tokens`` (:1224), with the
+learned routers (``router=topk|expert_choice``, :535-625: ``router_capacity``,
+``router_probs``, ``router_assign``, ``expert_choice_assign``,
+``expert_choice_combine``, ``router_dispatch``, ``router_combine``) in
+the stage and the oracle; the 1F1B and interleaved schedules are
+``models/pipeline.py``.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 stage-stacked on a leading ``pp`` axis, ``w_qkv [pp, L, 3, D, D]`` (MHA)
 or ``w_q [pp, L, D, D]`` + ``w_kv [pp, L, 2, D, kv_dim]`` (GQA),
 ``w_o [pp, L, D, D]``, ``moe_w1 [pp, L, E, D, F]``, ``moe_w2 [pp, L, E, F,
-D]``, norms, ``embed [V, D]`` and ``head [D, V]``; under
+D]``, norms, ``embed [V, D]`` and ``head [D, V]``; under a learned router
+the float32 gate ``router [pp, L, D, E]``; under
 ``mlp_kernel='int8_weights'`` the two expert weights are int8 (each
 trailing matrix column-major, the values unchanged) with float32
 ``moe_w1_scale [pp, L, E, 1, F]`` and ``moe_w2_scale [pp, L, E, 1, D]``.
 One rank's slice over a ``(dp, tp, pp)`` mesh keeps its stage, its tp
 block of the q/k/v columns and of the ``w_o`` rows (whole under ring
-attention) and its one expert with its scales (``shard_params``).
+attention), the gate whole and its one expert with its scales
+(``shard_params``).
 
 Rounding. Products take operands in the model dtype and sum in float32
 (``torch.matmul``; on the card cuBLAS, as XLA does). Where the JAX
@@ -75,9 +80,8 @@ Params = Dict[str, torch.Tensor]
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """The JAX package's ``TransformerConfig`` (:47-181) without the learned
-    routers' knobs, with the same names, defaults and construction checks;
-    ``dtype`` is a torch dtype."""
+    """The JAX package's ``TransformerConfig`` (:47-181), with the same
+    names, defaults and construction checks; ``dtype`` is a torch dtype."""
 
     vocab: int = 64
     d_model: int = 32
@@ -112,9 +116,19 @@ class TransformerConfig:
     #: "contiguous" or "paged" (the serving engine's page pool)
     cache_layout: str = "contiguous"
     page_size: int = 128
-    #: MoE routing: "block" (balanced block routing); the learned routers
-    #: of the JAX package are not ported (ROADMAP.md)
+    #: MoE routing: "block" (balanced block routing: sequence block e of a
+    #: slab through expert e); "topk" (learned top-k gating: per-token
+    #: router logits, top-k experts, per-(shard, expert) capacity with
+    #: first-come slots, overflow dropped to the residual stream, the Switch
+    #: load-balance aux loss weighted ``router_aux``); "expert_choice" (each
+    #: expert takes its top-C tokens; aux 0). The training step only: the
+    #: serving paths refuse the learned routers, as the JAX package does
     router: str = "block"
+    router_topk: int = 2
+    #: each (source shard, expert) pair gets ceil(capacity_factor * k *
+    #: T_loc / E) slots
+    capacity_factor: float = 1.25
+    router_aux: float = 0.01
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -146,6 +160,8 @@ class TransformerConfig:
 
 
 MLP_KERNELS = ("bf16", "int8", "int8_weights")
+ROUTERS = ("block", "topk", "expert_choice")
+LEARNED_ROUTERS = ("topk", "expert_choice")
 
 
 def check_mlp_kernel(mlp_kernel: str) -> None:
@@ -160,10 +176,12 @@ def init_params(
     """Seeded host parameters (CPU tensors in ``cfg.dtype``): the JAX
     package's draws (``rng.normal`` in float64, in the same order), bit
     for bit in float32. For a half dtype the float64 draw is rounded to
-    float32 first, then to the dtype. Under ``int8_weights`` the expert
-    weights are then quantized per output feature (JAX :222-231, an
-    eager call there, hence ``eager=True``), each trailing matrix
-    column-major (k contiguous: the layout K7's Hopper tiles read)."""
+    float32 first, then to the dtype. A learned router's gate is float32
+    whatever the dtype, drawn after the attention weights. Under
+    ``int8_weights`` the expert weights are then quantized per output
+    feature (JAX :222-231, an eager call there, hence ``eager=True``),
+    each trailing matrix column-major (k contiguous: the layout K7's
+    Hopper tiles read)."""
     check_mlp_kernel(cfg.mlp_kernel)
     rng = np.random.default_rng(seed)
     D, Fd, L, V = cfg.d_model, cfg.d_ff, cfg.layers_per_stage, cfg.vocab
@@ -192,6 +210,10 @@ def init_params(
     else:
         params["w_q"] = normal((pp, L, D, D), s_in)
         params["w_kv"] = normal((pp, L, 2, D, cfg.kv_dim), s_in)
+    if cfg.router in LEARNED_ROUTERS:
+        # float32 so that selection is the same in every model dtype
+        gate = rng.normal(0.0, s_in, (pp, L, D, n_experts)).astype(np.float32)
+        params["router"] = torch.from_numpy(gate)
     if cfg.mlp_kernel == "int8_weights":
         for name in ("moe_w1", "moe_w2"):
             params[name], params[f"{name}_scale"] = quantize_weight_stack(
@@ -202,8 +224,9 @@ def init_params(
 
 def _leaf_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
     """A parameter's dtype: the int8 expert weights and their float32
-    scales under ``int8_weights``, ``cfg.dtype`` for every other leaf."""
-    if name.endswith("_scale"):
+    scales under ``int8_weights``, the float32 router gate, ``cfg.dtype``
+    for every other leaf."""
+    if name.endswith("_scale") or name == "router":
         return torch.float32
     if cfg.mlp_kernel == "int8_weights" and name in ("moe_w1", "moe_w2"):
         return torch.int8
@@ -233,8 +256,9 @@ def param_axes(cfg: TransformerConfig, names) -> Dict[str, Dict[str, int]]:
     experts with their scales (dim 2), the output-projection rows (dim 2)
     and the q/k/v projection columns, except under ``attention='ring'``,
     which replicates the attention projections (tp is then the context
-    axis). embed, head and ln_f are replicated, and nothing is sharded on
-    dp."""
+    axis). embed, head and ln_f are replicated, the router gate is staged
+    and replicated on tp (every rank routes its own tokens), and nothing is
+    sharded on dp."""
     ring = cfg.attention == "ring"
     tp_dims = {"moe_w1": 2, "moe_w2": 2, "moe_w1_scale": 2, "moe_w2_scale": 2}
     if not ring:
@@ -273,6 +297,8 @@ def param_names(cfg: TransformerConfig) -> Tuple[str, ...]:
     """The names of ``init_params``' leaves for ``cfg``."""
     names = ("embed", "w_o", "moe_w1", "moe_w2", "ln1", "ln2", "ln_f", "head")
     names += ("w_qkv",) if cfg.kv_heads == cfg.n_heads else ("w_q", "w_kv")
+    if cfg.router in LEARNED_ROUTERS:
+        names += ("router",)
     if cfg.mlp_kernel == "int8_weights":
         names += ("moe_w1_scale", "moe_w2_scale")
     return names
@@ -431,30 +457,123 @@ def example_tokens(batch: int, seq: int, vocab: int,
     return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
 
 
+# -- the learned routers (:535-625) ---------------------------------------------
+#
+# Plain functions of one token slab, shared by the stage body and the oracle:
+# the same slab gives the same selection, slots and weights in both. A token's
+# experts are chosen by ``torch.topk``, which refuses k > E as JAX's ``top_k``
+# does; among exactly equal probabilities the two may order a selection
+# differently, which only the slot priority reads (the combine sums over the
+# selection), and a continuous gate makes no two equal. An expert's tokens are
+# chosen by a stable sort: at one expert every probability is 1, and the
+# capacity takes the first rows, as JAX's ``top_k`` takes the lowest indices
+# among equal values.
+
+
+def router_capacity(t_loc: int, n_experts: int, k: int, factor: float) -> int:
+    """Slots per (source shard, expert): ``ceil(factor * k * t_loc / E)``,
+    at least 1."""
+    return max(1, int(np.ceil(factor * k * t_loc / n_experts)))
+
+
+def router_probs(tokens2d: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The gate's softmax probabilities ``[T, E]`` of a slab, in float32
+    whatever the activation dtype."""
+    return torch.softmax(tokens2d.float() @ gate.float(), dim=-1)
+
+
+def _one_hot(index: torch.Tensor, n: int) -> torch.Tensor:
+    """``index [...]`` as float32 one-hot rows ``[..., n]``."""
+    return (index[..., None] == torch.arange(n, device=index.device)).float()
+
+
+def router_assign(tokens2d: torch.Tensor, gate: torch.Tensor, k: int, capacity: int):
+    """Top-k routing of one slab: ``(tope [T, k], topv [T, k] float32, slot
+    [T, k], kept [T, k] bool, aux)``. Slots are first come in
+    (selection-rank-major, token-order) priority (GShard's), from a
+    cumulative sum over the one-hot dispatch mask; a selection whose slot
+    reaches ``capacity`` is dropped. ``aux`` is the Switch load-balance
+    loss ``E * sum_e f_e * P_e`` (f_e: the top-1 share of expert e, P_e: its
+    mean probability)."""
+    T, E = tokens2d.shape[0], gate.shape[-1]
+    probs = router_probs(tokens2d, gate)
+    topv, tope = torch.topk(probs, k, dim=-1)
+    sel = _one_hot(tope, E)  # [T, k, E]
+    flat = sel.transpose(0, 1).reshape(k * T, E)
+    pos = torch.cumsum(flat, dim=0) - flat
+    slot = (sel * pos.reshape(k, T, E).transpose(0, 1)).sum(-1).long()
+    kept = slot < capacity
+    aux = E * torch.sum(sel[:, 0].mean(0) * probs.mean(0))
+    return tope, topv, slot, kept, aux
+
+
+def expert_choice_assign(tokens2d: torch.Tensor, gate: torch.Tensor, capacity: int):
+    """Expert-choice routing of one slab: each expert takes its
+    ``capacity`` most probable tokens. ``(idx [E, C] token rows, w [E, C]
+    float32 gate weights)``."""
+    w, idx = torch.sort(router_probs(tokens2d, gate).t(), dim=-1, descending=True,
+                        stable=True)
+    return idx[:, :capacity], w[:, :capacity]
+
+
+def expert_choice_combine(buf_out: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                          T: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Each expert's ``[C, D]`` outputs added back to their token rows,
+    weighted by the gate, in float32: ``u[t] = sum w[e, c] * buf_out[e, c]``
+    over the slots that took token t."""
+    D = buf_out.shape[-1]
+    vals = (buf_out.float() * w[..., None]).reshape(-1, D)
+    u = torch.zeros((T, D), dtype=torch.float32, device=buf_out.device)
+    return u.index_add(0, idx.reshape(-1), vals).to(out_dtype)
+
+
+def _buffer_rows(tope, slot, n_experts: int, capacity: int) -> torch.Tensor:
+    """Each selection's row of the flattened ``[E * C, D]`` buffer: its
+    slot, or for a dropped one (which moves zeros there and reads with
+    weight 0) a row its overflow rank spreads it to. JAX clamps every drop
+    onto the last slot; on the card the adds into that one row, and the
+    gather's gradient there, run one after another, where spread they cost
+    what kept ones do (``PERF.md`` gives the step times of both)."""
+    return (tope * capacity + slot) % (n_experts * capacity)
+
+
+def router_dispatch(tokens2d: torch.Tensor, tope, slot, kept, n_experts: int,
+                    capacity: int) -> torch.Tensor:
+    """The slab scattered into the fixed-capacity buffer ``[E, C, D]``;
+    a dropped selection adds zeros (``_buffer_rows``)."""
+    T, D = tokens2d.shape
+    k = tope.shape[1]
+    vals = (tokens2d[:, None, :] * kept[..., None].to(tokens2d.dtype)).reshape(T * k, D)
+    buf = torch.zeros((n_experts * capacity, D), dtype=tokens2d.dtype, device=tokens2d.device)
+    rows = _buffer_rows(tope, slot, n_experts, capacity).reshape(-1)
+    return buf.index_put((rows,), vals, accumulate=True).reshape(n_experts, capacity, D)
+
+
+def router_combine(buf_out: torch.Tensor, tope, slot, topv, kept, capacity: int,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Each token's k expert outputs mixed by its raw router probabilities
+    (a dropped selection weighs 0), in float32."""
+    E, C, D = buf_out.shape
+    gathered = buf_out.reshape(E * C, D)[_buffer_rows(tope, slot, E, capacity)]  # [T, k, D]
+    w = (topv * kept.float())[..., None]
+    return (gathered.float() * w).sum(1).to(out_dtype)
+
+
 # -- the training step -----------------------------------------------------------
 
 ATTENTIONS = ("gathered", "ring")
 
 
 def check_train_config(cfg: TransformerConfig) -> None:
-    """Raise on what the training path does not take: an unknown attention
-    or kernel, and the parts of the JAX package not ported yet (the learned
-    routers; ``int8_weights``, whose int8 leaves have no gradient)."""
+    """Raise on an unknown attention, kernel or router."""
     if cfg.attention not in ATTENTIONS:
         raise ValueError(f"unknown attention '{cfg.attention}'")
     if cfg.attn_kernel not in ("flash", "einsum"):
         raise ValueError(f"unknown attn_kernel '{cfg.attn_kernel}'")
     check_mlp_kernel(cfg.mlp_kernel)
-    if cfg.mlp_kernel == "int8_weights":
-        raise ValueError(
-            "mlp_kernel='int8_weights' of the training model is not yet ported "
-            "to ddlb_tpu_torch (ROADMAP.md); train with mlp_kernel='int8'"
-        )
-    if cfg.router != "block":
-        raise ValueError(
-            f"router='{cfg.router}' is not yet ported to ddlb_tpu_torch "
-            "(ROADMAP.md); the port routes with router='block'"
-        )
+    if cfg.router not in ROUTERS:
+        raise ValueError(f"unknown router '{cfg.router}'")
+
 
 
 def ring_attention(q, k, v, mesh, window: int = 0) -> torch.Tensor:
@@ -531,22 +650,60 @@ def _project(h: torch.Tensor, sp: Params, l: int):
             *(torch.matmul(h, sp["w_kv"][0, l, i]) for i in range(2)))
 
 
+def _moe_routed(h: torch.Tensor, sp: Params, l: int, cfg: TransformerConfig, mesh):
+    """The MoE block of layer l on the local slab ``h [b, s_loc, D]`` (:769-
+    841): ``(u [b, s_loc, D], aux)``. The block router sends the slab's
+    tokens in tp equal blocks; ``topk`` scatters them into the ``[E, C, D]``
+    dispatch buffer and ``expert_choice`` gathers each expert's choice.
+    Either way one all-to-all over tp takes the buffer to the resident
+    experts and one brings their outputs back; aux is the top-k router's
+    load-balance loss, else 0."""
+    b, s_loc, D = h.shape
+    tp, T = mesh.tp, b * s_loc
+    h2d = h.reshape(T, D)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def experts(rows):
+        return moe_ffn(rows, sp["moe_w1"][0, l, 0], sp["moe_w2"][0, l, 0], cfg.mlp_kernel,
+                       h.dtype, scales=ffn_scales(sp, l, 0, cfg))
+
+    if cfg.router == "topk":
+        C = router_capacity(T, tp, cfg.router_topk, cfg.capacity_factor)
+        tope, topv, slot, kept, aux = router_assign(h2d, sp["router"][0, l],
+                                                    cfg.router_topk, C)
+        buf = router_dispatch(h2d, tope, slot, kept, tp, C).reshape(tp * C, D)
+        z = mesh.tp_all_to_all(experts(mesh.tp_all_to_all(buf)))
+        u = router_combine(z.reshape(tp, C, D), tope, slot, topv, kept, C, h.dtype)
+    elif cfg.router == "expert_choice":
+        C = min(router_capacity(T, tp, 1, cfg.capacity_factor), T)
+        idx, w = expert_choice_assign(h2d, sp["router"][0, l], C)
+        buf = h2d[idx].reshape(tp * C, D)
+        z = mesh.tp_all_to_all(experts(mesh.tp_all_to_all(buf)))
+        u = expert_choice_combine(z.reshape(tp, C, D), idx, w, T, h.dtype)
+    else:
+        u = mesh.tp_all_to_all(experts(mesh.tp_all_to_all(h2d)))
+    return u.reshape(b, s_loc, D), aux
+
+
 def make_stage_fn(cfg: TransformerConfig, mesh):
-    """The per-stage body ``stage_fn(x, sp) -> x`` (:628-863): this stage's
-    L blocks on the local slab ``x [b, S/tp, d_model]``, with ``sp`` the
-    rank's parameters (stage axis of size 1). Attention is gathered (the
-    sequence all-gathered over tp, the rank's heads projected, flash or
-    einsum attention, the output projection reduce-scattered back) or ring
-    (replicated projections on the local chunk, the ring flash or einsum
-    attention); the MoE FFN routes each slab's tokens in tp equal blocks
-    through one all-to-all over tp to the resident expert and back (the
-    block router). Every collective here is differentiable."""
+    """The per-stage body ``stage_fn(x, sp) -> (x, aux)`` (:628-863): this
+    stage's L blocks on the local slab ``x [b, S/tp, d_model]``, with ``sp``
+    the rank's parameters (stage axis of size 1), and the mean over its
+    layers of the top-k router's aux loss (a float32 0 under the other
+    routers). Attention is gathered (the sequence all-gathered over tp, the
+    rank's heads projected, flash or einsum attention, the output
+    projection reduce-scattered back) or ring (replicated projections on
+    the local chunk, the ring flash or einsum attention); the MoE FFN
+    routes the slab's tokens through one all-to-all over tp to the resident
+    experts and back (``_moe_routed``). Every collective here is
+    differentiable."""
     check_train_config(cfg)
     tp, L, dh = mesh.tp, cfg.layers_per_stage, cfg.head_dim
     ring = cfg.attention == "ring"
 
-    def stage_fn(x: torch.Tensor, sp: Params) -> torch.Tensor:
+    def stage_fn(x: torch.Tensor, sp: Params):
         b, s_loc, D = x.shape
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if sp["moe_w1"].shape[2] != 1:
             raise ValueError(
                 f"n_experts must equal tp={tp} (one resident expert per rank); "
@@ -584,12 +741,10 @@ def make_stage_fn(cfg: TransformerConfig, mesh):
                 part = torch.matmul(attn.reshape(b, S, -1), sp["w_o"][0, l])
                 y = mesh.tp_reduce_scatter(part.float(), 1).to(x.dtype)
             x = x + y
-            h = rms_norm(x, sp["ln2"][0, l])
-            u = mesh.tp_all_to_all(h.reshape(b * s_loc, D))  # block routing
-            u = moe_ffn(u, sp["moe_w1"][0, l, 0], sp["moe_w2"][0, l, 0],
-                        cfg.mlp_kernel, x.dtype)
-            x = x + mesh.tp_all_to_all(u).reshape(b, s_loc, D)
-        return x
+            u, aux_l = _moe_routed(rms_norm(x, sp["ln2"][0, l]), sp, l, cfg, mesh)
+            x = x + u
+            aux = aux + aux_l / L
+        return x, aux
 
     return stage_fn
 
@@ -619,7 +774,7 @@ def _check_step_shapes(cfg: TransformerConfig, mesh, tokens: torch.Tensor) -> No
         raise ValueError(f"n_heads={cfg.n_heads} not divisible by tp={tp}")
     if cfg.attention != "ring" and cfg.kv_heads % tp:
         raise ValueError(f"n_kv_heads={cfg.kv_heads} not divisible by tp={tp}")
-    if (B_loc // mb) * (S // tp) % tp:
+    if cfg.router == "block" and (B_loc // mb) * (S // tp) % tp:
         raise ValueError(
             "per-microbatch local tokens must divide by tp for the MoE block router"
         )
@@ -635,7 +790,10 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
     to the next stage (``Mesh.pp_shift``); the last stage takes the head
     and the cross-entropy. Ticks in which a stage holds no microbatch (the
     pipeline's bubble) run nothing and hand on zeros. The loss is summed
-    over pp and averaged over dp and tp, as the JAX package's psums do.
+    over pp and averaged over dp and tp, as the JAX package's psums do;
+    under ``router='topk'`` it adds ``router_aux`` times the stages' aux
+    losses of the ticks that held a microbatch, averaged over
+    (microbatches, stages, dp, tp) (:927-960).
 
     The backward is the forward's ticks in reverse, each stage's gradient
     handed back to the previous stage (the hop's transpose), with every
@@ -644,7 +802,8 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
     ``torch.autograd.grad`` call: no ``.grad`` accumulates on any tensor,
     and the parameters given are left as they are. The gradient is that of
     the global loss, seeded with ``1 / (microbatches * dp * tp)`` on each
-    last-stage tick, and the gradient of each leaf is summed over the mesh
+    last-stage tick (and each tick's aux with ``router_aux / (microbatches *
+    pp * dp * tp)``), and the gradient of each leaf is summed over the mesh
     axes that replicate it (dp always; tp and pp where ``param_axes`` does
     not shard it).
     """
@@ -670,26 +829,31 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
     def zeros():
         return torch.zeros((b_mb, s_loc, D), dtype=cfg.dtype, device=device)
 
+    topk = cfg.router == "topk"
     record = []
     loss_acc = torch.zeros((), dtype=torch.float32, device=device)
+    aux_acc = torch.zeros((), dtype=torch.float32, device=device)
     buf = zeros()
     with torch.enable_grad() if with_grads else torch.no_grad():
         for t in range(ticks):
-            x_in = y = loss_t = None
+            x_in = y = loss_t = aux = None
             if p_pp <= t < p_pp + mb:
                 if p_pp == 0:
                     x_in = leaves["embed"][local(tokens, t).long()]
                 else:
                     x_in = buf.detach().requires_grad_(with_grads)
-                y = run(x_in)
+                y, aux = run(x_in)
+                aux_acc = aux_acc + aux.detach()
                 if last:
                     loss_t = tail_loss(y, leaves["ln_f"], leaves["head"],
                                        local(targets, t - (pp - 1)))
                     loss_acc = loss_acc + loss_t.detach()
-            record.append((x_in, y, loss_t))
+            record.append((x_in, y, loss_t, aux))
             if pp > 1 and t + 1 < ticks:
                 buf = mesh.pp_shift(zeros() if y is None else y.detach())
     loss = mesh.axis_sum(loss_acc / mb, "pp")
+    if topk:
+        loss = loss + cfg.router_aux * mesh.axis_sum(aux_acc / mb, "pp") / pp
     loss = mesh.axis_sum(loss, "dp") / dp
     loss = mesh.axis_sum(loss, "tp") / tp
     if not with_grads:
@@ -699,9 +863,11 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
     wrt = [leaves[name] for name in names]
     grads = dict.fromkeys(names)
     seed = torch.tensor(1.0 / (mb * dp * tp), dtype=torch.float32, device=device)
+    aux_seed = torch.tensor(cfg.router_aux / (mb * pp * dp * tp), dtype=torch.float32,
+                            device=device)
     g_in = None  # the gradient of this stage's input at tick t + 1
     for t in reversed(range(ticks)):
-        x_in, y, loss_t = record[t]
+        x_in, y, loss_t, aux = record[t]
         g_y = None
         if pp > 1 and t + 1 < ticks:
             g_y = mesh.pp_shift(zeros() if g_in is None else g_in, reverse=True)
@@ -715,6 +881,9 @@ def _gpipe(mesh, cfg: TransformerConfig, stage_fn, params: Params,
         if loss_t is not None:
             outputs.append(loss_t)
             seeds.append(seed)
+        if topk:
+            outputs.append(aux)
+            seeds.append(aux_seed)
         inputs = wrt + ([x_in] if p_pp > 0 else [])
         got = torch.autograd.grad(outputs, inputs, seeds, allow_unused=True)
         for name, g in zip(names, got):
@@ -746,7 +915,15 @@ def make_loss_fn(mesh, cfg: TransformerConfig):
 
 def make_loss_and_grad_fn(mesh, cfg: TransformerConfig):
     """``fn(params, tokens, targets) -> (loss, grads)``: the loss and the
-    gradient of the global loss for this rank's parameters (``_gpipe``)."""
+    gradient of the global loss for this rank's parameters (``_gpipe``);
+    ``int8_weights``, whose int8 leaves have no gradient, raises with the
+    JAX ``make_train_step``'s message (:999-1004)."""
+    if cfg.mlp_kernel == "int8_weights":
+        raise ValueError(
+            "mlp_kernel='int8_weights' is the forward-only serving form "
+            "(int8 weight leaves have no gradients); train with "
+            "mlp_kernel='int8' (STE) instead"
+        )
     stage_fn = make_stage_fn(cfg, mesh)
 
     def fn(params, tokens, targets):
@@ -829,22 +1006,60 @@ def adamw_update(params: Params, grads: Params, state: dict,
 # -- the single-device oracle ------------------------------------------------------
 
 
+def _oracle_moe(h: torch.Tensor, stage: Params, l: int, cfg: TransformerConfig, tp: int):
+    """The oracle's MoE block of layer l on a chunk ``h [b, S, D]``
+    (:1111-1208): each of the tp sequence shards routed as the tp ranks
+    route their slabs (``_moe_routed``), every expert applied to its part of
+    the buffer directly; ``(u, aux)``, aux the sum over the shards of the
+    top-k router's load-balance loss."""
+    b, S, D = h.shape
+    s_loc = S // tp
+    T = b * s_loc
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def expert(e, rows):
+        return moe_ffn(rows, stage["moe_w1"][0, l, e], stage["moe_w2"][0, l, e],
+                       cfg.mlp_kernel, h.dtype, scales=ffn_scales(stage, l, e, cfg))
+
+    shards = []
+    for j in range(tp):
+        slab = h[:, j * s_loc:(j + 1) * s_loc].reshape(T, D)
+        if cfg.router == "topk":
+            C = router_capacity(T, tp, cfg.router_topk, cfg.capacity_factor)
+            tope, topv, slot, kept, aux_l = router_assign(slab, stage["router"][0, l],
+                                                          cfg.router_topk, C)
+            buf = router_dispatch(slab, tope, slot, kept, tp, C)
+            out = torch.stack([expert(e, buf[e]) for e in range(tp)])
+            u = router_combine(out, tope, slot, topv, kept, C, h.dtype)
+            aux = aux + aux_l
+        elif cfg.router == "expert_choice":
+            C = min(router_capacity(T, tp, 1, cfg.capacity_factor), T)
+            idx, w = expert_choice_assign(slab, stage["router"][0, l], C)
+            out = torch.stack([expert(e, slab[idx[e]]) for e in range(tp)])
+            u = expert_choice_combine(out, idx, w, T, h.dtype)
+        else:
+            g = T // tp
+            u = torch.cat([expert(e, slab[e * g:(e + 1) * g]) for e in range(tp)])
+        shards.append(u.reshape(b, s_loc, D))
+    return torch.cat(shards, dim=1), aux
+
+
 def reference_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
                    cfg: TransformerConfig, tp: int, dp: int = 1) -> torch.Tensor:
-    """The single-device oracle of the training loss (:1033-1221), block
-    router only: each ``B / (dp * microbatches)``-row chunk forwarded on its
-    own through every stage with einsum attention, each layer's MoE routing
-    the tokens of each of the tp sequence shards in tp equal blocks to the
-    experts as the tp ranks do, and the chunks' cross-entropies averaged.
-    Differentiable (the ``compute_only`` member trains through it)."""
-    if cfg.router != "block":
-        raise ValueError(f"router='{cfg.router}' is not yet ported to ddlb_tpu_torch")
+    """The single-device oracle of the training loss (:1033-1221): each
+    ``B / (dp * microbatches)``-row chunk forwarded on its own through every
+    stage with einsum attention, each layer's MoE routing the tokens of
+    each of the tp sequence shards as the tp ranks do (``_oracle_moe``), the
+    chunks' cross-entropies averaged; under ``router='topk'`` plus
+    ``router_aux`` times the mean of the aux losses over (chunks, stages,
+    layers, shards). Differentiable (the ``compute_only`` member trains
+    through it)."""
     B, S = tokens.shape
     b_mb = B // (dp * cfg.microbatches)
-    s_loc = S // tp
     pp, L = params["ln1"].shape[:2]
     D, dh = cfg.d_model, cfg.head_dim
     losses = []
+    aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for c0 in range(0, B, b_mb):
         x = params["embed"][tokens[c0:c0 + b_mb].long()]
         for st in range(pp):
@@ -862,18 +1077,13 @@ def reference_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
                     k = apply_rope(k, pos, cfg.rope_theta)
                 attn = causal_attention(q, k, v, window=cfg.attn_window)
                 x = x + torch.matmul(attn.reshape(b_mb, S, D), stage["w_o"][0, l])
-                h = rms_norm(x, stage["ln2"][0, l])
-                T = b_mb * s_loc
-                g = T // tp
-                shards = []
-                for j in range(tp):
-                    blk = h[:, j * s_loc:(j + 1) * s_loc].reshape(T, D)
-                    out = [moe_ffn(blk[e * g:(e + 1) * g], stage["moe_w1"][0, l, e],
-                                   stage["moe_w2"][0, l, e], cfg.mlp_kernel, x.dtype)
-                           for e in range(tp)]
-                    shards.append(torch.cat(out).reshape(b_mb, s_loc, D))
-                x = x + torch.cat(shards, dim=1)
+                u, aux = _oracle_moe(rms_norm(x, stage["ln2"][0, l]), stage, l, cfg, tp)
+                x = x + u
+                aux_sum = aux_sum + aux
         h = rms_norm(x, params["ln_f"])
         logits = float32_product(h, params["head"])
         losses.append(ce_loss(logits, targets[c0:c0 + b_mb]))
-    return torch.stack(losses).mean()
+    loss = torch.stack(losses).mean()
+    if cfg.router == "topk":
+        loss = loss + cfg.router_aux * aux_sum / (len(losses) * pp * L * tp)
+    return loss

@@ -58,8 +58,7 @@ The port of the JAX package's ``ops/quantized_matmul.py``:
   (``_build.py``) and called through ``ctypes`` on PyTorch's current
   stream.
 - ``int8_ste_matmul`` (:101-151): the training path's product, K7
-  forward and the straight-through float32 backward, as an autograd
-  Function.
+  forward and the straight-through float32 backward.
 - ``int8_matmul_plain``: K7's plain version, the int8 values multiplied
   in float64 (exact: every partial sum is an integer below 2**53), then
   the same epilogue. It runs on both devices.
@@ -72,6 +71,15 @@ Dispatch: ``int8_matmul_kernel`` on a CPU tensor takes
 ``int8_matmul_plain``; on a CUDA tensor it launches the kernel
 ``tile_for`` names or raises, with no fallback from one tile to another.
 ``LAUNCHES`` counts kernel launches and ``TILES`` counts them by tile.
+
+``int8_matmul_kernel`` and ``int8_ste_matmul`` are the ``torch.library``
+operators ``ddlb::int8_matmul`` and ``ddlb::int8_ste_matmul`` (the
+straight-through backward registered on the second), each with a fake
+implementation that gives the output's shape and dtype and a DTensor
+sharding rule: so ``torch.compile(fullgraph=True)`` traces the int8 MLP
+and a program on DTensors (the ``compiled`` members) runs it. The
+operator's body is the dispatch above, so a compiled graph counts its
+launches as eager code does.
 """
 
 from __future__ import annotations
@@ -81,6 +89,8 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from ddlb_tpu_torch.ops import _build
 
@@ -292,9 +302,9 @@ def _workspace(lib, device: torch.device, stream: int, n: int) -> torch.Tensor:
     return work
 
 
-def int8_matmul_kernel(aq, bq, sa, sb, *, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``aq [m, k] @ bq [k, n]`` int8 with the scale epilogue (kernel K7);
-    ``bq`` row-major or column-major."""
+def _launch(aq, bq, sa, sb, out_dtype) -> torch.Tensor:
+    """K7 itself: the plain version on a CPU tensor, the kernel
+    ``tile_for`` names on a CUDA tensor (or a raise)."""
     global LAUNCHES
     _check(aq, bq, sa, sb, out_dtype)
     if aq.device.type == "cpu":
@@ -342,28 +352,86 @@ def int8_matmul_kernel(aq, bq, sa, sb, *, out_dtype=torch.bfloat16) -> torch.Ten
     return out
 
 
-class _Int8STEMatmul(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        (qx, sx), (qw, sw) = quantize_rowwise(x), quantize_colwise(w)
-        return int8_matmul_kernel(qx, qw, sx, sw, out_dtype=torch.float32)
+# Both products are operators of the ``ddlb`` library (``torch.library``), so
+# that Dynamo traces them as one opaque node each (a ``ctypes`` call cannot
+# be traced) and DTensor dispatches them by the sharding rules below. The
+# ``needs_exact_strides`` tag has Inductor hand them their inputs with the
+# strides eager code gives them: the column-major weight column-major, the
+# activation row-major and unpadded.
+_EXACT = (torch.Tag.needs_exact_strides,)
 
-    @staticmethod
-    def backward(ctx, g):
-        # the float32 cotangent contracts against the original operands at
-        # full width; only the results are rounded to the operand dtypes
-        x, w = ctx.saved_tensors
-        gf = g.float()
-        return (gf @ w.float().t()).to(x.dtype), (x.float().t() @ gf).to(w.dtype)
+
+@torch.library.custom_op("ddlb::int8_matmul", mutates_args=(), tags=_EXACT)
+def _int8_matmul_op(aq: torch.Tensor, bq: torch.Tensor, sa: torch.Tensor,
+                    sb: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    return _launch(aq, bq, sa, sb, out_dtype)
+
+
+@_int8_matmul_op.register_fake
+def _(aq, bq, sa, sb, out_dtype):
+    _check(aq, bq, sa, sb, out_dtype)
+    return aq.new_empty((aq.shape[0], bq.shape[1]), dtype=out_dtype)
+
+
+def int8_matmul_kernel(aq, bq, sa, sb, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``aq [m, k] @ bq [k, n]`` int8 with the scale epilogue (kernel K7);
+    ``bq`` row-major or column-major. The operator ``ddlb::int8_matmul``."""
+    return torch.ops.ddlb.int8_matmul(aq, bq, sa, sb, out_dtype)
+
+
+@torch.library.custom_op("ddlb::int8_ste_matmul", mutates_args=(), tags=_EXACT)
+def _int8_ste_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    (qx, sx), (qw, sw) = quantize_rowwise(x), quantize_colwise(w)
+    return _launch(qx, qw, sx, sw, torch.float32)
+
+
+@_int8_ste_op.register_fake
+def _(x, w):
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"int8_ste_matmul takes [m, k] @ [k, n], got {x.shape} @ {w.shape}")
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.float32)
+
+
+def _ste_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _ste_backward(ctx, g):
+    # the float32 cotangent contracts against the original operands at
+    # full width; only the results are rounded to the operand dtypes
+    x, w = ctx.saved_tensors
+    gf = g.float()
+    return (gf @ w.float().t()).to(x.dtype), (x.float().t() @ gf).to(w.dtype)
+
+
+_int8_ste_op.register_autograd(_ste_backward, setup_context=_ste_context)
 
 
 def int8_ste_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [m, k] @ w [k, n]`` on the int8 path, differentiable by the
-    straight-through estimator (``int8_ste_matmul``, :101-151). Forward:
-    ``x`` quantized per row, ``w`` per column, the int8 GEMM (K7 on the
-    card) with its epilogue, float32 out. Backward: the gradients flow as
-    if the quantizer were the identity, the float32 cotangent contracted
-    against the original operands and only the results cast to their
-    dtypes."""
-    return _Int8STEMatmul.apply(x, w)
+    straight-through estimator (``int8_ste_matmul``, :101-151), as the
+    operator ``ddlb::int8_ste_matmul``. Forward: ``x`` quantized per row,
+    ``w`` per column, the int8 GEMM (K7 on the card) with its epilogue,
+    float32 out. Backward: the gradients flow as if the quantizer were the
+    identity, the float32 cotangent contracted against the original
+    operands and only the results cast to their dtypes."""
+    return torch.ops.ddlb.int8_ste_matmul(x, w)
+
+
+# DTensor's sharding rules of the two operators, per mesh dimension: every
+# operand replicated, or the rows of the activation (and of its per-row
+# scale) sharded with the weight replicated. Per-row quantization and the
+# per-row epilogue are local to a row, so a row block computes alone; a
+# sharded weight is gathered first.
+
+
+@register_sharding(torch.ops.ddlb.int8_matmul.default)
+def _(aq, bq, sa, sb, out_dtype):
+    return [([Replicate()], [Replicate(), Replicate(), Replicate(), Replicate(), None]),
+            ([Shard(0)], [Shard(0), Replicate(), Shard(0), Replicate(), None])]
+
+
+@register_sharding(torch.ops.ddlb.int8_ste_matmul.default)
+def _(x, w):
+    return [([Replicate()], [Replicate(), Replicate()]),
+            ([Shard(0)], [Shard(0), Replicate()])]

@@ -24,9 +24,9 @@ not the answer).
 The einsum formulation is what this member measures: ``attn_kernel``
 defaults to ``einsum``, and ``flash``, ``decode_kernel='pallas'`` and the
 serving loops (``phase=generate|speculate|serve``) raise with the JAX
-member's messages. ``mlp_kernel='int8'`` and ``'int8_weights'`` raise
-"not yet ported": their GEMM is K7 behind ``ctypes``, which no graph can
-trace.
+member's messages. ``mlp_kernel='int8'`` and ``'int8_weights'`` run K7
+through its ``torch.library`` operators (``ops.quantized_matmul``), opaque
+nodes of the graph: on the card each call launches K7 and counts it.
 """
 
 from __future__ import annotations
@@ -38,7 +38,11 @@ from torch.distributed.tensor.experimental import implicit_replication
 from ddlb_tpu_torch.models.decode import dtensor_cache, make_full_width_fns
 from ddlb_tpu_torch.models.transformer import dtensor_params
 from ddlb_tpu_torch.primitives.base import matmul_precision_scope
-from ddlb_tpu_torch.primitives.compile_options import CompiledOptionsMixin, local
+from ddlb_tpu_torch.primitives.compile_options import (
+    CompiledOptionsMixin,
+    local,
+    register_missing_rules,
+)
 from ddlb_tpu_torch.primitives.transformer_decode.base import TransformerDecode
 from ddlb_tpu_torch.runtime import placements
 
@@ -67,12 +71,6 @@ class CompiledTransformerDecode(CompiledOptionsMixin, TransformerDecode):
                 "spmd/compute_only measurement; compiled measures the single "
                 "decode/prefill step"
             )
-        if o["mlp_kernel"] != "bf16":
-            raise ValueError(
-                f"mlp_kernel='{o['mlp_kernel']}' of the compiled "
-                "transformer_decode member is not yet ported to ddlb_tpu_torch "
-                "(K7 is not a traceable custom op; ROADMAP.md lists it)"
-            )
 
     def _dp_rows(self) -> slice:
         dp, tp = self._mesh_factors()
@@ -87,6 +85,9 @@ class CompiledTransformerDecode(CompiledOptionsMixin, TransformerDecode):
         self.num_partitions = dp * tp
         B = self.options["batch"]
         decode_fwd, prefill_fwd = make_full_width_fns(cfg, B, dp, tp)
+        # the set-up prefill below runs on DTensors before any compile: its
+        # LM head is aten.mm.dtype on the card, which needs its rule now
+        register_missing_rules()
         params = dtensor_params(self._host_params(tp), cfg, mesh, self.device)
         # with tp = 1 the rank holds every head and expert: the oracle's
         self.params = local(params)

@@ -8,10 +8,10 @@ that what the primitives compose into is a measured row.
 
 Shape mapping onto ``(m, n, k)``: ``m`` the sequence length, ``n``
 d_model, ``k`` d_ff (per expert). The option schema is the JAX package's
-(:53-92), value for value. Values whose path is not ported raise a
-``ValueError`` that names ROADMAP.md and run nothing else: the learned
-routers (``router=topk|expert_choice``) and ``mlp_kernel=int8_weights``.
-The chain is ``pp * virtual`` stages deep (``_total_stages``; ``virtual``
+(:53-92), value for value, every value ported: the learned routers
+(``router=topk|expert_choice`` with ``router_topk`` and
+``capacity_factor``) and ``mlp_kernel=int8_weights`` (with
+``mode='forward'``, as in the JAX package). The chain is ``pp * virtual`` stages deep (``_total_stages``; ``virtual``
 is an option of ``spmd`` only): the parameters, ``flops()`` and the
 oracle count them all.
 
@@ -44,17 +44,6 @@ log = logging.getLogger(__name__)
 #: oracle losses by (config, mesh, seed), one per process: every validated
 #: row at one shape asks for the same one
 _ORACLE_MEMO: Dict[tuple, float] = {}
-
-#: option values whose path is not ported yet
-_NOT_PORTED = {"router": ("topk", "expert_choice"), "mlp_kernel": ("int8_weights",)}
-
-
-def not_ported(what: str) -> ValueError:
-    return ValueError(
-        f"{what} of transformer_step is not yet ported to ddlb_tpu_torch "
-        "(ROADMAP.md lists it)"
-    )
-
 
 class TransformerStep(Primitive):
     """ABC for the flagship model's step implementations."""
@@ -156,6 +145,7 @@ class TransformerStep(Primitive):
                 f"{dp * o['microbatches']}"
             )
         if (o["batch"] // dp // o["microbatches"]) * (self.m // tp) % tp != 0:
+            # the JAX member checks this for every router
             raise ValueError(
                 "per-microbatch local tokens must divide by tp for the MoE "
                 "block router"
@@ -167,9 +157,6 @@ class TransformerStep(Primitive):
                 "mlp_kernel='int8_weights' (pre-quantized serving weights) "
                 "requires mode='forward'; use mlp_kernel='int8' for train"
             )
-        for name, values in _NOT_PORTED.items():
-            if o[name] in values:
-                raise not_ported(f"{name}='{o[name]}'")
 
     def flops(self) -> float:
         """Model matmul FLOPs of one step (:225-246): per token and layer
@@ -201,6 +188,7 @@ class TransformerStep(Primitive):
             microbatches=o["microbatches"], attention=o["attention"],
             attn_kernel=o["attn_kernel"], mlp_kernel=o["mlp_kernel"],
             rope=o["rope"], attn_window=o["attn_window"], router=o["router"],
+            router_topk=o["router_topk"], capacity_factor=o["capacity_factor"],
             dtype=torch_dtype(self.dtype),
         )
 

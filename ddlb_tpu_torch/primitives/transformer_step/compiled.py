@@ -3,8 +3,8 @@ DTensors, compiled.
 
 The counterpart of the JAX package's ``transformer_step/xla_gspmd.py``:
 the same model math as the single-device oracle
-(``models.transformer.reference_loss``: einsum attention, the block
-router) runs on DTensor parameters over a ``(dp, tp, pp)`` device mesh,
+(``models.transformer.reference_loss``: einsum attention, every router)
+runs on DTensor parameters over a ``(dp, tp, pp)`` device mesh,
 placed as ``param_specs`` places them (``param_placements``), with the
 tokens sharded over dp. DTensor's sharding propagation picks every
 collective (an expert picked out of the tp-sharded stack, a stage out of
@@ -16,9 +16,11 @@ backward), takes the gradient outside the graph (Dynamo does not trace
 ``autograd.grad`` under ``fullgraph``), and runs the port's
 ``adamw_update`` as a second compiled graph. The step is functional, as
 the ``spmd`` member's is. ``attn_kernel`` defaults to ``einsum`` and
-``flash`` raises, as in the JAX member. ``mlp_kernel='int8'`` raises "not
-yet ported": its GEMM is K7 behind ``ctypes``, which no graph can trace
-until K7 is a ``torch.library`` custom op with a fake implementation.
+``flash`` raises, as in the JAX member. The int8 MLP
+(``mlp_kernel='int8'``, and ``'int8_weights'`` with ``mode='forward'``)
+runs K7 through its ``torch.library`` operators
+(``ops.quantized_matmul``), which the graph holds as opaque nodes: on the
+card each call of the compiled step launches K7 and counts it.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ddlb_tpu_torch.models.transformer import (
     reference_loss,
 )
 from ddlb_tpu_torch.primitives.compile_options import CompiledOptionsMixin, local
-from ddlb_tpu_torch.primitives.transformer_step.base import TransformerStep, not_ported
+from ddlb_tpu_torch.primitives.transformer_step.base import TransformerStep
 from ddlb_tpu_torch.runtime import placements
 
 
@@ -49,11 +51,6 @@ class CompiledTransformerStep(CompiledOptionsMixin, TransformerStep):
             raise ValueError(
                 "compiled measures the einsum (reference_loss) formulation; "
                 "attn_kernel='flash' applies to the spmd member"
-            )
-        if self.options["mlp_kernel"] == "int8":
-            raise not_ported(
-                "mlp_kernel='int8' of the compiled member (K7 is not a "
-                "traceable custom op)"
             )
 
     def _input_setup(self) -> None:

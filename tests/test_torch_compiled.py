@@ -193,6 +193,143 @@ def test_decode_matches_jax_at_world_one(phase):
         np.testing.assert_array_equal(impl.run().numpy(), got.numpy())
 
 
+#: the int8 MLP rows of the compiled members, K7 through its operators
+INT8_ROWS = [("transformer_step", "train", "int8"),
+             ("transformer_step", "forward", "int8_weights"),
+             ("transformer_decode", "decode", "int8"),
+             ("transformer_decode", "decode", "int8_weights")]
+
+
+@pytest.mark.parametrize("family,mode,mlp_kernel", INT8_ROWS, ids=str)
+def test_int8_rows_match_spmd_at_world_one(family, mode, mlp_kernel):
+    """The compiled int8 rows (the int8 GEMMs as ``ddlb::int8_matmul`` and
+    ``ddlb::int8_ste_matmul`` nodes of the graph) against the ``spmd``
+    member's eager rows with einsum attention: the loss or logits within
+    1e-4 (a float32 difference in the fused graph can move one value
+    across a quantization step, as in ``test_torch_transformer_step.py``),
+    the train step's parameters under ``adam_atol``, each row valid."""
+    if family == "transformer_step":
+        opts = dict(STEP, mode=mode, mlp_kernel=mlp_kernel, dp=1, tp=1, pp=1)
+        shape = STEP_SHAPE
+    else:
+        opts = dict(DECODE, phase=mode, mlp_kernel=mlp_kernel, dp=1, tp=1)
+        shape = DECODE_SHAPE
+    rows = {}
+    for member, extra in (("compiled", {}), ("spmd", {"attn_kernel": "einsum"})):
+        impl = load_port(family, member)(*shape, dtype="float32", device="cpu", **opts, **extra)
+        out = impl.run()
+        assert impl.validate(out), member
+        rows[member] = (impl, out)
+    (impl, got), (_, want) = rows["compiled"], rows["spmd"]
+    if family == "transformer_decode":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+        return
+    if mode == "forward":
+        assert float(got) == pytest.approx(float(want), abs=1e-4)
+        return
+    assert float(got[-1]) == pytest.approx(float(want[-1]), abs=1e-4)
+    for name, new in want[0].items():
+        init = impl._args[0][name].to_local().numpy()
+        err = np.abs(got[0][name].numpy() - new.numpy())
+        assert np.all(err <= adam_atol(init, new.numpy()) + 2 * LR * (init != init)), name
+
+
+@pytest.mark.parametrize("router,mode", [("topk", "forward"), ("expert_choice", "train")])
+def test_routers_match_jax_at_world_one(router, mode):
+    """The learned routers through the compiled step (one expert at world
+    1) against the JAX ``xla_gspmd`` member."""
+    opts = dict(router=router, router_topk=1, capacity_factor=0.5)
+    impl = load_port("transformer_step", "compiled")(
+        *STEP_SHAPE, dtype="float32", device="cpu", mode=mode, dp=1, tp=1, pp=1, **STEP,
+        **opts)
+    out = impl.run()
+    assert impl.validate(out)
+    with jax_devices(1):
+        ref = load_jax("transformer_step", "xla_gspmd")(
+            *STEP_SHAPE, dtype="float32", mode=mode, dp=1, tp=1, pp=1, **STEP, **opts)
+        want = ref.run()
+    loss = out if mode == "forward" else out[-1]
+    want_loss = want if mode == "forward" else want[-1]
+    assert float(loss) == pytest.approx(float(want_loss), abs=1e-4)
+
+
+def test_k7_operators_pass_opcheck():
+    """``ddlb::int8_matmul`` (each output dtype, both weight layouts) and
+    ``ddlb::int8_ste_matmul`` (with its straight-through gradient) pass
+    ``torch.library.opcheck``: schema, fake implementation, autograd
+    registration and AOT dispatch."""
+    from ddlb_tpu_torch.ops import quantized_matmul as qm
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(0, 1, (12, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (32, 24)).astype(np.float32))
+    (aq, sa), (bq, sb) = qm.quantize_rowwise(x), qm.quantize_colwise(w)
+    for weight in (bq, bq.contiguous()):
+        for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+            torch.library.opcheck(torch.ops.ddlb.int8_matmul.default,
+                                  (aq, weight, sa, sb, out_dtype))
+    torch.library.opcheck(torch.ops.ddlb.int8_ste_matmul.default,
+                          (x.clone().requires_grad_(True), w.clone().requires_grad_(True)))
+
+
+def test_k7_sharding_rules():
+    """DTensor runs both K7 operators by their rules: rows of the
+    activation sharded with the weight replicated give sharded rows, every
+    operand replicated a replicated result, and a sharded weight is
+    gathered first; each the plain result."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ddlb_tpu_torch.ops import quantized_matmul as qm
+    from ddlb_tpu_torch.runtime import Runtime
+
+    mesh = Runtime("cpu").device_mesh(("tp",), (1,))
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(0, 1, (8, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (32, 16)).astype(np.float32))
+    (aq, sa), (bq, sb) = qm.quantize_rowwise(x), qm.quantize_colwise(w)
+    want_ste = qm.int8_ste_matmul(x, w)
+    want = qm.int8_matmul_kernel(aq, bq, sa, sb, out_dtype=torch.float32)
+
+    def on(t, p):
+        return DTensor.from_local(t, mesh, [p], run_check=False)
+
+    for pa, pw, out in ((Shard(0), Replicate(), Shard(0)), (Replicate(), Replicate(), Replicate()),
+                        (Replicate(), Shard(1), Replicate())):
+        got = qm.int8_ste_matmul(on(x, pa), on(w, pw))
+        assert got.placements == (out,)
+        assert torch.equal(got.full_tensor(), want_ste)
+        got = qm.int8_matmul_kernel(on(aq, pa), on(bq, pw), on(sa, pa), on(sb, pw),
+                                    out_dtype=torch.float32)
+        assert got.placements == (out,)
+        assert torch.equal(got.full_tensor(), want)
+
+
+def test_decode_registers_rules_before_its_setup_prefill(monkeypatch):
+    """The decode member's set-up prefill runs on DTensors before the
+    compile: the sharding rules ``register_missing_rules`` adds (the card's
+    float32 LM head, ``aten.mm.dtype``) are registered first. Without them
+    a process whose first compiled row was a decode failed on the card."""
+    from ddlb_tpu_torch.primitives.transformer_decode import compiled as member
+
+    calls = []
+    make = member.make_full_width_fns
+
+    def traced(*args):
+        decode_fwd, prefill_fwd = make(*args)
+
+        def prefill(*a):
+            calls.append("prefill")
+            return prefill_fwd(*a)
+
+        return decode_fwd, prefill
+
+    monkeypatch.setattr(member, "register_missing_rules", lambda: calls.append("rules"))
+    monkeypatch.setattr(member, "make_full_width_fns", traced)
+    load_port("transformer_decode", "compiled")(*DECODE_SHAPE, dtype="float32", device="cpu",
+                                                 phase="decode", **DECODE)
+    assert calls == ["rules", "prefill"]
+
+
 def test_full_width_fns_match_the_oracle():
     """``make_full_width_fns`` on plain tensors: prefill then a decode step
     are the oracle's logits at the last prompt position and at the next
@@ -302,16 +439,16 @@ def test_option_schema_is_the_jax_packages():
          "async_collective_fusion=False has no counterpart"),
         ("transformer_step", STEP_SHAPE, {"attn_kernel": "flash", **STEP},
          "attn_kernel='flash' applies to the spmd member"),
-        ("transformer_step", STEP_SHAPE, {"mlp_kernel": "int8", **STEP},
-         "mlp_kernel='int8' of the compiled member.*not yet ported"),
+        ("transformer_step", STEP_SHAPE, {"mlp_kernel": "int8_weights", **STEP},
+         "mlp_kernel='int8_weights'.*requires mode='forward'"),
         ("transformer_decode", DECODE_SHAPE, {"attn_kernel": "flash", **DECODE},
          "attn_kernel='flash' applies to the spmd member"),
         ("transformer_decode", DECODE_SHAPE, {"decode_kernel": "pallas", **DECODE},
          "decode_kernel='pallas' applies to the spmd member"),
         ("transformer_decode", DECODE_SHAPE, {"phase": "generate", **DECODE},
          "phase='generate'.*measures the single decode/prefill step"),
-        ("transformer_decode", DECODE_SHAPE, {"mlp_kernel": "int8", **DECODE},
-         "mlp_kernel='int8'.*not yet ported"),
+        ("transformer_decode", DECODE_SHAPE, {"phase": "serve", **DECODE},
+         "phase='serve'.*measures the single decode/prefill step"),
     ],
 )
 def test_rejections(family, shape, options, match):

@@ -527,7 +527,10 @@ def test_two_rank_transformer_decode():
 # pin it far below 2e-6, and so they do where g is exactly 0 on both sides;
 # where the gradient is tiny but not 0, typically a sum over ranks that
 # nearly cancels, u follows the last bits of g, so there (under 5% of a
-# leaf) the parameter is only held within 2 * lr. Then each rank's dq, dk, dv of the
+# leaf) the parameter is only held within 2 * lr. The learned routers run at
+# E = tp experts (topk, its capacity binding at factor 0.5, expert_choice) and
+# at pp = 2 under the 1f1b schedule (one expert, k = 1: the aux term through
+# the table executor's cotangent). Then each rank's dq, dk, dv of the
 # ring flash attention on its sequence chunk at d = 2 against jax.grad of
 # the JAX package's ring_flash_attention at 1e-5.
 
@@ -545,7 +548,21 @@ STEP_CASES = [
     (1, 1, 2, {}),
     # the loss alone: parameters as they were, the loss the step's
     (1, 1, 2, {"mode": "forward"}),
+    # the learned routers
+    (1, 2, 1, {"router": "topk"}),
+    (1, 2, 1, {"router": "topk", "capacity_factor": 0.5}),
+    (1, 2, 1, {"router": "expert_choice"}),
+    (1, 1, 2, {"router": "topk", "router_topk": 1, "schedule": "1f1b"}),
+    # dp with flash; gathered GQA, rope and a window; the int8 MLP gathered
+    # and ring; two layers a stage
+    (2, 1, 1, {}),
+    (1, 2, 1, {"n_kv_heads": 2, "rope": True, "attn_window": 6}),
+    (1, 2, 1, {"mlp_kernel": "int8"}),
+    (1, 2, 1, {"attention": "ring", "mlp_kernel": "int8"}),
+    (1, 1, 2, {"layers_per_stage": 2}),
 ]
+#: options of a case that are the member's, not the model config's
+STEP_MEMBER_OPTIONS = ("mode", "schedule")
 RING_S, RING_H, RING_DH = 32, 2, 8
 
 
@@ -607,16 +624,22 @@ def _jax_step(dp, tp, pp, opts):
     loss is taken before its update, so it is the forward's loss)."""
     import jax
 
+    from ddlb_tpu.models.pipeline import make_train_step_1f1b
     from ddlb_tpu.models.transformer import (
         TransformerConfig, example_tokens, init_params, make_train_step,
     )
 
     forward = opts.get("mode") == "forward"
-    opts = {k: v for k, v in opts.items() if k != "mode"}
+    schedule = opts.get("schedule", "gpipe")
+    opts = {k: v for k, v in opts.items() if k not in STEP_MEMBER_OPTIONS}
     cfg = TransformerConfig(vocab=64, d_model=STEP_N, n_heads=4, d_ff=STEP_K,
                             microbatches=2, **opts)
     mesh = jax.make_mesh((dp, tp, pp), ("dp", "tp", "pp"), devices=jax.devices()[:WORLD])
-    step, init_opt, shardings = make_train_step(mesh, cfg, donate=False)
+    if schedule == "gpipe":
+        step, init_opt, shardings = make_train_step(mesh, cfg, donate=False)
+    else:
+        step, init_opt, shardings = make_train_step_1f1b(mesh, cfg, donate=False,
+                                                         schedule=schedule)
     init = init_params(cfg, pp, n_experts=tp, seed=42)
     params = {k: jax.device_put(v, shardings[k]) for k, v in init.items()}
     tokens, targets = example_tokens(4, STEP_M, 64, seed=42)
@@ -683,7 +706,7 @@ def test_two_rank_transformer_step():
     for i, (dp, tp, pp, opts) in enumerate(STEP_CASES):
         init, want_params, want_loss = _jax_step(dp, tp, pp, opts)
         axes = param_axes(TransformerConfig(
-            **{k: v for k, v in opts.items() if k != "mode"}), want_params)
+            **{k: v for k, v in opts.items() if k not in STEP_MEMBER_OPTIONS}), want_params)
         lr, wd = 1e-2, 1e-4
         # u as the JAX step applied it; 0 (an unused embedding row) is exact
         # on both sides

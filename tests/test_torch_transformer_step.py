@@ -266,9 +266,9 @@ def test_compute_only_matches_the_oracle(mode):
 @pytest.mark.parametrize(
     "options,match",
     [
-        ({"router": "topk"}, "router='topk'.*not yet ported.*ROADMAP.md"),
-        ({"router": "expert_choice"}, "router='expert_choice'.*not yet ported"),
-        ({"mlp_kernel": "int8_weights", "mode": "forward"}, "int8_weights.*not yet ported"),
+        ({"router": "sparse"}, "'router'='sparse' not in allowed values"),
+        ({"router_topk": 5}, "'router_topk'=5 outside allowed range"),
+        ({"capacity_factor": 0.1}, "'capacity_factor'=0.1 outside allowed range"),
         ({"mlp_kernel": "int8_weights"}, "requires mode='forward'"),
         ({"schedule": "1f1b", "virtual": 2}, "1f1b is the virtual=1 schedule; use 'interleaved'"),
         ({"schedule": "interleaved"}, "schedule='interleaved' needs virtual >= 2"),
