@@ -77,7 +77,20 @@ Phases, in order; any failure exits non-zero without the final line:
    the fast-decode config's ``int8_weights`` entry beside its bf16 twin,
    ``int8_weights`` decode and prefill, an ``int8`` decode; K8a, K11,
    K12, K7), one row at a time with its launches checked exactly; then
-   the training path, ``transformer_step`` one row at a time
+   the speculate path (``scripts/config_speculate.json``'s entries at
+   m = 2048: the ``generate`` twin, ``phase=speculate`` at spec_k 2, 4,
+   8 and with the int8 GQA-4 cache; spec_k 4 at m = 8192 on the flash
+   prefill and pallas draft steps; K8a ``layers + draft_layers`` a call,
+   K11 ``draft_layers * (spec_k + 1) * spec_rounds``), each row's tokens
+   then held against its generate twin's chain (exact but at near-ties of
+   the oracle); then the serving_load path
+   (``scripts/config_serving_load.json``'s ``engine`` and ``static``
+   entries as written, and both members at the serving width, m = 512,
+   48 requests, a paged pool of half size, a shared 256-token prefix,
+   20 and 400 requests/s, the engine also with head-of-line preemption;
+   K12 once a layer per engine tick, K8a once a layer per prompt
+   prefill), each row's TTFT and TPOT percentiles and goodput printed;
+   then the training path, ``transformer_step`` one row at a time
    (``training_rows``: ``scripts/config_transformer_step.json``'s ``spmd``
    and ``compute_only`` entries, the full width of
    ``scripts/config_router.json``'s first entry with the block router,
@@ -157,6 +170,9 @@ PEAK_BYTES_PER_S = 3.35e12
 #: 128, a decode cache of m + 1 = 8193 positions, the serve pool's pages
 DECODE_B, DECODE_H, DECODE_DH, DECODE_S = 8, 16, 128, 8193
 PAGE_SIZE, SERVE_PAGES = 128, 17
+#: the speculate path's caches at m = 8192 (m + n_new 64 + spec_k 4) and
+#: the serving_load path's pages a slot (its max_len of 1408 over 128)
+SPEC_S, SERVING_LOAD_PAGES = 8260, 11
 OUT_DIR = os.path.join("results", "chip_smoke")
 #: the flash backward's launch counts: the dQ and dK/dV passes of the
 #: triangle (K10a, K10b) and of the rectangle (K10c, K10d)
@@ -331,11 +347,12 @@ ATTN_SWEEPS = [
 
 
 def drive_path(run_benchmark, device, primitive, shape, implementations,
-               warmups=NUM_WARMUPS, iterations=NUM_ITERATIONS, extra_keys=()):
-    """The port's sweep runner over one family at ``shape`` bf16 with
-    validation; prints every row (with ``extra_keys`` where present) and
-    fails unless each is valid on ``device`` with a finite time. Returns
-    the rows."""
+               warmups=NUM_WARMUPS, iterations=NUM_ITERATIONS, extra_keys=(),
+               dtype="bfloat16"):
+    """The port's sweep runner over one family at ``shape`` in ``dtype``
+    with validation; prints every row (with ``extra_keys`` where present)
+    and fails unless each is valid on ``device`` with a finite time.
+    Returns the rows."""
     os.makedirs(OUT_DIR, exist_ok=True)
     stamp = time.strftime("%Y%m%d_%H%M%S")
     m, n, k = shape
@@ -345,7 +362,7 @@ def drive_path(run_benchmark, device, primitive, shape, implementations,
         "m": m,
         "n": n,
         "k": k,
-        "dtype": "bfloat16",
+        "dtype": dtype,
         "validate": True,
         "num_iterations": iterations,
         "num_warmups": warmups,
@@ -1304,12 +1321,16 @@ def band_ptxas(carry):
 
 #: K8a as the serving path calls it (sequence, query heads, kv heads), bf16:
 #: the prefill of a batch of 8 at m = 8192 merges the batch into the head
-#: axis (8 x 16 = 128 query heads; 32 kv heads at GQA-4), and each serve
-#: admission prefills one prompt padded to its bucket, a power of two from
-#: 16 (below one tile) up; the serve rows' prompts of 2048 fill theirs
+#: axis (8 x 16 = 128 query heads; 32 kv heads at GQA-4; the speculate
+#: path's target and draft prefills alike), and each serve admission
+#: prefills one prompt padded to its bucket, a power of two from 16 (below
+#: one tile) up; the serve rows' prompts of 2048 fill theirs; the
+#: serving_load path's admissions take buckets up to its max_len of 1408,
+#: and its shared prefix is 256 tokens
 SERVE_FLASH_SHAPES = (
     (8192, 128, 128), (8192, 128, 32),
     (2048, 16, 16), (2048, 16, 4),
+    (1408, 16, 16), (512, 16, 16), (256, 16, 16),
     (16, 16, 16), (16, 16, 4),
 )
 
@@ -1551,8 +1572,12 @@ def kernel_phase_decode(da, smi):
         (3, 777, 16, 1, "bfloat16", False, 0, False, "ragged"),
     ):
         check_decode(da, *args)
+    # the speculate path's draft steps at m = 8192: positions up to
+    # m + n_new + spec_k (4) of a cache that long
+    check_decode(da, b, SPEC_S, h, h, "bfloat16", False, 0, False, "ragged")
     paged_err, paged_in = check_decode(da, b, S_pool, h, h, "bfloat16", False, 0, True, "ragged")
     for args in (
+        (b, SERVING_LOAD_PAGES * PAGE_SIZE, h, h, "bfloat16", False, 0, True, "ragged"),
         (b, S_pool, h, 4, "bfloat16", True, 0, True, "ragged"),
         (b, S_pool, h, h, "bfloat16", False, 700, True, "ragged"),
         (4, 1024, 8, 2, "float32", False, 0, True, "ragged"),
@@ -2042,6 +2067,251 @@ def serving_path(run_benchmark, k1, fa, da, qm, smi):
                               "hbm_floor_ms": floor_ms,
                               "hbm_floor_share": row["hbm_floor_share"],
                               "launches": got, "card": smi}))
+            rows.append(row)
+            torch.cuda.empty_cache()
+    end = counts()
+    return {key: end[key] - total_start[key] for key in end}, rows
+
+
+# -- the speculate path ------------------------------------------------------------
+
+
+#: scripts/config_speculate.json: its three entries at m = 2048 as written
+#: (einsum: the generate twin, spec_k 2/4/8, the int8 GQA-4 cache); at
+#: m = 8192 spec_k 4 on the flash prefill and the pallas draft steps (an
+#: einsum prefill at 8192 would build 34 GB of scores). Every row n_new 64,
+#: 2 layers, a 1-layer draft of seed + 1.
+SPEC_CONFIG = os.path.join("scripts", "config_speculate.json")
+SPEC_FAST = {"phase": "speculate", "n_new": 64, "layers": 2, "spec_k": 4,
+             "draft_layers": 1, "attn_kernel": "flash", "decode_kernel": "pallas",
+             **SERVE_COMMON}
+SPEC_WARMUPS, SPEC_ITERATIONS = 1, 2
+
+
+def speculate_rows():
+    """(m, implementations) of the speculate path, one dict of lists each."""
+    with open(SPEC_CONFIG) as f:
+        entries = json.load(f)["benchmark"]["implementations"]
+    at_2048 = {}
+    for entry in entries:
+        entry = dict(entry)
+        at_2048.setdefault(entry.pop("name"), []).append(entry)
+    return [(2048, at_2048), (8192, {"spmd": [SPEC_FAST]})]
+
+
+def expected_speculate_launches(row, calls):
+    """The launches of ``calls`` measured calls of one speculate-path row:
+    K8a once a layer per flash prefill (speculate: the target's ``layers``
+    and the draft's ``draft_layers``; generate: the target's), K11 once a
+    draft layer per draft step, ``spec_k + 1`` steps a round (the draft
+    also consumes its last proposal; the verify chunk is einsum), from the
+    row's ``spec_rounds``; a pallas generate once a layer per decode step
+    (``n_new - 1``); nothing else."""
+    o = row_options(row)
+    L, phase = int(o["layers"]), o["phase"]
+    want = {"tri": 0, "rect": 0, "chunk": 0, "decode": 0, "paged": 0, "k1": 0,
+            "int8": 0, **dict.fromkeys(BWD_KEYS, 0), **int8_tile_counts(None)}
+    draft = int(o["draft_layers"]) if phase == "speculate" else 0
+    if o["attn_kernel"] == "flash":
+        want["tri"] = calls * (L + draft)
+    if o["decode_kernel"] == "pallas":
+        if phase == "speculate":
+            want["decode"] = calls * draft * (int(o["spec_k"]) + 1) * row["spec_rounds"]
+        else:
+            want["decode"] = calls * L * (int(o["n_new"]) - 1)
+    return want
+
+
+def chains_agree(what, got, want, impl, S0):
+    """``got`` on the greedy chain ``want`` but where a row leaves it at a
+    near-tie of the oracle's logits on the agreed prefix (top-2 gap below
+    the family's tie tolerance; the token one of the two), the rule of the
+    family's generate validation. Returns (rows exact, rows forgiven)."""
+    import numpy as np
+
+    forgiven = 0
+    for i in np.argwhere((got != want).any(axis=1))[:, 0]:
+        t = int(np.argmax(got[i] != want[i])) - S0
+        if t < 0:
+            fail(f"{what}: row {i} prompt changed")
+        logits = impl._reference(want[:, :S0 + t]).astype(np.float32)[i]
+        order = np.argsort(logits)
+        gap = float(logits[order[-1]] - logits[order[-2]])
+        if gap >= impl._tie_tol() or got[i, S0 + t] not in order[-2:]:
+            fail(f"{what}: row {i} leaves the generate chain at step {t}, top-2 gap "
+                 f"{gap!r} (tie tolerance {impl._tie_tol()!r})")
+        forgiven += 1
+    return got.shape[0] - forgiven, forgiven
+
+
+def speculate_path(run_benchmark, k1, fa, da, qm, smi):
+    """Drive every speculate-path row (one ``run_benchmark`` call a row,
+    counts read around each), check each row's launches exactly, and
+    print each row's ms, tokens/s and acceptance. Then, outside the
+    counted window, each speculate row's tokens against its generate
+    twin's (the same options at phase=generate) on the same prompt.
+    Returns (the launch totals of the path, the rows)."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
+
+    def counts():
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES,
+                **int8_tile_counts(qm)}
+
+    rows = []
+    total_start = counts()
+    calls = SPEC_WARMUPS + SPEC_ITERATIONS + 1
+    for m, impls in speculate_rows():
+        for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
+            name = spec.pop("implementation")
+            before = counts()
+            (row,) = drive_path(run_benchmark, "cuda", "transformer_decode",
+                                (m, SERVE_N, SERVE_K), {name: [spec]},
+                                warmups=SPEC_WARMUPS, iterations=SPEC_ITERATIONS,
+                                extra_keys=("spec_rounds", "spec_proposals",
+                                            "spec_accept_rate"))
+            after = counts()
+            got = {key: after[key] - before[key] for key in after}
+            want = expected_speculate_launches(row, calls)
+            if got != want:
+                fail(f"speculate row {row['option']}: launches {got}, expected {want}")
+            o = row_options(row)
+            ms = row["median time (ms)"]
+            row["tokens_per_s"] = int(o["batch"]) * int(o["n_new"]) / (ms / 1e3)
+            print(json.dumps({"speculate_row": o["phase"], "m": m, "option": row["option"],
+                              "median_ms": ms, "tokens_per_s": row["tokens_per_s"],
+                              "spec_k": int(o["spec_k"]) if o["phase"] == "speculate" else None,
+                              "spec_rounds": row.get("spec_rounds"),
+                              "spec_accept_rate": row.get("spec_accept_rate"),
+                              "launches": got, "card": smi}))
+            rows.append(row)
+            torch.cuda.empty_cache()
+    end = counts()
+    launches = {key: end[key] - total_start[key] for key in end}
+    chain_check(rows)
+    return launches, rows
+
+
+#: the options a speculate row and its generate twin do not share
+SPEC_ONLY = ("spec_k", "draft_layers")
+
+
+def chain_check(rows, device="cuda"):
+    """Each speculate row's tokens against its generate twin's: the same
+    model options at phase=generate, built through the member on the same
+    seeded prompt; exact but at near-ties (``chains_agree``)."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import _infer_scalar
+    from ddlb_tpu_torch.primitives.registry import load_impl_class
+
+    cls = load_impl_class("transformer_decode", "spmd")
+    twins = {}
+    for row in rows:
+        o = row_options(row)
+        if o["phase"] != "speculate":
+            continue
+        shared = {key: o[key] for key in ("n_new", "layers", "attn_kernel", "decode_kernel",
+                                          "kv_cache", "n_kv_heads", "batch", "vocab",
+                                          "n_heads")}
+        key = (row["m"], tuple(sorted(shared.items())))
+        if key not in twins:
+            twin = cls(row["m"], SERVE_N, SERVE_K, dtype="bfloat16", device=device,
+                       phase="generate", **{k: _infer_scalar(v) for k, v in shared.items()})
+            twins[key] = twin, twin.run().cpu().numpy()
+        twin, want = twins[key]
+        spec = cls(row["m"], SERVE_N, SERVE_K, dtype="bfloat16", device=device,
+                   phase="speculate",
+                   **{k: _infer_scalar(o[k]) for k in (*shared, *SPEC_ONLY)})
+        got = spec.run().cpu().numpy()
+        exact, forgiven = chains_agree(f"speculate {row['option']}", got, want, twin,
+                                       row["m"])
+        print(json.dumps({"speculate_chain": row["option"], "m": row["m"],
+                          "rows_exact": exact, "rows_at_a_near_tie": forgiven}))
+        del spec
+        torch.cuda.empty_cache()
+
+
+# -- the serving_load path ------------------------------------------------------------
+
+
+#: scripts/config_serving_load.json's engine and static entries as written
+#: (tiny, float32, no kernel), then the full serving width at m (mean
+#: prompt) 512: 48 requests of 32 new tokens on average (at most 64), a
+#: paged pool of half the contiguous size, a Zipf population of 4 prefixes
+#: of 256 tokens (the hot one shared), flash admissions and pallas ticks;
+#: each member under the engine's capacity (20 requests/s) and over it
+#: (400/s), the engine also with head-of-line preemption after 8 ticks
+SERVING_LOAD_CONFIG = os.path.join("scripts", "config_serving_load.json")
+SERVING_LOAD_M = 512
+SERVING_LOAD_COMMON = {"n_requests": 48, "out_mean": 32, "out_max": 64,
+                       "cache_layout": "paged", "page_size": PAGE_SIZE,
+                       "page_pool_frac": 0.5, "prefix_pop": 4, "prefix_len": 256,
+                       "decode_kernel": "pallas", "attn_kernel": "flash",
+                       **SERVE_COMMON}
+SERVING_LOAD_ROWS = {
+    "engine": [{"rate": [20.0, 400.0], **SERVING_LOAD_COMMON},
+               {"rate": [400.0], "preempt_hol_ticks": 8, **SERVING_LOAD_COMMON}],
+    "static": [{"rate": [20.0, 400.0], **SERVING_LOAD_COMMON}],
+}
+SERVING_LOAD_WARMUPS, SERVING_LOAD_ITERATIONS = 1, 1
+#: the row columns printed for each serving_load row
+SLO_KEYS = ("slo_offered_rps", "slo_completed", "slo_ttft_p50_ms", "slo_ttft_p95_ms",
+            "slo_tpot_p50_ms", "slo_tpot_p95_ms", "slo_goodput_rps", "slo_attainment",
+            "serve_queue_peak", "serve_occupancy", "serve_prefix_hits",
+            "serve_preemptions", "serve_kv_evicted_tokens", "serve_peak_pages",
+            "serve_admissions_deferred", "drains", "drain_ticks", "drain_prefills")
+
+
+def serving_load_path(run_benchmark, k1, fa, da, qm, smi):
+    """Drive the serving_load rows one at a time (counts read around
+    each): the config's tiny entries, which must launch nothing, then the
+    full-width rows, whose launches must be exactly K12 once a layer per
+    engine tick of every drain (``drain_ticks``) and K8a once a layer per
+    prompt prefill (the shared prefix's, once, and each admission the
+    prefix did not serve, ``drain_prefills``). Prints each row's TTFT and
+    TPOT percentiles and goodput. Returns (the launch totals, the rows)."""
+    import torch
+    from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
+
+    def counts():
+        return {**fa.LAUNCHES, **da.LAUNCHES, "k1": k1.LAUNCHES, "int8": qm.LAUNCHES,
+                **int8_tile_counts(qm)}
+
+    with open(SERVING_LOAD_CONFIG) as f:
+        cfg = json.load(f)["benchmark"]
+    tiny = {name: cfg["implementations"][name] for name in ("engine", "static")}
+    sweeps = [((cfg["m"][0], cfg["n"][0], cfg["k"][0]), tiny, cfg["dtype"],
+               cfg["num_warmups"], cfg["num_iterations"]),
+              ((SERVING_LOAD_M, SERVE_N, SERVE_K), SERVING_LOAD_ROWS, "bfloat16",
+               SERVING_LOAD_WARMUPS, SERVING_LOAD_ITERATIONS)]
+    rows = []
+    total_start = counts()
+    for shape, impls, dtype, warmups, iterations in sweeps:
+        for impl_id, spec in assign_impl_ids(generate_config_combinations(impls)).items():
+            name = spec.pop("implementation")
+            before = counts()
+            (row,) = drive_path(run_benchmark, "cuda", "serving_load", shape, {name: [spec]},
+                                warmups=warmups, iterations=iterations, extra_keys=SLO_KEYS,
+                                dtype=dtype)
+            after = counts()
+            got = {key: after[key] - before[key] for key in after}
+            o = row_options(row)
+            L = int(o["layers"])
+            want = {key: 0 for key in got}
+            if o["attn_kernel"] == "flash":
+                want["tri"] = L * (int(o["prefix_pop"] != "0") + row["drain_prefills"])
+            if o["decode_kernel"] == "pallas":
+                want["paged" if o["cache_layout"] == "paged" else "decode"] = \
+                    L * row["drain_ticks"]
+            if got != want:
+                fail(f"serving_load row {row['option']}: launches {got}, expected {want}")
+            print(json.dumps({"serving_load_row": name, "shape": list(shape),
+                              "rate": float(o["rate"]),
+                              "preempt_hol_ticks": int(o["preempt_hol_ticks"]),
+                              "median_ms": row["median time (ms)"],
+                              **{key: row[key] for key in SLO_KEYS},
+                              "launches": {key: n for key, n in got.items() if n},
+                              "card": smi}))
             rows.append(row)
             torch.cuda.empty_cache()
     end = counts()
@@ -2940,6 +3210,28 @@ def main():
     launches["serving"] = serving_launches
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
 
+    for path, drive, needed in (("speculate", speculate_path, ("tri", "decode")),
+                                ("serving_load", serving_load_path, ("tri", "paged"))):
+        reset()
+        path_launches, _ = drive(run_benchmark, k1, fa, da, qm, smi)
+        missing = [key for key in needed if not path_launches[key]]
+        if missing:
+            fail(f"the {path} path did not launch {missing}: {path_launches}")
+        # bf16 throughout: every K11/K12 launch (the chain checks' included)
+        # on the tensor-core design
+        want_mma = {"mma": da.LAUNCHES["decode"] + da.LAUNCHES["paged"], "simt": 0}
+        if da.DECODE_TILES != want_mma:
+            fail(f"K11/K12 launches by design on the {path} path: {da.DECODE_TILES}, "
+                 f"expected {want_mma}")
+        others = {key: path_launches[key] for key in path_launches
+                  if key not in ("tri", "decode", "paged")}
+        if any(others.values()) or any(cm.LAUNCHES.values()) or any(trio_counts().values()):
+            fail(f"other kernels launched on the {path} path: {others} {cm.LAUNCHES} "
+                 f"{trio_counts()}")
+        tiles[path] = check_tiles(f"the {path} path", k1, cm, fa)
+        launches[path] = {key: n for key, n in path_launches.items() if n}
+        print(f"{path} path done at {time.perf_counter() - t_start:.1f} s")
+
     reset()
     training_launches = training_path(run_benchmark, k1, fa, da, qm, smi)
     missing = [key for key in ("tri", "rect", "chunk", "int8", *BWD_KEYS)
@@ -2988,7 +3280,10 @@ def main():
     forward_entry.pop("also_replaces")
     forward_entry["launches"] = total("tri")
     rect_entry["launches"] = total("rect")
-    forward_entry["serving_prefill"]["launches"] = serving_launches["tri"]
+    # K8a at the serving shapes: the prefills of the serving, speculate and
+    # serving_load paths
+    forward_entry["serving_prefill"]["launches"] = sum(
+        launches[path].get("tri", 0) for path in ("serving", "speculate", "serving_load"))
     chunk_entry["launches"] = total("chunk")
     # K8b and K9 by path; every launch ran band::flash_fwd_wgmma (check_tiles)
     rect_entry["launches_by_path"] = {path: n["rect"] for path, n in launches.items()
@@ -2997,7 +3292,10 @@ def main():
                                        if n.get("chunk")}
     decode_entry["launches"] = total("decode")
     paged_entry["launches"] = total("paged")
-    # K11 and K12 together on the serving path, the only one that runs them
+    for entry, key in ((forward_entry, "tri"), (decode_entry, "decode"), (paged_entry, "paged")):
+        entry["launches_by_path"] = {path: n[key] for path, n in launches.items()
+                                     if n.get(key)}
+    # K11 and K12 together on the serving path
     decode_entry["serving_tiles"] = paged_entry["serving_tiles"] = want_tiles
     int8_entry["launches"] = total("int8")
     int8_entry["launches_by_path"] = {

@@ -38,9 +38,14 @@ def save_checkpoint(directory: str, step: int, params: Dict[str, Any],
                     opt_state: Any = None, *, force: bool = False) -> str:
     """Write the train state under ``directory/<step>``; returns the path.
     An existing checkpoint at that step raises unless ``force``, which
-    writes over it."""
+    writes over it. Across ranks rank 0 looks and every rank takes its
+    answer: a rank that looked itself after another had begun writing
+    would find the step directory and raise alone."""
     path = os.path.join(os.path.abspath(directory), str(step))
-    if os.path.exists(path) and not force:
+    exists = [os.path.exists(path)]
+    if not _single_process():
+        dist.broadcast_object_list(exists, src=0)
+    if exists[0] and not force:
         raise ValueError(f"checkpoint {path} exists; pass force=True to write over it")
     state = {"params": params}
     if opt_state is not None:

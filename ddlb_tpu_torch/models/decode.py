@@ -1,5 +1,6 @@
 """Autoregressive decode for the flagship model: KV cache, one-token steps,
-prompt prefill, greedy generation and the teacher-forced oracle.
+verify chunks, prompt prefill, generation, speculative decoding and the
+teacher-forced oracle.
 
 The port of the JAX package's ``models/decode.py``. One process is one
 rank of a ``(dp, tp, 1)`` mesh (``runtime.Mesh``) and runs the body that the
@@ -19,7 +20,21 @@ and its one expert (over tp), with the ``psum`` over 'tp' as
   (contiguous) and K12 (paged) of ``ops/decode_attention.py``.
 - ``make_prefill_fn``: the prompt pass that fills the cache; attention on
   the flash kernels K8a/K8b (``attn_kernel='flash'``) or einsum.
-- ``make_generate_fn``: prefill, then greedy decode steps.
+- ``make_chunk_decode_fn``: ``t`` tokens per sequence at one start
+  position in one cached step (the speculative-verify chunk): rows
+  ``[start, start + t)`` written in one block, each row attending
+  causally through the cache. It runs the same ``serving_body`` as the
+  decode step, on einsum attention always: the fused kernels K11/K12
+  take one query row, so only ``t = 1`` goes to them.
+- ``make_generate_fn``: prefill, then decode steps; greedy, or sampled at
+  ``temperature > 0`` (optionally restricted to the ``top_k`` highest
+  logits and/or the ``top_p`` nucleus) from a ``torch.Generator`` the
+  caller passes in.
+- ``make_speculate_fn``: greedy speculative decoding, lossless: a draft
+  model proposes ``spec_k`` tokens by decode steps, the target verifies
+  them in one chunk, and the batch advances by the shortest agreeing
+  prefix plus one. The rounds are a host loop: reading the accepted
+  count back costs one device sync a round.
 - ``reference_logits``: the single-device oracle, a teacher-forced full
   forward that shares no attention code with the cache path.
 - ``make_full_width_fns``: the single-program decode and prefill (every
@@ -35,10 +50,10 @@ same prefix: measured iterations stay identical. Drop and fill are
 explicit: a ragged or paged write whose position is past the cache, or
 whose page is the sentinel, leaves the cache as it was (the JAX
 ``mode='drop'``), and a read through a sentinel page sees zeros
-(``mode='fill'``).
-
-Not ported: the speculative-verify chunk (``make_chunk_decode_fn``, t > 1
-cached steps), ``make_speculate_fn`` and sampling at ``temperature > 0``.
+(``mode='fill'``). A contiguous block write at one position (a prompt, a
+chunk, a decode step at an int position) past the cache raises, where
+the JAX package's ``dynamic_update_slice`` clamps the start and would
+overwrite live rows.
 """
 
 from __future__ import annotations
@@ -158,17 +173,18 @@ def cache_max_len(cache: Cache) -> int:
 
 
 def page_coords(cache: Cache, pos: torch.Tensor):
-    """Absolute positions ``[b]`` -> ``(pages [b], rows [b])`` through the
-    table (:201); a position past the table, or an unmapped entry, maps
-    to the sentinel page ``P``."""
+    """Absolute positions ``[b, t]`` (a row per sequence, or a chunk's
+    rows) -> ``(pages, rows)`` of the same shape through the table
+    (:201, :288-304); a position past the table, or an unmapped entry,
+    maps to the sentinel page ``P``."""
     table = cache["table"]
     num_pages, ps = cache["k"].shape[1], cache["k"].shape[2]
-    page_idx = pos.long() // ps
+    page_idx = pos // ps
     oob = (page_idx < 0) | (page_idx >= table.shape[1])
     safe = page_idx.clamp(0, table.shape[1] - 1)
-    pages = table.gather(1, safe[:, None])[:, 0].long()
+    pages = table.gather(1, safe).long()
     pages = torch.where(oob, torch.full_like(pages, num_pages), pages)
-    return pages, pos.long() % ps
+    return pages, pos % ps
 
 
 def project_qkv(h, params, l, b, t, h_loc, kv_loc, dh, dtype):
@@ -188,8 +204,8 @@ def project_qkv(h, params, l, b, t, h_loc, kv_loc, dh, dtype):
 
 
 def grouped_scores(q, ck_l, dh):
-    """``q [b, 1, h, dh]`` grouped as ``[b, 1, h_kv, G, dh]`` against the
-    kv-head cache -> ``[b, h_kv, G, 1, S]`` float32 (:248)."""
+    """``q [b, t, h, dh]`` grouped as ``[b, t, h_kv, G, dh]`` against the
+    kv-head cache -> ``[b, h_kv, G, t, S]`` float32 (:248)."""
     b, t, h, _ = q.shape
     h_kv = ck_l.shape[2]
     q5 = q.float().reshape(b, t, h_kv, h // h_kv, dh) / float(np.sqrt(dh))
@@ -197,7 +213,7 @@ def grouped_scores(q, ck_l, dh):
 
 
 def grouped_attend(p, cv_l, b, t, dtype):
-    """``p [b, h_kv, G, 1, S]`` times the cache values -> ``[b, t, h*dh]``
+    """``p [b, h_kv, G, t, S]`` times the cache values -> ``[b, t, h*dh]``
     in query-head order ``hq = kvh * G + g`` (:258)."""
     attn = torch.einsum("bhgqk,bkhd->bqhgd", p, cv_l.float())
     return attn.reshape(b, t, -1).to(dtype)
@@ -207,12 +223,17 @@ def _scatter_drop(arr, index, dims, val, valid):
     """``arr[index] = val`` for the lanes where ``valid``; the others leave
     ``arr`` as it was (``mode='drop'``), without a host sync.
 
-    ``index`` is a tuple of ``[b]`` index tensors into the leading
-    ``len(index)`` dims of ``arr`` (sizes ``dims``). A dropped lane writes
-    lane j's value to lane j's target, where j is the first kept lane, so
-    no dropped lane can land on a kept lane's target with another value;
-    with no kept lane, every lane writes back what its (clamped) target
-    holds."""
+    ``index`` is a tuple of index tensors of one shape (``[b]``, or ``[b,
+    t]`` for a chunk) into the leading ``len(index)`` dims of ``arr``
+    (sizes ``dims``); ``val`` and ``valid`` lead with the same shape. The
+    lanes are flattened into one. A dropped lane writes lane j's value to
+    lane j's target, where j is the first kept lane, so no dropped lane
+    can land on a kept lane's target with another value; with no kept
+    lane, every lane writes back what its (clamped) target holds."""
+    lanes = valid.numel()
+    index = tuple(ix.reshape(lanes) for ix in index)
+    val = val.reshape((lanes,) + tuple(val.shape[valid.dim():]))
+    valid = valid.reshape(lanes)
     safe = tuple(ix.clamp(0, n - 1) for ix, n in zip(index, dims))
     j = torch.argmax(valid.int())
     keep = valid | ~valid.any()
@@ -223,50 +244,54 @@ def _scatter_drop(arr, index, dims, val, valid):
     arr[target] = src
 
 
+def _is_vector(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.dim() == 1
+
+
 def cache_write(cache: Cache, l: int, pos, k, v, int8: bool) -> Cache:
     """Store this step's ``k``/``v [b, t, h_kv, dh]`` at layer ``l``
     (quantizing first for an int8 cache), in place (:265).
 
-    ``pos`` an int: rows ``[pos, pos + t)`` of every sequence (a prompt at
-    0, or one token); past the cache it raises. ``pos`` a ``[b]`` tensor
-    with ``t == 1``: sequence i's row at ``pos[i]``, dropped past the
-    cache. Paged: ``t == 1`` through the table, dropped on the sentinel.
+    ``pos`` an int (or a 0-d tensor): rows ``[pos, pos + t)`` of every
+    sequence (a prompt at 0, a verify chunk at its start, or one token).
+    Contiguous, a block past the cache raises (the JAX package's
+    ``dynamic_update_slice`` clamps the start instead, and would
+    overwrite live rows); paged, each row goes through the slot's table,
+    and a row past the table or on a sentinel page drops (:288-304).
+    ``pos`` a ``[b]`` tensor with ``t == 1``: sequence i's row at
+    ``pos[i]``, dropped past the cache, through the table when paged.
     """
-    t = k.shape[1]
+    b, t = k.shape[0], k.shape[1]
     paged = "table" in cache
-    if paged and t != 1:
-        raise ValueError(
-            "a paged cache takes one-token writes; the t > 1 verify chunk is "
-            "not yet ported to ddlb_tpu_torch"
-        )
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+    if _is_vector(pos):
         if t != 1:
             raise ValueError("per-sequence positions take one-token writes")
-        if paged:
-            pages, rows = page_coords(cache, pos)
-            index = (pages, rows)
-            dims = cache["k"].shape[1:3]
-            valid = pages < cache["k"].shape[1]
-        else:
-            index = (torch.arange(pos.shape[0], device=pos.device), pos.long())
-            dims = cache["k"].shape[1:3]
-            valid = (pos >= 0) & (pos < dims[1])
+        rowpos = pos.long()[:, None]                            # [b, 1]
+    elif paged:
+        rowpos = (int(pos) + torch.arange(t, device=k.device)).expand(b, t)
     else:
-        if paged:
-            raise ValueError("a paged cache takes per-sequence positions")
         pos = int(pos)
         if pos < 0 or pos + t > cache["k"].shape[2]:
             raise ValueError(
                 f"rows [{pos}, {pos + t}) do not fit a cache of "
                 f"{cache['k'].shape[2]} positions"
             )
+        rowpos = None
+    dims = cache["k"].shape[1:3]
+    if rowpos is None:
         index = None
+    elif paged:
+        pages, rows = page_coords(cache, rowpos)
+        index, valid = (pages, rows), pages < dims[0]
+    else:
+        lanes = torch.arange(b, device=rowpos.device)[:, None].expand_as(rowpos)
+        index, valid = (lanes, rowpos), (rowpos >= 0) & (rowpos < dims[1])
 
     def upd(name, val):
         if index is None:
             cache[name][l, :, pos:pos + t] = val
         else:
-            _scatter_drop(cache[name][l], index, dims, val[:, 0], valid)
+            _scatter_drop(cache[name][l], index, dims, val, valid)
 
     if int8:
         qk, sk = quantize_kv(k)
@@ -308,34 +333,38 @@ def cache_read(cache: Cache, name: str, l: int, dtype) -> torch.Tensor:
     return (arr.float() * scale[l]).to(dtype)
 
 
-def _live_mask(S_max, pos, window, device):
+def _live_mask(S_max, pos, window, device, t=1):
+    """The live key positions of the query rows, shaped for the grouped
+    scores ``[b, h_kv, G, t, S]``: at ``t == 1`` up to ``pos`` (an int, a
+    0-d tensor, or ``[b]`` per sequence); at ``t > 1`` row j of the chunk
+    at ``pos + j`` (a start shared by the batch) up to itself (:390-396).
+    ``window > 0`` also drops keys behind the sliding window."""
     iota = torch.arange(S_max, device=device)
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+    if _is_vector(pos):
+        if t != 1:
+            raise ValueError("chunk attention takes a scalar start position")
         live = iota[None, :] <= pos[:, None]            # [b, S]
         if window:
             live &= iota[None, :] > pos[:, None] - window
         return live[:, None, None, None, :]
     # pos an int, or a 0-d tensor (a compiled step's position, kept a
     # tensor so a new position is not a new program)
-    live = iota <= pos
+    rowpos = (pos + torch.arange(t, device=device))[:, None]  # [t, 1]
+    live = iota[None, :] <= rowpos                      # [t, S]
     if window:
-        live &= iota > pos - window
-    return live[None, None, None, None]
+        live &= iota[None, :] > rowpos - window
+    return live[None, None, None]
 
 
 def cache_attend(q, cache: Cache, l: int, dh: int, pos, dtype,
                  window: int = 0) -> torch.Tensor:
-    """One query row per sequence against cache layer ``l`` (:376, t =
-    1): grouped scores, the live mask at ``pos`` (an int or ``[b]``),
-    softmax, value read -> ``[b, 1, h*dh]``."""
+    """Query rows ``q [b, t, h, dh]`` against cache layer ``l`` (:376):
+    grouped scores, the live mask (``_live_mask``: ``pos`` an int or
+    ``[b]`` at t = 1, a scalar start at t > 1), softmax, value read ->
+    ``[b, t, h*dh]``."""
     b, t = q.shape[0], q.shape[1]
-    if t != 1:
-        raise ValueError(
-            "cache attention over a t > 1 chunk is not yet ported to "
-            "ddlb_tpu_torch"
-        )
     s = grouped_scores(q, cache_read(cache, "k", l, dtype), dh)
-    live = _live_mask(cache_max_len(cache), pos, window, s.device)
+    live = _live_mask(cache_max_len(cache), pos, window, s.device, t)
     p = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
     return grouped_attend(p, cache_read(cache, "v", l, dtype), b, t, dtype)
 
@@ -411,17 +440,20 @@ def _logits(h, params):
 
 def serving_body(params, cache, tokens, pos, cfg: TransformerConfig, mesh,
                  h_loc, kv_loc, dh):
-    """The cached serving forward for ``tokens [b, 1]`` at ``pos`` (an int,
-    or ``[b]``) (:505): ``(logits [b, 1, vocab] float32, cache)``."""
+    """The cached serving forward for ``tokens [b, t]`` (:505): ``(logits
+    [b, t, vocab] float32, cache)``, one row per consumed token. One body
+    for both cadences: the decode step (``t = 1``, ``pos`` an int or
+    ``[b]``) and the verify chunk (``t > 1``, row j at ``pos + j``).
+    ``decode_kernel='pallas'`` sends ``t = 1`` to K11/K12; a chunk stays
+    on einsum attention, as in the JAX package (:544-549)."""
     b, t = tokens.shape
     if b % mesh.tp != 0:
         raise ValueError(f"per-dp batch {b} not divisible by tp={mesh.tp}")
     int8_cache = cfg.kv_cache == "int8"
-    ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
     x = params["embed"][tokens.long()]
     if cfg.rope:
         posb = (
-            pos[:, None] if ragged
+            pos[:, None] if _is_vector(pos)
             else (int(pos) + torch.arange(t, device=x.device))[None]
         )
     for l in range(cfg.layers_per_stage):
@@ -482,6 +514,31 @@ def make_decode_fn(mesh, cfg: TransformerConfig, ragged: bool = False):
     return decode_step
 
 
+def make_chunk_decode_fn(mesh, cfg: TransformerConfig):
+    """The multi-token cached step on this rank (:647), the speculative
+    verify: ``chunk(params, cache, tokens [B/dp, t], start) -> (logits
+    [B/dp, t, vocab] float32, cache)``, tokens consumed at positions
+    ``[start, start + t)``, each row attending causally through the cache
+    up to itself. ``start`` is one position for the batch (an int); cache
+    rows ``[start, start + t)`` are written in one block, so the
+    attention reads the cache as a decode step does (int8 numerics
+    alike). A contiguous chunk past the cache raises (``cache_write``)."""
+    if cfg.attention != "gathered":
+        raise ValueError("chunk decode supports attention='gathered' only")
+    _check_serving(cfg, mesh)
+    h_loc, kv_loc, dh = cfg.n_heads // mesh.tp, cfg.kv_heads // mesh.tp, cfg.head_dim
+
+    def chunk(params, cache, tokens, start):
+        if isinstance(start, torch.Tensor) and start.dim() != 0:
+            raise ValueError(
+                "chunk decode takes a scalar start position (the batch-"
+                "uniform speculative form; ragged is the t=1 decode path)"
+            )
+        return serving_body(params, cache, tokens, start, cfg, mesh, h_loc, kv_loc, dh)
+
+    return chunk
+
+
 def make_prefill_fn(mesh, cfg: TransformerConfig, dynamic_last: bool = False):
     """The prompt pass on this rank (:724): ``prefill(params, cache, tokens
     [B/dp, S]) -> (logits [B/dp, vocab] float32, cache)`` at position S-1,
@@ -535,17 +592,62 @@ def make_prefill_fn(mesh, cfg: TransformerConfig, dynamic_last: bool = False):
     return prefill
 
 
-def make_generate_fn(mesh, cfg: TransformerConfig, n_new: int):
-    """Greedy generation (:949, ``temperature=0``): ``generate(params,
-    cache, prompt [B/dp, S0]) -> tokens [B/dp, S0 + n_new]`` int32 --
-    prefill, ``n_new - 1`` decode steps, the last token from the carried
-    logits. The cache must hold ``S0 + n_new`` positions."""
+def restrict_logits(logits: torch.Tensor, top_k: int = 0,
+                    top_p: float = 1.0) -> torch.Tensor:
+    """``logits [..., V]`` with every token outside the ``top_k`` highest
+    and outside the ``top_p`` nucleus set to ``-inf`` (the JAX package's
+    ``_restrict``, :982). The nucleus is the smallest set of the highest
+    tokens whose probability reaches ``top_p``: a token is kept iff the
+    mass of the tokens before it (sorted descending) is below ``top_p``,
+    so the first token past the threshold stays and the set is never
+    empty. Ties at a threshold are all kept."""
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        before = torch.cumsum(probs, dim=-1) - probs
+        kept = before < top_p
+        thr = torch.where(kept, srt, float("inf")).amin(-1, keepdim=True)
+        logits = torch.where(logits < thr, float("-inf"), logits)
+    return logits
+
+
+def make_generate_fn(mesh, cfg: TransformerConfig, n_new: int,
+                     temperature: float = 0.0, top_k: int = 0,
+                     top_p: float = 1.0):
+    """Generation (:949): ``generate(params, cache, prompt [B/dp, S0],
+    generator=None) -> tokens [B/dp, S0 + n_new]`` int32 -- prefill,
+    ``n_new - 1`` decode steps, the last token from the carried logits.
+    The cache must hold ``S0 + n_new`` positions.
+
+    ``temperature=0`` takes the argmax (greedy). ``temperature > 0`` draws
+    each token from ``softmax(restrict_logits(logits / temperature))``
+    with ``generator``, a ``torch.Generator`` on the logits' device that
+    the caller passes in (it plays the part of the JAX package's PRNG
+    key: each step draws from it in turn, so a generator seeded alike
+    repeats the draws). The draws are not JAX's, bit for bit."""
     if n_new < 1:
         raise ValueError(f"n_new must be >= 1, got {n_new}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if top_k < 0 or top_k > cfg.vocab:
+        raise ValueError(f"top_k must be in [0, vocab], got {top_k}")
     decode = make_decode_fn(mesh, cfg)
     prefill = make_prefill_fn(mesh, cfg)
 
-    def generate(params, cache, prompt):
+    def sample(logits, generator):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(restrict_logits(logits.float() / temperature, top_k, top_p), -1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+    def generate(params, cache, prompt, generator=None):
+        if temperature > 0.0 and generator is None:
+            raise ValueError(
+                "temperature > 0 sampling needs a torch.Generator (the PRNG key)"
+            )
         B, S0 = prompt.shape
         S_max = cache_max_len(cache)
         if S0 + n_new > S_max:
@@ -556,11 +658,103 @@ def make_generate_fn(mesh, cfg: TransformerConfig, n_new: int):
         tokens = torch.zeros((B, S0 + n_new), dtype=torch.int32, device=prompt.device)
         tokens[:, :S0] = prompt
         for i in range(n_new - 1):
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = sample(logits, generator)
             tokens[:, S0 + i] = nxt
             logits, cache = decode(params, cache, nxt, S0 + i)
-        tokens[:, S0 + n_new - 1] = torch.argmax(logits, dim=-1).to(torch.int32)
+        tokens[:, S0 + n_new - 1] = sample(logits, generator)
         return tokens
+
+    return generate
+
+
+def make_speculate_fn(mesh, cfg: TransformerConfig, cfg_draft: TransformerConfig,
+                      n_new: int, spec_k: int = 4, with_stats: bool = False):
+    """Greedy speculative decoding (:1059), lossless: the output is the
+    target's own greedy chain for any draft.
+
+    ``generate(params, params_draft, cache, cache_draft, prompt [B/dp, S0])
+    -> tokens [B/dp, S0 + n_new]``, or with ``with_stats`` ``(tokens,
+    {"rounds", "accepted", "proposals"})``. Each round the draft proposes
+    ``spec_k`` tokens by decode steps and also consumes its last proposal
+    (so after a fully accepted round its cache holds that row), the target
+    verifies ``[last, p_1 .. p_k]`` in one chunk, and the batch advances
+    by ``a + 1``: ``a`` the count of leading proposals every sequence's
+    target argmax agrees with (the minimum over the global batch: one
+    start position serves it), plus the target's own token at the first
+    disagreement (or the bonus token). Both caches must hold ``S0 + n_new
+    + spec_k`` positions (the chunk writes up to ``spec_k`` provisional
+    rows past the accepted prefix; they are masked by position until
+    overwritten); the token buffer is one wider still, for a full block
+    written at the last position in range.
+
+    The stats count work inside ``n_new`` only: a final round that
+    overshoots counts ``min(a + 1, remaining)`` emitted tokens and
+    ``min(spec_k, remaining - 1)`` proposals, so ``rounds + accepted ==
+    n_new - 1`` always and a draft identical to the target measures an
+    acceptance of exactly 1.0.
+
+    The rounds are a host loop: reading ``a`` back is one device sync a
+    round. Under ``kv_cache='int8'`` the verify chunk's batched projection
+    can round a K/V value into a neighbouring int8 bucket from the one a
+    decode step's gives, so the chain is exact up to near-ties of the
+    target's logits; the bf16 cache is exact."""
+    if n_new < 1:
+        raise ValueError(f"n_new must be >= 1, got {n_new}")
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    if cfg_draft.vocab != cfg.vocab:
+        raise ValueError(f"draft vocab {cfg_draft.vocab} != target vocab {cfg.vocab}")
+    decode_d = make_decode_fn(mesh, cfg_draft)
+    chunk_t = make_chunk_decode_fn(mesh, cfg)
+    prefill_t = make_prefill_fn(mesh, cfg)
+    prefill_d = make_prefill_fn(mesh, cfg_draft)
+    k = spec_k
+
+    def generate(params, params_draft, cache, cache_draft, prompt):
+        B, S0 = prompt.shape
+        need = S0 + n_new + k
+        for name, c in (("target", cache), ("draft", cache_draft)):
+            S_max = cache_max_len(c)
+            if S_max < need:
+                raise ValueError(
+                    f"{name} cache holds {S_max} positions < prompt {S0} "
+                    f"+ n_new {n_new} + spec_k {k}"
+                )
+        logits, cache = prefill_t(params, cache, prompt)
+        _, cache_draft = prefill_d(params_draft, cache_draft, prompt)
+        tokens = torch.zeros((B, S0 + n_new + k + 1), dtype=torch.int32,
+                             device=prompt.device)
+        tokens[:, :S0] = prompt
+        tokens[:, S0] = torch.argmax(logits, dim=-1)
+        ntok, rounds, accepted, proposals = S0 + 1, 0, 0, 0
+        while ntok < S0 + n_new:
+            # tokens[:, :ntok] are final; the last is in neither cache yet
+            last = tokens[:, ntok - 1]
+            props = torch.empty((B, k), dtype=torch.int32, device=prompt.device)
+            tok = last
+            for j in range(k):
+                lg, cache_draft = decode_d(params_draft, cache_draft, tok, ntok - 1 + j)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                props[:, j] = tok
+            _, cache_draft = decode_d(params_draft, cache_draft, tok, ntok - 1 + k)
+            lg, cache = chunk_t(params, cache, torch.cat([last[:, None], props], 1),
+                                ntok - 1)
+            g = torch.argmax(lg, dim=-1).to(torch.int32)     # [B, k + 1]
+            # cols < a repeat the accepted proposals, col a is the target's
+            # own token, cols > a are provisional: the next round's block
+            # starts at ntok + a + 1 and overwrites them
+            tokens[:, ntok:ntok + k + 1] = g
+            lead = torch.cumprod((props == g[:, :k]).int(), dim=1).sum(1).min()
+            a = int(mesh.axis_min(lead.reshape(1), "dp")[0])
+            remaining = S0 + n_new - ntok
+            rounds += 1
+            accepted += min(a + 1, remaining) - 1
+            proposals += min(k, remaining - 1)
+            ntok += a + 1
+        out = tokens[:, :S0 + n_new]
+        if with_stats:
+            return out, {"rounds": rounds, "accepted": accepted, "proposals": proposals}
+        return out
 
     return generate
 

@@ -19,7 +19,7 @@ from typing import Tuple, Type
 ALLOWED_PRIMITIVES = (
     "tp_columnwise", "tp_rowwise", "dp_allreduce", "cp_ring_attention",
     "ep_alltoall", "transformer_decode", "transformer_step", "collectives",
-    "pp_pipeline",
+    "pp_pipeline", "serving_load",
 )
 
 _REGISTRY = {
@@ -154,13 +154,20 @@ _REGISTRY = {
             "CompiledTransformerDecode",
         ),
     },
+    "serving_load": {
+        name: (f"ddlb_tpu_torch.primitives.serving_load.{name}", cls)
+        for name, cls in (
+            ("engine", "EngineServingLoad"),
+            ("static", "StaticServingLoad"),
+        )
+    },
 }
 
 #: families of the JAX package that the port does not carry yet
-_NOT_PORTED_FAMILIES = ("serving_load",)
+_NOT_PORTED_FAMILIES = ()
 #: members of the ported families that the port does not carry yet: the
-#: topology compositions
-_NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped")
+#: topology compositions, and serving_load's cluster members
+_NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped", "router", "disagg")
 #: JAX package member name -> this package's name for the same member
 _RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda", "xla_gspmd": "compiled"}
 #: unit of the runner's Throughput column, by family: the collectives

@@ -9,11 +9,13 @@ Shape mapping onto ``(m, n, k)``: ``m`` the context length (the cache
 fill a decode step is measured at, or the prompt length), ``n`` d_model,
 ``k`` d_ff. ``phase``: ``decode`` one cached step at position m (the
 cache prefilled once at set-up), ``prefill`` the prompt pass, ``generate``
-prefill + greedy steps, ``serve`` a drain of the continuous-batching
-engine. The option schema is the JAX package's, value for value; the one
-value whose path is not ported, ``phase=speculate``, raises "not yet
-ported". ``mlp_kernel=int8|int8_weights`` run the experts' GEMMs on the
-int8 kernel K7.
+prefill + greedy steps, ``speculate`` the same under greedy speculative
+decoding (a ``draft_layers``-deep draft proposes ``spec_k`` tokens, the
+target verifies them in one chunk; lossless, so it validates against the
+same oracle chain), ``serve`` a drain of the continuous-batching engine.
+The option schema is the JAX package's, value for value.
+``mlp_kernel=int8|int8_weights`` run the experts' GEMMs on the int8
+kernel K7.
 
 Validation pins the step's logits to the single-device teacher-forced
 oracle (``models/decode.reference_logits``), generated tokens to its
@@ -46,8 +48,6 @@ _HOST_PARAMS: Dict[tuple, dict] = {}
 _HOST_PARAMS_KEEP = 2
 #: oracle logits by (config, tokens, mesh, seed), one per process
 _ORACLE_MEMO: Dict[tuple, np.ndarray] = {}
-
-_NOT_PORTED = {"phase": ("speculate",)}
 
 
 class TransformerDecode(Primitive):
@@ -125,12 +125,6 @@ class TransformerDecode(Primitive):
 
     def _check_shapes(self) -> None:
         o = self.options
-        for name, values in _NOT_PORTED.items():
-            if o[name] in values:
-                raise ValueError(
-                    f"{name}='{o[name]}' of transformer_decode is not yet "
-                    "ported to ddlb_tpu_torch"
-                )
         dp, tp = self._mesh_factors()
         if self.n % o["n_heads"] != 0:
             raise ValueError(
@@ -223,7 +217,9 @@ class TransformerDecode(Primitive):
         """Device-memory traffic floor of one measured call, in bytes: each
         pass (a decode step, or the prefill) reads the weights and the KV
         cache (``utils/hbm_budget.decode_budget``); generate pays ``n_new``
-        passes, serve one per generated token of the drained workload."""
+        passes, serve one per generated token of the drained workload;
+        speculate the target's passes when every proposal is accepted,
+        ``ceil(n_new / (spec_k + 1))`` (the draft's are overhead, :261)."""
         from ddlb_tpu_torch.utils.hbm_budget import decode_budget
 
         o = self.options
@@ -231,13 +227,17 @@ class TransformerDecode(Primitive):
             ctx=self.m, d_model=self.n, d_ff=self.k, vocab=o["vocab"],
             n_heads=o["n_heads"], batch=o["batch"], n_kv_heads=o["n_kv_heads"],
             layers=o["layers"], kv_cache=o["kv_cache"],
-            mlp_kernel=o["mlp_kernel"], phase=o["phase"], n_new=o["n_new"],
+            mlp_kernel=o["mlp_kernel"],
+            phase="generate" if o["phase"] == "speculate" else o["phase"],
+            n_new=o["n_new"], spec_k=o["spec_k"], draft_layers=o["draft_layers"],
         )
         per_pass = census["weights"] + census["kv_cache"]
         if o["phase"] in ("decode", "prefill"):
             return per_pass
         if o["phase"] == "serve":
             return sum(mx for _, mx in self._serve_workload()) * per_pass
+        if o["phase"] == "speculate":
+            return -(-o["n_new"] // (o["spec_k"] + 1)) * per_pass
         return o["n_new"] * per_pass
 
     def extra_row_fields(self) -> dict:
@@ -259,16 +259,19 @@ class TransformerDecode(Primitive):
             page_size=o["page_size"], dtype=torch_dtype(self.dtype),
         )
 
-    def _host_params(self, tp: int) -> dict:
-        """The full parameters on the host (every head and expert),
-        memoised: every rank and the oracle start from them."""
-        cfg = self._model_config()
+    def _host_params(self, tp: int, cfg: TransformerConfig = None,
+                     seed: int = None) -> dict:
+        """The full parameters on the host (every head and expert) of
+        ``cfg`` (default: the row's model) from ``seed`` (default: the
+        row's), memoised: every rank and the oracle start from them."""
+        cfg = cfg or self._model_config()
+        seed = self.seed if seed is None else seed
         key = (cfg.vocab, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.d_ff,
-               cfg.layers_per_stage, cfg.dtype, cfg.mlp_kernel, tp, self.seed)
+               cfg.layers_per_stage, cfg.dtype, cfg.mlp_kernel, tp, seed)
         if key not in _HOST_PARAMS:
             while len(_HOST_PARAMS) >= _HOST_PARAMS_KEEP:
                 _HOST_PARAMS.pop(next(iter(_HOST_PARAMS)))
-            _HOST_PARAMS[key] = init_params(cfg, pp=1, n_experts=tp, seed=self.seed)
+            _HOST_PARAMS[key] = init_params(cfg, pp=1, n_experts=tp, seed=seed)
         return _HOST_PARAMS[key]
 
     def _serve_workload(self):
@@ -349,7 +352,10 @@ class TransformerDecode(Primitive):
         phase = self.options["phase"]
         if phase == "serve":
             return self._validate_serve()
-        if phase == "generate":
+        if phase in ("generate", "speculate"):
+            # speculate is lossless: its tokens sit on the same oracle chain
+            if isinstance(result, tuple):
+                result = result[0]
             return self._validate_generate(result)
         got = result.float().cpu().numpy()
         expected = self._oracle_logits().astype(np.float32)[self._dp_rows()]

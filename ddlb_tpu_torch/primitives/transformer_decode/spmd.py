@@ -10,6 +10,10 @@ experts (``models/transformer.shard_params``) and runs the four phases
   iteration decodes the same position against the same prefix.
 - ``prefill``: the prompt pass that fills the cache.
 - ``generate``: prefill + ``n_new`` greedy tokens, one measured call.
+- ``speculate``: the same tokens by greedy speculative decoding
+  (:105-139): the draft is the model at ``draft_layers`` depth with the
+  parameters of ``seed + 1``; one measured call is one whole run, whose
+  acceptance counters the row reports (:212-222).
 - ``serve``: one drain of the continuous-batching engine over the
   deterministic workload (host-scheduled).
 """
@@ -17,6 +21,7 @@ experts (``models/transformer.shard_params``) and runs the four phases
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
 
@@ -25,6 +30,7 @@ from ddlb_tpu_torch.models.decode import (
     make_decode_fn,
     make_generate_fn,
     make_prefill_fn,
+    make_speculate_fn,
 )
 from ddlb_tpu_torch.models.serving import ContinuousBatchingEngine, Request
 from ddlb_tpu_torch.models.transformer import place_params, shard_params
@@ -54,6 +60,8 @@ class SPMDTransformerDecode(TransformerDecode):
             generate = make_generate_fn(self.mesh, cfg, n_new=n_new)
             cache = init_cache(cfg, B, self.m + n_new, self.mesh, self.device)
             self._fn = lambda: generate(self.params, cache, prompt)
+        elif phase == "speculate":
+            self._fn = self._speculate_setup(cfg, tp, prompt)
         elif phase == "decode":
             decode = make_decode_fn(self.mesh, cfg)
             prefill = make_prefill_fn(self.mesh, cfg)
@@ -67,6 +75,31 @@ class SPMDTransformerDecode(TransformerDecode):
             cache = init_cache(cfg, B, self.m, self.mesh, self.device)
             self._fn = lambda: prefill(self.params, cache, prompt)[0]
         self.runtime.synchronize()
+
+    def _speculate_setup(self, cfg, tp, prompt):
+        """The draft (same architecture and serving levers at
+        ``draft_layers`` depth, parameters from ``seed + 1``), both caches
+        sized ``m + n_new + spec_k``, and the run; each call keeps its
+        acceptance counters for the row."""
+        o = self.options
+        n_new, spec_k, B = o["n_new"], o["spec_k"], o["batch"]
+        cfg_d = replace(cfg, layers_per_stage=o["draft_layers"])
+        params_d = place_params(
+            shard_params(self._host_params(tp, cfg_d, self.seed + 1), cfg_d, tp,
+                         self.mesh.tp_rank),
+            self.device,
+        )
+        spec = make_speculate_fn(self.mesh, cfg, cfg_d, n_new=n_new, spec_k=spec_k,
+                                 with_stats=True)
+        horizon = self.m + n_new + spec_k
+        cache = init_cache(cfg, B, horizon, self.mesh, self.device)
+        cache_d = init_cache(cfg_d, B, horizon, self.mesh, self.device)
+
+        def run():
+            tokens, self._spec_stats = spec(self.params, params_d, cache, cache_d, prompt)
+            return tokens
+
+        return run
 
     def _serve_setup(self, cfg):
         """The engine sized for the workload (a paged pool
@@ -97,11 +130,22 @@ class SPMDTransformerDecode(TransformerDecode):
         return run_workload
 
     def extra_row_fields(self) -> dict:
-        """``hbm_bytes``; with phase=serve also the engine's drain stats
-        (occupancy; deferrals and peak pages, the paged pool's pressure;
-        decode ticks and tokens generated, which give ms per step and
-        tokens/s)."""
+        """``hbm_bytes``; with phase=speculate the last call's acceptance
+        (``spec_accept_rate = accepted / proposals``, both clipped to
+        ``n_new``, so an identical draft measures 1.0; the JAX member runs
+        the measured call once more for them, the port keeps the last
+        call's); with phase=serve the engine's drain stats (occupancy;
+        deferrals and peak pages, the paged pool's pressure; decode ticks
+        and tokens generated, which give ms per step and tokens/s)."""
         out = super().extra_row_fields()
+        if self.options["phase"] == "speculate":
+            st = self._spec_stats
+            out.update({
+                "spec_rounds": st["rounds"],
+                "spec_proposals": st["proposals"],
+                "spec_accept_rate": round(st["accepted"] / max(st["proposals"], 1), 4),
+            })
+            return out
         if self.options["phase"] != "serve":
             return out
         s = self._engine.stats

@@ -509,6 +509,14 @@ class Mesh:
                 dist.all_reduce(x, group=self.groups[axis])
         return x
 
+    def axis_min(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Elementwise minimum of ``x`` over the named axis (the ``pmin``),
+        in place where ``x`` is contiguous. Returns the minimum."""
+        if self.sizes[axis] > 1:
+            x = x.contiguous()
+            dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self.groups[axis])
+        return x
+
     def tp_all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Concatenate the tp group's ``x`` along dim 0 in tp order (the
         tiled ``all_gather`` over 'tp')."""

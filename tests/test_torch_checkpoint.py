@@ -153,6 +153,30 @@ def test_params_only_restore(tmp_path):
         assert torch.equal(restored[name], x), name
 
 
+def test_every_rank_takes_rank_0s_answer_on_an_existing_step(tmp_path, monkeypatch):
+    """Across ranks, whether the step exists is rank 0's answer: a rank that
+    finds the directory another rank has begun writing does not raise
+    alone (the race that failed the two-rank world at random)."""
+    import torch.distributed as dist
+
+    from ddlb_tpu_torch.models import checkpoint
+
+    params = T.init_params(CFG, 1, n_experts=1, seed=3)
+    (tmp_path / "0").mkdir()  # rank 0 already writing
+    seen = []
+
+    def broadcast(objects, src):
+        seen.append((list(objects), src))
+        objects[0] = False  # rank 0 looked before it wrote
+
+    monkeypatch.setattr(checkpoint, "_single_process", lambda: False)
+    monkeypatch.setattr(dist, "broadcast_object_list", broadcast)
+    saved = []
+    monkeypatch.setattr(checkpoint.dcp, "save", lambda *a, **kw: saved.append(kw))
+    checkpoint.save_checkpoint(str(tmp_path), 0, params)
+    assert seen == [([True], 0)] and len(saved) == 1
+
+
 def test_latest_step_empty(tmp_path):
     assert latest_step(str(tmp_path / "nope")) is None
     assert latest_step(str(tmp_path)) is None

@@ -120,8 +120,9 @@ def test_rows_carry_the_family_unit(tmp_path):
         "implementations": {"pytorch": [{}]},
     })
     assert tp[0]["unit"] == "TFLOPS"
-    with pytest.raises(ValueError, match="not yet ported"):
-        registry.throughput_unit("serving_load")
+    assert registry.throughput_unit("serving_load") == "TFLOPS"
+    with pytest.raises(ValueError, match="Unknown primitive"):
+        registry.throughput_unit("bogus")
 
 
 @pytest.mark.parametrize("op", ["reduce_scatter", "all_to_all", "all_reduce"])

@@ -382,8 +382,11 @@ def test_expected_operands_follow_the_primitive_seed():
 # completions (serve), and its own validation verdict; the parent holds the
 # logits against the port's single-process oracle with the same expert
 # count (tp experts: world 1 cannot hold the tp = 2 model any other way) at
-# atol 1e-5, and the served tokens against the JAX engine on a (1, 2) mesh
-# of the CPU simulation, token for token.
+# atol 1e-5, the served tokens against the JAX engine on a (1, 2) mesh of
+# the CPU simulation, token for token, and the speculated tokens and
+# acceptance counters against JAX's make_speculate_fn on a mesh of the same
+# shape (the accepted count is the global batch's minimum: both dp ranks
+# run JAX's rounds).
 
 DEC_M, DEC_N, DEC_K = 16, 64, 128
 DEC_COMMON = dict(batch=4, vocab=64, n_heads=4, layers=2)
@@ -392,6 +395,8 @@ DEC_CASES = [
     ("decode", 2, 1, {}),
     ("decode", 1, 2, {"decode_kernel": "pallas", "n_kv_heads": 2, "kv_cache": "int8"}),
     ("serve", 1, 2, {"n_new": 4, "n_requests": 6, "attn_kernel": "einsum"}),
+    ("speculate", 2, 1, {"n_new": 6, "spec_k": 2, "attn_kernel": "einsum"}),
+    ("speculate", 1, 2, {"n_new": 6, "spec_k": 2, "attn_kernel": "einsum"}),
 ]
 
 
@@ -415,6 +420,8 @@ def _decode_rank_main(rank, port, results):
             valid = impl.validate(result)
             if phase == "serve":
                 payload = [(c.request_index, c.slot, c.tokens) for c in impl._serve_completions]
+            elif phase == "speculate":
+                payload = (result.numpy(), impl._spec_stats)
             else:
                 payload = result.numpy()
             out[i] = (payload, valid, impl.mesh.dp_rank, impl.mesh.tp_rank)
@@ -465,6 +472,32 @@ def _jax_engine_completions(opts):
     return [(c.request_index, c.slot, c.tokens) for c in eng.run()]
 
 
+def _jax_speculate(opts, dp, tp):
+    """JAX's greedy speculation on a (dp, tp) mesh: (tokens, stats)."""
+    import jax
+    from dataclasses import replace
+
+    import ddlb_tpu.models.decode as jdec
+    from ddlb_tpu.models.transformer import TransformerConfig, example_tokens, init_params
+
+    cfg = TransformerConfig(vocab=64, d_model=DEC_N, n_heads=4, d_ff=DEC_K,
+                            layers_per_stage=2, attn_kernel=opts["attn_kernel"])
+    cfg_d = replace(cfg, layers_per_stage=1)
+    mesh = jax.make_mesh((dp, tp), ("dp", "tp"), devices=jax.devices()[:dp * tp])
+    n_new, k = opts["n_new"], opts["spec_k"]
+    spec, (sh, sh_d) = jdec.make_speculate_fn(mesh, cfg, cfg_d, n_new=n_new, spec_k=k,
+                                              with_stats=True)
+    params = {n: jax.device_put(v, sh[n])
+              for n, v in init_params(cfg, pp=1, n_experts=tp, seed=42).items()}
+    params_d = {n: jax.device_put(v, sh_d[n])
+                for n, v in init_params(cfg_d, pp=1, n_experts=tp, seed=43).items()}
+    prompt, _ = example_tokens(4, DEC_M, 64, seed=42)
+    tokens, stats = jax.jit(spec)(
+        params, params_d, jdec.init_cache(cfg, 4, DEC_M + n_new + k, mesh),
+        jdec.init_cache(cfg_d, 4, DEC_M + n_new + k, mesh), prompt)
+    return np.asarray(tokens), {name: int(v) for name, v in stats.items()}
+
+
 def test_two_rank_transformer_decode():
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
@@ -494,6 +527,8 @@ def test_two_rank_transformer_decode():
     for i, (phase, dp, tp, opts) in enumerate(DEC_CASES):
         if phase == "serve":
             want = _jax_engine_completions(opts)
+        elif phase == "speculate":
+            want = _jax_speculate(opts, dp, tp)
         else:
             want = _decode_oracle(opts, tp)
         for rank in range(WORLD):
@@ -505,6 +540,10 @@ def test_two_rank_transformer_decode():
                 for (ri, slot, toks), (wi, wslot, wtoks) in zip(payload, want):
                     assert (ri, slot) == (wi, wslot)
                     np.testing.assert_array_equal(toks, np.asarray(wtoks))
+            elif phase == "speculate":
+                rows = slice(dp_rank * 4 // dp, (dp_rank + 1) * 4 // dp)
+                np.testing.assert_array_equal(payload[0], want[0][rows])
+                assert payload[1] == want[1], (rank, payload[1], want[1])
             else:
                 rows = slice(dp_rank * 4 // dp, (dp_rank + 1) * 4 // dp)
                 np.testing.assert_allclose(payload, want[rows], rtol=0, atol=1e-5,

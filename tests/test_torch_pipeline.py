@@ -98,7 +98,7 @@ def test_members_and_names():
     assert registry.implementation_names("pp_pipeline") == (
         "compute_only", "pytorch", "schedules", "compiled")
     assert "pp_pipeline" in registry.ALLOWED_PRIMITIVES
-    assert registry._NOT_PORTED_FAMILIES == ("serving_load",)
+    assert registry._NOT_PORTED_FAMILIES == ()
     assert registry.throughput_unit("pp_pipeline") == "TFLOPS"
     for port_name, jax_name in JAX_NAMES.items():
         assert registry.port_member_name(jax_name) == port_name

@@ -488,9 +488,10 @@ def test_decode_iterations_are_identical():
         (dict(phase="decode", cache_layout="paged"), "serving engine's pool"),
         (dict(page_size=64), "no effect"),
         (dict(page_pool_frac=0.5), "no effect"),
-        (dict(phase="speculate"), "not yet ported"),
-        (dict(mlp_kernel="int8", phase="speculate"), "not yet ported"),
-        (dict(mlp_kernel="int8_weights", phase="speculate"), "not yet ported"),
+        (dict(phase="speculate", cache_layout="paged"), "serving engine's pool"),
+        (dict(mlp_kernel="int8", phase="speculate", spec_k=0), "outside allowed range"),
+        (dict(mlp_kernel="int8_weights", phase="speculate", draft_layers=0),
+         "outside allowed range"),
         (dict(phase="bogus"), "not in allowed values"),
         (dict(page_pool_frac=2.0), "outside allowed range"),
         (dict(nope=1), "Unknown option"),
