@@ -90,6 +90,14 @@ Phases, in order; any failure exits non-zero without the final line:
    20 and 400 requests/s, the engine also with head-of-line preemption;
    K12 once a layer per engine tick, K8a once a layer per prompt
    prefill), each row's TTFT and TPOT percentiles and goodput printed;
+   then the serving_cluster path (the config's ``router`` and ``disagg``
+   entries as written, then at the same width and traffic, every engine on
+   the one card: ``router`` dp 2 at 20 and 400 requests/s and behind a
+   token bucket at the card's census rate, ``disagg`` p1+d1 at 20 and 400
+   and p2+d1 with elastic pools at 400; K12 once a layer per decode tick
+   and K8a once a layer per prompt prefill of every engine, the set-up
+   probes' included), each row's TTFT and TPOT percentiles, goodput,
+   topology, handoffs and their price, rejections and resizes printed;
    then the training path, ``transformer_step`` one row at a time
    (``training_rows``: ``scripts/config_transformer_step.json``'s ``spmd``
    and ``compute_only`` entries, the full width of
@@ -1578,6 +1586,8 @@ def kernel_phase_decode(da, smi):
     paged_err, paged_in = check_decode(da, b, S_pool, h, h, "bfloat16", False, 0, True, "ragged")
     for args in (
         (b, SERVING_LOAD_PAGES * PAGE_SIZE, h, h, "bfloat16", False, 0, True, "ragged"),
+        # the serving_cluster path's router shards: 4 slots each
+        (b // 2, SERVING_LOAD_PAGES * PAGE_SIZE, h, h, "bfloat16", False, 0, True, "ragged"),
         (b, S_pool, h, 4, "bfloat16", True, 0, True, "ragged"),
         (b, S_pool, h, h, "bfloat16", False, 700, True, "ragged"),
         (4, 1024, 8, 2, "float32", False, 0, True, "ragged"),
@@ -2270,6 +2280,20 @@ def serving_load_path(run_benchmark, k1, fa, da, qm, smi):
     prompt prefill (the shared prefix's, once, and each admission the
     prefix did not serve, ``drain_prefills``). Prints each row's TTFT and
     TPOT percentiles and goodput. Returns (the launch totals, the rows)."""
+    return drive_serving_rows(run_benchmark, k1, fa, da, qm, smi, ("engine", "static"),
+                              SERVING_LOAD_ROWS, "serving_load_row")
+
+
+def drive_serving_rows(run_benchmark, k1, fa, da, qm, smi, members, full_rows, key):
+    """``members``' entries of ``scripts/config_serving_load.json`` as
+    written (tiny, float32: no launch), then ``full_rows`` at the serving
+    width, one row at a time with the counts read around each. A row's
+    launches must be exactly K12 (K11 on a contiguous cache) once a layer
+    per decode tick of its drains and set-up probes (``drain_ticks``,
+    ``prewarm_ticks``) and K8a once a layer per prompt prefill: each
+    engine's shared prefix, once, and each admission the prefix did not
+    serve (``drain_prefills``, ``prewarm_prefills``). Prints one ``key``
+    line a row. Returns (the launch totals, the rows)."""
     import torch
     from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
 
@@ -2279,10 +2303,10 @@ def serving_load_path(run_benchmark, k1, fa, da, qm, smi):
 
     with open(SERVING_LOAD_CONFIG) as f:
         cfg = json.load(f)["benchmark"]
-    tiny = {name: cfg["implementations"][name] for name in ("engine", "static")}
+    tiny = {name: cfg["implementations"][name] for name in members}
     sweeps = [((cfg["m"][0], cfg["n"][0], cfg["k"][0]), tiny, cfg["dtype"],
                cfg["num_warmups"], cfg["num_iterations"]),
-              ((SERVING_LOAD_M, SERVE_N, SERVE_K), SERVING_LOAD_ROWS, "bfloat16",
+              ((SERVING_LOAD_M, SERVE_N, SERVE_K), full_rows, "bfloat16",
                SERVING_LOAD_WARMUPS, SERVING_LOAD_ITERATIONS)]
     rows = []
     total_start = counts()
@@ -2291,31 +2315,72 @@ def serving_load_path(run_benchmark, k1, fa, da, qm, smi):
             name = spec.pop("implementation")
             before = counts()
             (row,) = drive_path(run_benchmark, "cuda", "serving_load", shape, {name: [spec]},
-                                warmups=warmups, iterations=iterations, extra_keys=SLO_KEYS,
-                                dtype=dtype)
+                                warmups=warmups, iterations=iterations,
+                                extra_keys=SLO_KEYS + CLUSTER_KEYS, dtype=dtype)
             after = counts()
-            got = {key: after[key] - before[key] for key in after}
+            got = {k: after[k] - before[k] for k in after}
             o = row_options(row)
             L = int(o["layers"])
-            want = {key: 0 for key in got}
+            engines = row["serve_shards"]
+            prefills = row["drain_prefills"] + row.get("prewarm_prefills", 0)
+            ticks = row["drain_ticks"] + row.get("prewarm_ticks", 0)
+            want = {k: 0 for k in got}
             if o["attn_kernel"] == "flash":
-                want["tri"] = L * (int(o["prefix_pop"] != "0") + row["drain_prefills"])
+                want["tri"] = L * (engines * int(o["prefix_pop"] != "0") + prefills)
             if o["decode_kernel"] == "pallas":
-                want["paged" if o["cache_layout"] == "paged" else "decode"] = \
-                    L * row["drain_ticks"]
+                want["paged" if o["cache_layout"] == "paged" else "decode"] = L * ticks
             if got != want:
-                fail(f"serving_load row {row['option']}: launches {got}, expected {want}")
-            print(json.dumps({"serving_load_row": name, "shape": list(shape),
-                              "rate": float(o["rate"]),
+                fail(f"{key} {row['option']}: launches {got}, expected {want}")
+            n = int(o["n_requests"])
+            pooled = n * (row["drains"] - 1)
+            # the validation proved the last drain's partition of the
+            # trace; with nothing shed every pooled drain completed it all
+            if row["serve_rejected"] == 0 and row["slo_completed"] != pooled:
+                fail(f"{key} {row['option']}: {row['slo_completed']} completed of "
+                     f"{pooled} in {row['drains'] - 1} pooled drains")
+            print(json.dumps({key: name, "shape": list(shape), "rate": float(o["rate"]),
                               "preempt_hol_ticks": int(o["preempt_hol_ticks"]),
                               "median_ms": row["median time (ms)"],
-                              **{key: row[key] for key in SLO_KEYS},
-                              "launches": {key: n for key, n in got.items() if n},
+                              **{k: row[k] for k in SLO_KEYS + CLUSTER_KEYS if k in row},
+                              "launches": {k: c for k, c in got.items() if c},
                               "card": smi}))
             rows.append(row)
             torch.cuda.empty_cache()
     end = counts()
-    return {key: end[key] - total_start[key] for key in end}, rows
+    return {k: end[k] - total_start[k] for k in end}, rows
+
+
+# -- the serving_cluster path ---------------------------------------------------------
+
+
+#: scripts/config_serving_load.json's router and disagg entries as written
+#: (tiny, float32, no kernel), then the serving_load path's full width and
+#: traffic (SERVING_LOAD_COMMON) through the cluster members, every engine
+#: on the one card: router dp 2 under and over capacity and behind a token
+#: bucket at the card's census rate; disagg p1+d1 under and over capacity,
+#: and p2+d1 with the elastic pools
+SERVING_CLUSTER_ROWS = {
+    "router": [{"rate": [20.0, 400.0], "dp": 2, **SERVING_LOAD_COMMON},
+               {"rate": [400.0], "dp": 2, "admission": "token_bucket",
+                **SERVING_LOAD_COMMON}],
+    "disagg": [{"rate": [20.0, 400.0], "prefill_shards": 1, "decode_shards": 1,
+                **SERVING_LOAD_COMMON},
+               {"rate": [400.0], "prefill_shards": 2, "decode_shards": 1, "elastic": 1,
+                **SERVING_LOAD_COMMON}],
+}
+#: the cluster columns printed for each serving_cluster row
+CLUSTER_KEYS = ("serve_topology", "serve_shards", "serve_handoffs", "serve_handoff_bytes",
+                "serve_handoff_ms", "serve_rejected", "serve_resizes", "serve_pool_history",
+                "serve_affinity_hits", "prewarm_ticks", "prewarm_prefills")
+
+
+def serving_cluster_path(run_benchmark, k1, fa, da, qm, smi):
+    """Drive the serving_load cluster members (``router``, ``disagg``)
+    one row at a time, as ``serving_load_path`` drives the single engine;
+    the launches of each row must be exact, set-up probes included.
+    Returns (the launch totals, the rows)."""
+    return drive_serving_rows(run_benchmark, k1, fa, da, qm, smi, ("router", "disagg"),
+                              SERVING_CLUSTER_ROWS, "serving_cluster_row")
 
 
 # -- the flash backward (K10a-K10d) -------------------------------------------
@@ -3211,7 +3276,8 @@ def main():
     print(f"serving path done at {time.perf_counter() - t_start:.1f} s")
 
     for path, drive, needed in (("speculate", speculate_path, ("tri", "decode")),
-                                ("serving_load", serving_load_path, ("tri", "paged"))):
+                                ("serving_load", serving_load_path, ("tri", "paged")),
+                                ("serving_cluster", serving_cluster_path, ("tri", "paged"))):
         reset()
         path_launches, _ = drive(run_benchmark, k1, fa, da, qm, smi)
         missing = [key for key in needed if not path_launches[key]]
@@ -3280,10 +3346,11 @@ def main():
     forward_entry.pop("also_replaces")
     forward_entry["launches"] = total("tri")
     rect_entry["launches"] = total("rect")
-    # K8a at the serving shapes: the prefills of the serving, speculate and
-    # serving_load paths
+    # K8a at the serving shapes: the prefills of the serving, speculate,
+    # serving_load and serving_cluster paths
     forward_entry["serving_prefill"]["launches"] = sum(
-        launches[path].get("tri", 0) for path in ("serving", "speculate", "serving_load"))
+        launches[path].get("tri", 0)
+        for path in ("serving", "speculate", "serving_load", "serving_cluster"))
     chunk_entry["launches"] = total("chunk")
     # K8b and K9 by path; every launch ran band::flash_fwd_wgmma (check_tiles)
     rect_entry["launches_by_path"] = {path: n["rect"] for path, n in launches.items()

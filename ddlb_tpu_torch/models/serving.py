@@ -625,6 +625,8 @@ class ContinuousBatchingEngine:
             torch.from_numpy(self.cur_tok.copy()).to(self.device),
             torch.from_numpy(self.pos.copy()).to(self.device),
         )
+        # the copy to the host waits for the tick's kernels, so a host clock
+        # around step() times the tick (serve/cluster.py's watch relies on it)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         self.stats.steps += 1
         self.stats.lane_ticks_total += self.B

@@ -159,6 +159,8 @@ _REGISTRY = {
         for name, cls in (
             ("engine", "EngineServingLoad"),
             ("static", "StaticServingLoad"),
+            ("router", "RouterServingLoad"),
+            ("disagg", "DisaggServingLoad"),
         )
     },
 }
@@ -166,8 +168,8 @@ _REGISTRY = {
 #: families of the JAX package that the port does not carry yet
 _NOT_PORTED_FAMILIES = ()
 #: members of the ported families that the port does not carry yet: the
-#: topology compositions, and serving_load's cluster members
-_NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped", "router", "disagg")
+#: topology compositions
+_NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped")
 #: JAX package member name -> this package's name for the same member
 _RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda", "xla_gspmd": "compiled"}
 #: unit of the runner's Throughput column, by family: the collectives

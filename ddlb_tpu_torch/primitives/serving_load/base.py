@@ -24,8 +24,13 @@ drain's p95 over a small trace is noise).
 
 Members: ``engine`` admits into any free slot every tick (plus the
 head-of-line preemption policy, ``preempt_hol_ticks``); ``static`` admits
-only when every slot is idle. The cluster members ``router`` and
-``disagg`` are not ported yet.
+only when every slot is idle; the cluster members ``router`` and
+``disagg`` (``cluster_base.py``) drive several engines behind the
+``serve/`` cluster.
+
+Every rank of a tp mesh drives its own engine; the drive loop reads rank
+0's clock on every rank (``_drain_clock``), so the ranks release the same
+arrivals at the same pumps.
 
 Validation checks the drain's accounting (every request completed once,
 its budget honoured, its prompt at the front of its tokens, tokens in
@@ -48,6 +53,7 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ddlb_tpu_torch.models.serving import ContinuousBatchingEngine, Request
 from ddlb_tpu_torch.models.transformer import (
@@ -290,6 +296,31 @@ class ServingLoad(Primitive):
         """Member policy: may queued requests be admitted now?"""
         raise NotImplementedError
 
+    def _drain_clock(self):
+        """Seconds since the drain began, as a function the drive loop
+        calls wherever it reads the time (releasing arrivals, stamping
+        first tokens and completions, the idle wait, the makespan).
+
+        Every rank runs the drive loop over its own engine, and tp ranks
+        must release the same arrivals before the same ``admit_ready``, or
+        their prefills post tp collectives that no longer pair. So at
+        world > 1 every reading is rank 0's host clock, broadcast over the
+        default group, which is the serving mesh's (its tp axis spans the
+        world): a float64 on this rank's device, a CPU tensor on gloo and a
+        card scalar on NCCL. At world 1 it is this process's clock, with no
+        collective."""
+        t0 = time.perf_counter()
+        if self.runtime.world_size == 1:
+            return lambda: time.perf_counter() - t0
+        shared = torch.zeros(1, dtype=torch.float64, device=self.device)
+
+        def clock() -> float:
+            if self.rank == 0:
+                shared.fill_(time.perf_counter() - t0)
+            return float(self.runtime.broadcast(shared, 0).item())
+
+        return clock
+
     def _drain(self) -> None:
         """One open-loop replay of the trace against the reset engine
         (:380): arrivals release on the host clock; per-request timelines,
@@ -314,9 +345,9 @@ class ServingLoad(Primitive):
         hol_ticks = 0
         last_head: Optional[int] = None
         submitted = done_seen = 0
-        t0 = time.perf_counter()
+        clock = self._drain_clock()
         while done_seen < n:
-            now = time.perf_counter() - t0
+            now = clock()
             while submitted < n and trace[submitted].arrival_s <= now:
                 r = trace[submitted]
                 alias[eng.submit(Request(r.prompt, max_new=r.max_new))] = r.index
@@ -326,7 +357,7 @@ class ServingLoad(Primitive):
             if admitted:
                 # admission computes the first token; re-stamping active
                 # slots is idempotent, so a re-admission changes nothing
-                t_now = time.perf_counter() - t0
+                t_now = clock()
                 for s in eng.active_slots():
                     tracker.first_token(alias[eng.slot_request(s)], t_now)
                 hol_ticks = 0
@@ -342,7 +373,7 @@ class ServingLoad(Primitive):
                 last_head = head
             tracker.observe_queue(eng.queue_depth)
             active = eng.step()
-            t_now = time.perf_counter() - t0
+            t_now = clock()
             for c in eng.completions[done_seen:]:
                 orig = alias[c.request_index]
                 tracker.first_token(orig, t_now)  # one-token finishers
@@ -350,10 +381,10 @@ class ServingLoad(Primitive):
             done_seen = len(eng.completions)
             if active == 0 and not eng.queue_depth and submitted < n:
                 # idle: sleep exactly to the next arrival, whose time is known
-                wait = trace[submitted].arrival_s - (time.perf_counter() - t0)
+                wait = trace[submitted].arrival_s - clock()
                 if wait > 0:
                     time.sleep(wait)
-        makespan = time.perf_counter() - t0
+        makespan = clock()
         horizon = max(self._trace_horizon_s(), 1e-9)
         if tracker is self._pooled:
             self._makespan_total += makespan

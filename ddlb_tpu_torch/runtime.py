@@ -13,6 +13,7 @@ the identity: the all-gather and reduce-scatter of rows, the sum
 all-reduce, the broadcast, the ring hop (``batch_isend_irecv``, by one
 rank or by ``offset``; ``ring_exchange`` both ways at once), and the row
 and head/sequence all-to-alls (``all_to_all_single``).
+``Runtime.chip_spec`` is the device's hardware spec (``perfmodel/specs``).
 ``Runtime.peer_buffer`` allocates card memory that every rank can
 address (``PeerBuffer``, symmetric memory over NVLink), for the
 hand-written ring and all-to-all kernels.
@@ -97,6 +98,16 @@ class Runtime:
     @property
     def num_processes(self) -> int:
         return self.world_size
+
+    @property
+    def chip_spec(self):
+        """The hardware spec of this rank's device
+        (``perfmodel.specs.ChipSpec``): the CPU entry on the host, the
+        entry for the card's name on CUDA; raises ``ValueError`` for a
+        card the registry does not hold."""
+        from ddlb_tpu_torch.perfmodel.specs import spec_for_device
+
+        return spec_for_device(self.platform, self.device_kind)
 
     def synchronize(self) -> None:
         """Wait until every kernel queued on this rank's device is done."""

@@ -6,7 +6,8 @@ and ``static`` entries run on the CPU with valid rows; each row carries
 exactly the JAX row's ``slo_*`` / ``serve_*`` columns; the trace, the
 option schema and the FLOP and byte counts are the JAX member's; the
 head-of-line policy preempts under overload and the accounting still
-holds; the cluster members raise "not yet ported".
+holds; the cluster members load (their own tests are
+``test_torch_serving_cluster.py``).
 """
 
 from types import SimpleNamespace
@@ -48,9 +49,9 @@ def _jax_row_keys():
 
 def test_config_entries_run_on_the_cpu(tmp_path):
     """``scripts/config_serving_load.json``'s entries on the CPU: every
-    ``engine`` and ``static`` row valid, with the single-engine cluster
-    columns; the ``router`` and ``disagg`` rows are "not yet ported"
-    error rows. Two drains a row (one timed, one validated), not the
+    row valid, the ``engine`` and ``static`` rows with the single-engine
+    cluster columns, the ``router`` and ``disagg`` rows with their
+    topology. Two drains a row (one timed, one validated), not the
     config's five: the slowest row's drain lasts its 2 s of arrivals."""
     cfg = load_config("scripts/config_serving_load.json")["benchmark"]
     cfg.update(device="cpu", output_csv=str(tmp_path / "cfg.csv"), num_warmups=0,
@@ -70,7 +71,11 @@ def test_config_entries_run_on_the_cpu(tmp_path):
     assert len(paged) == 1 and paged[0]["serve_prefix_hits"] > 0
     assert paged[0]["serve_pages_capacity"] > 0
     for row in by["router"] + by["disagg"]:
-        assert not row["valid"] and "not yet ported" in row["error"]
+        assert row["valid"] and not row["error"], (row["option"], row["error"])
+        assert row["slo_completed"] + row["serve_rejected"] == 24 * (row["drains"] - 1)
+        assert row["serve_shards"] == 2 and row["drain_ticks"] > 0
+    assert {r["serve_topology"] for r in by["router"]} == {"router:dp=2"}
+    assert by["disagg"][0]["serve_topology"] == "disagg:p1+d1"
 
 
 def test_row_carries_exactly_the_jax_columns(tmp_path):
@@ -102,12 +107,17 @@ def test_hol_preemption_fires_under_overload_and_accounts(tmp_path):
 
 @pytest.mark.parametrize("member", ["router", "disagg"])
 def test_cluster_members_not_yet_ported(member):
+    """The "not yet ported" list no longer holds the cluster members: each
+    loads and the family lists all four; the topology members the port
+    still lacks keep raising."""
+    assert load_impl_class("serving_load", member).__name__.lower().startswith(member)
+    assert registry.implementation_names("serving_load") == (
+        "engine", "static", "router", "disagg")
     with pytest.raises(ValueError, match="not yet ported"):
-        load_impl_class("serving_load", member)
-    assert registry.implementation_names("serving_load") == ("engine", "static")
+        load_impl_class("tp_columnwise", "jax_spmd_hier")
 
 
-@pytest.mark.parametrize("member", ["engine", "static"])
+@pytest.mark.parametrize("member", ["engine", "static", "router", "disagg"])
 def test_schema_trace_and_counts_equal_jax(member):
     from ddlb_tpu.primitives.registry import load_impl_class as jax_load
     from ddlb_tpu.primitives.serving_load.base import ServingLoad as JaxServingLoad
