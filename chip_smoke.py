@@ -49,7 +49,13 @@ Phases, in order; any failure exits non-zero without the final line:
    K4/K5 bit for bit on integer, dyadic and uniform operands, K6 bit for bit
    on integer and dyadic ones and within K1's bound on uniform ones, each
    timed at d = 4 beside ``torch.cat``, ``torch.stack(...).sum(0)`` and
-   ``torch.bmm``;
+   ``torch.bmm``; and K2-K6 once more at d = 4 on a peer table in the
+   ``transport=dcn`` order of two simulated nodes (``DCN_ORDER``, ring
+   position p addressing rank ``[0, 2, 1, 3][p]``'s buffer), bit for bit on
+   integer operands against the plain ring (in loopback every virtual rank
+   is on this card, so this shows that the kernels address peers only
+   through the table; the reordered ring across cards is checked by
+   ``scripts/topology_sweeps.py`` on four cards);
 3. the main paths, each with the launch counts zeroed just before it and
    read just after, through the port's sweep runner (``run_benchmark``)
    with validation: both tensor-parallel families at m = n = k = 8192 bf16,
@@ -67,6 +73,14 @@ Phases, in order; any failure exits non-zero without the final line:
    n = 8, k = 8192 bf16, in GB/s; then ``ep_alltoall`` and
    ``dp_allreduce`` at 8192^3 bf16, the ``cuda`` member's two algorithms
    (K1; K6 or K3) and every ``overlap`` entry of their configs; then
+   the topology path at world 1, one row at a time with its launches
+   checked exactly (``topology_rows``: the ``transport=dcn`` entries of
+   ``scripts/config_transport_sweep.json`` and the ``cuda`` member of both
+   tp families under ``dcn``, K1; then the composed entries,
+   ``jax_spmd_hier`` and ``jax_spmd_striped`` as ``pytorch_hier`` and
+   ``pytorch_striped``, of ``config_dp_allreduce.json``,
+   ``config_ep_alltoall.json`` and ``config_collectives.json`` at their
+   first shapes, each row's ``composition`` checked), its time printed; then
    ``cp_ring_attention`` at m = 16384, n = 1024, k = 128 bf16, every member
    and option of ``scripts/config_cp_ring_attention.json`` plus
    ``ring_flash`` and one windowed GQA ``flash`` row (K8a, K8b, K9); then
@@ -823,6 +837,46 @@ def check_ring(cm, k1, kind, d, m_loc, n, k, dtype_name):
     return max_err, text, (x, y)
 
 
+#: the ring of two simulated nodes of two cards under transport=dcn
+#: (``runtime.transport_order``): ring position p addresses rank
+#: DCN_ORDER[p]'s buffer
+DCN_ORDER = (0, 2, 1, 3)
+
+
+def permuted(table, order=DCN_ORDER):
+    """A loopback peer table (``Ring`` or ``A2ABuffers``) whose entry p is
+    the buffer of rank ``order[p]``, as ``PeerBuffer`` lays it out for a
+    reordered ring."""
+    out = type(table).__new__(type(table))
+    out.__dict__.update(table.__dict__, ptrs=tuple(table.ptrs[r] for r in order))
+    return out
+
+
+def check_ring_permuted(cm, kind):
+    """One d = 4 loopback launch of K2 or K3 on a peer table in the dcn
+    order of two simulated nodes, bit for bit on integer operands against
+    the plain ring (the shards listed by ring position). In loopback the
+    permuted table only changes which allocation a virtual rank uses, so
+    this shows that the kernel addresses its peers through the table and
+    nowhere else; the reordered ring across cards is the four-card run's
+    (``scripts/topology_sweeps.py``)."""
+    import torch
+
+    d, m_loc, n, k = len(DCN_ORDER), 256, 512, 512 if kind == "ag" else 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    x, y = ring_operands(kind, d, m_loc, n, k, torch.bfloat16, gen, integer=True)
+    ring = permuted(cm.loopback_ring(kind, d, m_loc * (k if kind == "ag" else n),
+                                     torch.bfloat16, "cuda"))
+    loopback = cm.ring_ag_matmul_loopback if kind == "ag" else cm.ring_matmul_rs_loopback
+    virtual = cm.ring_ag_matmul_virtual if kind == "ag" else cm.ring_matmul_rs_virtual
+    got, want = loopback(x, y, ring), virtual(x, y)
+    torch.cuda.synchronize()
+    what = f"K{2 if kind == 'ag' else 3} loopback d={d} on the dcn table {list(DCN_ORDER)}"
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{what}: not bit for bit on integer operands")
+    print(f"{what}: bit for bit on integer operands: ok")
+
+
 def ring_bound(kind, d, m_loc, n, k, itemsize):
     """(bound ms, bound_by) of one loopback launch of d virtual ranks: the
     larger of the d ranks' GEMM FLOPs over the bf16 peak and the bytes the
@@ -862,6 +916,7 @@ def kernel_phase_ring(cm, k1, smi):
             if main is None:
                 main = (case, result)
             torch.cuda.empty_cache()
+        check_ring_permuted(cm, kind)
         (d, m_loc, n, k, _), (max_err, tol, (x, y)) = main
         if cm.tile_for(x[0].dtype, k, n) != "wgmma":
             fail(f"{name} at the path's shapes would run the "
@@ -1022,6 +1077,40 @@ def check_trio_a2a(am, k1, d, g, n, k, dtype_name):
     return max_err, text, (shards, experts)
 
 
+def check_trio_permuted(rc, am):
+    """K4, K5 and K6, one d = 4 loopback launch each on a peer table in the
+    dcn order of two simulated nodes, bit for bit on integer operands
+    against the plain versions (the shards and experts listed by ring
+    position): as ``check_ring_permuted``, this shows that the kernels
+    address their peers through the table alone."""
+    import torch
+
+    d = len(DCN_ORDER)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    m_loc, k, g, n = 512, 1024, 128, 512
+    shards = trio_operands([(m_loc, k)] * d, torch.bfloat16, gen, "integer")
+    for name, kind, loopback, virtual, chunk in (
+            ("K4", "all_gather", rc.ring_all_gather_loopback, rc.ring_all_gather_virtual,
+             m_loc * k),
+            ("K5", "reduce_scatter", rc.ring_reduce_scatter_loopback,
+             rc.ring_reduce_scatter_virtual, m_loc // d * k)):
+        ring = permuted(rc.loopback_ring(kind, d, chunk, torch.bfloat16, "cuda"))
+        got, want = loopback(shards, ring), virtual(shards)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"{name} loopback d={d} on the dcn table: not bit for bit on integers")
+    tokens = trio_operands([(d * g, k)] * d, torch.bfloat16, gen, "integer")
+    experts = trio_operands([(k, n)] * d, torch.bfloat16, gen, "integer")
+    bufs = permuted(am.loopback_buffers(d, g, k, n, torch.bfloat16, "cuda"))
+    got = am.alltoall_expert_matmul_loopback(tokens, experts, bufs)
+    want = am.alltoall_expert_matmul_virtual(tokens, experts)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"K6 loopback d={d} on the dcn table: not bit for bit on integers")
+    print(f"K4/K5/K6 loopback d={d} on the dcn table {list(DCN_ORDER)}: bit for bit on "
+          f"integer operands: ok")
+
+
 def trio_bound(kind, d, rows, n, k, itemsize):
     """(bound ms, bound_by) of one loopback launch of d virtual ranks: the
     larger of the operations over the bf16 peak and the bytes the launch
@@ -1063,6 +1152,7 @@ def kernel_phase_trio(rc, am, k1, smi):
         if a2a_main is None:
             a2a_main = (case, result)
         torch.cuda.empty_cache()
+    check_trio_permuted(rc, am)
 
     entries = []
     d, m_loc, k, _ = TRIO_RING_CASES[0]
@@ -3031,6 +3121,80 @@ def trio_path(run_benchmark, counts, smi):
     return {key: end[key] - total_start[key] for key in end}
 
 
+# -- the topology path: the compositions and the transport axis ----------------
+
+#: the configs whose composed entries (jax_spmd_hier / jax_spmd_striped, the
+#: port's pytorch_hier / pytorch_striped) the topology path drives, in an
+#: order that reuses the host oracle the trio path left (dp's 8192^3)
+TOPOLOGY_CONFIGS = ("config_dp_allreduce.json", "config_ep_alltoall.json",
+                    "config_collectives.json")
+#: the topology path's rows are checks, not timings: few calls a row
+TOPOLOGY_WARMUPS, TOPOLOGY_ITERATIONS = 1, 2
+
+
+def topology_rows():
+    """(primitive, shape, implementations) of the topology path, in order:
+    the ``transport=dcn`` entries of ``config_transport_sweep.json`` (its
+    ``ici`` entries, the default transport, are rows of the GEMM path at
+    the same shape: ``pytorch`` AG_before, ``overlap`` p2p_pipeline and
+    chunked 4, ``compiled``) and the ``cuda`` member of both tp families
+    under ``transport=dcn`` (K1), then each config's composed entries at
+    its first shape."""
+    with open(os.path.join("scripts", "config_transport_sweep.json")) as f:
+        cfg = json.load(f)["benchmark"]
+    shape = (cfg["m"][0], cfg["n"][0], cfg["k"][0])
+    dcn = {name: [dict(block, transport=["dcn"]) for block in blocks]
+           for name, blocks in cfg["implementations"].items()}
+    out = [(cfg["primitive"], shape, {**dcn, "cuda": [{"transport": ["dcn"]}]}),
+           ("tp_rowwise", shape, {"cuda": [{"transport": ["dcn"]}]})]
+    for config in TOPOLOGY_CONFIGS:
+        with open(os.path.join("scripts", config)) as f:
+            cfg = json.load(f)["benchmark"]
+        impls = {}
+        for block in cfg["implementations"]:
+            block = dict(block)
+            name = block.pop("name")
+            if name in ("jax_spmd_hier", "jax_spmd_striped"):
+                impls.setdefault(name, []).append(block)
+        out.append((cfg["primitive"], (cfg["m"][0], cfg["n"][0], cfg["k"][0]), impls))
+    return out
+
+
+def topology_path(run_benchmark, counts):
+    """Drive every topology row at world 1 (one ``run_benchmark`` call per
+    row, counts read around each): each must be valid, a composed row must
+    carry the composition it asked for (``auto`` resolves ``flat`` on one
+    node), and the launches must be exact: K1 once a call in the ``cuda``
+    rows, nothing in the others. Returns the launch totals of the path."""
+    from ddlb_tpu_torch.cli.benchmark import assign_impl_ids, generate_config_combinations
+
+    calls = TOPOLOGY_WARMUPS + TOPOLOGY_ITERATIONS + 1
+    total_start = counts()
+    for primitive, shape, impls in topology_rows():
+        for spec in assign_impl_ids(generate_config_combinations(impls)).values():
+            name = spec.pop("implementation")
+            before = counts()
+            (row,) = drive_path(run_benchmark, "cuda", primitive, shape, {name: [spec]},
+                                warmups=TOPOLOGY_WARMUPS, iterations=TOPOLOGY_ITERATIONS,
+                                extra_keys=("composition",))
+            after = counts()
+            got = {key: after[key] - before[key] for key in after}
+            want = dict.fromkeys(got, 0)
+            if row["base_implementation"] == "cuda":
+                want["k1"] = calls
+            if got != want:
+                fail(f"topology row {primitive} {row['option']}: launches {got}, "
+                     f"expected {want}")
+            if name in ("jax_spmd_hier", "jax_spmd_striped"):
+                asked = spec.get("composition", "striped" if "striped" in name else
+                                 "hierarchical")
+                if row.get("composition") != {"auto": "flat"}.get(asked, asked):
+                    fail(f"topology row {primitive} {row['option']}: composition "
+                         f"{row.get('composition')!r}, asked {asked!r}")
+    end = counts()
+    return {key: end[key] - total_start[key] for key in end}
+
+
 def head_phase(run_benchmark, smi):
     """The LM head's product before and after it moved to the tensor
     cores: the full-width training row (train, the block router) and a
@@ -3237,6 +3401,16 @@ def main():
     tiles["trio"] = check_tiles("the trio path", k1, cm, fa)
     launches["trio"] = {key: n for key, n in trio_launches.items() if n}
     print(f"trio path done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    t0 = time.perf_counter()
+    topology_launches = topology_path(run_benchmark, counts)
+    if not topology_launches["k1"]:
+        fail(f"the topology path did not launch K1: {topology_launches}")
+    tiles["topology"] = check_tiles("the topology path", k1, cm, fa)
+    launches["topology"] = {key: n for key, n in topology_launches.items() if n}
+    print(f"topology path done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     reset()
     rows = []

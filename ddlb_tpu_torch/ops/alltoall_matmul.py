@@ -99,10 +99,10 @@ def buffer_bytes(d: int, g: int, k: int, n: int, dtype: torch.dtype) -> int:
 
 
 class A2ABuffers:
-    """One world's K6 buffers as a launch addresses them: ``ptrs[i]`` is rank
-    ``i``'s buffer for groups of ``g`` tokens, ``k`` wide in and ``n`` wide
-    out, of ``dtype``; ``rank0`` the rank of the launch's first virtual
-    rank; ``epoch`` the number of launches made on them so far (the flags
+    """One world's K6 buffers as a launch addresses them: ``ptrs[i]`` is the
+    buffer of ring position ``i`` (``Runtime.order``) for groups of ``g``
+    tokens, ``k`` wide in and ``n`` wide out, of ``dtype``; ``rank0`` the
+    position of the launch's first virtual rank; ``epoch`` the number of launches made on them so far (the flags
     never reset; every rank must make the same launches). ``owner`` keeps
     the memory alive."""
 
@@ -120,7 +120,7 @@ def peer_buffers(runtime, g: int, k: int, n: int, dtype: torch.dtype) -> A2ABuff
     """This world's K6 buffers in peer memory. Collective."""
     d = runtime.world_size
     buf = runtime.peer_buffer(buffer_bytes(d, g, k, n, dtype))
-    return A2ABuffers(buf.ptrs, runtime.rank, g, k, n, dtype, buf)
+    return A2ABuffers(buf.ptrs, runtime.position, g, k, n, dtype, buf)
 
 
 def loopback_buffers(d: int, g: int, k: int, n: int, dtype: torch.dtype,
@@ -255,7 +255,7 @@ def alltoall_expert_matmul(a_shard: torch.Tensor, w_expert: torch.Tensor, runtim
     g = check_operands(a_shard, w_expert, d)
     if a_shard.device.type == "cpu":
         return alltoall_expert_matmul_plain(a_shard, w_expert, runtime)
-    if buffers is None or buffers.d != d or buffers.rank0 != runtime.rank:
+    if buffers is None or buffers.d != d or buffers.rank0 != runtime.position:
         raise ValueError("K6 needs this world's peer buffers (ops.alltoall_matmul.peer_buffers)")
     k, n = w_expert.shape
     _check_launch(buffers, (a_shard, w_expert), g, k, n)

@@ -111,13 +111,13 @@ def ring_rs_chunk(partial: torch.Tensor, my_sched, runtime, block_rows: int,
 
 def ring_a2a_chunk(x: torch.Tensor, runtime) -> torch.Tensor:
     """All-to-all of one chunk as ``d - 1`` shift-by-``t`` exchanges:
-    ``x [d, g, ...]`` (block ``e`` bound for rank ``e``) -> ``[d, g, ...]``
-    (block ``s`` arrived from rank ``s``), the tiled ``all_to_all`` with
-    split and concat axis 0. The diagonal block stays local, so a rank's
-    wire is ``(d - 1) / d`` of the payload. Each exchange
-    (``Runtime.ring_shift(offset=t)``: send to ``r + t``, receive from
-    ``r - t``) is waited on before the next is posted."""
-    d, r = runtime.world_size, runtime.rank
+    ``x [d, g, ...]`` (block ``e`` bound for ring position ``e``) ->
+    ``[d, g, ...]`` (block ``s`` arrived from position ``s``), the tiled
+    ``all_to_all`` with split and concat axis 0. The diagonal block stays
+    local, so a rank's wire is ``(d - 1) / d`` of the payload. Each
+    exchange (``Runtime.ring_shift(offset=t)``: send to position ``r + t``,
+    receive from ``r - t``) is waited on before the next is posted."""
+    d, r = runtime.world_size, runtime.position
     out = torch.empty_like(x)
     out[r] = x[r]
     for t in range(1, d):
@@ -164,7 +164,7 @@ def build_chunked_ag_matmul(*, m: int, n: int, k: int, runtime, chunk_count: int
     if path != "ring_shift":
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     rows_c = m // (d * chunk_count)  # rows per rank per chunk
-    my_sched = ring_schedule(d, "ag_fwd")[runtime.rank]
+    my_sched = ring_schedule(d, "ag_fwd")[runtime.position]
 
     def step(a_shard, b):
         chunks = a_shard.reshape(chunk_count, rows_c, k)
@@ -202,7 +202,7 @@ def build_chunked_matmul_rs(*, m: int, n: int, k: int, runtime, chunk_count: int
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     rows_c = m // (d * chunk_count)
     kd = k // d
-    my_sched = ring_schedule(d, "rs_fwd")[runtime.rank]
+    my_sched = ring_schedule(d, "rs_fwd")[runtime.position]
 
     def step(a_shard, b_shard):
         acc_t, wire_t = accum_wire_dtypes(a_shard.dtype)
@@ -241,8 +241,8 @@ def build_chunked_matmul_ar(*, m: int, n: int, k: int, runtime, chunk_count: int
     _check_granularity(m, d, chunk_count)
     rows_c = m // (d * chunk_count)  # rows per rank-block per chunk
     kd = k // d
-    my_rs = ring_schedule(d, "rs_fwd")[runtime.rank]
-    my_ag = ring_schedule(d, "ag_fwd")[runtime.rank]
+    my_rs = ring_schedule(d, "rs_fwd")[runtime.position]
+    my_ag = ring_schedule(d, "ag_fwd")[runtime.position]
 
     def step(a_shard, b_shard):
         acc_t, wire_t = accum_wire_dtypes(a_shard.dtype)

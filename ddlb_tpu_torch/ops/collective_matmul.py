@@ -132,7 +132,7 @@ def buffer_bytes(chunk_numel: int, dtype: torch.dtype) -> int:
 
 class Ring:
     """One ring's buffers as a launch addresses them: ``ptrs[i]`` is ring
-    rank ``i``'s buffer (flags, then two slots of ``chunk_numel`` elements
+    position ``i``'s buffer (``Runtime.order``) (flags, then two slots of ``chunk_numel`` elements
     of ``dtype``), ``kind`` the one kernel it serves (``ag``, ``rs``; K4's
     and K5's ``all_gather``, ``reduce_scatter`` in ``ops/ring_collectives.py``,
     which share the layout), ``rank0`` the ring rank of the launch's first virtual
@@ -156,7 +156,7 @@ def peer_ring(runtime, kind: str, chunk_numel: int, dtype: torch.dtype) -> Ring:
     """The ring of this rank's world in peer memory, for kernel ``kind``
     (``ag``: a chunk is ``[m/d, k]``; ``rs``: ``[m/d, n]``). Collective."""
     buf = runtime.peer_buffer(buffer_bytes(chunk_numel, dtype))
-    return Ring(kind, buf.ptrs, runtime.rank, chunk_numel, dtype, buf)
+    return Ring(kind, buf.ptrs, runtime.position, chunk_numel, dtype, buf)
 
 
 def loopback_ring(kind: str, d: int, chunk_numel: int, dtype: torch.dtype,
@@ -303,7 +303,7 @@ def ring_ag_matmul(a_shard: torch.Tensor, b: torch.Tensor, runtime,
     _check_operands(a_shard, b)
     if a_shard.device.type == "cpu":
         return ring_ag_matmul_plain(a_shard, b, runtime)
-    if ring is None or ring.d != runtime.world_size or ring.rank0 != runtime.rank:
+    if ring is None or ring.d != runtime.world_size or ring.rank0 != runtime.position:
         raise ValueError("K2 needs this world's peer ring (ops.collective_matmul.peer_ring)")
     (m_loc, k), n = a_shard.shape, b.shape[1]
     check_launch(ring, "ag", (a_shard, b), m_loc * k)
@@ -316,7 +316,7 @@ def ring_ag_matmul_plain(a_shard: torch.Tensor, b: torch.Tensor,
                          runtime) -> torch.Tensor:
     """K2's ring over ``Runtime.ring_shift``: each chunk's GEMM (K1's
     plain version) runs while the next hop is in flight."""
-    d, r = runtime.world_size, runtime.rank
+    d, r = runtime.world_size, runtime.position
     m_loc = a_shard.shape[0]
     out = torch.empty((d * m_loc, b.shape[1]), dtype=a_shard.dtype, device=a_shard.device)
     held = a_shard.contiguous()
@@ -390,7 +390,7 @@ def ring_matmul_rs(a_shard: torch.Tensor, b_shard: torch.Tensor, runtime,
         raise ValueError(f"m={a_shard.shape[0]} not divisible by d={d}")
     if a_shard.device.type == "cpu":
         return ring_matmul_rs_plain(a_shard, b_shard, runtime)
-    if ring is None or ring.d != d or ring.rank0 != runtime.rank:
+    if ring is None or ring.d != d or ring.rank0 != runtime.position:
         raise ValueError("K3 needs this world's peer ring (ops.collective_matmul.peer_ring)")
     (m, kd), n = a_shard.shape, b_shard.shape[1]
     m_loc = m // d
@@ -410,7 +410,7 @@ def ring_matmul_rs_plain(a_shard: torch.Tensor, b_shard: torch.Tensor,
                          runtime) -> torch.Tensor:
     """K3's ring over ``Runtime.ring_shift``: the next chunk's partial is
     computed while the accumulator's hop is in flight, then folded in."""
-    d, r = runtime.world_size, runtime.rank
+    d, r = runtime.world_size, runtime.position
     m_loc = a_shard.shape[0] // d
     acc, handles = None, []
     for t in range(d):

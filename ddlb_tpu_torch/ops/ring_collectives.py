@@ -208,7 +208,7 @@ def _launch(kind: str, ring: cm.Ring, a: Sequence[torch.Tensor],
 
 
 def _check_world_ring(ring: Optional[cm.Ring], runtime, what: str) -> None:
-    if ring is None or ring.d != runtime.world_size or ring.rank0 != runtime.rank:
+    if ring is None or ring.d != runtime.world_size or ring.rank0 != runtime.position:
         raise ValueError(f"{what} needs this world's peer ring (ops.ring_collectives.peer_ring)")
 
 
@@ -234,7 +234,7 @@ def ring_all_gather(a_shard: torch.Tensor, runtime,
 def ring_all_gather_plain(a_shard: torch.Tensor, runtime) -> torch.Tensor:
     """K4's ring over ``Runtime.ring_shift``: each held chunk lands in its
     output rows while the next hop is in flight."""
-    d, r = runtime.world_size, runtime.rank
+    d, r = runtime.world_size, runtime.position
     m_loc = a_shard.shape[0]
     out = torch.empty((d * m_loc, a_shard.shape[1]), dtype=a_shard.dtype,
                       device=a_shard.device)
@@ -318,7 +318,7 @@ def ring_reduce_scatter(a_local: torch.Tensor, runtime,
 def ring_reduce_scatter_plain(a_local: torch.Tensor, runtime) -> torch.Tensor:
     """K5's ring over ``Runtime.ring_shift``: the accumulator's hop is in
     flight while the next chunk is sliced, then folded in."""
-    d, r = runtime.world_size, runtime.rank
+    d, r = runtime.world_size, runtime.position
     rows = _rows_per_chunk(a_local, d)
     acc, handles = None, []
     for t in range(d):

@@ -8,6 +8,18 @@ its own operand shards as plain tensors on its own device, and the
 collectives are ``torch.distributed`` calls (``runtime.py``). Operands come
 from the same numpy seed code as the JAX package, so both build
 bit-identical inputs.
+
+A family whose schema carries ``transport`` (``ici|dcn``) has its ring laid
+out for it (``Runtime.order_ring``, the JAX package's
+``Runtime.transport_mesh``), and ``self.rank`` is this rank's ring
+position: the rank at position ``p`` holds row block ``p``, as the JAX
+device at mesh position ``p`` does. The ring members walk that order
+(``ring_shift``, the kernels' peer tables); a member that makes one NCCL
+or gloo call gets rank-ordered blocks back, which the runtime permutes
+into position order. So a ``dcn`` row of an NCCL member runs the same
+NCCL call as its ``ici`` row, in rank order on NCCL's own route, plus that
+permutation; under ``ici``, and on one node, the order is the identity
+and nothing is permuted.
 """
 
 from __future__ import annotations
@@ -182,10 +194,15 @@ class Primitive(ABC):
         self.seed = int(seed)
         self.runtime = Runtime(device)
         self.device = self.runtime.device
-        self.rank = self.runtime.rank
         self.num_partitions = self.runtime.world_size
         self._options_manager = OptionsManager(*self.option_schema())
         self.options = self._options_manager.parse(options)
+        if "transport" in self.options:
+            # the family carries the ici/dcn axis: lay the ring out for it
+            # (the JAX package's ``Runtime.transport_mesh``)
+            self.runtime.order_ring(self.options["transport"])
+        #: this rank's ring position: the row block of a global array it holds
+        self.rank = self.runtime.position
         self._check_shapes()
         self._input_setup()
         # the f32/f64 accuracy contract covers whatever step the member built
@@ -317,6 +334,10 @@ class ComputeOnlyKSharded:
 
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}
+
+    def wire_bytes(self) -> float:
+        """No collective runs: nothing on the wire."""
+        return 0.0
 
     def _input_setup(self) -> None:
         a_host, b_host = self._host_operands()

@@ -18,15 +18,17 @@ result is defined on that global array:
 
 ``m % d == 0``; the ops that chunk a shard (``reduce_scatter``,
 ``all_to_all``, ``all_reduce``) need ``m % d^2 == 0``. ``transport``
-(ici/dcn) is kept in the schema, as in the JAX package, with no effect.
+(ici/dcn) orders the ring (``Runtime.order_ring``): the global array's
+row block ``p`` lies on the rank at ring position ``p``.
 
 Metric: the runner's Throughput column is ``flops() / 1e9 / ms``, and
 ``flops()`` returns ``1000 * wire_bytes()``, so the column reads a rank's
 ring wire traffic in GB/s (nccl-tests' bus bandwidth, restated for a
 ring); the rows say so in their ``unit`` column
 (``registry.throughput_unit``). ``wire_bytes`` counts elements at the JAX
-package's wire item sizes (``wire_itemsize``: float64 counts 4, as its
-arrays are float32 there), so both packages report the same figure.
+package's wire item sizes (``perfmodel.cost.wire_itemsize``: float64
+counts 4, as its arrays are float32 there), so both packages report the
+same figure.
 
 Validation: each rank's result against its slice of the oracle
 (``_expected_tensor``: the op on the seeded payload, in float32, computed
@@ -43,6 +45,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import Primitive, place
 
 log = logging.getLogger(__name__)
@@ -66,26 +69,6 @@ _REPLICATED_OPS = ("all_gather", "all_reduce")
 #: on the device that last validated
 _PAYLOAD_MEMO: Dict[tuple, np.ndarray] = {}
 _DEVICE_MEMO: Dict[tuple, torch.Tensor] = {}
-
-#: bytes an element takes on the wire, by dtype name: a copy of the JAX
-#: package's ``perfmodel.cost._ITEMSIZE`` (float64 counts 4)
-_WIRE_ITEMSIZE = {
-    "float32": 4,
-    "float64": 4,
-    "float16": 2,
-    "bfloat16": 2,
-    "int32": 4,
-    "int64": 8,
-    "int8": 1,
-}
-
-
-def wire_itemsize(dtype: str) -> int:
-    """Bytes per element as the JAX package counts them on the wire."""
-    try:
-        return _WIRE_ITEMSIZE[dtype]
-    except KeyError:
-        raise ValueError(f"Unknown dtype {dtype!r}. Known: {sorted(_WIRE_ITEMSIZE)}") from None
 
 
 class Collectives(Primitive):

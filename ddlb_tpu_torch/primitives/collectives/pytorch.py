@@ -10,8 +10,9 @@ The counterpart of the JAX package's ``collectives/jax_spmd.py`` (one
 - ``ppermute``: one ``Runtime.ring_shift`` hop to the next rank;
 - ``all_reduce`` by ``strategy``: ``psum``, one NCCL all-reduce; ``rs_ag``,
   the two-phase ring decomposition (reduce-scatter, then all-gather), to
-  race against it; ``hierarchical``, the two-level decomposition over a
-  (node, card-in-node) split of the world read from ``LOCAL_WORLD_SIZE``:
+  race against it; ``hierarchical``, the two-level decomposition over the
+  world's (node, card-in-node) view (``Runtime.axis_groups("two_level")``,
+  nodes from ``DDLB_TPU_SIM_SLICES`` or ``LOCAL_WORLD_SIZE``):
   reduce-scatter within the node, all-reduce of the scattered block
   across the nodes among equal local ranks, all-gather within the node,
   so the links between nodes carry ``1 / (cards a node)`` of the payload.
@@ -45,13 +46,7 @@ class PyTorchCollectives(Collectives):
                 "strategy='hierarchical' builds its own (node, card) split of "
                 "the world; the transport axis does not apply"
             )
-        local = self.runtime.local_world_size
-        if self.num_partitions % local:
-            raise ValueError(
-                f"world {self.num_partitions} is not whole nodes of "
-                f"LOCAL_WORLD_SIZE={local}"
-            )
-        if self.num_partitions == local:
+        if self.runtime.num_slices == 1:
             log.warning(
                 "strategy='hierarchical' on a single node: the across-node "
                 "step has one member; this row measures the rs_ag decomposition"
@@ -81,13 +76,11 @@ class PyTorchCollectives(Collectives):
         elif strategy == "rs_ag":
             self._fn = lambda a_shard: rt.all_gather_rows(rt.reduce_scatter_rows(a_shard))
         else:
-            local = rt.local_world_size
-            # (node, card-in-node) as a (dp, tp) mesh: rank = node * local + card
-            mesh = rt.mesh(self.num_partitions // local, local)
+            g = rt.axis_groups("two_level")  # rank = node * cards + card
 
             def step(a_shard):
-                part = mesh.tp_reduce_scatter_rows(a_shard)
-                part = mesh.axis_sum(part.clone(), "dp")
-                return mesh.tp_all_gather_rows(part)
+                part = g.reduce_scatter_rows(a_shard, "ici")
+                part = g.all_reduce(part.clone(), "dcn")
+                return g.all_gather_rows(part, "ici")
 
             self._fn = step

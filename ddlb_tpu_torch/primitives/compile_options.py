@@ -262,8 +262,20 @@ class CompiledOptionsMixin:
         shards) become DTensors over a 'tp' mesh of the world, sharded as
         ``a_axes``/``b_axes`` (``{'tp': dim}``, or ``{}`` for replicated),
         and ``self._fn`` is the compiled global product redistributed to
-        the placement ``out``, returning this rank's shard of it."""
-        mesh = self.runtime.device_mesh(("tp",), (self.num_partitions,))
+        the placement ``out``, returning this rank's shard of it.
+
+        The mesh is in rank order (a ``DeviceMesh`` over a permuted ring
+        still gathers in rank order), so under a reordered ring
+        (``Runtime.order_ring``) the blocks are permuted around the
+        program as around an NCCL call: a row-sharded result is asked of
+        ``A``'s rows taken in rank order (at set-up), and a product of
+        row-sharded ``A`` comes back with its row blocks in rank order,
+        permuted into position order."""
+        rt = self.runtime
+        if out == Shard(0):
+            self.a = rt.blocks_by_rank(self.a)
+        gathered = a_axes.get("tp") == 0
+        mesh = rt.device_mesh(("tp",), (self.num_partitions,))
         self.a = DTensor.from_local(self.a, mesh, placements(mesh, a_axes),
                                     run_check=False)
         self.b = DTensor.from_local(self.b, mesh, placements(mesh, b_axes),
@@ -273,4 +285,7 @@ class CompiledOptionsMixin:
             return torch_matmul(a, b).redistribute(mesh, [out])
 
         compiled = self._compile(step, mesh)
-        self._fn = lambda a, b: local(compiled(a, b))
+        if gathered:
+            self._fn = lambda a, b: rt.blocks_by_position(local(compiled(a, b)))
+        else:
+            self._fn = lambda a, b: local(compiled(a, b))

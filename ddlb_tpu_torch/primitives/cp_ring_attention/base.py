@@ -73,10 +73,11 @@ class CPRingAttention(Primitive):
 
     primitive_name = "cp_ring_attention"
 
-    #: ``transport`` (ici/dcn) is kept in the schema, as in the JAX package,
-    #: with no effect here; ``n_kv_heads < num_heads`` is GQA (smaller K/V
-    #: operands and wire bytes); ``window > 0`` restricts each query to its
-    #: ``window`` most recent positions
+    #: ``transport`` (ici/dcn) lays the ring out (``Runtime.order_ring``):
+    #: the rank at ring position p holds sequence block p;
+    #: ``n_kv_heads < num_heads`` is GQA (smaller K/V operands and wire
+    #: bytes); ``window > 0`` restricts each query to its ``window`` most
+    #: recent positions
     BASE_OPTIONS = {"transport": "ici", "n_kv_heads": 0, "window": 0}
     BASE_ALLOWED = {
         "transport": ["ici", "dcn"],

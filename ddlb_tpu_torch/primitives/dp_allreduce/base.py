@@ -3,7 +3,7 @@
 The counterpart of the JAX package's ``dp_allreduce/base.py``: the weight
 gradient ``dW = X^T dY`` contracted over the sharded batch, mapped onto
 the ``(m, n, k)`` contract with ``tp_rowwise``'s operand layout. Rank r of
-d holds the column block ``A[:, r*k/d:(r+1)*k/d]`` (``[m, k/d]``) and the
+d (its ring position) holds the column block ``A[:, r*k/d:(r+1)*k/d]`` (``[m, k/d]``) and the
 row block ``B[r*k/d:(r+1)*k/d, :]`` (``[k/d, n]``); each computes its
 partial ``[m, n]`` product and an all-reduce sums the partials, leaving
 the full gradient replicated on every rank. Requires ``k % d == 0``.
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import Primitive
 
 
@@ -22,6 +23,20 @@ class DPAllReduce(Primitive):
     """ABC for data-parallel GEMM+AR implementations."""
 
     primitive_name = "dp_allreduce"
+
+    #: the ici/dcn transport axis (the JAX base's): the ring's layout,
+    #: ``Runtime.order_ring``
+    BASE_OPTIONS = {"transport": "ici"}
+    BASE_ALLOWED = {"transport": ["ici", "dcn"]}
+
+    def wire_bytes(self) -> float:
+        """Per-rank ring bytes of the family's collective, the all-reduce
+        of the ``[m, n]`` gradient: ``2 * (m*n/d) * (d-1)`` elements at the
+        JAX package's wire item size (``compute_only`` overrides it to 0)."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        return float(2.0 * (self.m * self.n // d) * wire_itemsize(self.dtype) * (d - 1))
 
     def _check_shapes(self) -> None:
         d = self.num_partitions

@@ -2,7 +2,7 @@
 
 The counterpart of the JAX package's ``ep_alltoall/base.py``: the MoE
 communication pattern as a primitive. With d ranks there are d experts,
-expert e resident on rank e with weight ``W_e [k, n]``. The tokens ``A [m,
+expert e resident on ring position e with weight ``W_e [k, n]``. The tokens ``A [m,
 k]`` are row-sharded ``[m/d, k]``; each rank's tokens split into d
 contiguous groups of ``m/d^2`` and group e goes to expert e by an
 all-to-all, the resident expert applies its GEMM, and a mirrored
@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import _EXPECTED_MEMO, Primitive, seeded_draw
 
 
@@ -28,6 +29,21 @@ class EPAllToAll(Primitive):
     """ABC for expert-parallel all-to-all + expert-GEMM implementations."""
 
     primitive_name = "ep_alltoall"
+
+    #: the ici/dcn transport axis (the JAX base's): the ring's layout,
+    #: ``Runtime.order_ring``
+    BASE_OPTIONS = {"transport": "ici"}
+    BASE_ALLOWED = {"transport": ["ici", "dcn"]}
+
+    def wire_bytes(self) -> float:
+        """Per-rank bytes of the two all-to-alls: dispatch moves ``(d-1)/d``
+        of the ``[m/d, k]`` token shard, combine the same share of the
+        ``[m/d, n]`` outputs (``compute_only`` overrides it to 0)."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        per_rank = (self.m // d) * (self.k + self.n)
+        return float(per_rank * wire_itemsize(self.dtype)) * (d - 1) / d
 
     def _check_shapes(self) -> None:
         d = self.num_partitions

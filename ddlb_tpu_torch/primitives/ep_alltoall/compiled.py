@@ -12,7 +12,11 @@ no DTensor all-to-all, so on the CPU it is an all-gather and a chunk.
 
 The expert GEMM runs in the operand dtype: a half-precision GEMM sums in
 float32 and rounds once, as JAX's ``preferred_element_type=float32``
-followed by the cast to the operand dtype does.
+followed by the cast to the operand dtype does. The mesh is in rank
+order, so under a reordered ring (``Runtime.order_ring``) each rank's
+token groups are taken in rank order at set-up (group ``i`` is the one
+bound for rank ``i``'s expert) and its outputs come back in rank order,
+permuted into position order.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from ddlb_tpu_torch.runtime import placements
 class CompiledEPAllToAll(CompiledOptionsMixin, EPAllToAll):
     def _input_setup(self) -> None:
         super()._input_setup()
+        rt = self.runtime
+        self.a = rt.blocks_by_rank(self.a)
         d, g = self.num_partitions, self.group_tokens
         m, n, k = self.m, self.n, self.k
         mesh = self.runtime.device_mesh(("tp",), (d,))
@@ -48,4 +54,4 @@ class CompiledEPAllToAll(CompiledOptionsMixin, EPAllToAll):
         compiled = self._compile(step, mesh)
         # [1, m/d, n] -> this rank's [m/d, n] rows (the global [d, m/d, n]
         # -> [m, n] merge of a sharded axis, which DTensor refuses at d = 1)
-        self._fn = lambda a, w: local(compiled(a, w))[0]
+        self._fn = lambda a, w: rt.blocks_by_position(local(compiled(a, w))[0])

@@ -23,11 +23,22 @@ from ddlb_tpu_torch.ops.quantized_matmul import (
     quantize_rowwise,
     quantize_weight_stack,
 )
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.ep_alltoall.base import EPAllToAll
 from ddlb_tpu_torch.primitives.quantized_mixin import QuantizedGEMMMixin
 
 
 class QuantizedEPAllToAll(QuantizedGEMMMixin, EPAllToAll):
+    def wire_bytes(self) -> float:
+        """The dispatch moves int8 tokens and a float32 scale a token, the
+        combine operand-dtype outputs; each keeps its diagonal block local
+        (the JAX member's census)."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        per_rank = (self.m // d) * (self.k * 1 + 4 + self.n * wire_itemsize(self.dtype))
+        return per_rank * (d - 1) / d
+
     def _check_shapes(self) -> None:
         super()._check_shapes()
         self._check_quantized_options()

@@ -12,7 +12,8 @@ a float64 row), each stage's product rounded to the row's dtype as the
 members round it, at the reference rule scaled by the depth:
 ``validation_atol(dtype, k) * S``. The oracle runs on the rank's device
 (TF32 off) and is kept per process, one chain at a time. ``transport``
-(ici/dcn) is kept in the schema, as in the JAX package, with no effect.
+(ici/dcn) lays the ring out (``Runtime.order_ring``): stage ``p`` lives on
+the rank at ring position ``p``, and the hops walk the positions.
 """
 
 from __future__ import annotations

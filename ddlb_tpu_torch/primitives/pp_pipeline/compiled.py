@@ -10,8 +10,10 @@ each pick all-gathers the whole stack (``aten.select`` has no sharded
 rule along the sharded dimension), so the eager program issues d
 all-gathers of ``[S, k, n]`` where GSPMD broadcasts each stage once
 (``CommDebugMode``, ``tests/test_torch_pipeline_multirank.py``); either
-is the "weight-gathered pipeline" this member measures. The options are
-the compiler knobs of ``compile_options``.
+is the "weight-gathered pipeline" this member measures. The mesh is in
+rank order, so under a reordered ring (``Runtime.order_ring``) the chain
+walks the stack in position order (stage ``p`` is rank ``order[p]``'s
+block). The options are the compiler knobs of ``compile_options``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class CompiledPPPipeline(CompiledOptionsMixin, PPPipeline):
         self.a = DTensor.from_local(self.a, mesh, placements(mesh, {}), run_check=False)
         self.w = DTensor.from_local(self.w[None], mesh, placements(mesh, {"tp": 0}),
                                     run_check=False)
+        stages = list(self.runtime.order)
         compiled = self._compile(
-            lambda a, w: chain(a, w).redistribute(mesh, [Replicate()]), mesh)
+            lambda a, w: chain(a, w, stages).redistribute(mesh, [Replicate()]), mesh)
         self._fn = lambda a, w: local(compiled(a, w))

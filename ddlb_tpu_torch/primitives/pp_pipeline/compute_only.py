@@ -19,10 +19,11 @@ from ddlb_tpu_torch.primitives.base import torch_matmul
 from ddlb_tpu_torch.primitives.pp_pipeline.base import PPPipeline
 
 
-def chain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``a @ w[0] @ w[1] @ ...``, each product in ``a``'s dtype."""
+def chain(a: torch.Tensor, w: torch.Tensor, stages=None) -> torch.Tensor:
+    """``a @ w[s0] @ w[s1] @ ...`` over the stack indices ``stages`` (all
+    of them in order by default), each product in ``a``'s dtype."""
     y = a
-    for j in range(w.shape[0]):
+    for j in range(w.shape[0]) if stages is None else stages:
         y = torch_matmul(y, w[j])
     return y
 

@@ -5,10 +5,13 @@ upstream project (samnordmann/ddlb): ``pytorch`` is the
 explicit-collective member (the JAX package's ``jax_spmd``), ``cuda`` the
 hand-kernel member (the JAX package's ``pallas``), ``compiled`` the
 compiler-partitioned member (the JAX package's ``xla_gspmd``: DTensor
-placements under ``torch.compile``). ``overlap``,
+placements under ``torch.compile``), and ``pytorch_hier`` /
+``pytorch_striped`` the topology compositions (its ``jax_spmd_hier`` /
+``jax_spmd_striped``). ``overlap``,
 ``quantized`` and the context-parallel attention members keep their JAX
-names. A family or member of the JAX package that has no
-counterpart here yet raises ``ValueError`` saying so.
+names. A JAX package name of a member raises ``ValueError`` naming the
+port's counterpart; an unknown family or member raises ``ValueError``
+listing what there is.
 """
 
 from __future__ import annotations
@@ -84,6 +87,8 @@ _REGISTRY = {
             ("cuda", "cuda_impl", "CudaDPAllReduce"),
             ("overlap", "overlap", "OverlapDPAllReduce"),
             ("compiled", "compiled", "CompiledDPAllReduce"),
+            ("pytorch_hier", "pytorch_hier", "PyTorchHierDPAllReduce"),
+            ("pytorch_striped", "pytorch_striped", "PyTorchStripedDPAllReduce"),
         )
     },
     "ep_alltoall": {
@@ -95,6 +100,8 @@ _REGISTRY = {
             ("cuda", "cuda_impl", "CudaEPAllToAll"),
             ("overlap", "overlap", "OverlapEPAllToAll"),
             ("compiled", "compiled", "CompiledEPAllToAll"),
+            ("pytorch_hier", "pytorch_hier", "PyTorchHierEPAllToAll"),
+            ("pytorch_striped", "pytorch_striped", "PyTorchStripedEPAllToAll"),
         )
     },
     "collectives": {
@@ -104,6 +111,8 @@ _REGISTRY = {
             ("pytorch", "pytorch", "PyTorchCollectives"),
             ("cuda", "cuda_impl", "CudaCollectives"),
             ("compiled", "compiled", "CompiledCollectives"),
+            ("pytorch_hier", "pytorch_hier", "PyTorchHierCollectives"),
+            ("pytorch_striped", "pytorch_striped", "PyTorchStripedCollectives"),
         )
     },
     "cp_ring_attention": {
@@ -165,13 +174,11 @@ _REGISTRY = {
     },
 }
 
-#: families of the JAX package that the port does not carry yet
-_NOT_PORTED_FAMILIES = ()
-#: members of the ported families that the port does not carry yet: the
-#: topology compositions
-_NOT_PORTED_MEMBERS = ("jax_spmd_hier", "jax_spmd_striped")
 #: JAX package member name -> this package's name for the same member
-_RENAMED = {"jax_spmd": "pytorch", "pallas": "cuda", "xla_gspmd": "compiled"}
+_RENAMED = {
+    "jax_spmd": "pytorch", "pallas": "cuda", "xla_gspmd": "compiled",
+    "jax_spmd_hier": "pytorch_hier", "jax_spmd_striped": "pytorch_striped",
+}
 #: unit of the runner's Throughput column, by family: the collectives
 #: family's ``flops()`` is 1000 * wire bytes, so its column is GB/s
 _THROUGHPUT_UNITS = {"collectives": "GB/s"}
@@ -187,8 +194,10 @@ def throughput_unit(primitive: str) -> str:
 
 def port_member_name(name: str) -> str:
     """The port's name for a member named in a JAX package config
-    (``jax_spmd`` -> ``pytorch``, ``pallas`` -> ``cuda``, ``xla_gspmd`` ->
-    ``compiled``); other names as they are."""
+    (``registry._RENAMED``: ``jax_spmd`` -> ``pytorch``, ``pallas`` ->
+    ``cuda``, ``xla_gspmd`` -> ``compiled``, ``jax_spmd_hier`` ->
+    ``pytorch_hier``, ``jax_spmd_striped`` -> ``pytorch_striped``); other
+    names as they are."""
     return _RENAMED.get(name, name)
 
 
@@ -202,11 +211,6 @@ def load_impl_class(primitive: str, name: str) -> Type:
     check_primitive(primitive)
     table = _REGISTRY[primitive]
     if name not in table:
-        if name in _NOT_PORTED_MEMBERS:
-            raise ValueError(
-                f"Implementation '{name}' of {primitive} is not yet ported "
-                f"to ddlb_tpu_torch. Available: {sorted(table)}"
-            )
         if name in _RENAMED:
             raise ValueError(
                 f"'{name}' is the JAX package's name; the port's "
@@ -221,11 +225,6 @@ def load_impl_class(primitive: str, name: str) -> Type:
 
 
 def check_primitive(primitive: str) -> None:
-    if primitive in _NOT_PORTED_FAMILIES:
-        raise ValueError(
-            f"Primitive '{primitive}' is not yet ported to ddlb_tpu_torch. "
-            f"Ported: {ALLOWED_PRIMITIVES}"
-        )
     if primitive not in ALLOWED_PRIMITIVES:
         raise ValueError(
             f"Unknown primitive '{primitive}'. Allowed: {ALLOWED_PRIMITIVES}"

@@ -1,6 +1,6 @@
 """TPColumnwise: all-gather + GEMM tensor-parallel primitive.
 
-Rank r of d holds the row block ``A[r*m/d:(r+1)*m/d, :]`` (``[m/d, k]``) and
+The rank at ring position r of d holds the row block ``A[r*m/d:(r+1)*m/d, :]`` (``[m/d, k]``) and
 all of ``B`` (``[k, n]``); every rank ends with the full ``[m, n]``
 product. Requires ``m % d == 0``. The counterpart of the JAX package's
 ``tp_columnwise/base.py``, where the same split is a ``PartitionSpec``.
@@ -17,6 +17,11 @@ class TPColumnwise(Primitive):
     """ABC for AG+GEMM implementations."""
 
     primitive_name = "tp_columnwise"
+
+    #: the ici/dcn transport axis (the JAX base's): the ring's layout,
+    #: ``Runtime.order_ring``
+    BASE_OPTIONS = {"transport": "ici"}
+    BASE_ALLOWED = {"transport": ["ici", "dcn"]}
 
     def _check_shapes(self) -> None:
         d = self.num_partitions

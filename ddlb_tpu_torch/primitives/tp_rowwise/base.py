@@ -1,6 +1,6 @@
 """TPRowwise: GEMM + reduce-scatter (sequence-parallel) primitive.
 
-Rank r of d holds the column block ``A[:, r*k/d:(r+1)*k/d]`` (``[m, k/d]``)
+The rank at ring position r of d holds the column block ``A[:, r*k/d:(r+1)*k/d]`` (``[m, k/d]``)
 and the row block ``B[r*k/d:(r+1)*k/d, :]`` (``[k/d, n]``). Each rank
 computes a partial ``[m, n]`` product; a reduce-scatter sums the partials
 and leaves rank r with row block r of the sum (``[m/d, n]``). Requires
@@ -19,6 +19,11 @@ class TPRowwise(Primitive):
     """ABC for GEMM+RS implementations."""
 
     primitive_name = "tp_rowwise"
+
+    #: the ici/dcn transport axis (the JAX base's): the ring's layout,
+    #: ``Runtime.order_ring``
+    BASE_OPTIONS = {"transport": "ici"}
+    BASE_ALLOWED = {"transport": ["ici", "dcn"]}
 
     def _check_shapes(self) -> None:
         d = self.num_partitions

@@ -14,6 +14,26 @@ all-reduce, the broadcast, the ring hop (``batch_isend_irecv``, by one
 rank or by ``offset``; ``ring_exchange`` both ways at once), and the row
 and head/sequence all-to-alls (``all_to_all_single``).
 ``Runtime.chip_spec`` is the device's hardware spec (``perfmodel/specs``).
+
+The world's topology: ``Runtime.slice_ids`` gives each rank its node
+(the JAX package's slice), from ``DDLB_TPU_SIM_SLICES`` (that many equal
+contiguous blocks of ranks, the JAX package's simulation knob) or else
+torchrun's ``LOCAL_WORLD_SIZE`` (``node_assignment``). ``order_ring``
+lays the ring out for a ``transport`` (``transport_order``: ``ici``
+keeps each node's ranks together, ``dcn`` interleaves the nodes, so every
+hop crosses a node). The ring position ``Runtime.position`` of a rank is
+its index in ``Runtime.order``; row block ``p`` of a global array lies
+on the rank at position ``p``, and every collective below speaks in
+positions: a gather returns blocks in position order, a scatter leaves a
+rank the block of its position, a ring hop goes to the next position,
+and ``peer_buffer``'s table is ordered by position. NCCL and gloo work
+in rank order and choose their own route, so around them the blocks are
+permuted by position; under the identity order (``ici``, or one node)
+there is nothing to permute. ``Runtime.axis_groups`` is the world as a
+grid of named axes in node order (``two_level``: ``(dcn, ici)``, node
+and card in node; ``torus``: ``(dcn, sx, sy)``, each node split by
+``perfmodel.cost.torus_factors``), with one process group along each
+axis, for the topology compositions.
 ``Runtime.peer_buffer`` allocates card memory that every rank can
 address (``PeerBuffer``, symmetric memory over NVLink), for the
 hand-written ring and all-to-all kernels.
@@ -30,13 +50,18 @@ with every mesh built on it (not the one-rank group of world 1).
 from __future__ import annotations
 
 import itertools
+import logging
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+log = logging.getLogger(__name__)
+
 DEVICES = ("cuda", "cpu")
+#: the transports a ring can be laid out for (``transport_order``)
+TRANSPORTS = ("ici", "dcn")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -47,6 +72,47 @@ def _env_int(name: str, default: int) -> int:
 def env_rank() -> int:
     """This process's rank as the launcher set it (0 without one)."""
     return _env_int("RANK", 0)
+
+
+def node_assignment(world: int, local_world_size: int,
+                    sim_slices: int = 0) -> tuple:
+    """Each rank's node (the JAX package's slice): with ``sim_slices`` > 1
+    (``DDLB_TPU_SIM_SLICES``) that many equal contiguous blocks of ranks,
+    which must divide the world; else torchrun's nodes of
+    ``local_world_size`` ranks each."""
+    if sim_slices > 1:
+        if world % sim_slices:
+            raise ValueError(
+                f"DDLB_TPU_SIM_SLICES={sim_slices} does not divide {world} ranks"
+            )
+        per = world // sim_slices
+    else:
+        per = max(1, local_world_size)
+    return tuple(r // per for r in range(world))
+
+
+def transport_order(world: int, slice_ids, transport: str) -> tuple:
+    """The ring laid out for ``transport`` (the device order of the JAX
+    package's ``Runtime.transport_mesh``): position -> rank. ``ici``
+    groups the ranks by node, so hops stay in a node but at node
+    boundaries (the identity order when nodes are contiguous); ``dcn``
+    takes the nodes round-robin, so every hop crosses a node. On one node
+    both are the same layout, and ``dcn`` says so."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport must be 'ici' or 'dcn', got {transport!r}")
+    slice_ids = tuple(slice_ids)
+    nodes = sorted(set(slice_ids))
+    if transport == "dcn" and len(nodes) <= 1:
+        log.warning(
+            "transport='dcn' requested but the world shows a single node: "
+            "the dcn and ici ring layouts are identical here"
+        )
+    order = sorted(range(world), key=lambda r: (slice_ids[r], r))
+    if transport == "dcn" and len(nodes) > 1:
+        by_node = [[r for r in order if slice_ids[r] == s] for s in nodes]
+        order = [grp[j] for j in range(max(len(g) for g in by_node))
+                 for grp in by_node if j < len(grp)]
+    return tuple(order)
 
 
 def _collective(new_name: str, old_name: str):
@@ -73,6 +139,16 @@ class Runtime:
             raise ValueError(
                 f"RANK={self.rank} outside WORLD_SIZE={self.world_size}"
             )
+        #: each rank's node (``node_assignment``) and the number of nodes
+        self.slice_ids = node_assignment(
+            self.world_size, self.local_world_size,
+            _env_int("DDLB_TPU_SIM_SLICES", 0),
+        )
+        self.num_slices = len(set(self.slice_ids))
+        #: ring position -> rank, and this rank's position (``order_ring``)
+        self.order = tuple(range(self.world_size))
+        self.position = self.rank
+        self._perm = None
         if device == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -93,6 +169,44 @@ class Runtime:
                 rank=self.rank,
                 world_size=self.world_size,
             )
+
+    def order_ring(self, transport: str) -> None:
+        """Lay the ring out for ``transport`` (``transport_order``): sets
+        ``order`` and ``position``, which every collective of this runtime
+        then follows. Call it before any operand is placed."""
+        self.order = transport_order(self.world_size, self.slice_ids, transport)
+        self.position = self.order.index(self.rank)
+        self._perm = None
+        if self.order != tuple(range(self.world_size)):
+            order = torch.tensor(self.order, device=self.device)
+            #: (position -> rank, rank -> position) as index tensors on the device
+            self._perm = (order, torch.argsort(order))
+
+    def blocks_by_rank(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s d row blocks, held in position order, in rank order:
+        block ``i`` of the result is the block of rank ``i``'s position
+        (what a rank-ordered scatter or all-to-all must be handed)."""
+        if self._perm is None:
+            return x
+        return x.unflatten(0, (self.world_size, -1))[self._perm[1]].flatten(0, 1)
+
+    def blocks_by_position(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``blocks_by_rank``: ``x``'s d row blocks, from
+        ranks in rank order (what a gather returns), in position order."""
+        if self._perm is None:
+            return x
+        return x.unflatten(0, (self.world_size, -1))[self._perm[0]].flatten(0, 1)
+
+    def _then_by_position(self, raw: torch.Tensor, works, async_op: bool):
+        """A rank-ordered collective's result ``raw`` in position order,
+        once ``works`` are done: with ``async_op`` ``(out, handles)``, the
+        permutation made by the handles' ``wait()``."""
+        if self._perm is None:
+            return (raw, works) if async_op else raw
+        if not async_op:
+            return self.blocks_by_position(raw)
+        out = torch.empty_like(raw)
+        return out, [_Then(works, lambda: out.copy_(self.blocks_by_position(raw)))]
 
     # the row's num_processes column (one device per process here)
     @property
@@ -123,9 +237,9 @@ class Runtime:
         self.synchronize()
 
     def all_gather_rows(self, x: torch.Tensor, async_op: bool = False):
-        """Concatenate every rank's ``x`` along dim 0, in rank order. With
-        ``async_op`` returns ``(out, handles)``: ``out`` is valid once every
-        handle's ``wait()`` has returned (as ``ring_shift``)."""
+        """Concatenate every rank's ``x`` along dim 0, in position order.
+        With ``async_op`` returns ``(out, handles)``: ``out`` is valid once
+        every handle's ``wait()`` has returned (as ``ring_shift``)."""
         if self.world_size == 1:
             return (x, []) if async_op else x
         out = torch.empty(
@@ -136,11 +250,12 @@ class Runtime:
         work = _collective("all_gather_single", "all_gather_into_tensor")(
             out, x.contiguous(), async_op=async_op
         )
-        return (out, [work]) if async_op else out
+        return self._then_by_position(out, [work], async_op)
 
     def reduce_scatter_rows(self, x: torch.Tensor, async_op: bool = False):
-        """Sum ``x`` over ranks; rank r keeps row block r of the sum. With
-        ``async_op`` returns ``(out, handles)``, as ``all_gather_rows``."""
+        """Sum ``x`` over ranks; the rank at position p keeps row block p of
+        the sum. With ``async_op`` returns ``(out, handles)``, as
+        ``all_gather_rows``."""
         if self.world_size == 1:
             return (x, []) if async_op else x
         if x.shape[0] % self.world_size:
@@ -153,7 +268,7 @@ class Runtime:
             device=x.device,
         )
         work = _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-            out, x.contiguous(), async_op=async_op
+            out, self.blocks_by_rank(x).contiguous(), async_op=async_op
         )
         return (out, [work]) if async_op else out
 
@@ -168,15 +283,16 @@ class Runtime:
         return (x, [work]) if async_op else x
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
-        """Rank ``src``'s ``x`` on every rank, in place (``x`` must be
-        contiguous and of the same shape everywhere); returns it."""
+        """The ``x`` of the rank at ring position ``src`` on every rank, in
+        place (``x`` must be contiguous and of the same shape everywhere);
+        returns it."""
         if self.world_size > 1:
-            dist.broadcast(x, src)
+            dist.broadcast(x, self.order[src])
         return x
 
     def all_to_all_rows(self, x: torch.Tensor, async_op: bool = False):
         """Row block j of ``x`` (``d`` equal blocks along dim 0) goes to
-        rank j; block i of the result came from rank i (the tiled
+        position j; block i of the result came from position i (the tiled
         ``all_to_all`` with split and concat axis 0). With ``async_op``
         returns ``(out, handles)``, as ``all_gather_rows``."""
         d = self.world_size
@@ -185,15 +301,17 @@ class Runtime:
         if x.shape[0] % d:
             raise ValueError(f"{x.shape[0]} rows do not split over {d} ranks")
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
-        work = dist.all_to_all_single(out, x.contiguous(), async_op=async_op)
-        return (out, [work]) if async_op else out
+        work = dist.all_to_all_single(out, self.blocks_by_rank(x).contiguous(),
+                                      async_op=async_op)
+        return self._then_by_position(out, [work], async_op)
 
     def ring_shift(self, *tensors: torch.Tensor, reverse: bool = False,
                    tag: int = 0, offset: int = 1):
-        """Post one ring hop of each tensor: send to rank ``(r+offset) % d``,
-        receive the same shape from rank ``(r-offset) % d`` (the other way
-        round with ``reverse``); ``offset`` 1 is the neighbour hop, ``t`` the
-        shift-by-``t`` exchange of an all-to-all.
+        """Post one ring hop of each tensor: send to ring position
+        ``(p+offset) % d``, receive the same shape from position
+        ``(p-offset) % d`` (the other way round with ``reverse``); ``offset``
+        1 is the neighbour hop, ``t`` the shift-by-``t`` exchange of an
+        all-to-all.
 
         Returns ``(received, handles)``; the received tensors are valid
         once every handle's ``wait()`` has returned, so the caller can
@@ -210,21 +328,26 @@ class Runtime:
             return tensors, []
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("ring_shift sends contiguous tensors only")
-        nxt, prv = (self.rank + offset) % d, (self.rank - offset) % d
+        nxt, prv = self._neighbours(offset)
         if reverse:
             nxt, prv = prv, nxt
         return _post_hops([(t, nxt, prv) for t in tensors], tag=tag)
 
+    def _neighbours(self, offset: int = 1):
+        """The ranks ``offset`` positions ahead of and behind this one."""
+        d, p = self.world_size, self.position
+        return self.order[(p + offset) % d], self.order[(p - offset) % d]
+
     def ring_exchange(self, right=None, left=None):
         """One ring hop each way, posted together in one
         ``batch_isend_irecv`` and waited for: ``right`` goes to the next
-        rank, ``left`` to the previous one (either may be None: not sent).
+        position, ``left`` to the previous one (either may be None: not sent).
         Returns ``(from_previous, from_next)``, None where nothing was sent;
         at world 1 each tensor comes back to this rank."""
         d = self.world_size
         if d == 1:
             return right, left
-        return _exchange(right, left, (self.rank + 1) % d, (self.rank - 1) % d, None)
+        return _exchange(right, left, *self._neighbours(), None)
 
     def peer_buffer(self, nbytes: int) -> "PeerBuffer":
         """``nbytes`` of zeroed card memory that every rank can address
@@ -234,19 +357,20 @@ class Runtime:
 
     def all_to_all_heads_seq(self, x: torch.Tensor) -> torch.Tensor:
         """``[m/d, h, dh]`` sequence-sharded -> ``[m, h/d, dh]``
-        head-sharded: head group j goes to rank j, and the sequence blocks
-        arrive in rank order (the tiled ``all_to_all`` with split axis 1,
-        concat axis 0)."""
+        head-sharded: head group j goes to position j, and the sequence
+        blocks arrive in position order (the tiled ``all_to_all`` with split
+        axis 1, concat axis 0)."""
         d = self.world_size
         if d == 1:
             return x
         s, h, dh = x.shape
         if h % d:
             raise ValueError(f"{h} heads do not split over {d} ranks")
-        send = x.reshape(s, d, h // d, dh).transpose(0, 1).contiguous()
+        send = x.reshape(s, d, h // d, dh).transpose(0, 1)
+        send = self.blocks_by_rank(send).contiguous()
         out = torch.empty_like(send)  # [d, s, h/d, dh], block i from rank i
         dist.all_to_all_single(out, send)
-        return out.reshape(d * s, h // d, dh)
+        return self.blocks_by_position(out).reshape(d * s, h // d, dh)
 
     def all_to_all_seq_heads(self, x: torch.Tensor) -> torch.Tensor:
         """The inverse of ``all_to_all_heads_seq``: ``[m, h/d, dh]`` ->
@@ -258,8 +382,31 @@ class Runtime:
         if m % d:
             raise ValueError(f"{m} rows do not split over {d} ranks")
         out = torch.empty((d, m // d, hd, dh), dtype=x.dtype, device=x.device)
-        dist.all_to_all_single(out, x.contiguous())
+        dist.all_to_all_single(out, self.blocks_by_rank(x).contiguous())
+        out = self.blocks_by_position(out)
         return out.transpose(0, 1).reshape(m // d, d * hd, dh)
+
+    def axis_groups(self, view: str) -> "AxisGroups":
+        """The world as a grid of named axes in node order: ``two_level``,
+        ``(dcn, ici)`` of shape ``(nodes, cards a node)`` (the JAX
+        package's ``hybrid_mesh``), or ``torus``, ``(dcn, sx, sy)`` with
+        ``(sx, sy) = torus_factors(cards a node)`` (its ``torus_mesh``; the
+        same rank order). Collective the first time a view is asked for."""
+        from ddlb_tpu_torch.perfmodel.cost import torus_factors
+
+        per = self.world_size // self.num_slices
+        if per * self.num_slices != self.world_size or any(
+                s != r // per for r, s in enumerate(self.slice_ids)):
+            raise ValueError(
+                f"the world of {self.world_size} ranks is not {self.num_slices} "
+                f"equal contiguous nodes (slice ids {self.slice_ids})"
+            )
+        if view == "two_level":
+            return AxisGroups(self, ("dcn", "ici"), (self.num_slices, per))
+        if view == "torus":
+            return AxisGroups(self, ("dcn", "sx", "sy"),
+                              (self.num_slices, *torus_factors(per)))
+        raise ValueError(f"view must be 'two_level' or 'torus', got {view!r}")
 
     def mesh(self, dp: int, tp: int, pp: int = 1) -> "Mesh":
         """This rank's place in a ``(dp, tp, pp)`` mesh (see ``Mesh``)."""
@@ -369,6 +516,7 @@ def shutdown() -> None:
         return
     _DEVICE_MESHES.clear()
     _GROUPS.clear()
+    _SUBGROUPS.clear()
     dist.destroy_process_group()
 
 
@@ -379,7 +527,10 @@ class PeerBuffer:
     and signal it through flag words there.
 
     ``local`` is this rank's ``[nbytes]`` uint8 tensor, zeroed; ``ptrs[i]``
-    is rank ``i``'s buffer as this process addresses it. At world 1 it is an
+    is the buffer of the rank at ring position ``i`` (``Runtime.order``) as
+    this process addresses it, and ``rank`` this rank's position, so a
+    kernel that walks the table in index order walks the ring laid out for
+    the transport. At world 1 it is an
     ordinary allocation and ``ptrs`` holds its own address. Across ranks it
     is symmetric memory (``torch.distributed._symmetric_memory``: ``empty``
     then the collective ``rendezvous`` over the world group), zeroed and
@@ -393,7 +544,7 @@ class PeerBuffer:
     def __init__(self, runtime: "Runtime", nbytes: int) -> None:
         if runtime.platform != "cuda":
             raise ValueError("peer memory exists on the card only")
-        self.rank, self.world = runtime.rank, runtime.world_size
+        self.rank, self.world = runtime.position, runtime.world_size
         if self.world == 1:
             self.local = torch.zeros(nbytes, dtype=torch.uint8, device=runtime.device)
             self.ptrs = (self.local.data_ptr(),)
@@ -405,7 +556,8 @@ class PeerBuffer:
         torch.cuda.synchronize(runtime.device)
         self._handle = symm.rendezvous(self.local, dist.group.WORLD)
         offset = int(getattr(self._handle, "offset", 0))
-        self.ptrs = tuple(int(p) + offset for p in self._handle.buffer_ptrs)
+        by_rank = [int(p) + offset for p in self._handle.buffer_ptrs]
+        self.ptrs = tuple(by_rank[r] for r in runtime.order)
         if self.ptrs[self.rank] != self.local.data_ptr():
             raise RuntimeError(
                 "symmetric memory: this rank's peer pointer "
@@ -616,6 +768,114 @@ class Mesh:
         """One hop of the tp ring (the ``ppermute`` to the next tp rank);
         its gradient is the hop back."""
         return _RingShift.apply(self, *tensors)
+
+
+#: process groups by their ranks, created once per process
+#: (``_subgroup``): ``(world, ranks) -> group``
+_SUBGROUPS: dict = {}
+
+
+def _subgroup(ranks) -> object:
+    """The process group of ``ranks`` (sorted), created the first time;
+    collective: every rank asks for the same groups in the same order. The
+    whole world is the default group (None)."""
+    ranks = tuple(ranks)
+    world = dist.get_world_size()
+    if len(ranks) == world:
+        return None
+    key = (world, ranks)
+    if key not in _SUBGROUPS:
+        _SUBGROUPS[key] = dist.new_group(ranks=list(ranks))
+    return _SUBGROUPS[key]
+
+
+class AxisGroups:
+    """The ranks as a row-major grid of named axes (``Runtime.axis_groups``;
+    the last axis fastest, as ``jax.sharding.Mesh`` lays out an array of
+    devices), with this rank's coordinate on each axis and one process group
+    along each axis between 1 and the world in size. The collectives run
+    over this rank's group along one axis; on an axis of size 1 they are
+    the identity. Every rank creates every group, once per process.
+    """
+
+    def __init__(self, runtime: Runtime, names, shape) -> None:
+        self.names, self.shape = tuple(names), tuple(int(s) for s in shape)
+        if int(np.prod(self.shape)) != runtime.world_size:
+            raise ValueError(f"axes {dict(zip(self.names, self.shape))} do not "
+                             f"cover the world of {runtime.world_size} ranks")
+        grid = np.arange(runtime.world_size).reshape(self.shape)
+        at = np.unravel_index(runtime.rank, self.shape)
+        self.coords = dict(zip(self.names, (int(c) for c in at)))
+        self.groups = {}
+        for i, name in enumerate(self.names):
+            if self.shape[i] == 1:
+                continue
+            lines = np.moveaxis(grid, i, -1)
+            for line in lines.reshape(-1, self.shape[i]):
+                _subgroup(line.tolist())  # every rank creates every group
+            mine = lines[tuple(c for j, c in enumerate(at) if j != i)]
+            self.groups[name] = _subgroup(mine.tolist())
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.names.index(axis)]
+
+    def all_gather_rows(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The tiled ``all_gather`` over ``axis`` along dim 0, in coordinate
+        order."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+        _collective("all_gather_single", "all_gather_into_tensor")(
+            out, x.contiguous(), group=self.groups[axis])
+        return out
+
+    def reduce_scatter_rows(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The tiled ``psum_scatter`` over ``axis`` along dim 0: coordinate
+        j keeps row block j of the sum."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {axis}={n}")
+        out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, x.contiguous(), group=self.groups[axis])
+        return out
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ``psum`` over ``axis``, in place where ``x`` is contiguous:
+        pass a tensor the caller owns."""
+        if self.size(axis) > 1:
+            x = x.contiguous()
+            dist.all_reduce(x, group=self.groups[axis])
+        return x
+
+    def all_to_all_rows(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The tiled ``all_to_all`` over ``axis`` with split and concat
+        axis 0: row block j goes to coordinate j, block i of the result
+        came from coordinate i."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {axis}={n}")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous(), group=self.groups[axis])
+        return out
+
+
+class _Then:
+    """A handle whose ``wait()`` waits for ``works``, then runs ``after``."""
+
+    def __init__(self, works, after) -> None:
+        self.works, self.after = works, after
+
+    def wait(self) -> bool:
+        for work in self.works:
+            work.wait()
+        self.after()
+        return True
 
 
 def _post_hops(hops, group=None, tag: int = 0):

@@ -109,11 +109,13 @@ def test_rows_carry_the_family_unit(tmp_path):
     rows = port_cli.run_benchmark({
         "primitive": "collectives", "m": M, "n": N, "k": K, "device": "cpu",
         "num_iterations": 2, "num_warmups": 1, "output_csv": str(tmp_path / "c.csv"),
-        # jax_spmd_hier is not ported: its error row carries the unit too
-        "implementations": {"pytorch": [{"op": "all_gather"}], "jax_spmd_hier": [{}]},
+        # the composed member refuses a ppermute: its error row carries the
+        # unit too
+        "implementations": {"pytorch": [{"op": "all_gather"}],
+                            "jax_spmd_hier": [{"op": "ppermute"}]},
     })
     assert [r["unit"] for r in rows] == ["GB/s", "GB/s"]
-    assert rows[0]["valid"] and "not yet ported" in rows[1]["error"]
+    assert rows[0]["valid"] and "is a single hop" in rows[1]["error"]
     tp = port_cli.run_benchmark({
         "primitive": "tp_rowwise", "m": M, "n": N, "k": K, "device": "cpu",
         "num_iterations": 1, "num_warmups": 0, "output_csv": str(tmp_path / "t.csv"),
@@ -187,18 +189,21 @@ def test_hierarchical_on_one_node_logs_that_it_is_rs_ag(caplog):
 
 @pytest.mark.parametrize("member", ["xla_gspmd", "jax_spmd_hier", "jax_spmd_striped"])
 def test_members_not_yet_ported(member):
-    """The topology compositions raise "not yet ported"; the GSPMD member
-    is ported as ``compiled``."""
+    """No member is left unported: each JAX name points at the port's
+    counterpart (``compiled``, ``pytorch_hier``, ``pytorch_striped``), which
+    loads."""
     load_jax("collectives", member)  # the JAX package has it
-    match = "counterpart is 'compiled'" if member == "xla_gspmd" else "not yet ported"
-    with pytest.raises(ValueError, match=match):
+    ours = registry.port_member_name(member)
+    assert ours != member
+    with pytest.raises(ValueError, match=f"counterpart is '{ours}'"):
         load_port("collectives", member)
+    assert load_port("collectives", ours).primitive_name == "collectives"
 
 
 def test_registry_resolves_the_family():
-    assert registry.implementation_names("collectives") == (
-        "compute_only", "pytorch", "cuda", "compiled")
-    for name in ("compute_only", "pytorch", "cuda", "compiled"):
+    names = ("compute_only", "pytorch", "cuda", "compiled", "pytorch_hier", "pytorch_striped")
+    assert registry.implementation_names("collectives") == names
+    for name in names:
         assert load_port("collectives", name).primitive_name == "collectives"
     with pytest.raises(ValueError, match="counterpart is 'cuda'"):
         load_port("collectives", "pallas")
@@ -206,10 +211,11 @@ def test_registry_resolves_the_family():
 
 def test_sweep_config_runs_on_the_cpu(tmp_path):
     """``scripts/config_collectives.json`` as it is, through the port's CLI
-    (its ``jax_spmd``, ``pallas`` and ``xla_gspmd`` entries run as
-    ``pytorch``, ``cuda`` and ``compiled``) at a small shape: every row
-    valid and in GB/s but the ``jax_spmd_hier`` and ``jax_spmd_striped``
-    rows, which stay 'not yet ported' error rows."""
+    (its ``jax_spmd``, ``pallas``, ``xla_gspmd``, ``jax_spmd_hier`` and
+    ``jax_spmd_striped`` entries run as ``pytorch``, ``cuda``, ``compiled``,
+    ``pytorch_hier`` and ``pytorch_striped``) at a small shape: every row
+    valid and in GB/s, the composed rows with their ``composition``
+    (``auto`` resolves ``flat`` on one node)."""
     cfg = json.loads((REPO / "scripts" / "config_collectives.json").read_text())["benchmark"]
     cfg.update(m=[32], n=[8], k=[64], num_iterations=2, num_warmups=1, device="cpu",
                output_csv=str(tmp_path / "rows.csv"))
@@ -218,13 +224,13 @@ def test_sweep_config_runs_on_the_cpu(tmp_path):
     rows = port_cli.run_benchmark(port_cli.load_config(str(path)))
     # 2 compute_only, 5 + 1 + 1 jax_spmd, 4 + 1 hier, 1 striped, 5 xla_gspmd, 3 pallas
     assert len(rows) == 23
-    unported = ("jax_spmd_hier", "jax_spmd_striped")
     for row in rows:
         assert row["unit"] == "GB/s"
-        if row["base_implementation"] in unported:
-            assert "not yet ported" in row["error"] and not row["valid"]
-        else:
-            assert row["valid"] and not row["error"], row
+        assert row["valid"] and not row["error"], row
+    composed = [(r["base_implementation"], r["composition"]) for r in rows
+                if r["base_implementation"] in ("pytorch_hier", "pytorch_striped")]
+    assert composed == [("pytorch_hier", "hierarchical")] * 4 + [
+        ("pytorch_hier", "flat"), ("pytorch_striped", "striped")]
     assert sum(r["base_implementation"] == "cuda" for r in rows) == 3
     assert sum(r["base_implementation"] == "pytorch" for r in rows) == 7
     assert sum(r["base_implementation"] == "compiled" for r in rows) == 5

@@ -422,14 +422,9 @@ def test_option_schema_is_the_jax_packages():
 
     assert GSPMD_DEFAULT_OPTIONS == JAX_DEFAULTS and GSPMD_ALLOWED_VALUES == JAX_ALLOWED
 
-    def schema(cls):
-        # the tp families' transport axis is not ported (ROADMAP.md, M6)
-        return tuple({k: v for k, v in part.items() if k != "transport"}
-                     for part in cls.option_schema())
-
     for family in GEMM_FAMILIES + ["collectives", "transformer_step", "transformer_decode"]:
         ours = load_port(family, "compiled")
-        assert schema(ours) == schema(load_jax(family, "xla_gspmd")), family
+        assert ours.option_schema() == load_jax(family, "xla_gspmd").option_schema(), family
 
 
 @pytest.mark.parametrize(

@@ -187,29 +187,31 @@ def test_a2a_rdma_needs_16_byte_rows():
 
 @pytest.mark.parametrize("config,families_rows", [
     ("config_dp_allreduce.json",
-     {"compute_only": 2, "pytorch": 2, "overlap": 7, "cuda": 2, "compiled": 1}),
-    ("config_ep_alltoall.json", {"compute_only": 2, "pytorch": 1, "overlap": 6, "compiled": 1}),
+     {"compute_only": 2, "pytorch": 2, "overlap": 7, "cuda": 2, "compiled": 1,
+      "pytorch_hier": 2, "pytorch_striped": 1}),
+    ("config_ep_alltoall.json", {"compute_only": 2, "pytorch": 1, "overlap": 6, "compiled": 1,
+                                 "pytorch_hier": 2, "pytorch_striped": 1}),
 ])
 def test_sweep_config_runs_on_the_cpu(config, families_rows, tmp_path):
     """The config as it is, through the port's CLI (``jax_spmd``,
-    ``pallas`` and ``xla_gspmd`` run as ``pytorch``, ``cuda`` and
-    ``compiled``) at a small shape: every row valid but the
-    ``jax_spmd_hier`` and ``jax_spmd_striped`` rows, which stay 'not yet
-    ported' error rows."""
+    ``pallas``, ``xla_gspmd``, ``jax_spmd_hier`` and ``jax_spmd_striped``
+    run as ``pytorch``, ``cuda``, ``compiled``, ``pytorch_hier`` and
+    ``pytorch_striped``) at a small shape: every row valid, the composed
+    rows with their ``composition`` (``auto`` resolves ``flat`` on one
+    node)."""
     cfg = json.loads((REPO / "scripts" / config).read_text())["benchmark"]
     cfg.update(m=[64], n=[32], k=[48], num_iterations=2, num_warmups=1, device="cpu",
                output_csv=str(tmp_path / "rows.csv"))
     path = tmp_path / config
     path.write_text(json.dumps({"benchmark": cfg}))
     rows = port_cli.run_benchmark(port_cli.load_config(str(path)))
-    unported = ("jax_spmd_hier", "jax_spmd_striped")
     counts = {}
     for row in rows:
         base = row["base_implementation"]
-        if base in unported:
-            assert "not yet ported" in row["error"] and not row["valid"]
-            continue
         assert row["valid"] and not row["error"] and row["unit"] == "TFLOPS", row
         counts[base] = counts.get(base, 0) + 1
     assert counts == families_rows
-    assert len(rows) == sum(families_rows.values()) + 3
+    assert len(rows) == sum(families_rows.values())
+    composed = [r["composition"] for r in rows
+                if r["base_implementation"] in ("pytorch_hier", "pytorch_striped")]
+    assert composed == ["hierarchical", "flat", "striped"]

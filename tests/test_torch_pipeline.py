@@ -98,7 +98,8 @@ def test_members_and_names():
     assert registry.implementation_names("pp_pipeline") == (
         "compute_only", "pytorch", "schedules", "compiled")
     assert "pp_pipeline" in registry.ALLOWED_PRIMITIVES
-    assert registry._NOT_PORTED_FAMILIES == ()
+    with pytest.raises(ValueError, match="Unknown primitive 'pp_pipelines'"):
+        registry.check_primitive("pp_pipelines")
     assert registry.throughput_unit("pp_pipeline") == "TFLOPS"
     for port_name, jax_name in JAX_NAMES.items():
         assert registry.port_member_name(jax_name) == port_name

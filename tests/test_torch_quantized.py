@@ -139,20 +139,19 @@ def test_tpu_tile_options_not_ported(option):
     "member", ["jax_spmd_hier", "jax_spmd_striped", "xla_gspmd", "overlap", "pallas"]
 )
 def test_members_not_yet_ported(family, member):
-    """The topology compositions raise "not yet ported"; ``overlap``,
-    ``pallas`` (the port's ``cuda``) and ``xla_gspmd`` (the port's
-    ``compiled``) are ported."""
+    """Every member is ported: ``overlap`` under its own name, ``pallas``,
+    ``xla_gspmd``, ``jax_spmd_hier`` and ``jax_spmd_striped`` as the port's
+    ``cuda``, ``compiled``, ``pytorch_hier`` and ``pytorch_striped``."""
     load_jax(family, member)  # the JAX package has it
     if member == "overlap":
         assert load_port(family, member).__name__.startswith("Overlap")
-    elif member in ("pallas", "xla_gspmd"):
-        ours = {"pallas": "cuda", "xla_gspmd": "compiled"}[member]
-        with pytest.raises(ValueError, match=f"counterpart is '{ours}'"):
-            load_port(family, member)
-        assert load_port(family, ours).__name__.startswith(ours.capitalize())
-    else:
-        with pytest.raises(ValueError, match="not yet ported"):
-            load_port(family, member)
+        return
+    ours = {"pallas": "cuda", "xla_gspmd": "compiled", "jax_spmd_hier": "pytorch_hier",
+            "jax_spmd_striped": "pytorch_striped"}[member]
+    with pytest.raises(ValueError, match=f"counterpart is '{ours}'"):
+        load_port(family, member)
+    prefix = ours.replace("_hier", "hier").replace("_striped", "striped")
+    assert load_port(family, ours).__name__.lower().startswith(prefix)
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -224,7 +224,7 @@ def test_runtime_on_cpu_world_of_one():
 @pytest.mark.parametrize(
     "primitive,name,match",
     [
-        ("dp_allreduce", "jax_spmd_hier", "not yet ported"),
+        ("dp_allreduce", "jax_spmd_hier", "counterpart is 'pytorch_hier'"),
         ("tp_rowwise", "xla_gspmd", "counterpart is 'compiled'"),
         ("tp_columnwise", "jax_spmd", "counterpart is 'pytorch'"),
         ("tp_rowwise", "pallas", "counterpart is 'cuda'"),

@@ -107,14 +107,14 @@ def test_hol_preemption_fires_under_overload_and_accounts(tmp_path):
 
 @pytest.mark.parametrize("member", ["router", "disagg"])
 def test_cluster_members_not_yet_ported(member):
-    """The "not yet ported" list no longer holds the cluster members: each
-    loads and the family lists all four; the topology members the port
-    still lacks keep raising."""
+    """The cluster members are ported: each loads and the family lists all
+    four. A family without a topology member raises the registry's
+    unknown-member error."""
     assert load_impl_class("serving_load", member).__name__.lower().startswith(member)
     assert registry.implementation_names("serving_load") == (
         "engine", "static", "router", "disagg")
-    with pytest.raises(ValueError, match="not yet ported"):
-        load_impl_class("tp_columnwise", "jax_spmd_hier")
+    with pytest.raises(ValueError, match="Unknown implementation 'pytorch_hier'"):
+        load_impl_class("tp_columnwise", registry.port_member_name("jax_spmd_hier"))
 
 
 @pytest.mark.parametrize("member", ["engine", "static", "router", "disagg"])

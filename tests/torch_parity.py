@@ -93,16 +93,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_world(target, world: int, deadline_s: float, *args) -> dict:
-    """Run ``target(rank, port, results, *args)`` in ``world`` spawned
+def start_world(target, world: int, *args):
+    """Start ``target(rank, port, results, *args)`` in ``world`` spawned
     processes (never forked: the parent has JAX and torch threads) on a
     gloo rendezvous at a free localhost port; each rank puts ``(rank,
     "ok", payload)`` or ``(rank, "error", traceback)`` on ``results``.
-    Returns ``{rank: payload}``; fails when a rank fails or the world does
-    not finish within ``deadline_s``, so a mismatched collective fails the
-    test rather than hanging it."""
+    Returns the handle ``finish_world`` takes; the parent may work while
+    the world runs."""
     import multiprocessing as mp
-    import queue
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
@@ -111,6 +109,17 @@ def run_world(target, world: int, deadline_s: float, *args) -> dict:
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs, results
+
+
+def finish_world(handle, deadline_s: float) -> dict:
+    """``{rank: payload}`` of a world from ``start_world``; fails when a
+    rank fails or the world does not finish within ``deadline_s``, so a
+    mismatched collective fails the test rather than hanging it."""
+    import queue
+
+    procs, results = handle
+    world = len(procs)
     got = {}
     try:
         # drain before joining: a child blocks on exit until its queue
@@ -129,6 +138,11 @@ def run_world(target, world: int, deadline_s: float, *args) -> dict:
                 p.join(timeout=10)
     assert [p.exitcode for p in procs] == [0] * world
     return got
+
+
+def run_world(target, world: int, deadline_s: float, *args) -> dict:
+    """``start_world`` then ``finish_world``: ``{rank: payload}``."""
+    return finish_world(start_world(target, world, *args), deadline_s)
 
 
 def join_world(rank: int, world: int, port: int) -> None:
