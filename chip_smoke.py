@@ -111,7 +111,12 @@ Phases, in order; any failure exits non-zero without the final line:
    and p2+d1 with elastic pools at 400; K12 once a layer per decode tick
    and K8a once a layer per prompt prefill of every engine, the set-up
    probes' included), each row's TTFT and TPOT percentiles, goodput,
-   topology, handoffs and their price, rejections and resizes printed;
+   topology, handoffs and their price, rejections and resizes printed.
+   These rows run the cluster's multi-controller drive at world 1, where
+   every exchange is the identity; its world > 1 evidence is the
+   four-card run of ``scripts/serving_cluster_cards.py`` (router dp 2 and
+   dp 4, disagg p1+d1, each rank's launches exact for its own engines),
+   recorded in ``PERF.md``;
    then the training path, ``transformer_step`` one row at a time
    (``training_rows``: ``scripts/config_transformer_step.json``'s ``spmd``
    and ``compute_only`` entries, the full width of
@@ -2411,7 +2416,8 @@ def drive_serving_rows(run_benchmark, k1, fa, da, qm, smi, members, full_rows, k
             got = {k: after[k] - before[k] for k in after}
             o = row_options(row)
             L = int(o["layers"])
-            engines = row["serve_shards"]
+            # the engines this rank runs: every engine of the row on one card
+            engines = row.get("local_engines", row["serve_shards"])
             prefills = row["drain_prefills"] + row.get("prewarm_prefills", 0)
             ticks = row["drain_ticks"] + row.get("prewarm_ticks", 0)
             want = {k: 0 for k in got}

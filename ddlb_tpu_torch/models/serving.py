@@ -120,6 +120,31 @@ class EngineStats:
         return self.lane_ticks_active / self.lane_ticks_total
 
 
+def check_fits(request: Request, max_len: int, page_size: Optional[int] = None,
+               num_pages: int = 0, pinned_pages: int = 0) -> None:
+    """Raise ``ValueError`` when ``request`` could never run on an engine
+    of ``max_len`` positions; paged (``page_size`` given), against its
+    worst case (no prefix credit, since the prefix can change while it
+    waits) in a pool of ``num_pages`` of which the shared prefix pins
+    ``pinned_pages``. ``submit``'s check, which a serving cluster also makes
+    for an engine that runs on other ranks."""
+    S0 = request.prompt.size
+    if S0 + request.max_new > max_len:
+        raise ValueError(
+            f"prompt {S0} + max_new {request.max_new} exceeds "
+            f"max_len {max_len}"
+        )
+    if page_size is not None:
+        worst = -(-(S0 + request.max_new) // page_size)
+        usable = num_pages - pinned_pages
+        if worst > usable:
+            raise ValueError(
+                f"request needs up to {worst} pages but the pool has "
+                f"{usable} usable ({num_pages} total, "
+                f"{pinned_pages} pinned by the prefix)"
+            )
+
+
 class ContinuousBatchingEngine:
     """Greedy continuous-batching engine over one ``(1, tp)`` mesh.
 
@@ -212,24 +237,12 @@ class ContinuousBatchingEngine:
 
     def submit(self, request: Request) -> int:
         """Queue a request; returns its index. A request that could never
-        fit fails here, not mid-drain: paged, against its worst case (no
-        prefix credit, since the prefix can change while it waits) and the
-        pages the current prefix pins."""
-        S0 = request.prompt.size
-        if S0 + request.max_new > self.S_max:
-            raise ValueError(
-                f"prompt {S0} + max_new {request.max_new} exceeds "
-                f"max_len {self.S_max}"
-            )
+        fit fails here, not mid-drain (``check_fits``)."""
         if self.paged:
-            worst = -(-(S0 + request.max_new) // self.page_size)
-            usable = self.num_pages - len(self._prefix_pages)
-            if worst > usable:
-                raise ValueError(
-                    f"request needs up to {worst} pages but the pool has "
-                    f"{usable} usable ({self.num_pages} total, "
-                    f"{len(self._prefix_pages)} pinned by the prefix)"
-                )
+            check_fits(request, self.S_max, self.page_size, self.num_pages,
+                       len(self._prefix_pages))
+        else:
+            check_fits(request, self.S_max)
         idx = len(self._requests)
         self._requests.append(request)
         self._queue.append(idx)

@@ -53,7 +53,6 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ddlb_tpu_torch.models.serving import ContinuousBatchingEngine, Request
 from ddlb_tpu_torch.models.transformer import (
@@ -66,6 +65,33 @@ from ddlb_tpu_torch.primitives.base import Primitive, torch_dtype
 from ddlb_tpu_torch.workload import SLOTracker, WorkloadSpec, generate_trace, prefix_tokens
 
 log = logging.getLogger(__name__)
+
+
+class DrainClock:
+    """Seconds since a drain began, called wherever the drive loop reads
+    the time (releasing arrivals, stamping first tokens and completions,
+    the idle wait, the makespan).
+
+    Every rank runs the drive loop, and the ranks must release the same
+    arrivals before the same admissions, or their prefills post
+    collectives that no longer pair. So at world > 1 a reading is rank 0's
+    host clock, broadcast (``Runtime.broadcast_host``). ``local()`` is this
+    rank's own reading with no collective, which on rank 0 is the drain's
+    time: the cluster's pump takes it, and its exchange carries rank 0's
+    to every rank. At world 1 both are this process's clock."""
+
+    def __init__(self, runtime) -> None:
+        self._runtime = runtime
+        self._t0 = time.perf_counter()
+
+    def local(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def __call__(self) -> float:
+        rt = self._runtime
+        if rt.world_size == 1:
+            return self.local()
+        return rt.broadcast_host(self.local() if rt.rank == 0 else 0.0, 0)
 
 
 class ServingLoad(Primitive):
@@ -296,30 +322,9 @@ class ServingLoad(Primitive):
         """Member policy: may queued requests be admitted now?"""
         raise NotImplementedError
 
-    def _drain_clock(self):
-        """Seconds since the drain began, as a function the drive loop
-        calls wherever it reads the time (releasing arrivals, stamping
-        first tokens and completions, the idle wait, the makespan).
-
-        Every rank runs the drive loop over its own engine, and tp ranks
-        must release the same arrivals before the same ``admit_ready``, or
-        their prefills post tp collectives that no longer pair. So at
-        world > 1 every reading is rank 0's host clock, broadcast over the
-        default group, which is the serving mesh's (its tp axis spans the
-        world): a float64 on this rank's device, a CPU tensor on gloo and a
-        card scalar on NCCL. At world 1 it is this process's clock, with no
-        collective."""
-        t0 = time.perf_counter()
-        if self.runtime.world_size == 1:
-            return lambda: time.perf_counter() - t0
-        shared = torch.zeros(1, dtype=torch.float64, device=self.device)
-
-        def clock() -> float:
-            if self.rank == 0:
-                shared.fill_(time.perf_counter() - t0)
-            return float(self.runtime.broadcast(shared, 0).item())
-
-        return clock
+    def _drain_clock(self) -> "DrainClock":
+        """The drain's clock, started now (``DrainClock``)."""
+        return DrainClock(self.runtime)
 
     def _drain(self) -> None:
         """One open-loop replay of the trace against the reset engine

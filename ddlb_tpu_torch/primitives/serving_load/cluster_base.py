@@ -15,14 +15,18 @@ same ``slo_*`` columns plus the cluster's ledger (``serve_rejected``,
 ``disagg:p1+d1``, with ``:degraded=K`` after exclusions and
 ``:elastic=R`` after resizes) by which baselines are kept apart.
 
-Placement: the JAX member gives each engine a disjoint device group when
-the device count divides by the engine count, and otherwise spans every
-engine over every device. This port runs the world-1 shape: every engine
-on the one device, sharing one copy of the (identical, seeded) weights,
-each with its own KV cache. At world > 1 each group of ranks would step
-only its own engine while the cluster's decisions need every engine's
-state every pump; that multi-controller drive is not ported, and the
-members raise ``ValueError`` at world > 1.
+Placement, as the JAX member's (``serve/placement.py``): each engine on a
+disjoint group of ranks when the world divides by the engine count
+(``tp_per = world / n_engines`` ranks an engine, its weights
+``init_params(n_experts=tp_per)`` sharded over them), otherwise every
+engine over every rank. Engines on one group share one copy of the
+seeded weights, each with its own KV cache; at world 1 every engine is on
+the one device. At world > 1 every rank drives the loop below: its group
+steps its own engine, and every rank takes the cluster's decisions from
+one shared view of every engine, refreshed each pump
+(``serve/cluster.py``). Arrivals release on rank 0's clock
+(``_drain_clock``), and the loop's every test reads values that are the
+same on every rank, so the ranks run the same pumps.
 
 Validation extends the single-engine accounting across the cluster:
 completed and rejected partition the trace exactly, every completion's
@@ -31,12 +35,13 @@ prompt survives every handoff byte for byte (the bundle prompt is the
 count.
 
 Besides the JAX row's columns the row carries the port's ``hbm_bytes``,
-``drains``, ``drain_ticks`` and ``drain_prefills`` (summed over every
-engine of the cluster), and ``prewarm_ticks`` / ``prewarm_prefills``: the
-set-up probes' decode ticks and prompt prefills (``_prewarm``), which
-launch kernels too. Not ported: the telemetry spans and counters, the
-live tick stream and the calibration table (``perfmodel.calib``): the
-handoff is priced by the closed form.
+``drains``, ``drain_ticks`` and ``drain_prefills``, ``prewarm_ticks`` /
+``prewarm_prefills`` (the set-up probes' decode ticks and prompt
+prefills, ``_prewarm``) and ``local_engines``: the counts are over the
+engines this rank runs (``local_engines`` of them; every engine at world
+1), so that they say what kernels this rank launched. Not ported: the
+telemetry spans and counters, the live tick stream and the calibration
+table (``perfmodel.calib``): the handoff is priced by the closed form.
 """
 
 from __future__ import annotations
@@ -116,49 +121,71 @@ class ClusterServingLoad(ServingLoad):
 
     # -- shapes --------------------------------------------------------------
 
+    def _n_engines(self) -> int:
+        return sum(self._pool_sizes())
+
+    def _mesh_factors(self) -> Tuple[int, int]:
+        """(n_engines, tp_per_engine): disjoint groups of ranks when the
+        world divides by the engine count, else every engine spans the
+        world (JAX :126-134; ``serve.placement.engine_groups``)."""
+        from ddlb_tpu_torch.serve.placement import engine_groups
+
+        n_eng = self._n_engines()
+        return n_eng, engine_groups(self.runtime.world_size, n_eng)[0]
+
     def _check_shapes(self) -> None:
-        if self.runtime.world_size > 1:
-            raise ValueError(
-                f"serving_load '{self._topology_base()}' runs at world 1 only: "
-                f"at world {self.runtime.world_size} each engine would run on "
-                "its own group of ranks, and the multi-controller drive that "
-                "steps every shard on its ranks each pump while every rank "
-                "takes the cluster's decisions is not ported"
-            )
         super()._check_shapes()
         o = self.options
         _, n_dec = self._pool_sizes()
+        _, tp_per = self._mesh_factors()
         if o["batch"] % n_dec != 0:
             raise ValueError(
                 f"batch={o['batch']} not divisible by the decode pool "
                 f"size {n_dec} (slots split evenly across shards)"
             )
+        if (o["batch"] // n_dec) % tp_per != 0:
+            raise ValueError(
+                f"per-shard batch {o['batch'] // n_dec} not divisible "
+                f"by per-engine tp={tp_per} (the MoE block router)"
+            )
 
     # -- engine and cluster construction -------------------------------------
 
     def _build_engines(self, cfg, max_batch: int, max_need: int, num_pages):
-        """Every engine on this rank's device, over one copy of the seeded
-        weights (the JAX member seeds every engine's alike)."""
+        """This rank's engines, each on its group's ``(1, tp_per)`` mesh
+        over its shard of the seeded weights (``init_params`` at
+        ``n_experts=tp_per``, as the JAX member's ``_build_engine``), one
+        copy a group; a stand-in for each engine that runs on other ranks."""
         from ddlb_tpu_torch.models.serving import ContinuousBatchingEngine
         from ddlb_tpu_torch.models.transformer import (
             init_params,
             place_params,
             shard_params,
         )
+        from ddlb_tpu_torch.serve.placement import EngineStandIn
 
-        mesh = self.runtime.mesh(1, 1, 1)
-        params = place_params(
-            shard_params(init_params(cfg, pp=1, n_experts=1, seed=self.seed),
-                         cfg, 1, 0),
-            self.device,
-        )
-        return mesh, [
-            ContinuousBatchingEngine(
-                mesh, cfg, params,
+        placement = self._placement
+        tp = placement.tp
+        host, params, engines = None, {}, []
+        for e in range(self._n_engines()):
+            if not placement.is_local(e):
+                engines.append(EngineStandIn(
+                    max_need, cfg.page_size if cfg.cache_layout == "paged" else None,
+                    num_pages or 0, tp,
+                ))
+                continue
+            mesh = placement.mesh(e)
+            if mesh not in params:
+                if host is None:
+                    host = init_params(cfg, pp=1, n_experts=tp, seed=self.seed)
+                params[mesh] = place_params(
+                    shard_params(host, cfg, tp, mesh.tp_rank), self.device
+                )
+            engines.append(ContinuousBatchingEngine(
+                mesh, cfg, params[mesh],
                 max_batch=max_batch, max_len=max_need, num_pages=num_pages,
-            )
-            for _ in range(sum(self._pool_sizes()))
-        ]
+            ))
+        return engines
 
     def _census_rate(self) -> float:
         """``decode_token_rate`` at this row's shape on this device."""
@@ -216,11 +243,11 @@ class ClusterServingLoad(ServingLoad):
         requests' TTFTs. So one ``max_new=1`` probe per distinct admission
         shape (prefix hit x pad bucket, including the one-token-longer
         resume prompts a prefill pool hands off) is admitted into every
-        engine (a one-token request completes at admission), plus one
-        2-token probe on each decode engine for its decode step, and on
-        the prefill engines too when elastic (a promotion must not bill
-        its first decode tick to a real request); then every engine
-        resets. The probes run under the runner's matmul precision scope,
+        engine this rank runs (a one-token request completes at
+        admission), plus one 2-token probe on each decode engine for its
+        decode step, and on the prefill engines too when elastic (a
+        promotion must not bill its first decode tick to a real request);
+        then every engine resets. The probes run under the runner's matmul precision scope,
         as measured calls do.
 
         Their decode ticks and prompt prefills are counted
@@ -264,6 +291,8 @@ class ClusterServingLoad(ServingLoad):
                 probes[key] = probe
         with matmul_precision_scope(self.dtype):
             for i, e in enumerate(engines):
+                if not self._placement.is_local(i):
+                    continue
                 for probe in probes.values():
                     e.submit(Request(probe, max_new=1))
                     e.admit_ready()
@@ -321,6 +350,8 @@ class ClusterServingLoad(ServingLoad):
         from ddlb_tpu_torch.serve.router import PrefixAffinityRouter
         from ddlb_tpu_torch.workload import generate_trace, prefix_tokens
 
+        from ddlb_tpu_torch.serve.placement import EnginePlacement
+
         cfg = self._model_config()
         o = self.options
         _, n_dec = self._pool_sizes()
@@ -335,14 +366,22 @@ class ClusterServingLoad(ServingLoad):
             num_pages = max(
                 1, round(o["page_pool_frac"] * batch_per * (max_need // ps))
             )
-        self.mesh, engines = self._build_engines(cfg, batch_per, max_need, num_pages)
-        if spec.prefix_pop:
-            # every engine caches the hot prefix: resumed prompts still
-            # start with it, so decode-pool prefix hits survive a handoff
-            for e in engines:
-                e.set_shared_prefix(prefix_tokens(spec, 0))
+        # every rank creates every engine's group, then sets up its own
+        # engines; a failure on any rank raises on every rank
+        self._placement = EnginePlacement(self.runtime, self._n_engines())
         self._prewarm_ticks = self._prewarm_prefills = 0
-        self._prewarm(engines, n_dec, spec)
+        failure = None
+        try:
+            engines = self._build_engines(cfg, batch_per, max_need, num_pages)
+            if spec.prefix_pop:
+                # every engine caches the hot prefix: resumed prompts still
+                # start with it, so decode-pool prefix hits survive a handoff
+                for e in engines:
+                    e.set_shared_prefix(prefix_tokens(spec, 0))
+            self._prewarm(engines, n_dec, spec)
+        except Exception as exc:  # raised again on every rank by share
+            failure = exc
+        self._placement.share({}, failure)
         chip = self.runtime.chip_spec
         self._cluster = ServingCluster(
             engines[:n_dec],
@@ -364,6 +403,7 @@ class ClusterServingLoad(ServingLoad):
             probe_interval=int(o["probe_interval"]),
             tick_floor_s=self._tick_floor_s(n_dec),
             prewarm=self._promote_prewarm_hook(),
+            placement=self._placement,
         )
         self._last: Optional[Dict[str, Any]] = None
         self._drains = 0
@@ -376,15 +416,19 @@ class ClusterServingLoad(ServingLoad):
 
     def _run_trace(self):
         self._drain()
-        # a decode shard's cache, so a fence on it includes the last step
-        return self._cluster.shards[0].engine.cache["k"]
+        # the cache of an engine this rank runs, so a fence on it includes
+        # its last step
+        return self._cluster.local_engines()[0].cache["k"]
 
     # -- the cluster drive loop ---------------------------------------------
 
     def _drain(self) -> None:
         """One open-loop replay against the freshly reset cluster: the
         single-engine protocol, ending on the cluster's ledger (completed
-        + rejected = the trace's length: a shed request is an outcome)."""
+        + rejected = the trace's length: a shed request is an outcome).
+        Every test of the loop reads the shared ledger or rank 0's clock, so
+        every rank runs the same pumps; a pump stamps with rank 0's reading
+        at its start, which travels in the pump's exchange."""
         from ddlb_tpu_torch.workload import SLOTracker
 
         o = self.options
@@ -418,7 +462,7 @@ class ClusterServingLoad(ServingLoad):
                 tracker.arrived(r.index, r.arrival_s)
                 submitted += 1
             tracker.observe_queue(cl.queue_depth)
-            active = cl.pump(clock())
+            active = cl.pump(clock.local())
             for c in cl.completions[done_seen:]:
                 orig = gid2trace[c.request_id]
                 tracker.first_token(orig, c.first_s)
@@ -441,8 +485,9 @@ class ClusterServingLoad(ServingLoad):
         else:
             goodput_window = makespan
         stats = cl.engine_stats()
-        self._drain_ticks += stats.steps
-        self._drain_prefills += stats.admissions - stats.prefix_hits
+        for e in cl.local_engines():
+            self._drain_ticks += e.stats.steps
+            self._drain_prefills += e.stats.admissions - e.stats.prefix_hits
         self._last = {
             "tracker": tracker,
             "fields": tracker.row_fields(goodput_window, offered_rps=n / horizon),
@@ -477,7 +522,7 @@ class ClusterServingLoad(ServingLoad):
     def extra_row_fields(self) -> dict:
         """The JAX row's ``slo_*`` / ``serve_*`` columns (:596-628), then
         the port's ``hbm_bytes``, the drains' and the set-up probes'
-        counts."""
+        counts on this rank's engines, and their number."""
         if self._last is None:
             return {}
         s = self._last["stats"]
@@ -513,6 +558,7 @@ class ClusterServingLoad(ServingLoad):
                 "drain_prefills": self._drain_prefills,
                 "prewarm_ticks": self._prewarm_ticks,
                 "prewarm_prefills": self._prewarm_prefills,
+                "local_engines": len(self._cluster.local_engines()),
             }
         )
         return out

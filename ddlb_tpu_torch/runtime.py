@@ -40,18 +40,29 @@ hand-written ring and all-to-all kernels.
 ``Runtime.mesh(dp, tp, pp)`` places the rank in a ``(dp, tp, pp)`` mesh
 (``Mesh``) whose per-axis groups carry the serving model's sum and
 all-gather and the training step's collectives, some of them
-differentiable. ``Runtime.device_mesh(names, shape)`` is the same mesh
-as a ``torch.distributed`` ``DeviceMesh``, for the ``compiled`` members'
-DTensors; at world 1 it opens a one-rank default group for them.
+differentiable; with ``ranks`` the mesh spans those ranks only (one
+serving engine's group, whose groups every rank first creates with
+``Runtime.subgroups``). ``broadcast_host`` (a float, such as a drain's
+clock) and ``gather_objects`` (picklable host data, such as a serving
+cluster's per-pump exchange) agree on host values: on gloo over the
+default group, on the card through card buffers read back, over an NCCL
+group and a CUDA stream of their own, so they wait neither for the card's
+queued work nor behind the model's collectives (the channels are timed in
+``PERF.md`` §6). ``Runtime.device_mesh(names, shape)`` is
+the same mesh as a ``torch.distributed`` ``DeviceMesh``, for the
+``compiled`` members' DTensors; at world 1 it opens a one-rank default
+group for them.
 ``shutdown()`` drops the compiled graphs and destroys the default group
 with every mesh built on it (not the one-rank group of world 1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -60,6 +71,8 @@ import torch.distributed as dist
 log = logging.getLogger(__name__)
 
 DEVICES = ("cuda", "cpu")
+#: bytes of a rank's buffer in ``Runtime.gather_objects``' first round
+GATHER_BYTES = 4096
 #: the transports a ring can be laid out for (``transport_order``)
 TRANSPORTS = ("ici", "dcn")
 
@@ -145,6 +158,9 @@ class Runtime:
             _env_int("DDLB_TPU_SIM_SLICES", 0),
         )
         self.num_slices = len(set(self.slice_ids))
+        #: the device buffers and stream of ``broadcast_host`` and
+        #: ``gather_objects``
+        self._scalar = self._gather = self._stream = None
         #: ring position -> rank, and this rank's position (``order_ring``)
         self.order = tuple(range(self.world_size))
         self.position = self.rank
@@ -290,6 +306,80 @@ class Runtime:
             dist.broadcast(x, self.order[src])
         return x
 
+    def _agreement(self):
+        """The process group and the CUDA stream of host agreement
+        (``broadcast_host``, ``gather_objects``). On the card, an NCCL group
+        over the world of its own, driven from a stream of its own: reading
+        the result back then waits neither for the card's queued work nor
+        behind the model's collectives on the default group. On gloo, the
+        default group and no stream. The group is created at the first
+        agreement (collective: every rank agrees at the same points)."""
+        if self.platform != "cuda":
+            return None, contextlib.nullcontext()
+        key = ("agreement", self.world_size)
+        if key not in _SUBGROUPS:
+            _SUBGROUPS[key] = dist.new_group(ranks=list(range(self.world_size)))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return _SUBGROUPS[key], torch.cuda.stream(self._stream)
+
+    def broadcast_host(self, value: float, src: int = 0) -> float:
+        """Rank ``src``'s float on every rank (a float64 on this rank's
+        device, kept between calls, read back; ``_agreement``)."""
+        if self.world_size == 1:
+            return float(value)
+        group, stream = self._agreement()
+        with stream:
+            if self._scalar is None:
+                self._scalar = torch.zeros(1, dtype=torch.float64, device=self.device)
+            if self.rank == src:
+                self._scalar.fill_(value)
+            dist.broadcast(self._scalar, src, group=group)
+            return float(self._scalar.item())
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj`` (picklable host data), in rank order: one
+        all-gather of a ``GATHER_BYTES`` buffer a rank that holds the
+        pickle's length and, when it fits, the pickle; a second all-gather
+        at the longest length only when some rank's pickle did not fit.
+        The buffers go through this rank's device (``_agreement``)."""
+        if self.world_size == 1:
+            return [obj]
+        data = np.frombuffer(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL), np.uint8)
+        n = data.size
+        buf = np.zeros(8 + GATHER_BYTES, np.uint8)
+        buf[:8] = np.array([n], np.int64).view(np.uint8)
+        if n <= GATHER_BYTES:
+            buf[8:8 + n] = data
+        parts = self._all_gather_host(buf)
+        sizes = parts[:, :8].copy().view(np.int64)[:, 0]
+        if sizes.max() > GATHER_BYTES:
+            big = np.zeros(sizes.max(), np.uint8)
+            big[:n] = data
+            parts = self._all_gather_host(big)
+        else:
+            parts = parts[:, 8:]
+        return [pickle.loads(p[:m].tobytes()) for p, m in zip(parts, sizes)]
+
+    def _all_gather_host(self, buf: np.ndarray) -> np.ndarray:
+        """Every rank's equal-sized ``buf`` as the rows of one array (valid
+        until the next call: the first round's device buffers are kept)."""
+        n = buf.size
+        group, stream = self._agreement()
+        with stream:
+            if n == 8 + GATHER_BYTES:
+                if self._gather is None:
+                    self._gather = (torch.empty(n, dtype=torch.uint8, device=self.device),
+                                    torch.empty(self.world_size * n, dtype=torch.uint8,
+                                                device=self.device))
+                src, out = self._gather
+                src.copy_(torch.from_numpy(buf))
+            else:
+                src = torch.from_numpy(buf).to(self.device)
+                out = torch.empty(self.world_size * n, dtype=torch.uint8, device=self.device)
+            _collective("all_gather_single", "all_gather_into_tensor")(out, src, group=group)
+            return out.cpu().numpy().reshape(self.world_size, n)
+
     def all_to_all_rows(self, x: torch.Tensor, async_op: bool = False):
         """Row block j of ``x`` (``d`` equal blocks along dim 0) goes to
         position j; block i of the result came from position i (the tiled
@@ -408,9 +498,18 @@ class Runtime:
                               (self.num_slices, *torus_factors(per)))
         raise ValueError(f"view must be 'two_level' or 'torus', got {view!r}")
 
-    def mesh(self, dp: int, tp: int, pp: int = 1) -> "Mesh":
-        """This rank's place in a ``(dp, tp, pp)`` mesh (see ``Mesh``)."""
-        return Mesh(self, dp, tp, pp)
+    def mesh(self, dp: int, tp: int, pp: int = 1, ranks=None) -> "Mesh":
+        """This rank's place in a ``(dp, tp, pp)`` mesh over the world, or
+        over ``ranks`` (see ``Mesh``)."""
+        return Mesh(self, dp, tp, pp, ranks)
+
+    def subgroups(self, groups) -> list:
+        """The process group of each rank list in ``groups``, created in
+        order the first time (None for the whole world). Collective: every
+        rank passes the same lists, those it is not in too."""
+        if self.world_size == 1:
+            return [None for _ in groups]
+        return [_subgroup(sorted(int(r) for r in g)) for g in groups]
 
     def device_mesh(self, names, shape):
         """The ranks as a ``DeviceMesh`` with the named axes, in ``Mesh``'s
@@ -425,7 +524,11 @@ class Runtime:
         process group (``__init__``), so the first call opens a one-rank
         default group from an in-memory store: NCCL on the card, gloo on
         the CPU; it stays for the life of the process (``shutdown``).
-        Meshes are cached per (platform, names, shape).
+        Meshes are cached per platform and the axes they keep, so that two
+        requests that leave the same axes (``("dp", "tp"), (1, 1)`` and
+        ``("dp", "tp", "pp"), (1, 1, 1)``) share one ``DeviceMesh``: under
+        torch 2.13 a second, equal ``DeviceMesh`` breaks the next compiled
+        backward (``shutdown``).
         """
         from torch.distributed.device_mesh import DeviceMesh
 
@@ -435,7 +538,8 @@ class Runtime:
                 f"mesh {dict(zip(names, shape))} does not cover the world of "
                 f"{self.world_size} ranks"
             )
-        key = (self.platform, names, shape)
+        kept = [i for i, s in enumerate(shape) if s > 1] or [0]
+        key = (self.platform, tuple(names[i] for i in kept), tuple(shape[i] for i in kept))
         if key not in _DEVICE_MESHES:
             if not dist.is_initialized():
                 dist.init_process_group(
@@ -443,11 +547,8 @@ class Runtime:
                     store=dist.HashStore(), rank=0, world_size=1,
                 )
                 _LOCAL_GROUP.append(True)
-            kept = [i for i, s in enumerate(shape) if s > 1] or [0]
             ranks = torch.arange(self.world_size).reshape([shape[i] for i in kept])
-            _DEVICE_MESHES[key] = DeviceMesh(
-                self.platform, ranks, mesh_dim_names=tuple(names[i] for i in kept)
-            )
+            _DEVICE_MESHES[key] = DeviceMesh(self.platform, ranks, mesh_dim_names=key[1])
         return _DEVICE_MESHES[key]
 
     def max_over_ranks(self, values: np.ndarray) -> np.ndarray:
@@ -467,7 +568,7 @@ class Runtime:
         return bool(t.item())
 
 
-#: ``Runtime.device_mesh``'s meshes by (platform, names, shape)
+#: ``Runtime.device_mesh``'s meshes by (platform, kept names, kept shape)
 _DEVICE_MESHES: dict = {}
 #: True once ``Runtime.device_mesh`` opened a one-rank default group
 _LOCAL_GROUP: list = []
@@ -591,6 +692,13 @@ class Mesh:
     is the default group, and on an axis of size 1 every collective is the
     identity.
 
+    With ``ranks`` (fewer than the world) the mesh spans those ranks only,
+    laid out in their order, and ``dp * tp * pp`` is their number: a
+    serving cluster's engine on its own group of ranks. Only the ranks in
+    it build such a mesh, so its groups must exist before it is asked for:
+    every rank of the world creates them with ``Runtime.subgroups``, and a
+    missing one raises rather than hanging the ranks that did not ask.
+
     Besides the plain collectives (``axis_sum``, ``tp_all_gather_rows``,
     ``pp_shift``) the mesh offers the differentiable ones the
     training step goes through (``tp_all_gather``, ``tp_reduce_scatter``,
@@ -598,7 +706,12 @@ class Mesh:
     backward is the transposed collective.
     """
 
-    def __init__(self, runtime: Runtime, dp: int, tp: int, pp: int = 1) -> None:
+    #: the global ranks a mesh over some ranks spans, in mesh order (None:
+    #: the mesh is the world's, or local to each rank)
+    ranks = None
+
+    def __init__(self, runtime: Runtime, dp: int, tp: int, pp: int = 1,
+                 ranks=None) -> None:
         if dp < 1 or tp < 1 or pp < 1:
             raise ValueError(
                 f"mesh axes must be >= 1, got dp={dp}, tp={tp}, pp={pp}"
@@ -611,16 +724,33 @@ class Mesh:
             self.dp_rank = self.tp_rank = self.pp_rank = 0
             self.tp_group = None
             return
-        if self.world != runtime.world_size:
+        if ranks is not None and len(ranks) < runtime.world_size:
+            self.ranks = tuple(int(r) for r in ranks)
+        size = runtime.world_size if self.ranks is None else len(self.ranks)
+        if self.world != size:
             raise ValueError(
                 f"dp*tp*pp = {self.world} != world size {runtime.world_size}"
+                if self.ranks is None else
+                f"dp*tp*pp = {self.world} != the {size} ranks {self.ranks}"
             )
-        self.dp_rank, rest = divmod(runtime.rank, tp * pp)
+        if self.ranks is not None and runtime.rank not in self.ranks:
+            raise ValueError(f"rank {runtime.rank} is not in the mesh's ranks {self.ranks}")
+        local = runtime.rank if self.ranks is None else self.ranks.index(runtime.rank)
+        self.dp_rank, rest = divmod(local, tp * pp)
         self.tp_rank, self.pp_rank = divmod(rest, pp)
+        coords = self.coords()
+        if self.ranks is not None:
+            # a mesh over some ranks: its lines' groups exist already
+            for axis in AXES:
+                if self.sizes[axis] > 1:
+                    line = [self.rank_at(**dict(coords, **{axis: i}))
+                            for i in range(self.sizes[axis])]
+                    self.groups[axis] = _subgroup(sorted(line), create=False)
+            self.tp_group = self.groups["tp"]
+            return
         key = (runtime.world_size, self.dp, self.tp, self.pp)
         if key not in _GROUPS:
             _GROUPS[key] = self._new_groups()
-        coords = self.coords()
         for axis in AXES:
             if 1 < self.sizes[axis] < self.world:
                 other = tuple(c for a, c in coords.items() if a != axis)
@@ -632,7 +762,8 @@ class Mesh:
 
     def rank_at(self, dp: int, tp: int, pp: int) -> int:
         """The global rank at mesh coordinates ``(dp, tp, pp)``."""
-        return (dp * self.tp + tp) * self.pp + pp
+        i = (dp * self.tp + tp) * self.pp + pp
+        return i if self.ranks is None else self.ranks[i]
 
     def _new_groups(self) -> dict:
         """Every group along every axis of size between 1 and the world,
@@ -775,16 +906,22 @@ class Mesh:
 _SUBGROUPS: dict = {}
 
 
-def _subgroup(ranks) -> object:
+def _subgroup(ranks, create: bool = True) -> object:
     """The process group of ``ranks`` (sorted), created the first time;
     collective: every rank asks for the same groups in the same order. The
-    whole world is the default group (None)."""
+    whole world is the default group (None). With ``create=False`` a group
+    not made yet raises instead (a caller that only some ranks reach)."""
     ranks = tuple(ranks)
     world = dist.get_world_size()
     if len(ranks) == world:
         return None
     key = (world, ranks)
     if key not in _SUBGROUPS:
+        if not create:
+            raise ValueError(
+                f"no process group over ranks {ranks} yet: every rank must "
+                "create it first (Runtime.subgroups)"
+            )
         _SUBGROUPS[key] = dist.new_group(ranks=list(ranks))
     return _SUBGROUPS[key]
 

@@ -42,15 +42,35 @@ Time is explicit: every mutating call takes ``now_s`` from the caller's
 drain clock, so the drive loop and tests replay exact schedules. The
 cluster itself never sleeps.
 
+**Several controllers** (``placement``, ``serve/placement.py``). At world
+> 1 every rank runs this cluster, each engine on its own group of ranks.
+A pump splits in two. The *local work* is done only by the ranks that run
+an engine: admission, head-of-line relief, the step and its timing, the
+new completions. Then each engine's lead rank contributes one report (the
+requests it admitted, the active count, the tick time, the completions,
+and the engine's ``EngineView``: outstanding tokens, queue depth,
+counters), and one exchange gives every rank every report. The
+*decisions* read only that shared view, on every rank, the owner's too:
+stamps and ledger, handoffs and routing (``_outstanding``), the watch,
+probation and the pools' breathing. A submission moves the view as it
+moves the engine's own figures, so the router reads the same loads
+between submissions on every rank. Work that a decision hands an engine
+(a shard's drain, a promotion's evictions and prewarm, probe ticks) runs
+on its ranks, and its result reaches every rank by one more exchange. The
+pump's ``now_s`` is rank 0's, which travels in the exchange. A completion travels as the tokens past the prompt its request
+was last submitted with, which every rank holds. With every engine on
+this rank (world 1) each exchange is the identity.
+
 Not ported: the JAX cluster's fault-injection (``faults.inject``,
 ``engine.fault_context``) and telemetry (``telemetry.instant``) sites.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,6 +104,37 @@ class ClusterCompletion:
 
 
 @dataclass
+class EngineView:
+    """What every rank knows of one engine, the figures the cluster's
+    decisions read: refreshed from the engine's lead rank at each exchange
+    and moved by each submission as the engine's own figures move."""
+
+    outstanding: int = 0        # tokens still to generate, queue and slots
+    queue_depth: int = 0
+    stats: EngineStats = field(default_factory=EngineStats)
+
+    @classmethod
+    def of(cls, engine) -> "EngineView":
+        return cls(engine.outstanding_tokens(), engine.queue_depth,
+                   dataclasses.replace(engine.stats))
+
+
+@dataclass
+class _Report:
+    """One engine's share of a pump, from its lead rank: its view after
+    the step, its active lanes, the requests of its active slots when it
+    admitted any (their first token is out), the tick's host seconds (an
+    active decode tick) and the new completions as ``(gid, tokens past the
+    submitted prompt, finished_by)``."""
+
+    view: EngineView
+    active: int
+    admitted: List[int]
+    tick_s: Optional[float]
+    done: List[Tuple[int, np.ndarray, str]]
+
+
+@dataclass
 class _ReqState:
     """The host-side ledger entry of one submitted request."""
 
@@ -99,11 +150,18 @@ class _ReqState:
 class _Shard:
     """One engine plus the cluster's bookkeeping for it. ``index`` is
     cluster-global and never changes; ``pool`` flips on an elastic
-    transition and returns to ``home_pool`` on reset."""
+    transition and returns to ``home_pool`` on reset. ``engine`` is the
+    engine where this rank runs it (``local``) and its stand-in elsewhere;
+    ``alias``, ``done_seen`` and the head-of-line state are kept where it
+    runs, the rest on every rank alike."""
 
-    def __init__(self, engine, index: int, pool: str):
+    def __init__(self, engine, index: int, pool: str, local: bool = True,
+                 lead: bool = True):
         self.engine = engine
         self.index = index          # cluster-global shard index
+        self.local = local          # this rank runs the engine
+        self.lead = lead            # this rank reports it
+        self.view = EngineView()
         self.pool = pool            # "prefill" | "decode" (mutable)
         self.home_pool = pool       # construction-time role
         self.alias: Dict[int, int] = {}   # engine request index -> gid
@@ -161,7 +219,12 @@ class ServingCluster:
     synchronously in the pump, so probing a hung shard every pump would
     stall the whole cluster). ``tick_floor_s`` is the census's per-tick
     cost estimate, the floor the watch's cost weights are resolved
-    against (0 = the live best shard's median alone)."""
+    against (0 = the live best shard's median alone).
+
+    ``placement`` (``serve.placement.EnginePlacement``) says which ranks
+    run each engine, by global index (the decode engines first); the
+    engines this rank does not run are passed as stand-ins. None: every
+    engine runs here."""
 
     def __init__(
         self,
@@ -183,16 +246,24 @@ class ServingCluster:
         probe_interval: int = 1,
         tick_floor_s: float = 0.0,
         prewarm: Optional[Callable] = None,
+        placement=None,
     ):
         if not decode_engines:
             raise ValueError("need at least one decode engine")
-        self.shards = [
-            _Shard(e, i, "decode") for i, e in enumerate(decode_engines)
-        ]
+        self._placement = placement
+        #: this rank's pump clock is the one every rank stamps with
+        self._keeps_time = placement is None or placement.rank == 0
+
+        def shard(engine, index: int, pool: str) -> _Shard:
+            if placement is None:
+                return _Shard(engine, index, pool)
+            return _Shard(engine, index, pool, placement.is_local(index),
+                          placement.leads(index))
+
+        self.shards = [shard(e, i, "decode") for i, e in enumerate(decode_engines)]
         n_dec = len(self.shards)
         self.prefill = [
-            _Shard(e, n_dec + i, "prefill")
-            for i, e in enumerate(prefill_engines)
+            shard(e, n_dec + i, "prefill") for i, e in enumerate(prefill_engines)
         ]
         self.disagg = bool(self.prefill)
         #: every shard, by its cluster-global index (the router's index
@@ -222,11 +293,62 @@ class ServingCluster:
         self.tick_floor_s = float(tick_floor_s)
         self._prewarm = prewarm
         self._clear_run_state()
+        self._refresh_views()
+
+    # -- the shared view ---------------------------------------------------
+
+    def _share(self, mine: dict, failure: Optional[BaseException] = None) -> dict:
+        """Every rank's entries merged, the same dict on every rank (one
+        exchange, ``EnginePlacement.share``); ``mine`` itself with every
+        engine here."""
+        if self._placement is None:
+            if failure is not None:
+                raise failure
+            return mine
+        return self._placement.share(mine, failure)
+
+    def _refresh_views(self) -> None:
+        """Every shard's view from its lead rank: at construction and after
+        a reset, before any pump has reported."""
+        mine = {sh.index: EngineView.of(sh.engine) for sh in self._all if sh.lead}
+        for index, view in self._share(mine).items():
+            self._all[index].view = view
+
+    def _on_owners(self, shards: List[_Shard], work: Callable) -> dict:
+        """``work(shard)`` run on the ranks that run each shard's engine,
+        each lead's result on every rank by shard index (one exchange); a
+        failure on any rank raises on every rank."""
+        mine, failure = {}, None
+        try:
+            for sh in shards:
+                if sh.local:
+                    result = work(sh)
+                    if sh.lead:
+                        mine[sh.index] = result
+        except Exception as exc:  # raised again on every rank by _share
+            failure = exc
+        return self._share(mine, failure)
+
+    def _past_prompt(self, gid: int, tokens: np.ndarray) -> np.ndarray:
+        """What of ``tokens`` (a request's, which start with the prompt it
+        was last submitted with) travels: the rest."""
+        return tokens[self._sent[gid].size:]
+
+    def _tokens(self, gid: int, rest: np.ndarray) -> np.ndarray:
+        """A request's tokens from what travelled: its submitted prompt,
+        then ``rest``."""
+        return np.concatenate([self._sent[gid], rest])
+
+    def local_engines(self) -> list:
+        """The engines this rank runs, by global index."""
+        return [sh.engine for sh in self._all if sh.local]
 
     # -- lifecycle ---------------------------------------------------------
 
     def _clear_run_state(self) -> None:
         self._reqs: List[_ReqState] = []
+        #: gid -> the prompt it was last submitted with
+        self._sent: Dict[int, np.ndarray] = {}
         self.completions: List[ClusterCompletion] = []
         self.rejections: List[int] = []
         self.pool_history: List[str] = []
@@ -264,6 +386,7 @@ class ServingCluster:
             self.admission.admitted = 0
             self.admission.rejected = 0
         self._clear_run_state()
+        self._refresh_views()
 
     # -- gauges ------------------------------------------------------------
 
@@ -274,7 +397,7 @@ class ServingCluster:
         """Per-decode-shard queued requests (-1 marks an excluded shard).
         An elastic run changes the list's length mid-drain."""
         return [
-            -1 if sh.excluded else sh.engine.queue_depth
+            -1 if sh.excluded else sh.view.queue_depth
             for sh in self.shards
         ]
 
@@ -283,7 +406,7 @@ class ServingCluster:
         """Queued requests across every live engine of both pools: the
         saturation gauge the drive loop samples each pump."""
         return sum(
-            sh.engine.queue_depth
+            sh.view.queue_depth
             for sh in self._live(self.prefill) + self._live(self.shards)
         )
 
@@ -299,7 +422,7 @@ class ServingCluster:
         decode, so occupancy stays a decode-pool figure)."""
         total = EngineStats()
         for sh in self._all:
-            s = sh.engine.stats
+            s = sh.view.stats
             total.steps += s.steps
             total.generated += s.generated
             total.admissions += s.admissions
@@ -357,30 +480,32 @@ class ServingCluster:
             self._dispatch(gid, Request(prompt, max_new=max_new))
         return gid, True
 
+    def _submit_to(self, sh: _Shard, gid: int, req: Request) -> None:
+        """Queue ``req`` for ``gid`` on ``sh``, on every rank: the engine
+        (or its stand-in, which checks the same fit) takes it, and the view
+        moves as the engine's outstanding tokens and queue do."""
+        idx = sh.engine.submit(req)
+        sh.alias[idx] = gid
+        self._sent[gid] = req.prompt
+        sh.view.outstanding += req.max_new
+        sh.view.queue_depth += 1
+
     def _submit_prefill(self, gid: int, req: Request) -> None:
         live = self._live(self.prefill)
         if not live:
             raise RuntimeError("no live prefill shards")
-        sh = min(
-            live, key=lambda s: (s.engine.outstanding_tokens(), s.index)
-        )
-        idx = sh.engine.submit(req)
-        sh.alias[idx] = gid
+        self._submit_prefill_to(live, gid, req)
 
     def _dispatch(self, gid: int, req: Request) -> None:
         """Route a fresh (no KV) request into the decode pool."""
         st = self._reqs[gid]
         out = self._outstanding()
         s = self.router.route(st.prefix_id, out)
-        sh = self._all[s]
-        idx = sh.engine.submit(req)
-        sh.alias[idx] = gid
+        self._submit_to(self._all[s], gid, req)
 
     def _outstanding(self) -> List[float]:
         """Tokens still to generate per shard, by global shard index."""
-        return [
-            float(sh.engine.outstanding_tokens()) for sh in self._all
-        ]
+        return [float(sh.view.outstanding) for sh in self._all]
 
     # -- the pump ----------------------------------------------------------
 
@@ -390,26 +515,96 @@ class ServingCluster:
         (timing decode ticks for the watch), collect completions (prefill
         completions become handoffs), let the watch act, advance
         probations, then let the pools breathe. Returns the active-lane
-        count (0 with empty queues = idle)."""
+        count (0 with empty queues = idle). The engines' work is this
+        rank's local work; one exchange then gives every rank the reports
+        (and the keeper's ``now_s``) that every decision reads."""
         self._pump_count += 1
         live_pre = self._live(self.prefill)
         live_dec = self._live(self.shards)
-        # 1. admissions; routed decode admissions stamp TTFT here (the
-        # admission's prefill computed the request's first token)
-        for sh in live_pre:
-            sh.engine.admit_ready()
+        mine, failure = {}, None
+        try:
+            self._local_pump(live_pre, live_dec, mine)
+        except Exception as exc:  # raised again on every rank by _share
+            failure = exc
+        if self._keeps_time:
+            mine["now_s"] = now_s
+        reports = self._share(mine, failure)
+        now_s = reports["now_s"]
+        total_active = 0
+        for sh in live_pre + live_dec:
+            rep = reports[sh.index]
+            sh.view = rep.view
+            total_active += rep.active
+        # routed decode admissions stamp TTFT (the admission's prefill
+        # computed the request's first token); the watch's tick window
         for sh in live_dec:
-            admitted = sh.engine.admit_ready()
-            if admitted:
-                for slot in sh.engine.active_slots():
-                    gid = sh.alias[sh.engine.slot_request(slot)]
-                    self._stamp_first(gid, now_s)
+            rep = reports[sh.index]
+            for gid in rep.admitted:
+                self._stamp_first(gid, now_s)
+            if rep.tick_s is not None:
+                sh.tick_s.append(rep.tick_s)
+                del sh.tick_s[:-_TICK_WINDOW]
+        # completions (prefill first, so a bundle can reach a decode queue
+        # in the pump that produced it)
+        for sh in live_pre:
+            for gid, rest, finished_by in reports[sh.index].done:
+                st = self._reqs[gid]
+                tokens = self._tokens(gid, rest)
+                self._stamp_first(gid, now_s)
+                generated = int(tokens.size) - st.prompt_size
+                remaining = st.max_new - generated
+                if remaining <= 0:
+                    # a max_new=1 request: the prefill was the whole job
+                    self._finalize(gid, tokens, finished_by, sh.index, now_s)
+                else:
+                    self._handoff(
+                        KVBundle(
+                            request_id=gid,
+                            tokens=tokens,
+                            generated=generated,
+                            remaining=remaining,
+                            prefix_id=st.prefix_id,
+                            kv_tokens=int(tokens.size),
+                            payload_bytes=float(self._bundle_bytes(int(tokens.size))),
+                            produced_s=now_s,
+                        ),
+                        now_s,
+                    )
+        for sh in live_dec:
+            for gid, rest, finished_by in reports[sh.index].done:
+                self._stamp_first(gid, now_s)
+                self._finalize(gid, self._tokens(gid, rest), finished_by, sh.index, now_s)
+        # the indictment watch (and cost-weight re-resolution)
+        self._watch(now_s)
+        # probation: probe excluded shards toward exoneration
+        total_active += self._probe(now_s)
+        # elastic pool resizing
+        self._breathe(now_s)
+        return total_active
+
+    def _local_pump(self, live_pre: List[_Shard], live_dec: List[_Shard],
+                    reports: dict) -> None:
+        """This rank's part of a pump on the live engines it runs:
+        admissions, head-of-line relief, the step (decode ticks timed), the
+        new completions; then a ``_Report`` into ``reports`` for each
+        engine it leads."""
+        pre = [sh for sh in live_pre if sh.local]
+        dec = [sh for sh in live_dec if sh.local]
+        admitted: Dict[int, List[int]] = {}
+        for sh in pre:
+            sh.engine.admit_ready()
+        for sh in dec:
+            n = sh.engine.admit_ready()
+            admitted[sh.index] = [
+                sh.alias[sh.engine.slot_request(slot)]
+                for slot in sh.engine.active_slots()
+            ] if n else []
             # head-of-line relief, per shard: a head stuck while nothing
             # was admitted accrues ticks; relief preempts the active slot
             # with the most budget left
             if self.preempt_hol_ticks > 0:
                 head = sh.engine.queue_head()
-                if head is None or admitted:
+                if head is None or n:
                     sh.hol_ticks = 0
                 elif head == sh.last_head:
                     sh.hol_ticks += 1
@@ -419,76 +614,45 @@ class ServingCluster:
                 if sh.hol_ticks >= self.preempt_hol_ticks:
                     self._relieve_head(sh)
                     sh.hol_ticks = 0
-        # 2. step every live engine, timing decode ticks for the watch. The
+        # step every live engine, timing decode ticks for the watch. The
         # host clock around step() covers the tick's work on the card only
         # because step() copies the next tokens to the host (models/
         # serving.py), which waits for the tick's kernels: the watch's
         # medians depend on that copy staying inside step()
-        total_active = 0
-        for sh in live_pre:
-            total_active += sh.engine.step()
-        for sh in live_dec:
+        active: Dict[int, int] = {}
+        ticks: Dict[int, float] = {}
+        for sh in pre:
+            active[sh.index] = sh.engine.step()
+        for sh in dec:
             t0 = time.perf_counter()
-            active = sh.engine.step()
-            if active:
-                sh.tick_s.append(time.perf_counter() - t0)
-                del sh.tick_s[:-_TICK_WINDOW]
-            total_active += active
-        # 3. collect completions (prefill first, so a bundle can reach a
-        # decode queue in the pump that produced it)
-        for sh in live_pre:
+            active[sh.index] = sh.engine.step()
+            if active[sh.index]:
+                ticks[sh.index] = time.perf_counter() - t0
+        for sh in pre + dec:
+            done = []
             for c in sh.engine.completions[sh.done_seen:]:
                 gid = sh.alias[c.request_index]
-                st = self._reqs[gid]
-                self._stamp_first(gid, now_s)
-                generated = int(c.tokens.size) - st.prompt_size
-                remaining = st.max_new - generated
-                if remaining <= 0:
-                    # a max_new=1 request: the prefill was the whole job
-                    self._finalize(gid, c, sh.index, now_s)
-                else:
-                    self._handoff(
-                        KVBundle(
-                            request_id=gid,
-                            tokens=c.tokens,
-                            generated=generated,
-                            remaining=remaining,
-                            prefix_id=st.prefix_id,
-                            kv_tokens=int(c.tokens.size),
-                            payload_bytes=float(
-                                self._bundle_bytes(int(c.tokens.size))
-                            ),
-                            produced_s=now_s,
-                        ),
-                        now_s,
-                    )
+                done.append((gid, self._past_prompt(gid, c.tokens), c.finished_by))
             sh.done_seen = len(sh.engine.completions)
-        for sh in live_dec:
-            for c in sh.engine.completions[sh.done_seen:]:
-                gid = sh.alias[c.request_index]
-                self._stamp_first(gid, now_s)
-                self._finalize(gid, c, sh.index, now_s)
-            sh.done_seen = len(sh.engine.completions)
-        # 4. the indictment watch (and cost-weight re-resolution)
-        self._watch(now_s)
-        # 5. probation: probe excluded shards toward exoneration
-        total_active += self._probe(now_s)
-        # 6. elastic pool resizing
-        self._breathe(now_s)
-        return total_active
+            if sh.lead:
+                reports[sh.index] = _Report(
+                    EngineView.of(sh.engine), active[sh.index],
+                    admitted.get(sh.index, []), ticks.get(sh.index), done,
+                )
 
     def _stamp_first(self, gid: int, now_s: float) -> None:
         st = self._reqs[gid]
         if st.first_s is None:
             st.first_s = now_s
 
-    def _finalize(self, gid: int, c, shard: int, now_s: float) -> None:
+    def _finalize(self, gid: int, tokens: np.ndarray, finished_by: str,
+                  shard: int, now_s: float) -> None:
         st = self._reqs[gid]
         self.completions.append(
             ClusterCompletion(
                 request_id=gid,
-                tokens=c.tokens,
-                finished_by=c.finished_by,
+                tokens=tokens,
+                finished_by=finished_by,
                 shard=shard,
                 first_s=st.first_s if st.first_s is not None else now_s,
                 finished_s=now_s,
@@ -526,11 +690,10 @@ class ServingCluster:
         self.counters["handoff_bytes"] += bundle.payload_bytes
         self.counters["handoff_s"] += priced
         st.handoffs += 1
-        sh = self._all[target]
-        idx = sh.engine.submit(
-            Request(bundle.tokens, max_new=bundle.remaining)
+        self._submit_to(
+            self._all[target], bundle.request_id,
+            Request(bundle.tokens, max_new=bundle.remaining),
         )
-        sh.alias[idx] = bundle.request_id
 
     # -- degradation -------------------------------------------------------
 
@@ -586,7 +749,8 @@ class ServingCluster:
         queued requests re-route as fresh submissions (no KV exists yet).
         The engine stays (its stats still add up); with probation armed it
         keeps serving probes toward exoneration. Needs at least one
-        surviving decode shard."""
+        surviving decode shard. At world > 1 every rank calls it at the
+        same point."""
         sh = self._all[shard]
         if sh.excluded:
             return
@@ -609,36 +773,56 @@ class ServingCluster:
             sh.probe_s = []
             sh.probe_obs = []
 
+    def _take_out(self, sh: _Shard, prewarm: bool = False):
+        """Everything off ``sh``'s engine, where it runs: its active slots
+        evicted and its queue dropped, each request as ``(gid, tokens past
+        its submitted prompt, budget left)``; with ``prewarm`` the
+        promotion's prewarm hook after. Returns (evicted, queued, the
+        engine's view)."""
+        engine = sh.engine
+        evicted = []
+        for slot in list(engine.active_slots()):
+            idx, remnant = engine.evict(slot)
+            gid = sh.alias[idx]
+            evicted.append((gid, self._past_prompt(gid, remnant.prompt), remnant.max_new))
+        queued = []
+        for idx, req in engine.drop_queue():
+            gid = sh.alias[idx]
+            queued.append((gid, self._past_prompt(gid, req.prompt), req.max_new))
+        if prewarm:
+            if self._prewarm is not None:
+                self._prewarm(engine)
+            # the prewarm's own completions are not cluster traffic
+            sh.done_seen = len(engine.completions)
+        return evicted, queued, EngineView.of(engine)
+
     def _migrate_decode_work(self, sh: _Shard, now_s: float) -> None:
         """Move everything off a decode shard: active slots evict into
         priced handoffs, the queue re-dispatches (shared by indictment
         drains and elastic demotions)."""
-        for slot in list(sh.engine.active_slots()):
-            idx, remnant = sh.engine.evict(slot)
-            gid = sh.alias[idx]
+        evicted, queued, sh.view = self._on_owners([sh], self._take_out)[sh.index]
+        for gid, rest, remaining in evicted:
             st = self._reqs[gid]
+            tokens = self._tokens(gid, rest)
             st.drained = True
             self.counters["drained"] += 1
             self._handoff(
                 KVBundle(
                     request_id=gid,
-                    tokens=remnant.prompt,
-                    generated=int(remnant.prompt.size) - st.prompt_size,
-                    remaining=remnant.max_new,
+                    tokens=tokens,
+                    generated=int(tokens.size) - st.prompt_size,
+                    remaining=remaining,
                     prefix_id=st.prefix_id,
-                    kv_tokens=int(remnant.prompt.size),
-                    payload_bytes=float(
-                        self._bundle_bytes(int(remnant.prompt.size))
-                    ),
+                    kv_tokens=int(tokens.size),
+                    payload_bytes=float(self._bundle_bytes(int(tokens.size))),
                     produced_s=now_s,
                 ),
                 now_s,
             )
-        for idx, req in sh.engine.drop_queue():
-            gid = sh.alias[idx]
+        for gid, rest, max_new in queued:
             self._reqs[gid].drained = True
             self.counters["drained"] += 1
-            self._dispatch(gid, req)
+            self._dispatch(gid, Request(self._tokens(gid, rest), max_new=max_new))
 
     # -- probation / exoneration -------------------------------------------
 
@@ -648,7 +832,9 @@ class ServingCluster:
         Each completed probe closes one probation window, judged by the
         indictment test in reverse (median inside both the dominance bar
         and the TPOT SLO); ``exoneration_verdict`` decides re-admission
-        over the windows. Probe completions never reach the ledger."""
+        over the windows. Probe completions never reach the ledger. The
+        probe ticks run where the shard's engine runs; their times reach
+        every rank by one exchange."""
         probing = [
             sh for sh in self.shards if sh.excluded and sh.probation
         ]
@@ -664,25 +850,15 @@ class ServingCluster:
             if len(sh.tick_s) >= self.watch_ticks
         ]
         ref = self._cost_ref_s(min(live_meds) if live_meds else 0.0)
+        probed = self._on_owners(probing, self._probe_tick)
         active_total = 0
         for sh in probing:
-            eng = sh.engine
-            if not eng.active_slots() and eng.queue_depth == 0:
-                eng.submit(
-                    Request(
-                        self._probe_prompt,
-                        max_new=max(1, self.probation_ticks),
-                    )
-                )
-            eng.admit_ready()
-            t0 = time.perf_counter()
-            active = eng.step()
-            if active:
-                sh.probe_s.append(time.perf_counter() - t0)
+            active, tick_s, closed, sh.view = probed[sh.index]
+            if tick_s is not None:
+                sh.probe_s.append(tick_s)
             active_total += active
-            if len(eng.completions) > sh.done_seen:
+            if closed:
                 # one probe window closed: its verdict, maybe exoneration
-                sh.done_seen = len(eng.completions)
                 window = sh.probe_s
                 sh.probe_s = []
                 if not window:
@@ -695,6 +871,26 @@ class ServingCluster:
                 if exoneration_verdict(sh.probe_obs):
                     self._exonerate(sh, med, ref, now_s)
         return active_total
+
+    def _probe_tick(self, sh: _Shard):
+        """One probe tick on ``sh``'s engine, where it runs: (active lanes,
+        the tick's host seconds or None, whether a probe completed, the
+        engine's view)."""
+        eng = sh.engine
+        if not eng.active_slots() and eng.queue_depth == 0:
+            eng.submit(
+                Request(
+                    self._probe_prompt,
+                    max_new=max(1, self.probation_ticks),
+                )
+            )
+        eng.admit_ready()
+        t0 = time.perf_counter()
+        active = eng.step()
+        tick_s = time.perf_counter() - t0 if active else None
+        closed = len(eng.completions) > sh.done_seen
+        sh.done_seen = len(eng.completions)
+        return active, tick_s, closed, EngineView.of(eng)
 
     def _exonerate(
         self, sh: _Shard, median_s: float, ref_s: float, now_s: float
@@ -729,11 +925,11 @@ class ServingCluster:
         live_dec = self._live(self.shards)
         if not live_dec:
             return
-        dec_backlog = sum(sh.engine.queue_depth for sh in live_dec) / len(
+        dec_backlog = sum(sh.view.queue_depth for sh in live_dec) / len(
             live_dec
         )
         pre_backlog = (
-            sum(sh.engine.queue_depth for sh in live_pre) / len(live_pre)
+            sum(sh.view.queue_depth for sh in live_pre) / len(live_pre)
             if live_pre
             else 0.0
         )
@@ -765,26 +961,17 @@ class ServingCluster:
         submissions), then the engine's decode step is prewarmed (the
         hook's wall clock lands inside the measured drain), then the
         router admits the shard at nominal weight."""
-        sh = min(
-            live_pre,
-            key=lambda s: (s.engine.outstanding_tokens(), s.index),
-        )
+        sh = min(live_pre, key=lambda s: (s.view.outstanding, s.index))
         survivors = [s for s in live_pre if s.index != sh.index]
-        for slot in list(sh.engine.active_slots()):
-            idx, remnant = sh.engine.evict(slot)
-            gid = sh.alias[idx]
+        evicted, queued, sh.view = self._on_owners(
+            [sh], lambda s: self._take_out(s, prewarm=True)
+        )[sh.index]
+        for gid, rest, budget in evicted + queued:
             self._reqs[gid].drained = True
             self.counters["drained"] += 1
-            self._submit_prefill_to(survivors, gid, remnant)
-        for idx, req in sh.engine.drop_queue():
-            gid = sh.alias[idx]
-            self._reqs[gid].drained = True
-            self.counters["drained"] += 1
-            self._submit_prefill_to(survivors, gid, req)
-        if self._prewarm is not None:
-            self._prewarm(sh.engine)
-        # the prewarm's own completions are not cluster traffic
-        sh.done_seen = len(sh.engine.completions)
+            self._submit_prefill_to(
+                survivors, gid, Request(self._tokens(gid, rest), max_new=budget)
+            )
         self.prefill.remove(sh)
         sh.flip("decode")
         self.shards.append(sh)
@@ -795,12 +982,8 @@ class ServingCluster:
     def _submit_prefill_to(
         self, survivors: List[_Shard], gid: int, req: Request
     ) -> None:
-        sh = min(
-            survivors,
-            key=lambda s: (s.engine.outstanding_tokens(), s.index),
-        )
-        idx = sh.engine.submit(req)
-        sh.alias[idx] = gid
+        sh = min(survivors, key=lambda s: (s.view.outstanding, s.index))
+        self._submit_to(sh, gid, req)
 
     def _demote(self, live_dec: List[_Shard], now_s: float) -> None:
         """Promoted shard -> back to the prefill pool (only shards whose
@@ -814,10 +997,7 @@ class ServingCluster:
         ]
         if not returnable or len(live_dec) < 2:
             return
-        sh = min(
-            returnable,
-            key=lambda s: (s.engine.outstanding_tokens(), s.index),
-        )
+        sh = min(returnable, key=lambda s: (s.view.outstanding, s.index))
         # router first: the drain's handoffs must not land back on it
         self.router.remove_shard(sh.index)
         self.shards.remove(sh)

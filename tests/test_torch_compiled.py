@@ -22,15 +22,15 @@ span every device the runtime lists):
 - ``transformer_decode``: the decode and prefill logits within 1e-4.
 
 Then ``make_full_width_fns`` against the oracle, the compiler knobs, the
-rejections, the runner's warm-up rule, the shipped
+rejections and the runner's warm-up rule. The int8 rows and the learned
+routers are ``test_torch_compiled_models.py``; the shipped
 ``config_transformer_step.json`` entry through the CLI and CLI sweeps back
-to back in one process.
+to back in one process are ``test_torch_compiled_sweeps.py`` (files of
+their own, so that the test runner's workers can share them).
 """
 
 import contextlib
-import csv
 import itertools
-import json
 from pathlib import Path
 
 import numpy as np
@@ -191,66 +191,6 @@ def test_decode_matches_jax_at_world_one(phase):
     assert impl.validate(got)
     if phase == "decode":  # a repeated step reads the same cache
         np.testing.assert_array_equal(impl.run().numpy(), got.numpy())
-
-
-#: the int8 MLP rows of the compiled members, K7 through its operators
-INT8_ROWS = [("transformer_step", "train", "int8"),
-             ("transformer_step", "forward", "int8_weights"),
-             ("transformer_decode", "decode", "int8"),
-             ("transformer_decode", "decode", "int8_weights")]
-
-
-@pytest.mark.parametrize("family,mode,mlp_kernel", INT8_ROWS, ids=str)
-def test_int8_rows_match_spmd_at_world_one(family, mode, mlp_kernel):
-    """The compiled int8 rows (the int8 GEMMs as ``ddlb::int8_matmul`` and
-    ``ddlb::int8_ste_matmul`` nodes of the graph) against the ``spmd``
-    member's eager rows with einsum attention: the loss or logits within
-    1e-4 (a float32 difference in the fused graph can move one value
-    across a quantization step, as in ``test_torch_transformer_step.py``),
-    the train step's parameters under ``adam_atol``, each row valid."""
-    if family == "transformer_step":
-        opts = dict(STEP, mode=mode, mlp_kernel=mlp_kernel, dp=1, tp=1, pp=1)
-        shape = STEP_SHAPE
-    else:
-        opts = dict(DECODE, phase=mode, mlp_kernel=mlp_kernel, dp=1, tp=1)
-        shape = DECODE_SHAPE
-    rows = {}
-    for member, extra in (("compiled", {}), ("spmd", {"attn_kernel": "einsum"})):
-        impl = load_port(family, member)(*shape, dtype="float32", device="cpu", **opts, **extra)
-        out = impl.run()
-        assert impl.validate(out), member
-        rows[member] = (impl, out)
-    (impl, got), (_, want) = rows["compiled"], rows["spmd"]
-    if family == "transformer_decode":
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
-        return
-    if mode == "forward":
-        assert float(got) == pytest.approx(float(want), abs=1e-4)
-        return
-    assert float(got[-1]) == pytest.approx(float(want[-1]), abs=1e-4)
-    for name, new in want[0].items():
-        init = impl._args[0][name].to_local().numpy()
-        err = np.abs(got[0][name].numpy() - new.numpy())
-        assert np.all(err <= adam_atol(init, new.numpy()) + 2 * LR * (init != init)), name
-
-
-@pytest.mark.parametrize("router,mode", [("topk", "forward"), ("expert_choice", "train")])
-def test_routers_match_jax_at_world_one(router, mode):
-    """The learned routers through the compiled step (one expert at world
-    1) against the JAX ``xla_gspmd`` member."""
-    opts = dict(router=router, router_topk=1, capacity_factor=0.5)
-    impl = load_port("transformer_step", "compiled")(
-        *STEP_SHAPE, dtype="float32", device="cpu", mode=mode, dp=1, tp=1, pp=1, **STEP,
-        **opts)
-    out = impl.run()
-    assert impl.validate(out)
-    with jax_devices(1):
-        ref = load_jax("transformer_step", "xla_gspmd")(
-            *STEP_SHAPE, dtype="float32", mode=mode, dp=1, tp=1, pp=1, **STEP, **opts)
-        want = ref.run()
-    loss = out if mode == "forward" else out[-1]
-    want_loss = want if mode == "forward" else want[-1]
-    assert float(loss) == pytest.approx(float(want_loss), abs=1e-4)
 
 
 def test_k7_operators_pass_opcheck():
@@ -416,6 +356,20 @@ def test_added_sharding_rules():
     assert roll_rule(x, [4]) == [([Replicate()], [Replicate(), None, None])]
 
 
+def test_device_meshes_that_keep_the_same_axes_are_one():
+    """``Runtime.device_mesh`` leaves out axes of size 1, and two requests
+    that keep the same axes get one ``DeviceMesh``: under torch 2.13 an
+    equal second mesh broke the next compiled backward in the process
+    (``test_torch_tp_mlp.py``'s (1, 1) step, then a compiled
+    ``transformer_step`` at (1, 1, 1): "Node tangents_2 was invalid")."""
+    from ddlb_tpu_torch.runtime import Runtime
+
+    rt = Runtime("cpu")
+    mesh = rt.device_mesh(("dp", "tp"), (1, 1))
+    assert mesh is rt.device_mesh(("dp", "tp", "pp"), (1, 1, 1))
+    assert mesh.mesh_dim_names == ("dp",)
+
+
 def test_option_schema_is_the_jax_packages():
     from ddlb_tpu.primitives.xla_options import GSPMD_ALLOWED_VALUES as JAX_ALLOWED
     from ddlb_tpu.primitives.xla_options import GSPMD_DEFAULT_OPTIONS as JAX_DEFAULTS
@@ -463,48 +417,3 @@ def test_runner_needs_a_warmup(tmp_path):
     by = {r["base_implementation"]: r for r in rows}
     assert "num_warmups must be >= 1" in by["compiled"]["error"]
     assert not by["compiled"]["valid"] and by["pytorch"]["valid"]
-
-
-def _sweep(tmp_path, name, argv):
-    path = tmp_path / f"{name}.csv"
-    port_cli.main(argv + ["--device", "cpu", "--num-iterations", "2", "--num-warmups", "1",
-                          "--csv", str(path)])
-    with open(path) as f:
-        return list(csv.DictReader(f))
-
-
-def test_two_sweeps_in_one_process(tmp_path):
-    """Two CLI runs back to back, each with a compiled train step: the
-    first drops its compiled graphs on the way out (``runtime.shutdown``;
-    at world 1 the one-rank group and its meshes stay for the process), and
-    the second compiles anew on them."""
-    for i, (family, shape, impl) in enumerate((
-            ("tp_rowwise", (M, N, K), "xla_gspmd"),
-            ("transformer_step", STEP_SHAPE, "xla_gspmd;vocab=64;n_heads=4;batch=2;"
-                                             "microbatches=1;layers_per_stage=2"),
-            ("transformer_step", STEP_SHAPE, "xla_gspmd;vocab=64;n_heads=8"))):
-        rows = _sweep(tmp_path, f"sweep{i}", [
-            "--primitive", family, "--impl", impl, "--impl", "compute_only"]
-            + [a for flag, v in zip("mnk", shape) for a in (f"-{flag}", str(v))]
-            + ["--dtype", "float32"])
-        assert [r["base_implementation"] for r in rows] == ["compiled", "compute_only"]
-        assert all(r["valid"] == "True" and not r["error"] for r in rows), rows
-
-
-def test_transformer_step_config_runs_on_the_cpu(tmp_path):
-    """``scripts/config_transformer_step.json``'s ``xla_gspmd`` entry as
-    shipped (``latency_hiding_scheduler`` true and false) through the CLI
-    at a small shape: two valid ``compiled`` rows."""
-    cfg = json.loads((REPO / "scripts" / "config_transformer_step.json").read_text())["benchmark"]
-    cfg.update(m=[16], n=[32], k=[64], num_iterations=1, device="cpu",
-               time_measurement_backend="host_clock",  # device_loop needs the card
-               implementations={"xla_gspmd": cfg["implementations"]["xla_gspmd"]},
-               output_csv=str(tmp_path / "rows.csv"))
-    path = tmp_path / "config_transformer_step.json"
-    path.write_text(json.dumps({"benchmark": cfg}))
-    rows = port_cli.run_benchmark(port_cli.load_config(str(path)))
-    assert len(rows) == 2
-    for row in rows:
-        assert row["base_implementation"] == "compiled"
-        assert row["valid"] and not row["error"], row["error"]
-    assert {"latency_hiding_scheduler=True" in r["option"] for r in rows} == {True, False}

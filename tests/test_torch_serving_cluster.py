@@ -11,15 +11,10 @@ decides every argmax far from a tie): routed, disaggregated, a drain
 mid-flight, the elastic promote and demote, probation, the probe cadence
 and the straggler watch, with the JAX tests' stubs; then the members end
 to end through the runner (the config's entries, the row's columns
-against a JAX row's, the option schemas) and their refusal at world > 1
-on a spawned 2-rank gloo world.
+against a JAX row's, the option schemas). World > 1 is
+``test_torch_serving_cluster_multirank.py``.
 """
 
-import multiprocessing as mp
-import os
-import queue
-import socket
-import traceback
 from types import SimpleNamespace
 
 import numpy as np
@@ -425,6 +420,33 @@ class TestClusterExactness:
         assert all(c.shard == 0 for c in ours.completions)
         _assert_chains(ours, theirs, reqs, make)
 
+    def test_views_track_the_engines(self):
+        """The shared view the decisions read equals each engine's own
+        figures after every submission, pump and drain (at world 1 the
+        exchange is the identity, so the view is the live state)."""
+        from ddlb_tpu_torch.serve.cluster import EngineView
+
+        ours, _, _ = _clusters(2, 1, bundle_bytes=lambda kv_tokens: 1.0 * kv_tokens)
+
+        def same():
+            for sh in ours._all:
+                assert sh.view == EngineView.of(sh.engine), sh.index
+
+        same()
+        for prompt, max_new in _requests(3, 6, 2, 6):
+            ours.submit(prompt, max_new, now_s=0.0)
+            same()
+        for i in range(3):
+            ours.pump(0.01 * i)
+            same()
+        ours.drain_shard(1, 0.05)
+        same()
+        t = 0.06
+        while ours.accounted < 6:
+            ours.pump(t)
+            same()
+            t += 0.01
+
     def test_drain_last_shard_refused(self):
         ours, _, _ = _clusters(1)
         with pytest.raises(RuntimeError, match="last live decode shard"):
@@ -666,72 +688,3 @@ def test_option_schema_equals_jax(member):
 
     assert load_impl_class("serving_load", member).option_schema() == \
         jax_load("serving_load", member).option_schema()
-
-
-# -- world > 1 ------------------------------------------------------------------
-
-WORLD = 2
-#: seconds the 2-rank world may take; the test fails when it runs out
-DEADLINE_S = 240
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _refusal_rank_main(rank, port, results):
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(WORLD),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    import torch.distributed as dist
-
-    from ddlb_tpu_torch.primitives.registry import load_impl_class
-
-    try:
-        errors = {}
-        for member in ("router", "disagg"):
-            try:
-                load_impl_class("serving_load", member)(
-                    8, 32, 64, dtype="float32", device="cpu", batch=4, vocab=64,
-                    n_heads=4, n_requests=4)
-                errors[member] = None
-            except ValueError as exc:
-                errors[member] = str(exc)
-        results.put((rank, "ok", errors))
-    except BaseException:
-        results.put((rank, "error", traceback.format_exc()))
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def test_cluster_members_refuse_world_above_one():
-    """On a 2-rank gloo world both members raise, naming the drive that
-    is missing, rather than running every engine over every rank."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_refusal_rank_main, args=(r, port, results), daemon=True)
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        for _ in range(WORLD):
-            rank, status, payload = results.get(timeout=DEADLINE_S)
-            assert status == "ok", f"rank {rank} failed:\n{payload}"
-            got[rank] = payload
-    except queue.Empty:
-        raise AssertionError(f"the {WORLD}-rank world did not finish within {DEADLINE_S} s")
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-    for rank in range(WORLD):
-        for member in ("router", "disagg"):
-            assert got[rank][member] is not None, (rank, member)
-            assert "multi-controller drive" in got[rank][member]
-            assert "world 2" in got[rank][member]
