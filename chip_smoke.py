@@ -153,7 +153,16 @@ Phases, in order; any failure exits non-zero without the final line:
    ``mma``;
    then the LM head's product before and after it moved to the tensor
    cores (``head_phase``: the full-width train row and a pallas
-   decode row, each with the old float32 head and the new one).
+   decode row, each with the old float32 head and the new one);
+   then the telemetry phase (``telemetry_phase``, in a process of its
+   own with ``DDLB_TPU_TRACE`` set): a ``tp_columnwise`` ``cuda`` row at
+   4096^3 bf16 (K1) and a ``serving_load`` ``engine`` row at the serving
+   width (K8a, K12) with ``profile_dir`` set, each checked against its
+   trace (one ``worker.row`` span with its phases nested, a barrier span
+   and exchange instant per barrier, the drains' ``serve.ticks`` against
+   the tick metric, the merged ``trace.json``), its telemetry columns,
+   and the profiler's kernel events against the launch counters' rise
+   over the window; then the tp row with tracing off and on in turns.
    The ``compiled`` member (the JAX package's ``xla_gspmd``: DTensor
    placements under ``torch.compile``) rides those paths with its knobs at
    their defaults: both tp families and ``dp_allreduce``/``ep_alltoall`` at
@@ -3241,6 +3250,247 @@ def head_phase(run_benchmark, smi):
     return medians
 
 
+# -- the telemetry phase ------------------------------------------------------------
+
+
+#: the telemetry phase's rows: tp_columnwise ``cuda`` at 4096^3 bf16 (K1),
+#: then a serving_load ``engine`` row at the serving width with a short
+#: drain (8 requests at 400/s: K8a prefills, K12 ticks), both on the host
+#: clock with a barrier before every timed call
+TELEMETRY_MNK = 4096
+TELEMETRY_ITERATIONS = 10
+TELEMETRY_SERVING = {"rate": 400.0, **SERVING_LOAD_COMMON, "n_requests": 8}
+#: the kernels the profiler window must show by name, with the counter
+#: whose rise over the window they must equal: K1, K8a and K12
+PROFILED_KERNELS = (("k1", "k1_hopper::gemm_wgmma"), ("k8a", "tri::flash_fwd_wgmma"),
+                    ("k12", "decode_mma"))
+#: the span categories totalled per row
+TELEMETRY_CATEGORIES = ("setup", "warmup", "profile", "timing", "validate", "barrier")
+
+
+def telemetry_phase(smi):
+    """Run ``telemetry_child`` in a process of its own, with
+    ``DDLB_TPU_TRACE`` set to a temporary directory (a fresh process: the
+    allocator's peak starts at zero, so the first row raises it). The child
+    fails the run unless every check holds; its figures come back as one
+    JSON line, printed here. Returns its launch counts (K1, K8a, K12) for
+    the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    out = os.path.join(tmp, "result.json")
+    env = dict(os.environ, DDLB_TPU_TRACE=os.path.join(tmp, "trace"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--telemetry-child", tmp, out],
+                              env=env, timeout=300)
+        if proc.returncode != 0:
+            fail(f"the telemetry phase failed (exit {proc.returncode})")
+        with open(out) as f:
+            result = json.load(f)
+    except subprocess.TimeoutExpired:
+        fail("the telemetry phase did not end within 300 s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["seconds"] = round(time.perf_counter() - t0, 1)
+    result["card"] = smi
+    print(json.dumps({"telemetry": result}))
+    return result["launches"]
+
+
+def _row_spans(events, impl_id):
+    """The ``worker.row`` span of ``impl_id`` and the spans inside it (same
+    process and thread, within its extent)."""
+    rows = [e for e in events if e.get("ph") == "X" and e["name"] == "worker.row"
+            and e["args"].get("impl") == impl_id]
+    if len(rows) != 1:
+        fail(f"telemetry: {len(rows)} worker.row spans for {impl_id}, expected 1")
+    (row,) = rows
+    end = row["ts"] + row["dur"] + 1.0
+
+    def inside(e):
+        return (e is not row and e["pid"] == row["pid"] and e["tid"] == row["tid"]
+                and row["ts"] - 1.0 <= e["ts"] <= end
+                and e["ts"] + e.get("dur", 0.0) <= end)
+
+    return row, [e for e in events if e.get("ph") in ("X", "i") and inside(e)]
+
+
+def _profiled_kernels(path):
+    """Kernel events of a profiler Chrome trace by ``PROFILED_KERNELS``
+    key, and the names of the kernels seen."""
+    with open(path) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"]
+    counts = {key: sum(1 for e in kernels if symbol in e.get("name", ""))
+              for key, symbol in PROFILED_KERNELS}
+    return counts, sorted({e.get("name", "")[:80] for e in kernels})
+
+
+def telemetry_child(tmp, out_path):
+    """The telemetry phase (``DDLB_TPU_TRACE`` set by the parent): the two
+    rows of ``TELEMETRY_*`` through the sweep runner with ``profile_dir``
+    set, then every check of the phase against the trace, the rows, the
+    launch counters and the profiler's Chrome traces; then the tp row
+    six times more, tracing off and on in turns, for the spans' cost.
+    Writes the figures to ``out_path``; exits non-zero on the first
+    failed check."""
+    import torch
+    import torch.profiler
+    from ddlb_tpu_torch import telemetry
+    from ddlb_tpu_torch.benchmark import benchmark_worker
+    from ddlb_tpu_torch.cli.benchmark import run_benchmark
+    from ddlb_tpu_torch.ops import _build
+    from ddlb_tpu_torch.ops import decode_attention as da
+    from ddlb_tpu_torch.ops import flash_attention as fa
+    from ddlb_tpu_torch.ops import matmul as k1
+    from ddlb_tpu_torch.primitives.registry import load_impl_class
+    from ddlb_tpu_torch.telemetry import clocksync
+
+    if not torch.cuda.is_available():
+        fail("telemetry: no card")
+    trace_dir, profile_dir = os.environ["DDLB_TPU_TRACE"], os.path.join(tmp, "profile")
+    _build.build("matmul", "flash_attention", "decode_attention")
+    for mod in (k1, fa, da):
+        mod.reset_launches()
+
+    def tiles():
+        return {"k1": sum(k1.TILES.values()), "k8a": fa.FORWARD_TILES["wgmma"],
+                "k12": da.DECODE_TILES["mma"]}
+
+    windows = []
+
+    class CountedProfile(torch.profiler.profile):
+        """The runner's profiler, with the kernels' counters read at the
+        window's edges (``torch.profiler.profile`` is looked up at call
+        time, so the runner takes this one)."""
+
+        def __enter__(self):
+            self._before = tiles()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            after = tiles()
+            windows.append({k: after[k] - self._before[k] for k in after})
+            return out
+
+    torch.profiler.profile = CountedProfile
+    specs = (("tp_columnwise", (TELEMETRY_MNK,) * 3, {"cuda": [{}]}, "bfloat16",
+              NUM_WARMUPS, TELEMETRY_ITERATIONS),
+             ("serving_load", (SERVING_LOAD_M, SERVE_N, SERVE_K),
+              {"engine": [TELEMETRY_SERVING]}, "bfloat16", 1, 2))
+    rows, figures = [], []
+    for primitive, (m, n, k), impls, dtype, warmups, iterations in specs:
+        before_ticks = telemetry.global_snapshot().get("serve.ticks", 0.0)
+        launches_before = tiles()
+        (row,) = run_benchmark({
+            "primitive": primitive, "m": m, "n": n, "k": k, "dtype": dtype,
+            "validate": True, "num_iterations": iterations, "num_warmups": warmups,
+            "time_measurement_backend": "host_clock", "barrier_at_each_iteration": True,
+            "device": "cuda", "profile_dir": profile_dir,
+            "output_csv": os.path.join(tmp, f"{primitive}.csv"), "implementations": impls,
+        })
+        ticks = telemetry.global_snapshot().get("serve.ticks", 0.0) - before_ticks
+        launched = {key: tiles()[key] - launches_before[key] for key in launches_before}
+        impl_id = row["implementation"]
+        if not (row["valid"] and not row["error"] and math.isfinite(row["median time (ms)"])):
+            fail(f"telemetry: {primitive} row not valid: {row['error']}")
+        if not row["barrier_wait_s"] > 0.0:
+            fail(f"telemetry: {primitive} barrier_wait_s {row['barrier_wait_s']}")
+        if not rows and not row["hbm_high_water_bytes"] > 0:
+            fail(f"telemetry: the process's first row has hbm_high_water_bytes "
+                 f"{row['hbm_high_water_bytes']}")
+        impl = load_impl_class(primitive, row["base_implementation"])
+        wire = getattr(impl, "wire_bytes", None)
+        if wire is not None:
+            built = impl(m, n, k, dtype=dtype, device="cuda")
+            want_wire = built.wire_bytes()
+            del built
+        else:
+            want_wire = telemetry.ROW_METRIC_DEFAULTS["collective_bytes"]
+        if row["collective_bytes"] != want_wire:
+            fail(f"telemetry: {primitive} collective_bytes {row['collective_bytes']} "
+                 f"!= wire_bytes() {want_wire}")
+        skew = {key: row[key] for key in clocksync.SKEW_ROW_DEFAULTS}
+        if repr(skew) != repr(clocksync.SKEW_ROW_DEFAULTS):
+            fail(f"telemetry: {primitive} skew columns at world 1: {skew}")
+        # the trace: one row span, its phases nested, a barrier and an
+        # exchange per timed call
+        events = telemetry.read_events(trace_dir)
+        span, inner = _row_spans(events, impl_id)
+        names = [e["name"] for e in inner]
+        for phase in ("worker.setup", "worker.warmup", "worker.profile", "worker.timing",
+                      "worker.validate"):
+            if names.count(phase) != 1:
+                fail(f"telemetry: {primitive} row holds {names.count(phase)} {phase}")
+        barriers, exchanges = names.count("runtime.barrier"), names.count("clocksync.exchange")
+        if not barriers == exchanges == iterations:
+            fail(f"telemetry: {primitive} row: {barriers} runtime.barrier spans and "
+                 f"{exchanges} clocksync.exchange instants for {iterations} barriers")
+        if primitive == "serving_load":
+            drains = names.count("serve.drain")
+            marked = sum(e["args"]["steps"] for e in inner if e["name"] == "serve.ticks")
+            if not (drains == row["drains"] and marked == ticks == row["drain_ticks"] > 0):
+                fail(f"telemetry: serve.drain spans {drains} (drains {row['drains']}), "
+                     f"serve.ticks instants count {marked}, metric {ticks}, "
+                     f"drain_ticks {row['drain_ticks']}")
+        if not os.path.isfile(os.path.join(trace_dir, "trace.json")):
+            fail("telemetry: the runner merged no trace.json")
+        # the profiler window: its kernel events by name against the
+        # counters' rise over the same window
+        window = windows[-1]
+        seen, kernel_names = _profiled_kernels(
+            os.path.join(profile_dir, f"{impl_id}-p0.json"))
+        want = ("k1",) if primitive == "tp_columnwise" else ("k8a", "k12")
+        for key in want:
+            if not window[key] or seen[key] != window[key]:
+                fail(f"telemetry: {primitive} profiler trace shows {seen[key]} "
+                     f"{dict(PROFILED_KERNELS)[key]} kernels, the counters rose "
+                     f"{window[key]} (kernels seen: {kernel_names})")
+        categories = {}
+        for e in inner:
+            if e.get("ph") == "X" and e["cat"] in TELEMETRY_CATEGORIES:
+                categories[e["cat"]] = categories.get(e["cat"], 0.0) + e["dur"] * 1e-6
+        figures.append({
+            "primitive": primitive, "shape": [m, n, k], "median_ms": row["median time (ms)"],
+            "row_s": span["dur"] * 1e-6, "seconds_by_category": categories,
+            **{key: row[key] for key in ("barrier_wait_s", "loop_overhead_s",
+                                         "hbm_high_water_bytes", "collective_bytes",
+                                         "hbm_peak_gib")},
+            "profiled": {key: seen[key] for key in want}, "launches": launched,
+        })
+        rows.append(row)
+        torch.cuda.empty_cache()
+    # the spans' cost: the tp row with tracing off and on, in turns
+    config = {"primitive": "tp_columnwise", "impl_id": "cuda_0",
+              "base_implementation": "cuda", "m": TELEMETRY_MNK, "n": TELEMETRY_MNK,
+              "k": TELEMETRY_MNK, "dtype": "bfloat16", "num_iterations": 5 * TELEMETRY_ITERATIONS,
+              "num_warmups": NUM_WARMUPS, "device": "cuda"}
+    overhead = {"off": [], "on": []}
+    for turn in ("off", "on", "on", "off", "off", "on"):
+        if turn == "off":
+            os.environ.pop("DDLB_TPU_TRACE", None)
+        else:
+            os.environ["DDLB_TPU_TRACE"] = trace_dir
+        row = benchmark_worker(config)
+        if not row["valid"]:
+            fail(f"telemetry: the tracing-{turn} tp row is not valid: {row['error']}")
+        overhead[turn].append(row["median time (ms)"])
+    launches = {"k1": k1.LAUNCHES, "tri": fa.LAUNCHES["tri"], "paged": da.LAUNCHES["paged"]}
+    if k1.TILES["wgmma"] != k1.LAUNCHES or da.DECODE_TILES["mma"] != da.LAUNCHES["paged"] \
+            or fa.FORWARD_TILES["wgmma"] != fa.LAUNCHES["tri"]:
+        fail(f"telemetry: launches by tile {k1.TILES} {fa.FORWARD_TILES} {da.DECODE_TILES}")
+    others = {key: n for key, n in {**fa.LAUNCHES, **da.LAUNCHES}.items()
+              if key not in ("tri", "paged") and n}
+    if others:
+        fail(f"telemetry: other kernels launched: {others}")
+    with open(out_path, "w") as f:
+        json.dump({"rows": figures, "median_ms_tracing": overhead, "launches": launches}, f)
+
+
 def check_tiles(what, k1, cm, fa):
     """Every K1, K2 and K3 launch of a path ran the Hopper tile, every K8a
     launch the tri wgmma forward, every K8b and K9 launch the band wgmma
@@ -3511,6 +3761,11 @@ def main():
 
     head_phase(run_benchmark, smi)
     print(f"head product phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # the telemetry phase runs in a process of its own; its counts are its
+    # own process's, zeroed there before its rows
+    launches["telemetry"] = telemetry_phase(smi)
+    print(f"telemetry phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
     print(f"K1, K2, K3 and flash launches by tile or kernel, by path: {json.dumps(tiles)}")
 
@@ -3530,7 +3785,7 @@ def main():
     # serving_load and serving_cluster paths
     forward_entry["serving_prefill"]["launches"] = sum(
         launches[path].get("tri", 0)
-        for path in ("serving", "speculate", "serving_load", "serving_cluster"))
+        for path in ("serving", "speculate", "serving_load", "serving_cluster", "telemetry"))
     chunk_entry["launches"] = total("chunk")
     # K8b and K9 by path; every launch ran band::flash_fwd_wgmma (check_tiles)
     rect_entry["launches_by_path"] = {path: n["rect"] for path, n in launches.items()
@@ -3576,4 +3831,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--telemetry-child"]:
+        telemetry_child(*sys.argv[2:4])
+    else:
+        main()

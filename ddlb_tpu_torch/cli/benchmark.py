@@ -14,6 +14,10 @@ the CSV and prints the table.
     python -m ddlb_tpu_torch.cli.benchmark --primitive tp_columnwise \\
         --impl cuda -m 8192 -n 8192 -k 8192
     python -m ddlb_tpu_torch.cli.benchmark --config scripts/config.json
+
+``--profile-dir DIR`` (config ``"profile_dir"``) writes each row's
+profiler window to DIR; ``DDLB_TPU_TRACE=<dir>`` in the environment
+traces the run's phases (``ddlb_tpu_torch.telemetry``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ CONFIG_KEYS = (
     "implementations",
     "device",
     "device_loop_windows",
+    "profile_dir",
 )
 
 TABLE_COLUMNS = (
@@ -241,6 +246,7 @@ def run_benchmark(config: Dict[str, Any]) -> List[Dict[str, Any]]:
             output_csv=output_csv,
             device=cfg.get("device", "cuda"),
             device_loop_windows=cfg.get("device_loop_windows", 5),
+            profile_dir=cfg.get("profile_dir"),
         )
         rows.extend(runner.run())
     if env_rank() == 0:
@@ -257,7 +263,8 @@ def main(argv=None) -> None:
     parser.add_argument(
         "--config", default=None, metavar="JSON",
         help="run the sweep a JSON config describes (scripts/config.json "
-        "shape); the other flags are then ignored, except --device",
+        "shape); the other flags are then ignored, except --device and "
+        "--profile-dir",
     )
     parser.add_argument(
         "--primitive", default="tp_columnwise", choices=list(ALLOWED_PRIMITIVES)
@@ -281,6 +288,11 @@ def main(argv=None) -> None:
     )
     parser.add_argument("--no-barrier", action="store_true")
     parser.add_argument("--csv", default=None, help="output CSV ({timestamp} token)")
+    parser.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="record each row's profiler window (torch.profiler, five calls "
+        "after warmup) as a Chrome trace in DIR",
+    )
     parser.add_argument(
         "--device", default=None, choices=list(DEVICES),
         help="where to run (default: cuda, the card)",
@@ -308,6 +320,8 @@ def main(argv=None) -> None:
             "implementations": implementations,
             "output_csv": args.csv,
         }
+    if args.profile_dir:
+        config["profile_dir"] = args.profile_dir
     if args.device:
         config["device"] = args.device
     try:

@@ -40,13 +40,19 @@ The engine's mesh has dp = 1; every tp rank runs its own engine on the
 same workload, and the schedule stays identical on every rank because the
 logits after the tp collectives are.
 
-Not ported: the fault-injection and telemetry sites (the port has no
-``faults/`` or ``telemetry/`` yet).
+Telemetry as the JAX engine's: each admission is a ``serve.admit`` span,
+each preemption or eviction a ``serve.preempt`` instant, each tick adds
+to the ``serve.decode_s`` and ``serve.ticks`` metrics (no span a tick: a
+trace write per decoded token would perturb the loop it measures), and
+``run`` is a ``serve.run`` span closed by a ``serve.ticks`` instant with
+the engine's counts. The JAX engine's fault-injection sites are not
+ported (the port has no ``faults/``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -54,6 +60,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ddlb_tpu_torch import telemetry
 from ddlb_tpu_torch.models.decode import (
     init_cache,
     init_paged_cache,
@@ -454,6 +461,10 @@ class ContinuousBatchingEngine:
         return self._requests[req_idx].max_new - len(self._slot_new[slot])
 
     def _admit(self, slot: int, req_idx: int) -> None:
+        with telemetry.span("serve.admit", cat="serve", slot=slot, request=req_idx):
+            self._admit_inner(slot, req_idx)
+
+    def _admit_inner(self, slot: int, req_idx: int) -> None:
         req = self._requests[req_idx]
         S0 = req.prompt.size
         e = self._expert_of(slot)
@@ -616,6 +627,10 @@ class ContinuousBatchingEngine:
         prompt = np.concatenate([req.prompt, np.asarray(new, np.int32)])
         self.stats.preemptions += 1
         self.stats.kv_evicted_tokens += int(self.pos[slot])
+        telemetry.instant(
+            "serve.preempt", cat="serve", slot=slot, request=req_idx,
+            generated=len(new), remaining=remaining,
+        )
         self._park(slot)
         return req_idx, Request(prompt, max_new=remaining)
 
@@ -633,6 +648,7 @@ class ContinuousBatchingEngine:
         active = self.active_slots()
         if not active:
             return 0
+        t0 = time.perf_counter()
         logits, self.cache = self._decode(
             self.params, self.cache,
             torch.from_numpy(self.cur_tok.copy()).to(self.device),
@@ -641,6 +657,8 @@ class ContinuousBatchingEngine:
         # the copy to the host waits for the tick's kernels, so a host clock
         # around step() times the tick (serve/cluster.py's watch relies on it)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        telemetry.record("serve.decode_s", time.perf_counter() - t0)
+        telemetry.record("serve.ticks", 1)
         self.stats.steps += 1
         self.stats.lane_ticks_total += self.B
         self.stats.lane_ticks_active += len(active)
@@ -654,7 +672,20 @@ class ContinuousBatchingEngine:
 
     def run(self) -> List[Completion]:
         """Admit and step until the queue and every slot drain."""
-        while True:
-            self.admit_ready()
-            if self.step() == 0 and not self._queue:
-                return self.completions
+        with telemetry.span("serve.run", cat="serve"):
+            try:
+                while True:
+                    self.admit_ready()
+                    if self.step() == 0 and not self._queue:
+                        return self.completions
+            finally:
+                self.mark_ticks()
+
+    def mark_ticks(self) -> None:
+        """The ``serve.ticks`` instant: the engine's decode ticks, tokens
+        and admissions since its last ``reset`` (the end of ``run``, and
+        of each serving_load drain, which steps the engine itself)."""
+        telemetry.instant(
+            "serve.ticks", cat="serve", steps=self.stats.steps,
+            generated=self.stats.generated, admissions=self.stats.admissions,
+        )

@@ -30,9 +30,11 @@ whose two peer-memory slots are this engine's two buffers held by the
 kernel, with the ring granularity pinned to ``chunk_count == d`` (one
 chunk per ring step, the only granularity their credit protocol encodes).
 
-Left out: the JAX module's ``plan_report``, which writes the planned
-chunk and hop schedule as telemetry spans and fault-injection sites (the
-port has neither subsystem yet).
+Each ring_shift builder writes its planned chunk and hop schedule into the
+trace at construction (``plan_report``), as the JAX module does; the
+cuda path, whose schedule is the kernel's, writes none (the JAX package's
+pallas path neither). Left out: ``plan_report``'s fault-injection site
+(``overlap.ring_step``; the port has no ``faults/``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from ddlb_tpu_torch import telemetry
 
 from ddlb_tpu_torch.ops import collective_matmul as cm
 from ddlb_tpu_torch.ops.accum import accum_matmul, torch_matmul
@@ -128,6 +132,21 @@ def ring_a2a_chunk(x: torch.Tensor, runtime) -> torch.Tensor:
     return out
 
 
+def plan_report(role: str, *, d: int, chunk_count: int, payload_elems: int) -> None:
+    """Emit the planned chunk/ring-step schedule into the trace (host
+    side, at member construction): one ``overlap.chunk`` span per chunk,
+    one ``overlap.ring_step`` span per planned hop inside it, the
+    structural record a trace report joins against when diagnosing a
+    chunked member's schedule. A no-op when tracing is off."""
+    hops = max(0, d - 1)
+    for j in range(chunk_count):
+        with telemetry.span("overlap.chunk", role=role, chunk=j, chunks=chunk_count,
+                            payload_elems=payload_elems):
+            for t in range(hops):
+                with telemetry.span("overlap.ring_step", chunk=j, step=t):
+                    pass
+
+
 def _check_granularity(m: int, d: int, chunk_count: int) -> None:
     if m % (d * chunk_count):
         raise ValueError(
@@ -165,6 +184,7 @@ def build_chunked_ag_matmul(*, m: int, n: int, k: int, runtime, chunk_count: int
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     rows_c = m // (d * chunk_count)  # rows per rank per chunk
     my_sched = ring_schedule(d, "ag_fwd")[runtime.position]
+    plan_report("ag_matmul", d=d, chunk_count=chunk_count, payload_elems=rows_c * k)
 
     def step(a_shard, b):
         chunks = a_shard.reshape(chunk_count, rows_c, k)
@@ -203,6 +223,7 @@ def build_chunked_matmul_rs(*, m: int, n: int, k: int, runtime, chunk_count: int
     rows_c = m // (d * chunk_count)
     kd = k // d
     my_sched = ring_schedule(d, "rs_fwd")[runtime.position]
+    plan_report("matmul_rs", d=d, chunk_count=chunk_count, payload_elems=rows_c * n)
 
     def step(a_shard, b_shard):
         acc_t, wire_t = accum_wire_dtypes(a_shard.dtype)
@@ -243,6 +264,7 @@ def build_chunked_matmul_ar(*, m: int, n: int, k: int, runtime, chunk_count: int
     kd = k // d
     my_rs = ring_schedule(d, "rs_fwd")[runtime.position]
     my_ag = ring_schedule(d, "ag_fwd")[runtime.position]
+    plan_report("matmul_ar", d=d, chunk_count=chunk_count, payload_elems=rows_c * n)
 
     def step(a_shard, b_shard):
         acc_t, wire_t = accum_wire_dtypes(a_shard.dtype)
@@ -282,6 +304,7 @@ def build_chunked_alltoall_expert(*, m: int, n: int, k: int, runtime,
             f"{d * d * chunk_count} for the chunked engine"
         )
     gc = m // (d * d * chunk_count)  # tokens per chunk per group
+    plan_report("alltoall_expert", d=d, chunk_count=chunk_count, payload_elems=gc * k)
 
     def step(a_loc, w_loc):
         acc_t, _ = accum_wire_dtypes(a_loc.dtype)

@@ -42,18 +42,25 @@ traffic floor, as ``transformer_decode``'s rows do) and, over every
 drain of the row (warm-up and validation included), ``drains``,
 ``drain_ticks`` (decode ticks: one K11/K12 launch a layer each under
 ``decode_kernel=pallas``) and ``drain_prefills`` (admissions that ran a
-prompt prefill: those the shared prefix did not serve). Not ported: the
-telemetry spans, the live tick stream and the perfmodel's cost floor.
+prompt prefill: those the shared prefix did not serve).
+
+Telemetry as the JAX member's: each drain is a ``serve.drain`` span,
+closed by the engine's ``serve.ticks`` instant (the drain steps the
+engine itself, so the instant ``run`` would emit comes from here), and
+followed by the ``serve.queue_depth`` gauge and a ``serve.slo`` instant;
+validation failures are logged through ``telemetry.log``. At world > 1
+every rank emits its own in its own trace shard. Not ported: the live
+tick stream and the perfmodel's cost floor.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from ddlb_tpu_torch import telemetry
 from ddlb_tpu_torch.models.serving import ContinuousBatchingEngine, Request
 from ddlb_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -63,8 +70,6 @@ from ddlb_tpu_torch.models.transformer import (
 )
 from ddlb_tpu_torch.primitives.base import Primitive, torch_dtype
 from ddlb_tpu_torch.workload import SLOTracker, WorkloadSpec, generate_trace, prefix_tokens
-
-log = logging.getLogger(__name__)
 
 
 class DrainClock:
@@ -350,46 +355,48 @@ class ServingLoad(Primitive):
         hol_ticks = 0
         last_head: Optional[int] = None
         submitted = done_seen = 0
-        clock = self._drain_clock()
-        while done_seen < n:
-            now = clock()
-            while submitted < n and trace[submitted].arrival_s <= now:
-                r = trace[submitted]
-                alias[eng.submit(Request(r.prompt, max_new=r.max_new))] = r.index
-                tracker.arrived(r.index, r.arrival_s)
-                submitted += 1
-            admitted = eng.admit_ready() if self._admission_open(eng) else 0
-            if admitted:
-                # admission computes the first token; re-stamping active
-                # slots is idempotent, so a re-admission changes nothing
-                t_now = clock()
-                for s in eng.active_slots():
-                    tracker.first_token(alias[eng.slot_request(s)], t_now)
-                hol_ticks = 0
-            head_req = eng.queue_head()
-            head = alias[head_req] if head_req is not None else None
-            if head is not None and head == last_head and not admitted:
-                hol_ticks += 1
-                if (o["preempt_hol_ticks"] and hol_ticks > o["preempt_hol_ticks"]
-                        and eng.active_slots()):
-                    self._preempt_for_head(eng, alias)
+        with telemetry.span("serve.drain", cat="serve", requests=n):
+            clock = self._drain_clock()
+            while done_seen < n:
+                now = clock()
+                while submitted < n and trace[submitted].arrival_s <= now:
+                    r = trace[submitted]
+                    alias[eng.submit(Request(r.prompt, max_new=r.max_new))] = r.index
+                    tracker.arrived(r.index, r.arrival_s)
+                    submitted += 1
+                admitted = eng.admit_ready() if self._admission_open(eng) else 0
+                if admitted:
+                    # admission computes the first token; re-stamping active
+                    # slots is idempotent, so a re-admission changes nothing
+                    t_now = clock()
+                    for s in eng.active_slots():
+                        tracker.first_token(alias[eng.slot_request(s)], t_now)
                     hol_ticks = 0
-            else:
-                last_head = head
-            tracker.observe_queue(eng.queue_depth)
-            active = eng.step()
-            t_now = clock()
-            for c in eng.completions[done_seen:]:
-                orig = alias[c.request_index]
-                tracker.first_token(orig, t_now)  # one-token finishers
-                tracker.finished(orig, t_now, c.tokens.size - orig_prompt[orig])
-            done_seen = len(eng.completions)
-            if active == 0 and not eng.queue_depth and submitted < n:
-                # idle: sleep exactly to the next arrival, whose time is known
-                wait = trace[submitted].arrival_s - clock()
-                if wait > 0:
-                    time.sleep(wait)
-        makespan = clock()
+                head_req = eng.queue_head()
+                head = alias[head_req] if head_req is not None else None
+                if head is not None and head == last_head and not admitted:
+                    hol_ticks += 1
+                    if (o["preempt_hol_ticks"] and hol_ticks > o["preempt_hol_ticks"]
+                            and eng.active_slots()):
+                        self._preempt_for_head(eng, alias)
+                        hol_ticks = 0
+                else:
+                    last_head = head
+                tracker.observe_queue(eng.queue_depth)
+                active = eng.step()
+                t_now = clock()
+                for c in eng.completions[done_seen:]:
+                    orig = alias[c.request_index]
+                    tracker.first_token(orig, t_now)  # one-token finishers
+                    tracker.finished(orig, t_now, c.tokens.size - orig_prompt[orig])
+                done_seen = len(eng.completions)
+                if active == 0 and not eng.queue_depth and submitted < n:
+                    # idle: sleep exactly to the next arrival, whose time is known
+                    wait = trace[submitted].arrival_s - clock()
+                    if wait > 0:
+                        time.sleep(wait)
+            makespan = clock()
+        eng.mark_ticks()
         horizon = max(self._trace_horizon_s(), 1e-9)
         if tracker is self._pooled:
             self._makespan_total += makespan
@@ -399,9 +406,16 @@ class ServingLoad(Primitive):
         s = eng.stats
         self._drain_ticks += s.steps
         self._drain_prefills += s.admissions - s.prefix_hits
+        fields = tracker.row_fields(goodput_window, offered_rps=n / horizon)
+        telemetry.record_max("serve.queue_depth", tracker.queue_peak)
+        telemetry.instant(
+            "serve.slo", cat="serve", completed=tracker.completed,
+            ttft_p95_ms=fields["slo_ttft_p95_ms"],
+            goodput_rps=fields["slo_goodput_rps"], queue_peak=tracker.queue_peak,
+        )
         self._last = {
             "tracker": tracker,
-            "fields": tracker.row_fields(goodput_window, offered_rps=n / horizon),
+            "fields": fields,
             "makespan_s": makespan,
             "completions": [(alias[c.request_index], c.tokens) for c in eng.completions],
         }
@@ -459,7 +473,7 @@ class ServingLoad(Primitive):
         without eos), its prompt at the front, every token in range, and
         the SLO ledger's count equal to the drains' requests."""
         if self._last is None:
-            log.warning("serving_load validation FAILED: no drain ran")
+            telemetry.log("serving_load validation FAILED: no drain ran")
             return False
         o = self.options
         trace = {r.index: r for r in self._trace}
@@ -470,27 +484,27 @@ class ServingLoad(Primitive):
             r = trace[orig]
             S0 = r.prompt.size
             if tokens.size != S0 + r.max_new:
-                log.warning("serving_load validation FAILED: request %d length %d != %d",
-                            orig, tokens.size, S0 + r.max_new)
+                telemetry.log(f"serving_load validation FAILED: request {orig} "
+                              f"length {tokens.size} != {S0 + r.max_new}")
                 ok = False
                 continue
             if not np.array_equal(tokens[:S0], r.prompt):
-                log.warning("serving_load validation FAILED: request %d prompt mangled", orig)
+                telemetry.log(f"serving_load validation FAILED: request {orig} prompt mangled")
                 ok = False
             if ((tokens < 0) | (tokens >= o["vocab"])).any():
-                log.warning("serving_load validation FAILED: request %d token out of "
-                            "vocab range", orig)
+                telemetry.log(f"serving_load validation FAILED: request {orig} token out "
+                              f"of vocab range")
                 ok = False
         if sorted(seen) != sorted(trace) or any(v != 1 for v in seen.values()):
-            log.warning("serving_load validation FAILED: %d distinct completions for "
-                        "%d requests", len(seen), len(trace))
+            telemetry.log(f"serving_load validation FAILED: {len(seen)} distinct "
+                          f"completions for {len(trace)} requests")
             ok = False
         tracker = self._last["tracker"]
         expected = ((self._drains - 1) * len(trace) if tracker is self._pooled
                     else len(trace))
         if tracker.completed != expected:
-            log.warning("serving_load validation FAILED: SLO ledger count %d != %d "
-                        "(%d drains of %d requests)", tracker.completed, expected,
-                        self._drains, len(trace))
+            telemetry.log(f"serving_load validation FAILED: SLO ledger count "
+                          f"{tracker.completed} != {expected} ({self._drains} drains "
+                          f"of {len(trace)} requests)")
             ok = False
         return ok

@@ -39,22 +39,26 @@ Besides the JAX row's columns the row carries the port's ``hbm_bytes``,
 ``prewarm_prefills`` (the set-up probes' decode ticks and prompt
 prefills, ``_prewarm``) and ``local_engines``: the counts are over the
 engines this rank runs (``local_engines`` of them; every engine at world
-1), so that they say what kernels this rank launched. Not ported: the
-telemetry spans and counters, the live tick stream and the calibration
-table (``perfmodel.calib``): the handoff is priced by the closed form.
+1), so that they say what kernels this rank launched.
+
+Telemetry as the JAX member's: each drain is a ``serve.drain`` span (with
+the topology stamp), closed by a ``serve.ticks`` instant from each engine
+this rank runs, then the ``serve.queue_depth`` gauge and a ``serve.slo``
+instant; validation failures go through ``telemetry.log``. Every rank
+emits its own, in its own trace shard; nothing is gathered for them. Not
+ported: the live tick stream and the calibration table
+(``perfmodel.calib``): the handoff is priced by the closed form.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from ddlb_tpu_torch import telemetry
 from ddlb_tpu_torch.primitives.serving_load.base import ServingLoad
-
-log = logging.getLogger(__name__)
 
 #: cluster knobs every multi-engine member shares (members merge these
 #: into DEFAULT_OPTIONS beside their pool-shape knobs)
@@ -450,33 +454,37 @@ class ClusterServingLoad(ServingLoad):
         orig_prompt = {r.index: r.prompt.size for r in trace}
         submitted = 0
         done_seen = 0
-        clock = self._drain_clock()
-        while cl.accounted < n:
-            now = clock()
-            while submitted < n and trace[submitted].arrival_s <= now:
-                r = trace[submitted]
-                gid, _admitted = cl.submit(
-                    r.prompt, r.max_new, r.prefix_id, now_s=now
-                )
-                gid2trace[gid] = r.index
-                tracker.arrived(r.index, r.arrival_s)
-                submitted += 1
-            tracker.observe_queue(cl.queue_depth)
-            active = cl.pump(clock.local())
-            for c in cl.completions[done_seen:]:
-                orig = gid2trace[c.request_id]
-                tracker.first_token(orig, c.first_s)
-                tracker.finished(
-                    orig,
-                    c.finished_s,
-                    c.tokens.size - orig_prompt[orig],
-                )
-            done_seen = len(cl.completions)
-            if active == 0 and not cl.queue_depth and submitted < n:
-                wait = trace[submitted].arrival_s - clock()
-                if wait > 0:
-                    time.sleep(wait)
-        makespan = clock()
+        with telemetry.span("serve.drain", cat="serve", requests=n,
+                            topology=self._topology_base()):
+            clock = self._drain_clock()
+            while cl.accounted < n:
+                now = clock()
+                while submitted < n and trace[submitted].arrival_s <= now:
+                    r = trace[submitted]
+                    gid, _admitted = cl.submit(
+                        r.prompt, r.max_new, r.prefix_id, now_s=now
+                    )
+                    gid2trace[gid] = r.index
+                    tracker.arrived(r.index, r.arrival_s)
+                    submitted += 1
+                tracker.observe_queue(cl.queue_depth)
+                active = cl.pump(clock.local())
+                for c in cl.completions[done_seen:]:
+                    orig = gid2trace[c.request_id]
+                    tracker.first_token(orig, c.first_s)
+                    tracker.finished(
+                        orig,
+                        c.finished_s,
+                        c.tokens.size - orig_prompt[orig],
+                    )
+                done_seen = len(cl.completions)
+                if active == 0 and not cl.queue_depth and submitted < n:
+                    wait = trace[submitted].arrival_s - clock()
+                    if wait > 0:
+                        time.sleep(wait)
+            makespan = clock()
+        for e in cl.local_engines():
+            e.mark_ticks()
         horizon = max(self._trace_horizon_s(), 1e-9)
         if tracker is self._pooled:
             self._makespan_total += makespan
@@ -488,9 +496,16 @@ class ClusterServingLoad(ServingLoad):
         for e in cl.local_engines():
             self._drain_ticks += e.stats.steps
             self._drain_prefills += e.stats.admissions - e.stats.prefix_hits
+        fields = tracker.row_fields(goodput_window, offered_rps=n / horizon)
+        telemetry.record_max("serve.queue_depth", tracker.queue_peak)
+        telemetry.instant(
+            "serve.slo", cat="serve", completed=tracker.completed,
+            rejected=len(cl.rejections), ttft_p95_ms=fields["slo_ttft_p95_ms"],
+            goodput_rps=fields["slo_goodput_rps"], queue_peak=tracker.queue_peak,
+        )
         self._last = {
             "tracker": tracker,
-            "fields": tracker.row_fields(goodput_window, offered_rps=n / horizon),
+            "fields": fields,
             "makespan_s": makespan,
             "completions": [
                 (gid2trace[c.request_id], c.tokens) for c in cl.completions
@@ -572,7 +587,7 @@ class ClusterServingLoad(ServingLoad):
         for byte through any handoffs, and the SLO ledger agrees with the
         pooled completion count."""
         if self._last is None:
-            log.warning("serving_load validation FAILED: no drain ran")
+            telemetry.log("serving_load validation FAILED: no drain ran")
             return False
         o = self.options
         trace = {r.index: r for r in self._trace}
@@ -583,34 +598,34 @@ class ClusterServingLoad(ServingLoad):
             r = trace[orig]
             S0 = r.prompt.size
             if tokens.size != S0 + r.max_new:
-                log.warning("serving_load validation FAILED: request %d length %d != %d",
-                            orig, tokens.size, S0 + r.max_new)
+                telemetry.log(f"serving_load validation FAILED: request {orig} "
+                              f"length {tokens.size} != {S0 + r.max_new}")
                 ok = False
                 continue
             if not np.array_equal(tokens[:S0], r.prompt):
-                log.warning("serving_load validation FAILED: request %d prompt mangled "
-                            "(the handoff chain broke the ledger)", orig)
+                telemetry.log(f"serving_load validation FAILED: request {orig} prompt "
+                              f"mangled (the handoff chain broke the ledger)")
                 ok = False
             if ((tokens < 0) | (tokens >= o["vocab"])).any():
-                log.warning("serving_load validation FAILED: request %d token out of "
-                            "vocab range", orig)
+                telemetry.log(f"serving_load validation FAILED: request {orig} token out "
+                              f"of vocab range")
                 ok = False
         rejected = list(self._last["rejected"])
         if any(v != 1 for v in seen.values()):
-            log.warning("serving_load validation FAILED: a request completed more "
-                        "than once")
+            telemetry.log("serving_load validation FAILED: a request completed more "
+                          "than once")
             ok = False
         overlap = set(seen) & set(rejected)
         if overlap:
-            log.warning("serving_load validation FAILED: requests %s both completed "
-                        "and rejected", sorted(overlap))
+            telemetry.log(f"serving_load validation FAILED: requests {sorted(overlap)} "
+                          f"both completed and rejected")
             ok = False
         if sorted(set(seen) | set(rejected)) != sorted(trace) or len(
             rejected
         ) != len(set(rejected)):
-            log.warning("serving_load validation FAILED: outcomes do not partition "
-                        "the trace (%d completed + %d rejected of %d)",
-                        len(seen), len(rejected), len(trace))
+            telemetry.log(f"serving_load validation FAILED: outcomes do not partition "
+                          f"the trace ({len(seen)} completed + {len(rejected)} rejected "
+                          f"of {len(trace)})")
             ok = False
         tracker = self._last["tracker"]
         expected = (
@@ -619,7 +634,7 @@ class ClusterServingLoad(ServingLoad):
             else len(self._last["completions"])
         )
         if tracker.completed != expected:
-            log.warning("serving_load validation FAILED: SLO ledger count %d != %d",
-                        tracker.completed, expected)
+            telemetry.log(f"serving_load validation FAILED: SLO ledger count "
+                          f"{tracker.completed} != {expected}")
             ok = False
         return ok

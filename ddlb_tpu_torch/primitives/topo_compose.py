@@ -26,6 +26,7 @@ import logging
 import os
 from typing import Tuple
 
+from ddlb_tpu_torch import telemetry
 from ddlb_tpu_torch.perfmodel.cost import (
     hierarchical_wire_bytes,
     striped_wire_bytes,
@@ -92,16 +93,23 @@ class ComposedMember:
     """
 
     def _resolved_composition(self) -> str:
-        """The resolved composition, resolved once: it depends on the
-        topology alone."""
-        cached = getattr(self, "_composition", None)
-        if cached is not None:
-            return cached
+        """The resolved composition, resolved again only when its inputs
+        (the requested composition, the world and its node count) moved; a
+        re-resolution to a different composition is a ``topo.recompose``
+        instant, as in the JAX package."""
         runtime = getattr(self, "runtime", None)
         num_slices = int(getattr(runtime, "num_slices", 1) or 1)
-        self._composition, _reason = select_composition(
-            self.options.get("composition", "auto"), self.num_partitions, num_slices)
-        return self._composition
+        requested = self.options.get("composition", "auto")
+        signature = (requested, self.num_partitions, num_slices)
+        cached = getattr(self, "_composition", None)
+        if cached is not None and signature == self._composition_sig:
+            return cached
+        resolved, reason = select_composition(requested, self.num_partitions, num_slices)
+        if cached is not None and resolved != cached:
+            telemetry.instant("topo.recompose", cat="topo", previous=cached,
+                              composition=resolved, reason=reason)
+        self._composition, self._composition_sig = resolved, signature
+        return resolved
 
     def _two_level(self) -> Tuple[int, int]:
         """(intra, inter) for this member's world."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import Primitive
 
 
@@ -17,6 +18,16 @@ class TPColumnwise(Primitive):
     """ABC for AG+GEMM implementations."""
 
     primitive_name = "tp_columnwise"
+
+    def wire_bytes(self) -> float:
+        """Per-rank ring bytes of the family's collective, the AG of A
+        ``[m, k]``: each rank sends its ``[m/d, k]`` shard ``d - 1`` times
+        (the bandwidth-optimal ring all-gather), the JAX family's census.
+        Every member reports it; compute_only overrides to 0."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        return float((self.m // d) * self.k * wire_itemsize(self.dtype) * (d - 1))
 
     #: the ici/dcn transport axis (the JAX base's): the ring's layout,
     #: ``Runtime.order_ring``

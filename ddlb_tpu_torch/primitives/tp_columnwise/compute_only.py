@@ -17,6 +17,10 @@ class ComputeOnlyTPColumnwise(TPColumnwise):
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}
 
+    def wire_bytes(self) -> float:
+        """No collective runs: nothing on the wire."""
+        return 0.0
+
     def _input_setup(self) -> None:
         a_host, b_host = self._host_operands()
         if self.options["size"] == "sharded":

@@ -25,6 +25,15 @@ from ddlb_tpu_torch.primitives.tp_columnwise.base import TPColumnwise
 
 
 class QuantizedTPColumnwise(QuantizedGEMMMixin, TPColumnwise):
+    def wire_bytes(self) -> float:
+        """The gathered shard travels as int8 (1 byte an element) with its
+        float32 row scales (4 bytes a row of m/d), as the JAX member
+        counts it."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        return float((self.m // d) * (self.k + 4) * (d - 1))
+
     def _check_shapes(self) -> None:
         super()._check_shapes()
         self._check_quantized_options()

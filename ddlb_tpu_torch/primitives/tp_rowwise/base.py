@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import Primitive
 
 
@@ -19,6 +20,16 @@ class TPRowwise(Primitive):
     """ABC for GEMM+RS implementations."""
 
     primitive_name = "tp_rowwise"
+
+    def wire_bytes(self) -> float:
+        """Per-rank ring bytes of the family's collective, the RS of the
+        ``[m, n]`` product in the operand dtype: each rank sends
+        ``(m*n/d) * (d-1)`` elements under the bandwidth-optimal ring
+        reduce-scatter, the JAX family's census. compute_only reports 0."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        return float((self.m * self.n // d) * wire_itemsize(self.dtype) * (d - 1))
 
     #: the ici/dcn transport axis (the JAX base's): the ring's layout,
     #: ``Runtime.order_ring``

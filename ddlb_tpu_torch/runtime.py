@@ -60,15 +60,16 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-import logging
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-log = logging.getLogger(__name__)
+from ddlb_tpu_torch import telemetry
+from ddlb_tpu_torch.telemetry import clocksync
 
 DEVICES = ("cuda", "cpu")
 #: bytes of a rank's buffer in ``Runtime.gather_objects``' first round
@@ -116,7 +117,7 @@ def transport_order(world: int, slice_ids, transport: str) -> tuple:
     slice_ids = tuple(slice_ids)
     nodes = sorted(set(slice_ids))
     if transport == "dcn" and len(nodes) <= 1:
-        log.warning(
+        telemetry.warn(
             "transport='dcn' requested but the world shows a single node: "
             "the dcn and ici ring layouts are identical here"
         )
@@ -246,11 +247,37 @@ class Runtime:
 
     def barrier(self) -> None:
         """A one-element ``all_reduce`` plus a device sync: every rank's
-        queued work is done and every rank has arrived."""
-        if self.world_size > 1:
-            token = torch.ones(1, device=self.device)
-            dist.all_reduce(token)
-        self.synchronize()
+        queued work is done and every rank has arrived.
+
+        Traced as a ``runtime.barrier`` span. Its wait lands in the row's
+        ``barrier_wait_s``: the blocking all-reduce on gloo, the device
+        sync on NCCL (whose ``all_reduce`` returns once queued). The
+        communicator's first use sets it up; that cost is paid once per
+        process by a warming all-reduce outside the measured wait. The
+        barrier is a clock-sync exchange point: its monotonic enter/exit
+        stamps go to ``clocksync.record_span`` for the row's skew fold,
+        and a ``clocksync.exchange`` instant anchors this process's
+        monotonic clock to the trace's epoch stamps.
+        """
+        key = (self.platform, self.world_size)
+        if self.world_size > 1 and key not in _WARM_BARRIERS:
+            dist.all_reduce(torch.ones(1, device=self.device))
+            self.synchronize()
+            _WARM_BARRIERS.add(key)
+        t_enter = time.monotonic()
+        with telemetry.span("runtime.barrier", cat="barrier"):
+            t0 = time.perf_counter()
+            if self.world_size > 1:
+                dist.all_reduce(torch.ones(1, device=self.device))
+                if self.platform == "cuda":
+                    # NCCL's all_reduce returns once queued: the wait is the sync
+                    t0 = time.perf_counter()
+            self.synchronize()
+            telemetry.record("barrier_wait_s", time.perf_counter() - t0)
+        t_exit = time.monotonic()
+        clocksync.record_span("runtime.barrier", t_enter, t_exit)
+        telemetry.instant("clocksync.exchange", cat="clocksync", mono_t=t_exit,
+                          site="runtime.barrier")
 
     def all_gather_rows(self, x: torch.Tensor, async_op: bool = False):
         """Concatenate every rank's ``x`` along dim 0, in position order.
@@ -500,8 +527,9 @@ class Runtime:
 
     def mesh(self, dp: int, tp: int, pp: int = 1, ranks=None) -> "Mesh":
         """This rank's place in a ``(dp, tp, pp)`` mesh over the world, or
-        over ``ranks`` (see ``Mesh``)."""
-        return Mesh(self, dp, tp, pp, ranks)
+        over ``ranks`` (see ``Mesh``); traced as ``runtime.mesh_build``."""
+        with telemetry.span("runtime.mesh_build", cat="runtime", axes="dp,tp,pp"):
+            return Mesh(self, dp, tp, pp, ranks)
 
     def subgroups(self, groups) -> list:
         """The process group of each rank list in ``groups``, created in
@@ -541,23 +569,31 @@ class Runtime:
         kept = [i for i, s in enumerate(shape) if s > 1] or [0]
         key = (self.platform, tuple(names[i] for i in kept), tuple(shape[i] for i in kept))
         if key not in _DEVICE_MESHES:
-            if not dist.is_initialized():
-                dist.init_process_group(
-                    backend="nccl" if self.platform == "cuda" else "gloo",
-                    store=dist.HashStore(), rank=0, world_size=1,
-                )
-                _LOCAL_GROUP.append(True)
-            ranks = torch.arange(self.world_size).reshape([shape[i] for i in kept])
-            _DEVICE_MESHES[key] = DeviceMesh(self.platform, ranks, mesh_dim_names=key[1])
+            with telemetry.span("runtime.mesh_build", cat="runtime", axes=",".join(key[1])):
+                if not dist.is_initialized():
+                    dist.init_process_group(
+                        backend="nccl" if self.platform == "cuda" else "gloo",
+                        store=dist.HashStore(), rank=0, world_size=1,
+                    )
+                    _LOCAL_GROUP.append(True)
+                ranks = torch.arange(self.world_size).reshape([shape[i] for i in kept])
+                _DEVICE_MESHES[key] = DeviceMesh(self.platform, ranks,
+                                                 mesh_dim_names=key[1])
         return _DEVICE_MESHES[key]
 
     def max_over_ranks(self, values: np.ndarray) -> np.ndarray:
-        """Elementwise maximum of a float vector over ranks."""
+        """Elementwise maximum of a float vector over ranks. Its enter and
+        exit stamps go to the row's skew fold as a ``runtime.collective``
+        span (a collective the fold attributes but never fits clocks on:
+        ``clocksync.FIT_SITES``)."""
         if self.world_size == 1:
             return values
         t = torch.as_tensor(values, dtype=torch.float64).to(self.device)
+        t_enter = time.monotonic()
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return t.cpu().numpy()
+        out = t.cpu().numpy()
+        clocksync.record_span("runtime.collective", t_enter, time.monotonic())
+        return out
 
     def all_ranks(self, flag: bool) -> bool:
         """True only when ``flag`` is true on every rank."""
@@ -572,6 +608,8 @@ class Runtime:
 _DEVICE_MESHES: dict = {}
 #: True once ``Runtime.device_mesh`` opened a one-rank default group
 _LOCAL_GROUP: list = []
+#: (platform, world size) of the default groups whose barrier was warmed
+_WARM_BARRIERS: set = set()
 
 
 def placements(mesh, axes: dict) -> list:
@@ -618,6 +656,7 @@ def shutdown() -> None:
     _DEVICE_MESHES.clear()
     _GROUPS.clear()
     _SUBGROUPS.clear()
+    _WARM_BARRIERS.clear()
     dist.destroy_process_group()
 
 

@@ -61,8 +61,13 @@ pump's ``now_s`` is rank 0's, which travels in the exchange. A completion travel
 was last submitted with, which every rank holds. With every engine on
 this rank (world 1) each exchange is the identity.
 
-Not ported: the JAX cluster's fault-injection (``faults.inject``,
-``engine.fault_context``) and telemetry (``telemetry.instant``) sites.
+Telemetry as the JAX cluster's: each decision is an instant
+(``serve.reject``, ``serve.handoff``, ``serve.reweigh``, ``serve.indict``,
+``serve.drain_shard``, ``serve.probe``, ``serve.exonerate``,
+``serve.resize``), emitted where the decision is taken: on every rank,
+from the shared view, so every rank's trace shard carries the same
+decisions. Not ported: the JAX cluster's fault-injection sites
+(``faults.inject``, ``engine.fault_context``).
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ddlb_tpu_torch import telemetry
 from ddlb_tpu_torch.models.serving import EngineStats, Request
 from ddlb_tpu_torch.observatory.health import exoneration_verdict
 from ddlb_tpu_torch.serve.handoff import KVBundle
@@ -469,6 +475,7 @@ class ServingCluster:
         ):
             self.rejections.append(gid)
             self.counters["rejected"] += 1
+            telemetry.instant("serve.reject", cat="serve", request=gid, tokens=max_new)
             return gid, False
         if self.disagg and self._live(self.prefill):
             # prefill pool: the live prefill engine with the least
@@ -694,6 +701,10 @@ class ServingCluster:
             self._all[target], bundle.request_id,
             Request(bundle.tokens, max_new=bundle.remaining),
         )
+        telemetry.instant(
+            "serve.handoff", cat="serve", request=bundle.request_id, shard=target,
+            kv_tokens=bundle.kv_tokens, bytes=bundle.payload_bytes,
+        )
 
     # -- degradation -------------------------------------------------------
 
@@ -735,11 +746,20 @@ class ServingCluster:
                 sh.degraded = degraded
                 weight = max(1.0, m / ref) if degraded else 1.0
                 self.router.set_weight(sh.index, weight)
+                telemetry.instant(
+                    "serve.reweigh", cat="serve", shard=sh.index,
+                    weight=round(weight, 3), median_ms=round(m * 1000.0, 3),
+                    ref_ms=round(ref * 1000.0, 3),
+                )
         # tier 2: indict only when the SLO itself is broken
         if w <= self.watch_dominance * b:
             return
         if w * 1000.0 <= self.slo_tpot_ms:
             return
+        telemetry.instant(
+            "serve.indict", cat="serve", shard=worst.index,
+            median_ms=round(w * 1000.0, 3), best_ms=round(b * 1000.0, 3),
+        )
         self.drain_shard(worst.index, now_s)
 
     def drain_shard(self, shard: int, now_s: float) -> None:
@@ -772,6 +792,10 @@ class ServingCluster:
             sh.probation = True
             sh.probe_s = []
             sh.probe_obs = []
+        telemetry.instant(
+            "serve.drain_shard", cat="serve", shard=shard,
+            drained=int(self.counters["drained"]), survivors=len(survivors),
+        )
 
     def _take_out(self, sh: _Shard, prewarm: bool = False):
         """Everything off ``sh``'s engine, where it runs: its active slots
@@ -868,6 +892,10 @@ class ServingCluster:
                     med <= self.watch_dominance * ref if ref > 0.0 else True
                 ) and med * 1000.0 <= self.slo_tpot_ms
                 sh.probe_obs.append(healthy)
+                telemetry.instant(
+                    "serve.probe", cat="serve", shard=sh.index, healthy=healthy,
+                    median_ms=round(med * 1000.0, 3), windows=len(sh.probe_obs),
+                )
                 if exoneration_verdict(sh.probe_obs):
                     self._exonerate(sh, med, ref, now_s)
         return active_total
@@ -909,6 +937,10 @@ class ServingCluster:
         self.pool_history.append(
             f"exonerate:{sh.index}@{self._pump_count}"
         )
+        telemetry.instant(
+            "serve.exonerate", cat="serve", shard=sh.index, weight=round(weight, 3),
+            median_ms=round(median_s * 1000.0, 3),
+        )
 
     # -- elasticity --------------------------------------------------------
 
@@ -938,22 +970,30 @@ class ServingCluster:
             and pre_backlog < self.resize_backlog
             and len(live_pre) >= 2
         ):
-            self._promote(live_pre)
+            self._promote(live_pre, (dec_backlog, pre_backlog))
         elif (
             pre_backlog >= self.resize_backlog
             and dec_backlog < self.resize_backlog
             and len(live_dec) >= 2
         ):
-            self._demote(live_dec, now_s)
+            self._demote(live_dec, now_s, (dec_backlog, pre_backlog))
 
-    def _resize_event(self, action: str, sh: _Shard) -> None:
+    def _resize_event(self, action: str, sh: _Shard, backlogs: Tuple[float, float]) -> None:
+        """Count and journal one pool transition; ``backlogs`` are the
+        (decode, prefill) per-shard queue depths that moved it."""
         self.counters["resizes"] += 1
         self._last_resize = self._pump_count
         self.pool_history.append(
             f"{action}:{sh.index}@{self._pump_count}"
         )
+        telemetry.instant(
+            "serve.resize", cat="serve", action=action, shard=sh.index,
+            decode_backlog=round(backlogs[0], 2), prefill_backlog=round(backlogs[1], 2),
+            prefill_pool=len(self._live(self.prefill)),
+            decode_pool=len(self._live(self.shards)),
+        )
 
-    def _promote(self, live_pre: List[_Shard]) -> None:
+    def _promote(self, live_pre: List[_Shard], backlogs: Tuple[float, float]) -> None:
         """Prefill shard -> decode pool, as drain to the survivors, role
         flip, prewarm, no request lost: its prefill work moves to the
         surviving prefill shards first (``max_new=1`` remnants carry no
@@ -977,7 +1017,7 @@ class ServingCluster:
         self.shards.append(sh)
         self.shards.sort(key=lambda s: s.index)
         self.router.add_shard(sh.index)
-        self._resize_event("promote", sh)
+        self._resize_event("promote", sh, backlogs)
 
     def _submit_prefill_to(
         self, survivors: List[_Shard], gid: int, req: Request
@@ -985,7 +1025,8 @@ class ServingCluster:
         sh = min(survivors, key=lambda s: (s.view.outstanding, s.index))
         self._submit_to(sh, gid, req)
 
-    def _demote(self, live_dec: List[_Shard], now_s: float) -> None:
+    def _demote(self, live_dec: List[_Shard], now_s: float,
+                backlogs: Tuple[float, float]) -> None:
         """Promoted shard -> back to the prefill pool (only shards whose
         home pool is prefill demote: the constructed decode pool never
         shrinks). Its decode work drains to the surviving decode shards
@@ -1005,4 +1046,4 @@ class ServingCluster:
         sh.flip("prefill")
         self.prefill.append(sh)
         self.prefill.sort(key=lambda s: s.index)
-        self._resize_event("demote", sh)
+        self._resize_event("demote", sh, backlogs)

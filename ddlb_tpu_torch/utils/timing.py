@@ -7,7 +7,11 @@
   is invented. Exactly the JAX runner's ``_timing_loop`` host paths.
 - ``device_loop``: CUDA events recorded around ``num_iterations``
   back-to-back runs, one sample (milliseconds per run) per window. It needs
-  the card; on the CPU it raises.
+  the card; on the CPU it raises. Each window is a ``device_loop.window``
+  span, and the row's ``loop_overhead_s`` is the median over windows of
+  the window's host-clock seconds less its CUDA-event seconds: the
+  dispatch and fence slack the events leave out. ``host_clock`` rows leave
+  that column at 0.0.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from ddlb_tpu_torch import telemetry
 
 
 def host_clock(
@@ -56,14 +62,22 @@ def device_loop(
             f"and needs the card; this runtime is on {runtime.platform}"
         )
     windows = np.empty(max(1, int(num_windows)), dtype=np.float64)
+    slack = np.empty_like(windows)
     for w in range(windows.size):
         runtime.barrier()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(num_iterations):
-            run()
-        end.record()
-        end.synchronize()
-        windows[w] = start.elapsed_time(end) / num_iterations
+        with telemetry.span("device_loop.window", cat="timing", window=w,
+                            iterations=num_iterations):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(num_iterations):
+                run()
+            end.record()
+            end.synchronize()
+            host_s = time.perf_counter() - t0
+        event_ms = start.elapsed_time(end)
+        windows[w] = event_ms / num_iterations
+        slack[w] = host_s - event_ms * 1e-3
+    telemetry.record_max("loop_overhead_s", float(np.median(slack)))
     return windows

@@ -9,7 +9,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "ddlb_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
+    REPO / "chip_smoke.py",
+    REPO / "scripts" / "telemetry_cards.py",
+    REPO / "scripts" / "time_trace_overhead.py",
 ]
 BANNED = ("jax", "jaxlib", "ddlb_tpu")
 

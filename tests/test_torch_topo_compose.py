@@ -145,16 +145,17 @@ def jax_slices(monkeypatch, slices):
 
 @pytest.mark.parametrize("transport", ["ici", "dcn"])
 @pytest.mark.parametrize("slices", [1, 2, 4])
-def test_transport_order_equals_jax_transport_mesh(monkeypatch, caplog, slices, transport):
+def test_transport_order_equals_jax_transport_mesh(monkeypatch, capsys, slices, transport):
     with jax_slices(monkeypatch, slices) as rt:
         assert rt.num_devices == 8
         ids = node_assignment(8, 8, slices)
         assert ids == rt.slice_ids
         mesh = rt.transport_mesh(("tp",), transport)
         want = tuple(rt.devices.index(dev) for dev in mesh.devices.flat)
-    with caplog.at_level(logging.WARNING):
-        assert transport_order(8, ids, transport) == want
-    assert ("single node" in caplog.text) == (transport == "dcn" and slices == 1)
+    capsys.readouterr()
+    assert transport_order(8, ids, transport) == want
+    # the port's rank-tagged warning (telemetry.warn)
+    assert ("single node" in capsys.readouterr().out) == (transport == "dcn" and slices == 1)
     if transport == "dcn" and slices == 2:
         assert want == (0, 4, 1, 5, 2, 6, 3, 7)
 
@@ -291,7 +292,7 @@ def test_composed_member_rejections(family, name, opts, match):
         assert flat.validate(flat.run())
 
 
-def test_transport_sweep_config_runs_on_the_cpu(tmp_path, caplog):
+def test_transport_sweep_config_runs_on_the_cpu(tmp_path, capsys):
     """``scripts/config_transport_sweep.json`` as it is, through the port's
     CLI at a small shape: every row valid; on one node ``dcn`` warns that
     it is the ``ici`` layout."""
@@ -301,11 +302,10 @@ def test_transport_sweep_config_runs_on_the_cpu(tmp_path, caplog):
                output_csv=str(tmp_path / "rows.csv"))
     path = tmp_path / "config_transport_sweep.json"
     path.write_text(json.dumps({"benchmark": cfg}))
-    with caplog.at_level(logging.WARNING):
-        rows = port_cli.run_benchmark(port_cli.load_config(str(path)))
+    rows = port_cli.run_benchmark(port_cli.load_config(str(path)))
     assert len(rows) == 8
     for row in rows:
         assert row["valid"] and not row["error"], row
     assert sorted({r["base_implementation"] for r in rows}) == ["compiled", "overlap", "pytorch"]
     assert sum("transport=dcn" in r["option"] for r in rows) == 4
-    assert "dcn and ici ring layouts are identical" in caplog.text
+    assert "dcn and ici ring layouts are identical" in capsys.readouterr().out
