@@ -162,7 +162,20 @@ Phases, in order; any failure exits non-zero without the final line:
    and exchange instant per barrier, the drains' ``serve.ticks`` against
    the tick metric, the merged ``trace.json``), its telemetry columns,
    and the profiler's kernel events against the launch counters' rise
-   over the window; then the tp row with tracing off and on in turns.
+   over the window; then the tp row with tracing off and on in turns;
+   then the perfmodel phase (``perfmodel_phase``): every row of the paths
+   above was banked (``DDLB_TPU_HISTORY``, a temporary directory for the
+   whole run), and each is printed with its ``predicted_s`` (the cost
+   model against the ``h100-sxm`` data sheet), its median and their
+   unclamped ratio, its ``bound`` and ``chip``, then a summary a family;
+   the phase fails on a row priced against another spec, a non-finite or
+   non-positive prediction (a one-rank ``collectives`` row, which the
+   model prices at nothing, must read 0), a ``roofline_frac`` outside
+   (0, 1] or a compute- or comm-bound ratio over 1.05; an ``hbm``-bound
+   ratio over 1 is printed as a finding. Then it fits the calibration
+   table from the bank, prints its constants, and runs one
+   ``tp_columnwise`` ``cuda`` row at 8192^3 bf16 (K1) with
+   ``DDLB_TPU_CALIB`` on that table, its calibrated prediction printed.
    The ``compiled`` member (the JAX package's ``xla_gspmd``: DTensor
    placements under ``torch.compile``) rides those paths with its knobs at
    their defaults: both tp families and ``dp_allreduce``/``ep_alltoall`` at
@@ -182,8 +195,10 @@ It imports nothing of JAX and nothing of the JAX package.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -196,12 +211,27 @@ ATTN_M, ATTN_N, ATTN_K = 16384, 1024, 128
 ATTN_WINDOW = {"window": 4096, "n_kv_heads": 2}
 NUM_WARMUPS = 3
 NUM_ITERATIONS = 10
-#: H100 SXM dense bf16 tensor-core peak and memory rate (NVIDIA data
-#: sheet) at the 700 W limit
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES_PER_S = 3.35e12
+
+
+def h100_rates():
+    """The H100 SXM's dense bf16, float32 and int8 peaks and its memory
+    rate, from the port's ``h100-sxm`` spec (the data sheet,
+    ``ddlb_tpu_torch/perfmodel/specs.py``): one source for the kernels'
+    bounds here and the rows' predictions. NaN outside a checkout, where
+    ``main`` fails before any bound is read."""
+    try:
+        from ddlb_tpu_torch.perfmodel.specs import CHIP_SPECS
+    except ImportError:
+        return (float("nan"),) * 4
+    spec = CHIP_SPECS["h100-sxm"]
+    return (spec.peak_flops("bfloat16"), spec.peak_flops("float32"),
+            spec.peak_flops("int8"), spec.hbm_bw)
+
+
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_INT8_OPS, PEAK_BYTES_PER_S = h100_rates()
+#: a compute- or comm-bound row may not beat its prediction by more than
+#: this: a wider gap means the spec or the census is wrong
+PERF_RATIO_LIMIT = 1.05
 #: the decode kernels at the serving path's shapes: batch 8, 16 heads of
 #: 128, a decode cache of m + 1 = 8193 positions, the serve pool's pages
 DECODE_B, DECODE_H, DECODE_DH, DECODE_S = 8, 16, 128, 8193
@@ -3300,6 +3330,113 @@ def telemetry_phase(smi):
     return result["launches"]
 
 
+def check_predictions(rows, chip="h100-sxm"):
+    """Print each row's ``predicted_s`` beside its median, the unclamped
+    ratio ``predicted_s / (median / 1e3)``, its ``bound`` and ``chip``,
+    then a summary a family (rows, least, median and largest ratio, rows
+    by bound). Returns ``(failures, hbm_over_floor)``: a failure is a row
+    priced against another spec than ``chip``, a non-finite or
+    non-positive prediction, a ``roofline_frac`` outside (0, 1] or a
+    compute- or comm-bound ratio over ``PERF_RATIO_LIMIT``; an ``hbm``-bound
+    row over 1 is not one but a finding, listed in ``hbm_over_floor`` (the
+    serving floor charges a whole-batch pass a token, which continuous
+    batching may share). A ``collectives`` row of one rank moves no byte
+    over a link, and the model (the JAX package's rule) prices it at
+    nothing: it must read ``predicted_s`` 0 and ``roofline_frac`` NaN, and
+    is counted apart."""
+    failures, families, degenerate, over_floor = [], {}, [], []
+    for row in rows:
+        family, median_ms = row["primitive"], row["median time (ms)"]
+        predicted, frac = row["predicted_s"], row["roofline_frac"]
+        ratio = predicted / (median_ms / 1e3) if median_ms > 0 else float("nan")
+        print(json.dumps({"perfmodel_row": {
+            "primitive": family, "implementation": row["implementation"],
+            "option": row["option"], "shape": [row["m"], row["n"], row["k"]],
+            "dtype": row["dtype"], "world_size": row["world_size"],
+            "predicted_s": predicted, "median_ms": median_ms, "ratio": ratio,
+            "roofline_frac": frac, "bound": row["bound"], "chip": row["chip"],
+            "phase_compute_s": row["phase_compute_s"], "phase_comm_s": row["phase_comm_s"],
+            "hbm_bytes": row.get("hbm_bytes")}}))
+        what = f"{family} {row['implementation']} {row['option']}"
+        if row["chip"] != chip:
+            failures.append(f"{what}: chip {row['chip']!r}")
+            continue
+        if (family == "collectives" and row["world_size"] == 1
+                and row["base_implementation"] != "compute_only"):
+            if predicted != 0.0 or not math.isnan(frac):
+                failures.append(f"{what}: a one-rank collective priced at {predicted}")
+            degenerate.append(row["implementation"])
+            continue
+        if not (math.isfinite(predicted) and predicted > 0.0):
+            failures.append(f"{what}: predicted_s {predicted}")
+        elif not 0.0 < frac <= 1.0:
+            failures.append(f"{what}: roofline_frac {frac}")
+        elif row["bound"] in ("compute", "comm") and ratio > PERF_RATIO_LIMIT:
+            failures.append(f"{what}: {row['bound']}-bound ratio {ratio:.4f}")
+        elif row["bound"] == "hbm" and ratio > 1.0:
+            over_floor.append({"primitive": family, "implementation": row["implementation"],
+                               "option": row["option"], "ratio": ratio,
+                               "median_ms": median_ms})
+        families.setdefault(family, []).append((ratio, row["bound"]))
+    for family, got in sorted(families.items()):
+        ratios = sorted(r for r, _ in got)
+        bounds = {}
+        for _, bound in got:
+            bounds[bound] = bounds.get(bound, 0) + 1
+        print(json.dumps({"perfmodel_family": {
+            "primitive": family, "rows": len(got), "ratio_min": ratios[0],
+            "ratio_median": ratios[len(ratios) // 2], "ratio_max": ratios[-1],
+            "bounds": bounds}}))
+    print(json.dumps({"perfmodel_degenerate": degenerate,
+                      "perfmodel_hbm_over_floor": over_floor}))
+    return failures, over_floor
+
+
+def perfmodel_phase(history_dir, run_benchmark, k1, smi):
+    """Read every row the paths banked (``DDLB_TPU_HISTORY``) and hold each
+    one's prediction to its median (``check_predictions``); then fit the
+    calibration table from the bank, print it, and run one
+    ``tp_columnwise`` ``cuda`` row at 8192^3 bf16 (K1) priced from it.
+    Returns the phase's launch counts."""
+    from ddlb_tpu_torch.observatory import calibrate, store
+
+    rows = [record["row"] for record in store.iter_history(history_dir)]
+    if not rows:
+        fail(f"no row was banked in {history_dir}")
+    print(json.dumps({"perfmodel_rows": len(rows), "card": smi}))
+    failures, _ = check_predictions(rows)
+    if failures:
+        fail(f"{len(failures)} rows break the perfmodel's checks: {failures[:20]}")
+
+    table = calibrate.calibrate_history(history_dir)
+    if table is None:
+        fail(f"the calibration fit found no group with enough rows in {len(rows)}")
+    for (chip, backend), group in sorted(table.groups.items()):
+        print(json.dumps({"perfmodel_calibration": {
+            "version": table.version, **group.to_json()}}))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    os.environ["DDLB_TPU_CALIB"] = calibrate.write_table(
+        table, os.path.join(tmp, "calib.json"))
+    k1.reset_launches()
+    try:
+        (row,) = drive_path(run_benchmark, "cuda", "tp_columnwise",
+                            (PATH_MNK, PATH_MNK, PATH_MNK), {"cuda": [{}]})
+    finally:
+        del os.environ["DDLB_TPU_CALIB"]
+        shutil.rmtree(tmp, ignore_errors=True)
+    expected = NUM_WARMUPS + NUM_ITERATIONS + 1
+    if k1.LAUNCHES != expected:
+        fail(f"K1 launched {k1.LAUNCHES} times for the calibrated row, expected {expected}")
+    cal = {key: row[key] for key in ("predicted_s", "roofline_frac", "predicted_cal_s",
+                                     "cal_residual_frac", "cal_version", "median time (ms)")}
+    print(json.dumps({"perfmodel_calibrated_row": cal, "card": smi}))
+    if row["cal_version"] != table.version or not (
+            math.isfinite(row["predicted_cal_s"]) and row["predicted_cal_s"] > 0.0
+            and math.isfinite(row["cal_residual_frac"])):
+        fail(f"the calibrated row was not priced from the table: {cal}")
+    return {"k1": k1.LAUNCHES}
+
+
 def _row_spans(events, impl_id):
     """The ``worker.row`` span of ``impl_id`` and the spans inside it (same
     process and thread, within its extent)."""
@@ -3543,6 +3680,9 @@ def main():
     if not os.path.abspath(ddlb_tpu_torch.__file__).startswith(here + os.sep):
         fail(f"ddlb_tpu_torch imported from {ddlb_tpu_torch.__file__}, not {here}")
     t_start = time.perf_counter()
+    # every row the paths run is banked here, for the perfmodel phase
+    history_dir = os.environ["DDLB_TPU_HISTORY"] = tempfile.mkdtemp(
+        prefix="chip_smoke_history_")
 
     # 1. the card
     smi = card_identity()
@@ -3766,6 +3906,12 @@ def main():
     # own process's, zeroed there before its rows
     launches["telemetry"] = telemetry_phase(smi)
     print(f"telemetry phase done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    launches["perfmodel"] = perfmodel_phase(history_dir, run_benchmark, k1, smi)
+    shutil.rmtree(history_dir, ignore_errors=True)
+    tiles["perfmodel"] = check_tiles("the perfmodel phase", k1, cm, fa)
+    print(f"perfmodel phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
     print(f"K1, K2, K3 and flash launches by tile or kernel, by path: {json.dumps(tiles)}")
 

@@ -8,12 +8,16 @@ validation, crash isolation into an error row, and incremental CSV rows on
 rank 0. Rows keep the identity, statistics and environment columns of the
 JAX package's ``make_result_row`` under the same names, with its
 telemetry columns (``barrier_wait_s``, ``loop_overhead_s``,
-``hbm_high_water_bytes``, ``collective_bytes``, ``hbm_peak_gib``) and
-cross-rank skew columns (``telemetry.clocksync``); ``schema.py`` documents
-every column. The columns fed by parts not yet ported (compile-ahead,
-perfmodel, faults, worker pool, tuning) are left out; ROADMAP.md lists
-them. The runner is in-process: one row after the other in this process,
-on this rank's device.
+``hbm_high_water_bytes``, ``collective_bytes``, ``hbm_peak_gib``), its
+cost-model columns (``PERF_ROW_DEFAULTS``: ``predicted_s``,
+``roofline_frac``, ``bound``, ``chip``, the measured-overlap attribution
+and the calibrated trio) and its cross-rank skew columns
+(``telemetry.clocksync``); ``schema.py`` documents every column. The
+columns fed by parts not yet ported (compile-ahead, faults, worker pool,
+tuning) are left out; ROADMAP.md lists them. The runner is in-process:
+one row after the other in this process, on this rank's device. With
+``DDLB_TPU_HISTORY=<dir>`` rank 0 banks every row
+(``observatory/store.py``).
 
 With ``DDLB_TPU_TRACE=<dir>`` every row is a ``worker.row`` span holding
 its ``worker.setup``, ``worker.warmup``, ``worker.profile``,
@@ -34,6 +38,8 @@ import numpy as np
 import torch
 
 from ddlb_tpu_torch import telemetry
+from ddlb_tpu_torch.observatory import attribution, store
+from ddlb_tpu_torch.perfmodel import cost as perfmodel_cost
 from ddlb_tpu_torch.primitives.registry import (
     check_primitive,
     load_impl_class,
@@ -69,6 +75,65 @@ def robust_stats(xs) -> Dict[str, float]:
         "p95": float(np.percentile(arr, 95)),
         "mad": float(np.median(np.abs(arr - med))),
     }
+
+
+#: the cost-model columns every row carries, with these defaults on rows
+#: whose member was never built and where no calibration table covers the
+#: chip: the predicted lower bound, the achieved share of it, the term
+#: that dominates and the spec it was made against; the calibrated trio;
+#: the measured-overlap attribution set
+PERF_ROW_DEFAULTS: Dict[str, Any] = {
+    "predicted_s": float("nan"),
+    "roofline_frac": float("nan"),
+    "bound": "",
+    "chip": "",
+    "predicted_cal_s": float("nan"),
+    "cal_residual_frac": float("nan"),
+    "cal_version": "",
+    **attribution.ATTRIBUTION_ROW_DEFAULTS,
+}
+
+
+def _perfmodel_fields(impl, times_ms: np.ndarray,
+                      backend: str = "host_clock") -> Dict[str, Any]:
+    """The cost-model columns of one row (the JAX runner's, :103-166): the
+    member's ``cost_model()`` verdict, ``roofline_frac`` against the
+    measured median, the measured-overlap attribution, and the calibrated
+    trio where ``DDLB_TPU_CALIB`` names a table with a (chip, ``backend``)
+    group. The prediction is shape-only, so an error row with a member
+    gets it too. A failing cost model warns and keeps the measurement
+    (the defaults stand)."""
+    if impl is None:
+        return {}
+    try:
+        est = impl.cost_model()
+    except Exception as exc:
+        telemetry.warn(f"perfmodel cost estimate failed: {type(exc).__name__}: {exc}")
+        return {}
+    finite = times_ms[np.isfinite(times_ms)]
+    measured_s = float(np.median(finite)) * 1e-3 if finite.size else float("nan")
+    fields = {
+        "predicted_s": est.predicted_s,
+        "roofline_frac": est.roofline_frac(measured_s),
+        "bound": est.bound,
+        "chip": est.chip,
+        **attribution.attribute(
+            est,
+            getattr(impl, "COST_SCHEDULE", "sequential"),
+            measured_s,
+            chunks=perfmodel_cost.overlap_chunks(impl),
+        ),
+    }
+    try:
+        cal = perfmodel_cost.calibrated_estimate(impl, backend=backend)
+    except Exception as exc:
+        telemetry.warn(f"calibrated estimate failed: {type(exc).__name__}: {exc}")
+        cal = None
+    if cal is not None:
+        fields["predicted_cal_s"] = cal.predicted_cal_s
+        fields["cal_residual_frac"] = cal.residual_frac(measured_s)
+        fields["cal_version"] = cal.version
+    return fields
 
 
 def _format_options(options: Dict[str, Any]) -> str:
@@ -205,6 +270,7 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
         platform=runtime.platform if runtime else "unknown",
         device_kind=runtime.device_kind if runtime else "",
         metrics=scope.row_fields(),
+        perf=_perfmodel_fields(impl, times_ms, backend=backend),
         skew=skew,
         hbm_peak_gib=round(peak / 2**30, 3) if peak_raised else float("nan"),
     )
@@ -268,17 +334,22 @@ def make_result_row(
     metrics: Optional[Dict[str, Any]] = None,
     skew: Optional[Dict[str, Any]] = None,
     hbm_peak_gib: float = float("nan"),
+    perf: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """The one result-row schema, shared by measured and crashed rows.
 
-    ``metrics`` is the row's telemetry snapshot and ``skew`` its skew
-    fold; only the fixed ``telemetry.ROW_METRIC_DEFAULTS`` and
+    ``metrics`` is the row's telemetry snapshot, ``perf`` its cost-model
+    columns (``_perfmodel_fields``) and ``skew`` its skew fold; only the
+    fixed ``telemetry.ROW_METRIC_DEFAULTS``, ``PERF_ROW_DEFAULTS`` and
     ``clocksync.SKEW_ROW_DEFAULTS`` keys land as columns, with their
     defaults where a row never recorded them (error rows included), so
     the CSV header is the same on every path."""
     metric_fields = dict(telemetry.ROW_METRIC_DEFAULTS)
     if metrics:
         metric_fields.update({k: metrics[k] for k in metric_fields if k in metrics})
+    perf_fields = dict(PERF_ROW_DEFAULTS)
+    if perf:
+        perf_fields.update({k: perf[k] for k in perf_fields if k in perf})
     skew_fields = dict(clocksync.SKEW_ROW_DEFAULTS)
     if skew:
         skew_fields.update({k: skew[k] for k in skew_fields if k in skew})
@@ -324,6 +395,10 @@ def make_result_row(
         # allocator high-water, wire bytes
         **metric_fields,
         "hbm_peak_gib": hbm_peak_gib,
+        # the cost model: the predicted lower bound, the share of it the
+        # row achieved, the dominating term, the measured overlap and the
+        # calibrated prediction
+        **perf_fields,
         # how long the row's collectives waited on their last arrival,
         # which rank it was, and the clock-alignment uncertainty
         **skew_fields,
@@ -393,15 +468,18 @@ class PrimitiveBenchmarkRunner:
 
     def run(self) -> List[Dict[str, Any]]:
         """Benchmark every implementation; returns the rows. Rank 0
-        appends each row to ``output_csv`` as soon as it is measured and,
+        appends each row to ``output_csv`` as soon as it is measured,
+        banks it with ``DDLB_TPU_HISTORY`` set (``store.bank_row``) and,
         when tracing, merges the trace at the end (``merge_trace``)."""
         rows = []
         for impl_id, spec in self.implementations.items():
             row = benchmark_worker(self._worker_config(impl_id, spec))
             rows.append(row)
-            if env_rank() == 0 and self.output_csv:
-                with telemetry.span("runner.csv_append", cat="runner", impl=impl_id):
-                    append_csv(self.output_csv, row)
+            if env_rank() == 0:
+                if self.output_csv:
+                    with telemetry.span("runner.csv_append", cat="runner", impl=impl_id):
+                        append_csv(self.output_csv, row)
+                store.bank_row(row)
         self.merge_trace()
         return rows
 

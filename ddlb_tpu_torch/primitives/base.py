@@ -34,6 +34,7 @@ import torch
 
 from ddlb_tpu_torch.ops.accum import torch_matmul  # noqa: F401  (the members' GEMM)
 from ddlb_tpu_torch.options import OptionsManager
+from ddlb_tpu_torch.perfmodel.cost import estimate
 from ddlb_tpu_torch.runtime import Runtime
 
 log = logging.getLogger(__name__)
@@ -162,6 +163,19 @@ class Primitive(ABC):
 
     primitive_name = ""
 
+    #: how the cost model (``perfmodel.cost``) combines this member's
+    #: terms: "sequential" (collective and GEMM back to back, the
+    #: default), "overlap" (pipelined: the max() bound; the overlap, cuda,
+    #: ring and pipeline members), "compute_only" (no collective runs: the
+    #: comm term is dropped)
+    COST_SCHEDULE: str = "sequential"
+
+    #: dtype whose peak prices the compute term; None = the operand dtype.
+    #: The quantized members set "int8": their GEMMs run at the int8 rate,
+    #: and pricing them at the operand's would fake a perfect
+    #: roofline_frac
+    COST_DTYPE: Optional[str] = None
+
     #: option schema read by the options manager
     DEFAULT_OPTIONS: Dict[str, Any] = {}
     ALLOWED_VALUES: Dict[str, Any] = {}
@@ -230,6 +244,31 @@ class Primitive(ABC):
     def flops(self) -> float:
         """FLOP count of one iteration (2*m*n*k, for throughput)."""
         return 2.0 * self.m * self.n * self.k
+
+    # -- cost model ----------------------------------------------------------
+
+    def cost_dtype(self) -> str:
+        """The dtype whose peak prices this member's compute term."""
+        return self.COST_DTYPE or self.dtype
+
+    def overlap_chunks(self) -> Optional[int]:
+        """Pipeline depth of an "overlap" member whose interleave has a
+        known finite granularity (the chunked engine's ``chunk_count``,
+        under ``algorithm="chunked"``): the cost model then charges the
+        fill and drain, ``min(compute, comm) / chunks``, on top of the
+        ideal ``max()``. None for every other member and algorithm."""
+        if self.options.get("algorithm") == "chunked":
+            return int(self.options["chunk_count"])
+        return None
+
+    def cost_model(self):
+        """This member's cost-model verdict against its runtime's chip
+        (``perfmodel.cost.CostEstimate``): the family's model combined by
+        ``COST_SCHEDULE``. The runner stamps every row's ``predicted_s``,
+        ``roofline_frac``, ``bound`` and ``chip`` from it; members override
+        its inputs (``flops``, ``wire_bytes``, ``hbm_bytes``,
+        ``COST_SCHEDULE``) rather than the hook."""
+        return estimate(self)
 
     @abstractmethod
     def validate(self, result: torch.Tensor) -> bool:
@@ -331,6 +370,9 @@ class ComputeOnlyKSharded:
     ``[m, k/d] @ [k/d, n]`` (validation skipped: partial sums are not the
     answer), ``unsharded`` the full product on one device. Mixin, combined
     with the family base."""
+
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
 
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}

@@ -18,6 +18,9 @@ from ddlb_tpu_torch.primitives.collectives.base import Collectives, wire_itemsiz
 
 
 class ComputeOnlyCollectives(Collectives):
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
+
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}
 

@@ -20,11 +20,13 @@ window's live pairs times ``4 * n``.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import Primitive
 
 #: additive mask sentinel shared by every member (large-negative rather
@@ -129,6 +131,24 @@ class CPRingAttention(Primitive):
             pairs = w * self.m - w * (w - 1) / 2.0
             return 4.0 * pairs * self.n
         return 2.0 * self.m * self.m * self.n
+
+    def wire_bytes(self) -> float:
+        """A rank's ring bytes (the JAX family's census, :128): each rank
+        forwards its K and V shards ``[m/d, h_kv, k]`` one hop a step, all
+        ``d - 1`` hops for full causal attention, only the
+        ``ceil(window / (m/d))`` hops whose chunks reach the band under a
+        window (the ring members skip the others). ``compute_only`` and
+        ``ulysses`` override it."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        chunk = self.m // d
+        hops = d - 1
+        w = self.options["window"]
+        if w and w < self.m:
+            hops = min(d - 1, math.ceil(w / chunk))
+        shard_kv = 2.0 * chunk * self.kv_heads * self.k
+        return shard_kv * wire_itemsize(self.dtype) * hops
 
     def _host_qkv(self):
         rng = np.random.default_rng(self.seed)

@@ -19,6 +19,13 @@ from ddlb_tpu_torch.primitives.cp_ring_attention.base import (
 
 
 class ComputeOnlyCPRingAttention(CPRingAttention):
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
+
+    def wire_bytes(self) -> float:
+        """No collective runs: nothing on the wire."""
+        return 0.0
+
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}
 

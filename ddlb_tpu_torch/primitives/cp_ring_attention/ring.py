@@ -23,6 +23,9 @@ from ddlb_tpu_torch.primitives.cp_ring_attention.base import (
 
 
 class RingCPRingAttention(CPRingAttention):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"skip_masked_blocks": True}
     ALLOWED_VALUES = {"skip_masked_blocks": [True, False]}
 

@@ -21,6 +21,9 @@ from ddlb_tpu_torch.primitives.cp_ring_attention.base import CPRingAttention
 
 
 class RingFlashCPRingAttention(CPRingAttention):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"skip_masked_blocks": True}
     ALLOWED_VALUES = {"skip_masked_blocks": [True, False]}
 

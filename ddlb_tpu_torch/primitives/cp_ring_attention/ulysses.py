@@ -16,6 +16,7 @@ from __future__ import annotations
 import functools
 
 from ddlb_tpu_torch.ops import flash_attention as fa
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import torch_dtype
 from ddlb_tpu_torch.primitives.cp_ring_attention.base import (
     CPRingAttention,
@@ -26,6 +27,17 @@ from ddlb_tpu_torch.primitives.cp_ring_attention.base import (
 class UlyssesCPRingAttention(CPRingAttention):
     DEFAULT_OPTIONS = {"compute": "einsum"}
     ALLOWED_VALUES = {"compute": ["einsum", "flash"]}
+
+    def wire_bytes(self) -> float:
+        """The all-to-all traffic (the JAX member's census, :40): Q, K, V
+        resharded to heads and the output back, each keeping the diagonal
+        chunk local, ``(d - 1) / d`` of it."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        local = (self.m // d) * self.k  # rows * head_dim a head
+        elems = local * (2 * self.num_heads + 2 * self.kv_heads)  # Q, out + K, V
+        return elems * wire_itemsize(self.dtype) * (d - 1) / d
 
     def _check_shapes(self) -> None:
         super()._check_shapes()

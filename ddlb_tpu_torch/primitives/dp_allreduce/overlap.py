@@ -38,6 +38,9 @@ from ddlb_tpu_torch.utils.ring_schedule import ring_schedule
 
 
 class OverlapDPAllReduce(DPAllReduce):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {
         "algorithm": "coll_pipeline",
         "s": 8,

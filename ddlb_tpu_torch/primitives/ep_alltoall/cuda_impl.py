@@ -33,6 +33,9 @@ from ddlb_tpu_torch.primitives.tp_columnwise.cuda_impl import check_algorithm_op
 
 
 class CudaEPAllToAll(EPAllToAll):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"algorithm": "xla_collective", "detect_races": False}
     ALLOWED_VALUES = {
         "algorithm": ["xla_collective", "a2a_rdma"],

@@ -28,6 +28,9 @@ from ddlb_tpu_torch.primitives.ep_alltoall.base import EPAllToAll
 
 
 class OverlapEPAllToAll(EPAllToAll):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"algorithm": "coll_pipeline", "s": 4, "chunk_count": 2}
     ALLOWED_VALUES = {
         "algorithm": ["default", "coll_pipeline", "chunked"],

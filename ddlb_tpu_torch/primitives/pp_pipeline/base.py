@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import (
     Primitive,
     matmul_precision_scope,
@@ -55,6 +56,16 @@ class PPPipeline(Primitive):
 
     def flops(self) -> float:
         return 2.0 * self.m * self.k * self.n * self.num_stages
+
+    def wire_bytes(self) -> float:
+        """A rank's activation-hop bytes (the JAX family's floor, :67):
+        every microbatch's ``[., n]`` activation crosses each stage
+        boundary once, ``m * n`` elements a rank whatever the microbatch
+        count. ``compute_only``, ``pytorch`` and ``schedules`` override
+        it."""
+        if self.num_partitions <= 1:
+            return 0.0
+        return float(self.m * self.n * wire_itemsize(self.dtype))
 
     def _host_chain_operands(self) -> Tuple[np.ndarray, np.ndarray]:
         """Seeded tokens ``[m, k]`` and stage weights ``[S, k, n]``, the JAX

@@ -27,6 +27,9 @@ from ddlb_tpu_torch.runtime import placements
 
 
 class CompiledPPPipeline(CompiledOptionsMixin, PPPipeline):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     def _input_setup(self) -> None:
         super()._input_setup()
         mesh = self.runtime.device_mesh(("tp",), (self.num_partitions,))

@@ -29,6 +29,13 @@ def chain(a: torch.Tensor, w: torch.Tensor, stages=None) -> torch.Tensor:
 
 
 class ComputeOnlyPPPipeline(PPPipeline):
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
+
+    def wire_bytes(self) -> float:
+        """No collective runs: nothing on the wire."""
+        return 0.0
+
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}
 

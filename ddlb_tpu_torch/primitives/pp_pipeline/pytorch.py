@@ -23,13 +23,34 @@ from __future__ import annotations
 
 import torch
 
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import torch_matmul
 from ddlb_tpu_torch.primitives.pp_pipeline.base import PPPipeline
 
 
 class PyTorchPPPipeline(PPPipeline):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"microbatches": 4}
     ALLOWED_VALUES = {"microbatches": (1, None)}
+
+    def wire_bytes(self) -> float:
+        """The hops the step posts (the JAX member's census, :43): every
+        rank posts both rings every tick they are wired for, zeros
+        included. The drain ring moves ``[rows, n]`` on all ``ticks``
+        ticks, the activation ring ``[rows, k]`` on the ``mb + d - 2``
+        fill ticks."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        mb = self.options["microbatches"]
+        rows = self.m // mb
+        isz = wire_itemsize(self.dtype)
+        ticks = max(mb + d - 1, mb + 2 * d - 3)
+        drain = ticks * rows * self.n * isz
+        activations = (mb + d - 2) * rows * self.k * isz
+        return float(drain + activations)
 
     def _check_shapes(self) -> None:
         super()._check_shapes()

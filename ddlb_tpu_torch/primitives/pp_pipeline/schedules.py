@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ddlb_tpu_torch.ops.accum import accum_matmul
+from ddlb_tpu_torch.perfmodel.cost import wire_itemsize
 from ddlb_tpu_torch.primitives.base import matmul_precision_scope, torch_matmul, validation_atol
 from ddlb_tpu_torch.primitives.pp_pipeline.base import PPPipeline
 from ddlb_tpu_torch.utils.pipeline_schedule import (
@@ -55,12 +56,31 @@ _GRADS_MEMO: Dict[tuple, np.ndarray] = {}
 
 
 class SchedulePPPipeline(PPPipeline):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"schedule": "1f1b", "microbatches": 4, "virtual": 1}
     ALLOWED_VALUES = {
         "schedule": list(SCHEDULES),
         "microbatches": (1, None),
         "virtual": (1, 8),
     }
+
+    def wire_bytes(self) -> float:
+        """The training schedule's wire (the JAX member's census, :69):
+        both rings (forward ``[rows, k]``, backward ``[rows, n]``) on every
+        tick of the tables, idle arms included, and the final all-reduce
+        of the collected ``[mb, rows, n]`` output."""
+        d = self.num_partitions
+        if d <= 1:
+            return 0.0
+        mb = self.options["microbatches"]
+        rows = self.m // mb
+        isz = wire_itemsize(self.dtype)
+        tables = build_schedule(self.options["schedule"], d, mb, self.num_stages // d)
+        hops = tables.ticks * rows * (self.k + self.n) * isz
+        collect = 2.0 * (mb * rows * self.n * isz) * (d - 1) / d
+        return float(hops + collect)
 
     def _check_shapes(self) -> None:
         super()._check_shapes()

@@ -42,6 +42,9 @@ def reject_tpu_tiles(options, member: str, why: str) -> None:
 
 
 class QuantizedGEMMMixin:
+    #: the GEMMs run at the int8 rate: the cost model prices them there
+    COST_DTYPE = "int8"
+
     DEFAULT_OPTIONS = {"kernel": "xla", "quantize": "static"}
     ALLOWED_VALUES = {
         "kernel": ["xla", "pallas"],

@@ -55,6 +55,7 @@ tick stream and the perfmodel's cost floor.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -263,6 +264,18 @@ class ServingLoad(Primitive):
         )
         per_pass = census["weights"] + census["kv_cache"]
         return sum(r.max_new for r in self._trace) * per_pass
+
+    def cost_model(self):
+        """The decode census floor, floored again at the trace's arrival
+        horizon (:266): an open-loop drain cannot end before its last
+        request arrives, so ``predicted_s`` is ``max(census floor,
+        horizon)``; without it every low-load row would read as a large
+        false inefficiency."""
+        est = super().cost_model()
+        horizon = self._trace_horizon_s()
+        if horizon > est.predicted_s:
+            est = dataclasses.replace(est, predicted_s=horizon)
+        return est
 
     # -- the engine --------------------------------------------------------------
 

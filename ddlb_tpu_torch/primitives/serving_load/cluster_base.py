@@ -46,8 +46,14 @@ the topology stamp), closed by a ``serve.ticks`` instant from each engine
 this rank runs, then the ``serve.queue_depth`` gauge and a ``serve.slo``
 instant; validation failures go through ``telemetry.log``. Every rank
 emits its own, in its own trace shard; nothing is gathered for them. Not
-ported: the live tick stream and the calibration table
-(``perfmodel.calib``): the handoff is priced by the closed form.
+ported: the live tick stream.
+
+The handoff is priced, not performed, on the card as on the CPU: each
+bundle's ``serve_handoff_ms`` is ``cost.kv_handoff_seconds`` of its bytes,
+the closed form, or the ``(chip, host_clock)`` group's fitted KV
+constants when ``DDLB_TPU_CALIB`` names a table that fitted them (the
+JAX member's rule, :407-424). A fit of those constants from the port's
+rows recovers the closed form it was priced with.
 """
 
 from __future__ import annotations
@@ -349,6 +355,7 @@ class ClusterServingLoad(ServingLoad):
         return hook
 
     def _input_setup(self) -> None:
+        from ddlb_tpu_torch.perfmodel.calib import get_table
         from ddlb_tpu_torch.perfmodel.cost import kv_handoff_seconds
         from ddlb_tpu_torch.serve.cluster import ServingCluster
         from ddlb_tpu_torch.serve.router import PrefixAffinityRouter
@@ -387,6 +394,11 @@ class ClusterServingLoad(ServingLoad):
             failure = exc
         self._placement.share({}, failure)
         chip = self.runtime.chip_spec
+        # a fitted (chip, host_clock) group's KV constants replace the
+        # closed form; the drain runs on the host clock only, so serving
+        # rows bank under that backend
+        table = get_table()
+        calib_group = table.group(chip.name, "host_clock") if table is not None else None
         self._cluster = ServingCluster(
             engines[:n_dec],
             engines[n_dec:],
@@ -395,7 +407,7 @@ class ClusterServingLoad(ServingLoad):
             ),
             admission=self._make_admission(),
             bundle_bytes=self._bundle_pricer(),
-            handoff_seconds=lambda b: kv_handoff_seconds(b, chip),
+            handoff_seconds=lambda b: kv_handoff_seconds(b, chip, calib=calib_group),
             preempt_hol_ticks=o["preempt_hol_ticks"],
             watch_ticks=o["watch_ticks"],
             watch_dominance=float(o["watch_dominance"]),

@@ -13,16 +13,17 @@ prompt crosses the seam byte for byte.
 The handoff is priced, not performed: ``perfmodel.cost.kv_bundle_bytes``
 weighs the bundle with the decode census's per-row convention,
 ``kv_handoff_seconds`` floors its latency (two memory crossings and one
-link hop), and the row counts both (``serve_handoff_bytes`` /
-``serve_handoff_ms``). The JAX member's ``handoff_bytes`` (the trace's
-planned handoff census, read by its family cost model) waits for the
-port's cost model.
+link hop, or a fitted table's constants under ``DDLB_TPU_CALIB``), and
+the row counts both (``serve_handoff_bytes`` / ``serve_handoff_ms``).
+``handoff_bytes`` is the trace's planned handoff census, which the family
+cost model prices (``perfmodel.cost._serving_cost``).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+from ddlb_tpu_torch.perfmodel.cost import kv_bundle_bytes
 from ddlb_tpu_torch.primitives.serving_load.cluster_base import (
     CLUSTER_ALLOWED,
     CLUSTER_OPTIONS,
@@ -49,3 +50,22 @@ class DisaggServingLoad(ClusterServingLoad):
     def _topology_base(self) -> str:
         o = self.options
         return f"disagg:p{o['prefill_shards']}+d{o['decode_shards']}"
+
+    def handoff_bytes(self) -> float:
+        """The trace's planned handoff census (the JAX member's, :56):
+        every request with budget past its prefill token hands ``S0 + 1``
+        rows to the decode pool, the bytes the row's
+        ``serve_handoff_bytes`` counts."""
+        o = self.options
+        return sum(
+            kv_bundle_bytes(
+                d_model=self.n,
+                n_heads=o["n_heads"],
+                n_kv_heads=o["n_kv_heads"],
+                layers=o["layers"],
+                kv_cache=o["kv_cache"],
+                tokens=r.prompt.size + 1,
+            )
+            for r in self._trace
+            if r.max_new > 1
+        )

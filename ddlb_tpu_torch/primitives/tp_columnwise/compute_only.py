@@ -14,6 +14,9 @@ from ddlb_tpu_torch.primitives.tp_columnwise.base import TPColumnwise
 
 
 class ComputeOnlyTPColumnwise(TPColumnwise):
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
+
     DEFAULT_OPTIONS = {"size": "sharded"}
     ALLOWED_VALUES = {"size": ["sharded", "unsharded"]}
 

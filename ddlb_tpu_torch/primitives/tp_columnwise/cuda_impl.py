@@ -53,6 +53,9 @@ def check_algorithm_options(member) -> None:
 
 
 class CudaTPColumnwise(PyTorchTPColumnwise):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {
         "algorithm": "xla_collective",
         "order": "AG_before",

@@ -57,6 +57,9 @@ def check_overlap_shapes(m: int, d: int, options) -> None:
 
 
 class OverlapTPColumnwise(TPColumnwise):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {
         "algorithm": "coll_pipeline",
         "s": 8,

@@ -32,6 +32,9 @@ from ddlb_tpu_torch.primitives.tp_rowwise.pytorch import PyTorchTPRowwise
 
 
 class CudaTPRowwise(PyTorchTPRowwise):
+    #: comm and compute pipelined: the cost model takes max(compute, comm)
+    COST_SCHEDULE = "overlap"
+
     DEFAULT_OPTIONS = {"algorithm": "xla_collective", "detect_races": False}
     ALLOWED_VALUES = {"algorithm": ALGORITHMS, "detect_races": [True, False]}
     gemm = staticmethod(k1.matmul)

@@ -12,6 +12,9 @@ from ddlb_tpu_torch.primitives.transformer_decode.spmd import SPMDTransformerDec
 
 
 class ComputeOnlyTransformerDecode(SPMDTransformerDecode):
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
+
     def _mesh_factors(self):
         if self.options["dp"] or self.options["tp"]:
             raise ValueError(

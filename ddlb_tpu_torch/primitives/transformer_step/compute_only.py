@@ -23,6 +23,9 @@ from ddlb_tpu_torch.primitives.transformer_step.base import TransformerStep
 
 
 class ComputeOnlyTransformerStep(TransformerStep):
+    #: no collective runs: the cost model drops the comm term
+    COST_SCHEDULE = "compute_only"
+
     # the roofline runs the oracle's einsum formulation
     DEFAULT_OPTIONS = {"attn_kernel": "einsum"}
 

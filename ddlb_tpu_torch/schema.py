@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``schema.py`` limited to the columns this
 package writes: ``benchmark.make_result_row``'s (identity, statistics,
-environment, the telemetry metric snapshot and the cross-rank skew
-columns), then the columns a family adds through ``extra_row_fields``,
-the port's own among them (``device_kind``, the compiled member's
+environment, the telemetry metric snapshot, the cost-model columns and
+the cross-rank skew columns), then the columns a family adds through
+``extra_row_fields``, the port's own among them (``device_kind``, the compiled member's
 ``compile_s``, ``dynamo_graphs`` and ``async_tp_fused``, the model
 families' ``hbm_bytes``, the serving drains' counts). A shared column has
 the JAX package's name and meaning; the port's name test holds every key
@@ -60,6 +60,39 @@ ROW_COLUMNS: Dict[str, str] = {
         "allocator peak in GiB (only when raised by this row; NaN"
         " otherwise and on the CPU)"
     ),
+    # -- the cost model (benchmark._perfmodel_fields over
+    #    perfmodel/cost.py; defaults on rows whose member was never built)
+    "predicted_s": "closed-form lower bound for this config (seconds)",
+    "roofline_frac": "predicted_s / measured median, clamped to (0, 1]",
+    "bound": "dominating roofline term: compute / comm / hbm",
+    "chip": "hardware spec the prediction was made against (perfmodel/specs.py)",
+    # -- the calibrated prediction (perfmodel/calib.py constants fitted
+    #    from banked history; NaN / NaN / "" unless DDLB_TPU_CALIB names a
+    #    table with a group for the row's chip and timing backend) --------
+    "predicted_cal_s": (
+        "calibrated absolute prediction: the analytical bound plus"
+        " fitted per-hop latency / per-step overhead / dispatch"
+        " constants through the schedule law (NaN when uncalibrated)"
+    ),
+    "cal_residual_frac": (
+        "(measured median - predicted_cal_s) / predicted_cal_s:"
+        " positive means slower than the fitted model (NaN when"
+        " uncalibrated)"
+    ),
+    "cal_version": (
+        "calibration-table fingerprint the row was priced against"
+        " (perfmodel.calib.table_version); '' when uncalibrated"
+    ),
+    # -- measured-overlap attribution (observatory/attribution.py) -------
+    "measured_overlap_frac": (
+        "achieved overlap fraction: (serial floor - measured) / hideable,"
+        " in [0, 1]; NaN off overlap members and on rows with no hideable"
+        " window at the schedule's granularity (one-rank collective, zero"
+        " comm or compute term, chunked engine at chunk_count=1)"
+    ),
+    "phase_compute_s": "model compute-phase floor (the compute term, seconds)",
+    "phase_comm_s": "model comm-phase floor (the wire term, seconds)",
+    "phase_idle_s": "measured time no roofline term explains (overhead)",
     # -- cross-rank skew attribution (telemetry/clocksync.py fold over
     #    the row's collective entry/exit stamps; defaults on
     #    single-process rows) ---------------------------------------------

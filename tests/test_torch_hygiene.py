@@ -12,6 +12,7 @@ PORT_FILES = sorted((REPO / "ddlb_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "scripts" / "telemetry_cards.py",
     REPO / "scripts" / "time_trace_overhead.py",
+    REPO / "scripts" / "perfmodel_cards.py",
 ]
 BANNED = ("jax", "jaxlib", "ddlb_tpu")
 
