@@ -175,7 +175,20 @@ Phases, in order; any failure exits non-zero without the final line:
    ratio over 1 is printed as a finding. Then it fits the calibration
    table from the bank, prints its constants, and runs one
    ``tp_columnwise`` ``cuda`` row at 8192^3 bf16 (K1) with
-   ``DDLB_TPU_CALIB`` on that table, its calibrated prediction printed.
+   ``DDLB_TPU_CALIB`` on that table, its calibrated prediction printed;
+   then the observatory phase (``observatory_phase``) over the same
+   bank: the simulator's gate 1 (every family's closed form replayed on
+   an ``h100-sxm`` world, ``sim_closed_form``) and gate 2 (every banked
+   key replayed, a lower bound on its median, ``sim_history``), read
+   from ``sim_report --validate``, fail the run on any miss; gate 3 (the calibrated replay within 5%,
+   ``sim_calibration``) is printed only. Then ``tp_columnwise``
+   ``pytorch`` and ``cuda`` at 8192^3 bf16 run again under
+   ``DDLB_TPU_RUN_ID`` and ``DDLB_TPU_LIVE`` (K1's launches exact), the
+   live stream is folded (2 rows done, their ``roofline_frac``), each
+   median is printed beside its banked twins', ``regress.detect_all``
+   judges the two rows against the bank, the prior-only advisories
+   (a row over 5x its prediction) are counted by family, and the four
+   report CLIs run over the bank, each exit code checked.
    The ``compiled`` member (the JAX package's ``xla_gspmd``: DTensor
    placements under ``torch.compile``) rides those paths with its knobs at
    their defaults: both tp families and ``dp_allreduce``/``ep_alltoall`` at
@@ -3397,7 +3410,7 @@ def perfmodel_phase(history_dir, run_benchmark, k1, smi):
     one's prediction to its median (``check_predictions``); then fit the
     calibration table from the bank, print it, and run one
     ``tp_columnwise`` ``cuda`` row at 8192^3 bf16 (K1) priced from it.
-    Returns the phase's launch counts."""
+    Returns the phase's launch counts and the table."""
     from ddlb_tpu_torch.observatory import calibrate, store
 
     rows = [record["row"] for record in store.iter_history(history_dir)]
@@ -3434,7 +3447,182 @@ def perfmodel_phase(history_dir, run_benchmark, k1, smi):
             math.isfinite(row["predicted_cal_s"]) and row["predicted_cal_s"] > 0.0
             and math.isfinite(row["cal_residual_frac"])):
         fail(f"the calibrated row was not priced from the table: {cal}")
-    return {"k1": k1.LAUNCHES}
+    return {"k1": k1.LAUNCHES}, table
+
+
+#: the run id the observatory phase's rows bank under
+OBSERVATORY_RUN = "chip_smoke_observatory"
+
+
+def call_cli(module, argv):
+    """One report CLI in this process: (exit code, its standard output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(list(argv))
+    return rc, out.getvalue()
+
+
+def _finding(f):
+    return {key: f.get(key) for key in (
+        "source", "metric", "primitive", "implementation", "option", "m", "n", "k",
+        "measured_ms", "baseline_ms", "ratio", "z")}
+
+
+def observatory_phase(history_dir, table, run_benchmark, k1, smi):
+    """The simulator's gates and the observatory over the run's bank, then
+    two short rows.
+
+    Gate 1 (the closed forms on ``h100-sxm``) fails the run on any record
+    that is not ``ok``; gate 2 (the bank's keys replayed) on any
+    violation; both are read from ``sim_report --validate``'s document.
+    Gate 3 (the calibrated replay against the medians, with the
+    perfmodel phase's ``table``) is printed and does not fail it. Then
+    ``tp_columnwise`` ``pytorch`` and ``cuda`` at 8192^3 bf16 run again
+    under ``DDLB_TPU_RUN_ID`` and ``DDLB_TPU_LIVE`` (K1's launches held
+    exactly), the live stream is folded, each row's median is printed
+    beside its banked twins', ``regress.detect_all`` judges the two rows
+    against the bank, the prior-only advisories of every banked row are
+    counted by family, and the four report CLIs run over the bank, each
+    exit code checked. Returns the phase's launch counts."""
+    from ddlb_tpu_torch.cli import calib_report, observatory_report, sim_report, sweep_dash
+    from ddlb_tpu_torch.observatory import calibrate, live, regress, store
+    from ddlb_tpu_torch.perfmodel import calib
+    from ddlb_tpu_torch.simulator import validate
+
+    t0 = time.perf_counter()
+    # gates 1 and 2 through the report CLI, without DDLB_TPU_CALIB so that
+    # gate 3 does not bind there: it runs below with the phase's table
+    saved_calib = os.environ.pop(calib.CALIB_ENV, None)
+    try:
+        rc, out = call_cli(sim_report, ["--validate", "--history", history_dir, "--json"])
+    finally:
+        if saved_calib is not None:
+            os.environ[calib.CALIB_ENV] = saved_calib
+    gates = json.loads(out)["validation"]
+    closed, history = gates["closed_form"], gates["history"]
+    print(json.dumps({"sim_closed_form": {
+        "chip": "h100-sxm", "count": closed["checked"],
+        "ok": closed["checked"] - len(closed["failures"]),
+        "max_rel_err": closed["max_rel_err"], "failures": closed["failures"]}}))
+    if closed["failures"] or not closed["checked"]:
+        fail(f"gate 1: {len(closed['failures'])} of {closed['checked']} closed-form "
+             f"records disagree")
+    print(json.dumps({"sim_history": {
+        key: history[key] for key in ("checked", "skipped", "violations", "rtol",
+                                      "lower_bound_slack", "ok")}
+        | {"skipped_reasons": history["skipped_reasons"][:20]}}))
+    if history["violations"] or not history["ok"]:
+        fail(f"gate 2: {len(history['violations'])} violations over "
+             f"{history['checked']} keys")
+    print(json.dumps({"observatory_cli": {
+        "cli": "sim_report", "argv": ["--validate"], "rc": rc, "bytes": len(out),
+        "calibration": "calibration" in gates}}))
+    if rc != 0 or "calibration" in gates:
+        fail(f"sim_report --validate exited {rc}, expected 0 without gate 3")
+
+    cal = validate.calibration_check(history_dir, table=table)
+    errs = sorted(v["rel_err"] for v in cal["violations"])
+    print(json.dumps({"sim_calibration": {
+        key: cal[key] for key in ("checked", "skipped", "rtol", "table_version", "ok")}
+        | {"violations": len(cal["violations"]),
+           "rel_err_median_of_violations": errs[len(errs) // 2] if errs else None,
+           "rel_err_max": errs[-1] if errs else None}}))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observatory_")
+    stream = os.path.join(tmp, "live.jsonl")
+    os.environ[store.RUN_ID_ENV] = OBSERVATORY_RUN
+    os.environ[live.LIVE_ENV] = stream
+    k1.reset_launches()
+    try:
+        rows = drive_path(run_benchmark, "cuda", "tp_columnwise",
+                          (PATH_MNK, PATH_MNK, PATH_MNK), {"pytorch": [{}], "cuda": [{}]})
+    finally:
+        del os.environ[store.RUN_ID_ENV], os.environ[live.LIVE_ENV]
+    launches = k1.LAUNCHES
+    expected = NUM_WARMUPS + NUM_ITERATIONS + 1
+    if launches != expected:
+        fail(f"K1 launched {launches} times for the observatory's rows, expected {expected}")
+
+    events, _ = live.read_events(stream)
+    state = live.fold(events)
+    done = [e for e in events if e["kind"] == "row_done"]
+    by_impl = {row["implementation"]: row for row in rows}
+    print(json.dumps({"observatory_live": {
+        "events": len(events), "totals": state["totals"], "sweep_done": state["sweep_done"],
+        "unknown": state["unknown"],
+        "rows": [{key: e.get(key) for key in ("impl", "median_ms", "predicted_s",
+                                              "roofline_frac")} for e in done]}}))
+    if (state["totals"]["done"] != 2 or state["totals"]["total"] != 2
+            or not state["sweep_done"] or state["unknown"]
+            or [e["impl"] for e in done] != list(by_impl)
+            or any(e["roofline_frac"] != by_impl[e["impl"]]["roofline_frac"] for e in done)):
+        fail(f"the live stream's fold disagrees with the rows: {state['totals']}")
+
+    bank = store.load_history(history_dir)
+    twins = []
+    for row in rows:
+        key = store.row_key(row)
+        banked = sorted(r["row"]["median time (ms)"] for r in bank
+                        if r["key"] == key and r["run_id"] != OBSERVATORY_RUN)
+        twins.append({"implementation": row["implementation"],
+                      "median_ms": row["median time (ms)"], "banked_ms": banked,
+                      "within_banked_spread": bool(banked) and banked[0]
+                      <= row["median time (ms)"] <= banked[-1]})
+    print(json.dumps({"observatory_rerun": twins, "card": smi}))
+
+    findings = regress.detect_all(rows, bank, exclude_run=OBSERVATORY_RUN)
+    print(json.dumps({"observatory_findings": [_finding(f) for f in findings]}))
+    prior = regress.detect([r["row"] for r in bank if r["run_id"] != OBSERVATORY_RUN], [])
+    families = {}
+    for f in prior:
+        fam = families.setdefault(f["primitive"], {"rows": 0, "worst_ratio": 0.0, "impls": set()})
+        fam["rows"] += 1
+        fam["worst_ratio"] = max(fam["worst_ratio"], f["ratio"])
+        fam["impls"].add(f"{f['base_implementation']} {f['m']}x{f['n']}x{f['k']}")
+    for fam in families.values():
+        fam["impls"] = sorted(fam["impls"])
+    print(json.dumps({"observatory_prior_advisories": {
+        "prior_factor": regress.PRIOR_FACTOR, "rows": len(prior), "families": families}}))
+
+    table_path = calibrate.write_table(table, os.path.join(tmp, "calib.json"))
+    saved_calib = os.environ.pop(calib.CALIB_ENV, None)
+    try:
+        clis = (
+            (observatory_report, ["--history", history_dir, "--run", OBSERVATORY_RUN,
+                                  "--json"], 1 if findings else 0),
+            (calib_report, ["--history", history_dir, "--calib", table_path, "--json"], 0),
+            (sim_report, ["--json"], 0),
+            (sweep_dash, [stream, "--once"], 0),
+        )
+        for module, argv, want in clis:
+            rc, out = call_cli(module, argv)
+            name = module.__name__.rsplit(".", 1)[-1]
+            summary = {"cli": name, "argv": argv[:1], "rc": rc, "bytes": len(out)}
+            if name == "sim_report":
+                doc = json.loads(out)
+                summary["ranking"] = {b["family"]: [r["algo"] for r in b["rows"]]
+                                      for b in doc["ranking"]}
+                summary["topology"] = doc["topology"]["spec"]
+            elif name == "calib_report":
+                doc = json.loads(out)
+                summary["before_after"] = doc["before_after"]
+            elif name == "observatory_report":
+                summary["findings"] = len(json.loads(out)["findings"])
+            else:
+                summary["frame"] = out.splitlines()[:3]
+            print(json.dumps({"observatory_cli": summary}))
+            if rc != want:
+                fail(f"{name} {argv} exited {rc}, expected {want}")
+    finally:
+        if saved_calib is not None:
+            os.environ[calib.CALIB_ENV] = saved_calib
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"observatory_phase_s": round(time.perf_counter() - t0, 1),
+                      "card": smi}))
+    return {"k1": launches}
 
 
 def _row_spans(events, impl_id):
@@ -3908,10 +4096,15 @@ def main():
     print(f"telemetry phase done at {time.perf_counter() - t_start:.1f} s")
 
     reset()
-    launches["perfmodel"] = perfmodel_phase(history_dir, run_benchmark, k1, smi)
-    shutil.rmtree(history_dir, ignore_errors=True)
+    launches["perfmodel"], table = perfmodel_phase(history_dir, run_benchmark, k1, smi)
     tiles["perfmodel"] = check_tiles("the perfmodel phase", k1, cm, fa)
     print(f"perfmodel phase done at {time.perf_counter() - t_start:.1f} s")
+
+    reset()
+    launches["observatory"] = observatory_phase(history_dir, table, run_benchmark, k1, smi)
+    shutil.rmtree(history_dir, ignore_errors=True)
+    tiles["observatory"] = check_tiles("the observatory phase", k1, cm, fa)
+    print(f"observatory phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"launches by path: {json.dumps(launches)}")
     print(f"K1, K2, K3 and flash launches by tile or kernel, by path: {json.dumps(tiles)}")
 

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ddlb_tpu_torch import telemetry
-from ddlb_tpu_torch.observatory import attribution, store
+from ddlb_tpu_torch.observatory import attribution, live, store
 from ddlb_tpu_torch.perfmodel import cost as perfmodel_cost
 from ddlb_tpu_torch.primitives.registry import (
     check_primitive,
@@ -140,6 +140,36 @@ def _format_options(options: Dict[str, Any]) -> str:
     return ";".join(f"{k}={v}" for k, v in sorted(options.items())) or "-"
 
 
+def _mark(stage: str, impl_id: str) -> None:
+    """A row's phase mark on the live stream (rank 0; one environment
+    lookup when ``DDLB_TPU_LIVE`` is unset)."""
+    if env_rank() == 0:
+        live.post_event("row_phase", stage=stage, impl=impl_id)
+
+
+def _post_row_done(row: Dict[str, Any], impl_id: str, primitive: str) -> None:
+    """The live stream's ``row_done``: the outcome, the predicted-vs-measured
+    fields, the skew summary and the serving SLO summary (the JAX runner's
+    fields but the worker pool's, which the port's runner has no column
+    for)."""
+    live.post_event(
+        "row_done", impl=impl_id, primitive=primitive,
+        median_ms=row.get("median time (ms)"),
+        predicted_s=row.get("predicted_s"),
+        roofline_frac=row.get("roofline_frac"),
+        measured_overlap_frac=row.get("measured_overlap_frac"),
+        error=str(row.get("error") or "")[:200],
+        skew_enter_s=row.get("skew_enter_s"),
+        straggler_rank=row.get("straggler_rank"),
+        straggler_frac=row.get("straggler_frac"),
+        slo_ttft_p50_ms=row.get("slo_ttft_p50_ms"),
+        slo_ttft_p95_ms=row.get("slo_ttft_p95_ms"),
+        slo_ttft_p99_ms=row.get("slo_ttft_p99_ms"),
+        slo_goodput_rps=row.get("slo_goodput_rps"),
+        slo_attainment=row.get("slo_attainment"),
+    )
+
+
 def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
     """Measure one implementation at one shape; returns one result row.
 
@@ -184,6 +214,7 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
         # the skew fold reads exactly this row's collective spans
         clocksync.reset_row()
         try:
+            _mark("setup", impl_id)
             with telemetry.span("worker.setup", cat="setup", impl=impl_id):
                 runtime = Runtime(device)
                 peak_at_entry = _device_peak(runtime)
@@ -197,17 +228,20 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
                     "num_warmups must be >= 1 to keep the compile out of the timed "
                     "window"
                 )
+            _mark("warmup", impl_id)
             with telemetry.span("worker.warmup", cat="warmup", impl=impl_id):
                 for _ in range(num_warmups):
                     result = impl.run()
                 runtime.synchronize()
             if profile_dir:
+                _mark("profile", impl_id)
                 with telemetry.span("worker.profile", cat="profile", impl=impl_id):
                     profile_window(impl, runtime, profile_dir, impl_id)
                     # re-warm after the profiler's overhead
                     for _ in range(num_warmups):
                         result = impl.run()
                     runtime.synchronize()
+            _mark("timing", impl_id)
             with telemetry.span("worker.timing", cat="timing", impl=impl_id,
                                 backend=backend):
                 if backend == "host_clock":
@@ -228,6 +262,7 @@ def benchmark_worker(config: Dict[str, Any]) -> Dict[str, Any]:
             skew = clocksync.fold_row_skew(runtime)
             valid = True
             if config.get("validate", True):
+                _mark("validate", impl_id)
                 with telemetry.span("worker.validate", cat="validate", impl=impl_id):
                     try:
                         result = impl.run()
@@ -469,17 +504,29 @@ class PrimitiveBenchmarkRunner:
     def run(self) -> List[Dict[str, Any]]:
         """Benchmark every implementation; returns the rows. Rank 0
         appends each row to ``output_csv`` as soon as it is measured,
-        banks it with ``DDLB_TPU_HISTORY`` set (``store.bank_row``) and,
-        when tracing, merges the trace at the end (``merge_trace``)."""
+        banks it with ``DDLB_TPU_HISTORY`` set (``store.bank_row``), posts
+        the sweep's and each row's events with ``DDLB_TPU_LIVE`` set
+        (``observatory/live.py``) and, when tracing, merges the trace at
+        the end (``merge_trace``)."""
         rows = []
+        primary = env_rank() == 0
+        if primary and self.implementations:
+            live.post_event("sweep_start", total=len(self.implementations),
+                            primitive=self.primitive)
         for impl_id, spec in self.implementations.items():
+            if primary:
+                live.post_event("row_start", impl=impl_id, primitive=self.primitive,
+                                m=self.m, n=self.n, k=self.k)
             row = benchmark_worker(self._worker_config(impl_id, spec))
             rows.append(row)
-            if env_rank() == 0:
+            if primary:
                 if self.output_csv:
                     with telemetry.span("runner.csv_append", cat="runner", impl=impl_id):
                         append_csv(self.output_csv, row)
                 store.bank_row(row)
+                _post_row_done(row, impl_id, self.primitive)
+        if primary and self.implementations:
+            live.post_event("sweep_done", rows=len(rows))
         self.merge_trace()
         return rows
 

@@ -8,12 +8,15 @@ rank 0 writes (``PrimitiveBenchmarkRunner.run``) into
 - ``key``: the cross-run identity (chip, family, base implementation,
   option string, shape, dtype, world size, timing backend), from the
   row's own columns;
-- ``run_id``: one process's rows;
+- ``run_id``: one process's rows (``DDLB_TPU_RUN_ID`` names it, for
+  processes that must share one);
 - ``git_rev``: the checkout's revision ("" where it has no git state);
 - ``banked_at``: epoch seconds; ``kind``: ``row``;
 - ``row``: the result row, untouched.
 
-The calibration fitter (``observatory/calibrate.py``) reads the bank. One
+The calibration fitter (``observatory/calibrate.py``), the regression
+detector (``observatory/regress.py``), the simulator's gates
+(``simulator/validate.py``) and the report CLIs read the bank. One
 flushed line a row, so a killed run loses at most the row in flight; best
 effort: an unwritable directory warns once and banking stops, never the
 sweep.
@@ -32,6 +35,8 @@ from ddlb_tpu_torch import telemetry
 #: env naming the bank's directory ("" = banking off)
 HISTORY_ENV = "DDLB_TPU_HISTORY"
 HISTORY_FILENAME = "history.jsonl"
+#: env overriding the run id ("" = one made a process)
+RUN_ID_ENV = "DDLB_TPU_RUN_ID"
 
 #: the row columns that form the cross-run identity: what changes what
 #: is measured is in, the measurement's outcome is out
@@ -59,8 +64,13 @@ def history_dir() -> str:
 
 
 def run_id() -> str:
-    """This process's run id: a timestamp and pid, made once."""
+    """This process's run id: ``DDLB_TPU_RUN_ID`` when set (processes that
+    must bank under one id, a run the regression detector then excludes
+    from its own baseline), else a timestamp and pid made once."""
     global _run_id
+    override = os.environ.get(RUN_ID_ENV, "").strip()
+    if override:
+        return override
     if _run_id is None:
         _run_id = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()) + f"-p{os.getpid()}"
     return _run_id

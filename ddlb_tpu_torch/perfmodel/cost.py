@@ -17,7 +17,7 @@
   ``predicted / measured`` clamped into (0, 1]. The functions duck-type
   the member, so stand-ins with the same attributes price alike.
 
-  **The port's one departure from the JAX comm term** (``_comm_term``): a
+  **The port's one departure from the JAX comm term** (``comm_transport``): a
   ``transport=dcn`` row is priced at the ``dcn`` rate only where the
   world spans more than one node (``Runtime.slice_ids``). On one node its
   bytes cross the link inside the node (NVLink on the card), so it is
@@ -34,7 +34,8 @@
   ``kv_setup_s + kv_per_byte_s * bytes``.
 - **The ring and composition wire census** (:74-139, :236-372), which
   the members' ``wire_bytes()`` read: ``wire_itemsize``,
-  ``ring_wire_bytes``, ``hierarchical_phases``,
+  ``ring_wire_bytes``, ``degraded_bw`` (the simulator's link multiplier,
+  :142), ``hierarchical_phases``,
   ``hierarchical_wire_bytes``, ``torus_factors``, ``striped_wire_bytes``.
   The link classes keep the JAX names: ``ici`` is the link inside a node,
   ``dcn`` the link between nodes.
@@ -144,6 +145,16 @@ def ring_wire_bytes(op: str, nbytes: float, d: int) -> float:
     if op == "ppermute":
         return float(nbytes)
     raise ValueError(f"Unknown collective op {op!r}")
+
+
+def degraded_bw(bw: float, factor: float) -> float:
+    """Surviving bandwidth of a degraded link, ``bw * factor`` with
+    ``factor`` in [0, 1] (0: the link is down). The one place the
+    multiplier lives: the ``Degradation`` overlay of ``topology.py`` and
+    the degraded replay price through it."""
+    if not (0.0 <= factor <= 1.0):
+        raise ValueError(f"degradation factor must be in [0, 1], got {factor}")
+    return bw * factor
 
 
 def hierarchical_phases(op: str, nbytes: float, intra: int,
@@ -277,17 +288,26 @@ def _spans_nodes(impl) -> bool:
     return len(set(getattr(runtime, "slice_ids", ()) or ())) > 1
 
 
+def comm_transport(impl, transport: Optional[str] = None) -> str:
+    """The link a member's wire crosses: ``transport`` (default: the
+    member's ``transport`` option), but ``ici`` for a ``dcn`` row whose
+    world is one node (the module docstring's one departure from the JAX
+    comm term). The simulator's closed-form front-end resolves it here
+    too."""
+    if transport is None:
+        transport = impl.options.get("transport", "ici")
+    if transport == "dcn" and not _spans_nodes(impl):
+        return "ici"
+    return transport
+
+
 def _comm_term(impl, spec: ChipSpec) -> float:
-    """``wire_bytes()`` over the rate of the link the bytes cross: the
-    transport's, but ``ici`` for a ``dcn`` row on one node (the module
-    docstring's one departure from the JAX comm term)."""
+    """``wire_bytes()`` over the rate of the link the bytes cross
+    (``comm_transport``)."""
     wire = getattr(impl, "wire_bytes", None)
     if not callable(wire):
         return 0.0
-    transport = impl.options.get("transport", "ici")
-    if transport == "dcn" and not _spans_nodes(impl):
-        transport = "ici"
-    return float(wire()) / spec.transport_bw(transport)
+    return float(wire()) / spec.transport_bw(comm_transport(impl))
 
 
 def overlap_chunks(impl) -> Optional[int]:

@@ -12,7 +12,8 @@ these numbers and no others.
   67 TFLOP/s, float64 67; HBM3 80 GB at 3.35 TB/s; NVLink 900 GB/s both
   ways, 450 GB/s a direction; ``dcn`` one 400 Gb/s NIC a GPU as in a DGX
   H100, 50 GB/s a direction. Data sheet, not measured: measured rates go
-  in PERF.md, never here, so that every prediction stays a bound. The
+  in PERF.md, never here, so that every prediction stays a bound. A
+  node's cards share one NVSwitch fabric (``switched``). The
   card it stands for reports itself to ``nvidia-smi
   --query-gpu=name,power.limit --format=csv,noheader`` as "NVIDIA H100
   80GB HBM3, 700.00 W".
@@ -72,6 +73,11 @@ class ChipSpec:
     #: operand dtype name -> peak in TFLOP/s (TOP/s for integers)
     peak_tflops: Mapping[str, float] = field(default_factory=dict)
     aliases: Tuple[str, ...] = ()
+    #: True where a node's devices share one switched fabric (NVSwitch):
+    #: the simulator's topology allows one dimension inside a node. False
+    #: keeps the JAX convention of a torus, one independent ring family a
+    #: mesh dimension (``perfmodel/topology.py``)
+    switched: bool = False
 
     def peak_flops(self, dtype: str) -> float:
         """Peak FLOP/s for operands of ``dtype``: the entry's own rate;
@@ -117,6 +123,8 @@ CHIP_SPECS: Dict[str, ChipSpec] = {
                 "int64": 67.0,
             },
             aliases=("h100", "h100-sxm5", "nvidia h100 80gb hbm3"),
+            # one NVSwitch fabric a node of eight
+            switched=True,
         ),
         # the JAX package's cpu-sim numbers
         ChipSpec(

@@ -49,8 +49,9 @@ closed by the engine's ``serve.ticks`` instant (the drain steps the
 engine itself, so the instant ``run`` would emit comes from here), and
 followed by the ``serve.queue_depth`` gauge and a ``serve.slo`` instant;
 validation failures are logged through ``telemetry.log``. At world > 1
-every rank emits its own in its own trace shard. Not ported: the live
-tick stream and the perfmodel's cost floor.
+every rank emits its own in its own trace shard. Rank 0 posts the
+drain's queue gauge to the live stream (``serving_tick``,
+``observatory/live.py``) at most every ``_TICK_POST_INTERVAL_S``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from ddlb_tpu_torch import telemetry
+from ddlb_tpu_torch.observatory import live
 from ddlb_tpu_torch.models.serving import ContinuousBatchingEngine, Request
 from ddlb_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -71,6 +73,11 @@ from ddlb_tpu_torch.models.transformer import (
 )
 from ddlb_tpu_torch.primitives.base import Primitive, torch_dtype
 from ddlb_tpu_torch.workload import SLOTracker, WorkloadSpec, generate_trace, prefix_tokens
+
+
+#: seconds between two ``serving_tick`` events of a drain on the live
+#: stream (``observatory/live.py``; rank 0 only)
+_TICK_POST_INTERVAL_S = 0.5
 
 
 class DrainClock:
@@ -368,6 +375,9 @@ class ServingLoad(Primitive):
         hol_ticks = 0
         last_head: Optional[int] = None
         submitted = done_seen = 0
+        # the stream's state is read once: a drain with it off does nothing for it
+        post_ticks = self.runtime.rank == 0 and bool(live.live_path())
+        last_post = -_TICK_POST_INTERVAL_S
         with telemetry.span("serve.drain", cat="serve", requests=n):
             clock = self._drain_clock()
             while done_seen < n:
@@ -403,6 +413,11 @@ class ServingLoad(Primitive):
                     tracker.first_token(orig, t_now)  # one-token finishers
                     tracker.finished(orig, t_now, c.tokens.size - orig_prompt[orig])
                 done_seen = len(eng.completions)
+                if post_ticks and clock.local() - last_post >= _TICK_POST_INTERVAL_S:
+                    # the dashboard's queue-depth gauge
+                    live.post_event("serving_tick", queue_depth=eng.queue_depth,
+                                    active=active, done=done_seen, total=n)
+                    last_post = clock.local()
                 if active == 0 and not eng.queue_depth and submitted < n:
                     # idle: sleep exactly to the next arrival, whose time is known
                     wait = trace[submitted].arrival_s - clock()

@@ -45,8 +45,9 @@ Telemetry as the JAX member's: each drain is a ``serve.drain`` span (with
 the topology stamp), closed by a ``serve.ticks`` instant from each engine
 this rank runs, then the ``serve.queue_depth`` gauge and a ``serve.slo``
 instant; validation failures go through ``telemetry.log``. Every rank
-emits its own, in its own trace shard; nothing is gathered for them. Not
-ported: the live tick stream.
+emits its own, in its own trace shard; nothing is gathered for them.
+Rank 0 posts the drain's gauges to the live stream (``serving_tick``
+with each decode shard's depth).
 
 The handoff is priced, not performed, on the card as on the CPU: each
 bundle's ``serve_handoff_ms`` is ``cost.kv_handoff_seconds`` of its bytes,
@@ -64,7 +65,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from ddlb_tpu_torch import telemetry
-from ddlb_tpu_torch.primitives.serving_load.base import ServingLoad
+from ddlb_tpu_torch.observatory import live
+from ddlb_tpu_torch.primitives.serving_load.base import _TICK_POST_INTERVAL_S, ServingLoad
 
 #: cluster knobs every multi-engine member shares (members merge these
 #: into DEFAULT_OPTIONS beside their pool-shape knobs)
@@ -466,6 +468,9 @@ class ClusterServingLoad(ServingLoad):
         orig_prompt = {r.index: r.prompt.size for r in trace}
         submitted = 0
         done_seen = 0
+        # the stream's state is read once: a drain with it off does nothing for it
+        post_ticks = self.runtime.rank == 0 and bool(live.live_path())
+        last_post = -_TICK_POST_INTERVAL_S
         with telemetry.span("serve.drain", cat="serve", requests=n,
                             topology=self._topology_base()):
             clock = self._drain_clock()
@@ -490,6 +495,11 @@ class ClusterServingLoad(ServingLoad):
                         c.tokens.size - orig_prompt[orig],
                     )
                 done_seen = len(cl.completions)
+                if post_ticks and clock.local() - last_post >= _TICK_POST_INTERVAL_S:
+                    live.post_event("serving_tick", queue_depth=cl.queue_depth,
+                                    active=active, done=cl.accounted, total=n,
+                                    shard_depths=cl.queue_depths())
+                    last_post = clock.local()
                 if active == 0 and not cl.queue_depth and submitted < n:
                     wait = trace[submitted].arrival_s - clock()
                     if wait > 0:

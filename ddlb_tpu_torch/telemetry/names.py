@@ -27,6 +27,8 @@ SPAN_NAMES: Dict[str, str] = {
     "serve.admit": "serving engine admission of one request batch",
     "serve.drain": "serving_load one open-loop trace drain (measured call)",
     "serve.run": "serving engine full run loop",
+    "sim.replay": "simulator discrete-event replay of one schedule program",
+    "sim.validate": "simulator validation pass (closed-form or history join)",
     "skew.fold": "cross-rank skew fold: stamp allgather + clock-aligned fold",
     "worker.profile": "benchmark_worker optional profiling phase",
     "worker.row": "benchmark_worker one full row (the report join key)",
@@ -91,6 +93,7 @@ METRIC_NAMES: Dict[str, str] = {
     "serve.decode_s": "seconds in serving decode ticks",
     "serve.queue_depth": "serving load driver's peak observed queue depth",
     "serve.ticks": "serving decode ticks executed",
+    "sim.events": "discrete events processed by one simulator replay",
 }
 
 
